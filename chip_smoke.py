@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases (any error or out-of-tolerance result exits non-zero):
+  1. header: torch / CUDA versions and the card's name and power limit;
+  2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. every kernel against its plain PyTorch version on the card, at the
+     main path's shapes and larger ones, with times (CUDA events) beside
+     the least time the card could take (its bound);
+  4. the main path: ``repro_torch.launch.train`` in this process at the
+     paper CNN's full widths (AMA-FES and FedAvg on the quickstart
+     config, async AMA at 30% delay), with the launches of each kernel
+     counted, and the fused run held against ``--server-plane ref``;
+  5. the port's contract: a chunked run and a per-round run are
+     bit-identical.
+The line before the last is a JSON record of the kernels; the last line
+is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
+MAIN_N = 54_784                  # the paper CNN's parameter count
+MAIN_K = 5                       # quickstart: 5 clients per round
+MAIN_Q = 11                      # async at max_delay 10
+N_ULP = {"float32": 4, "bfloat16": 1}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ----------------------------------------------------------------- timing --
+
+def device_ms(torch, fn, reps: int = 10, replays: int = 20) -> float:
+    """Device time of one ``fn()`` call: ``reps`` calls captured in a CUDA
+    graph, the graph replayed ``replays`` times after warm-up, each
+    replay timed with CUDA events; the median replay over ``reps``. The
+    graph keeps the Python wrapper's host time out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def call_ms(torch, fn, iters: int = 20) -> float:
+    """Median time of one eager call (CUDA events), the Python wrapper's
+    host time included: what a caller that waits on it sees."""
+    fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# --------------------------------------------------------------- tolerance --
+
+def ulp(torch, x, dtype):
+    """Spacing of ``dtype`` at |x| (x in f32); zeros get the spacing of
+    the smallest normal."""
+    mant = {torch.float32: 23, torch.bfloat16: 7}[dtype]
+    tiny = torch.finfo(dtype).tiny
+    m, e = torch.frexp(torch.clamp(x.abs().float(), min=tiny))
+    return torch.ldexp(torch.ones_like(m), e - 1 - mant)
+
+
+def compare(torch, name, got, want, mag, dtype) -> float:
+    """|got - want| <= n ulp of ``dtype`` at the magnitude ``mag`` of the
+    summed terms (the plain version run on the absolute inputs: a sum's
+    rounding scales with its terms, not with its result)."""
+    n = N_ULP[str(dtype).split(".")[-1]]
+    err = (got.float() - want.float()).abs()
+    tol = n * ulp(torch, mag, dtype)
+    bad = err > tol
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0]) if bad.ndim == 1 else -1
+        fail(f"{name}: {int(bad.sum())} elements beyond {n} ulp "
+             f"(max err {float(err.max()):.3e}; first bad index {i})")
+    return float(err.max())
+
+
+# ------------------------------------------------------------ phase 3 -----
+
+def check_server_mix(torch, sp, ref, record):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    print("server_mix: K, N, dtype, case | kernel device ms, GB/s (share "
+          "of 3.35 TB/s), bound ms | plain device ms | library device ms "
+          "(addmv) | eager call ms (wrapper host time included)")
+    cases = [(K, N, dt, "t=7") for N in (MAIN_N, 1_000_003, 33_554_437)
+             for K in (1, 5, 10) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(5, MAIN_N, torch.float32, "nobody kept"),
+              (5, MAIN_N, torch.bfloat16, "alpha at cap"),
+              (10, 1_000_003, torch.float32, "alpha at cap")]
+    for K, N, dt, case in cases:
+        prev = torch.randn(N, device=dev, generator=g).to(dt)
+        stacked = torch.randn(K, N, device=dev, generator=g).to(dt)
+        sizes = torch.rand(K, device=dev, generator=g) + 0.5
+        keep = (torch.rand(K, device=dev, generator=g) < 0.7).float()
+        keep[0] = 1.0
+        if case == "nobody kept":
+            keep.zero_()
+        t = 400.0 if case == "alpha at cap" else 7.0  # 0.1 + 2.5e-3 t > 0.95
+        coefs = torch.tensor([0.1, 2.5e-3, 0.95, t], device=dev)
+        got = sp.server_mix_flat(prev, stacked, sizes, keep, coefs)
+        want = ref.server_mix_math(prev, stacked, sizes, keep, coefs)
+        mag = ref.server_mix_math(prev.float().abs(), stacked.float().abs(),
+                                  sizes, keep, coefs)
+        torch.cuda.synchronize()
+        err = compare(torch, f"server_mix K={K} N={N} {dt} {case}", got,
+                      want, mag, dt)
+        s = prev.element_size()
+        nbytes = (K + 2) * N * s + 2 * K * 4 + 16
+        def kernel():
+            return sp.server_mix_flat(prev, stacked, sizes, keep, coefs)
+        ms, eager = device_ms(torch, kernel), call_ms(torch, kernel)
+        plain = device_ms(torch, lambda: ref.server_mix_math(
+            prev, stacked, sizes, keep, coefs))
+        lib = None
+        if dt == torch.float32:
+            alpha = min(0.1 + 2.5e-3 * t, 0.95)
+            w = sizes * keep
+            tot = float(w.sum())
+            vec = (1.0 - alpha) * w / max(tot, 1e-9)
+            a_eff = alpha if tot > 0 else 1.0
+            lib = device_ms(torch, lambda: torch.addmv(prev, stacked.T, vec,
+                                                       beta=a_eff))
+        gbs = nbytes / (ms * 1e-3) / 1e9
+        bnd, _ = bound_ms(nbytes, (2 * K + 1) * N)
+        print(f"  K={K:2d} N={N:>10,} {str(dt)[6:]:8s} {case:11s} | "
+              f"{ms:8.4f} ms {gbs:7.1f} GB/s ({gbs / 3350:5.1%}) bound "
+              f"{bnd:.4f} | "
+              f"plain {plain:8.4f} | lib "
+              f"{'-' if lib is None else f'{lib:.4f}'} | eager call "
+              f"{eager:.4f} | err {err:.2e}")
+        record.append(dict(K=K, N=N, dtype=str(dt), case=case, ms=ms,
+                           call_ms=eager,
+                           plain_ms=plain, library_ms=lib, err=err,
+                           nbytes=nbytes, flops=(2 * K + 1) * N))
+        del prev, stacked
+
+
+def check_server_async(torch, sp, ref, record):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    print("server_async: K, Q, N, dtype over 3Q rounds | kernel device "
+          "ms, GB/s, bound ms | plain device ms | eager call ms")
+    cases = [(10, Q, N, dt) for N in (MAIN_N, 8_388_617) for Q in (2, 11, 21)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.insert(0, (MAIN_K, MAIN_Q, MAIN_N, torch.float32))
+    cases.append((MAIN_K, MAIN_Q, 33_554_437, torch.float32))
+    hyp = torch.tensor([0.1, 2.5e-3, 0.95, 0.6], device=dev)
+    for K, Q, N, dt in cases:
+        prev = torch.randn(N, device=dev, generator=g).to(dt)
+        qsum = torch.zeros(Q, N, device=dev)
+        qgamma = torch.zeros(Q, device=dev)
+        sizes = torch.rand(K, device=dev, generator=g) + 0.5
+        err = 0.0
+        for t in range(3 * Q):          # the ring wraps three times
+            stacked = (prev.float()[None] + 0.1 * torch.randn(
+                K, N, device=dev, generator=g)).to(dt)
+            delayed = (torch.rand(K, device=dev, generator=g) < 0.3).float()
+            if t % 7 == 3:
+                delayed.fill_(1.0)      # nobody on time this round
+            delays = torch.randint(1, max(Q - 1, 1) + 1, (K,), device=dev,
+                                   generator=g, dtype=torch.int32)
+            delays = torch.where(delayed > 0, delays, 1).to(torch.int32)
+            tq = torch.tensor([t, t % Q], device=dev, dtype=torch.int32)
+            args = (prev, stacked, qsum, qgamma, sizes, delayed, delays, tq,
+                    hyp)
+            got = sp.server_async_flat(*args)
+            want = ref.server_async_math(*args)
+            mag = ref.server_async_math(prev.float().abs(),
+                                        stacked.float().abs(), qsum.abs(),
+                                        qgamma, sizes, delayed, delays, tq,
+                                        hyp)
+            torch.cuda.synchronize()
+            tag = f"server_async K={K} Q={Q} N={N} {dt} t={t}"
+            err = max(err,
+                      compare(torch, tag + " out", got[0], want[0], mag[0],
+                              dt),
+                      compare(torch, tag + " qsum", got[1], want[1], mag[1],
+                              torch.float32),
+                      compare(torch, tag + " qgamma", got[2], want[2],
+                              mag[2], torch.float32))
+            if t == Q:
+                ms = device_ms(torch, lambda: sp.server_async_flat(*args))
+                eager = call_ms(torch, lambda: sp.server_async_flat(*args))
+                plain = device_ms(torch,
+                                  lambda: ref.server_async_math(*args),
+                                  reps=2, replays=20)
+            prev, qsum, qgamma = want
+        s = prev.element_size()
+        nbytes = (K + 2) * N * s + 2 * Q * N * 4 + (3 * K + 2 * Q + 6) * 4
+        flops = (2 * K + 2 * K * Q + 3 * Q + 3) * N
+        gbs = nbytes / (ms * 1e-3) / 1e9
+        print(f"  K={K:2d} Q={Q:2d} N={N:>10,} {str(dt)[6:]:8s} | "
+              f"{ms:8.4f} ms {gbs:7.1f} GB/s ({gbs / 3350:5.1%}) bound "
+              f"{bound_ms(nbytes, flops)[0]:.4f} | "
+              f"plain {plain:8.4f} | eager call {eager:.4f} | err {err:.2e}")
+        record.append(dict(K=K, Q=Q, N=N, dtype=str(dt), ms=ms,
+                           call_ms=eager,
+                           plain_ms=plain, library_ms=None, err=err,
+                           nbytes=nbytes, flops=flops))
+        del prev, stacked, qsum
+
+
+# ------------------------------------------------------------ phase 4/5 ---
+
+QUICKSTART = ["--clients", "20", "--clients-per-round", "5", "--p-limited",
+              "0.5", "--lr", "0.1", "--n-train", "1500", "--eval-every", "5"]
+MODERATE_30 = ["--p-delay", "0.3", "--max-delay", "10"]
+
+
+def run_train(torch, train, argv):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim, hist = train.main(argv)
+    torch.cuda.synchronize()
+    return sim, hist, time.perf_counter() - t0
+
+
+def leaves_of(tree_mod, state):
+    return [x for _, x in tree_mod.flatten({"params": state["params"],
+                                            "aux": state["aux"]})]
+
+
+def main_path(torch, train, sp, tree_mod, main_record):
+    """The three main-path runs; returns {kernel: launches}."""
+    runs = [("ama_fes", QUICKSTART + ["--rounds", "60"], "server_mix"),
+            ("fedavg", QUICKSTART + ["--rounds", "60"], "server_mix"),
+            ("async_ama", QUICKSTART + MODERATE_30 + ["--rounds", "30"],
+             "server_async")]
+    totals = {"server_mix": 0, "server_async": 0}
+    for algo, argv, kernel in runs:
+        argv = ["--algorithm", algo, *argv]
+        sp.reset_counts()
+        sim, hist, dt = run_train(torch, train, argv)
+        counts = {"server_mix": sp.server_mix_flat.launches,
+                  "server_async": sp.server_async_flat.launches}
+        plain = dict(sp.plain_runs_on_cuda)
+        rounds = int(argv[argv.index("--rounds") + 1])
+        groups = len(tree_mod.dtype_groups(tree_mod.leaves(sim.params)))
+        print(f"main path {algo}: {rounds} rounds in {dt:.3f} s = "
+              f"{rounds / dt:.2f} rounds/s (staging, training, server "
+              f"kernel and evaluation every 5 rounds); final_accuracy="
+              f"{hist.final_accuracy():.4f} stability_variance="
+              f"{hist.stability_variance():.3f}; launches {counts}; plain "
+              f"on the card {plain}")
+        check(counts[kernel] == rounds * groups,
+              f"{algo}: {kernel} launched {counts[kernel]} times, expected "
+              f"{rounds} rounds x {groups} dtype groups")
+        other = "server_async" if kernel == "server_mix" else "server_mix"
+        check(counts[other] == 0, f"{algo}: {other} launched")
+        check(all(v == 0 for v in plain.values()),
+              f"{algo}: the plain server version ran on the card: {plain}")
+        check(sim.t == rounds, f"{algo}: ended at round {sim.t}")
+        for x in leaves_of(tree_mod, sim.state):
+            check(x.is_cuda and bool(torch.isfinite(x).all()),
+                  f"{algo}: non-finite or off-card state")
+        acc = hist.final_accuracy()
+        check(0.0 <= acc <= 1.0, f"{algo}: final accuracy {acc}")
+        if rounds >= 60:    # the CNN learns the synthetic task (chance 0.1)
+            check(max(hist.test_acc) > 0.3,
+                  f"{algo}: best test accuracy {max(hist.test_acc)}")
+        check(all(x == x for x in hist.train_loss), f"{algo}: NaN loss")
+        totals[kernel] += counts[kernel]
+        main_record.append(dict(algorithm=algo, rounds=rounds, seconds=dt,
+                                rounds_per_s=rounds / dt,
+                                final_accuracy=acc,
+                                stability_variance=hist.stability_variance()))
+    return totals
+
+
+def fused_vs_plain(torch, train, tree_mod):
+    """A few rounds with the kernels against the same rounds with the
+    plain server version, on the card: the same params within the kernel
+    tolerance compounded over the rounds."""
+    for algo, extra in (("ama_fes", []), ("async_ama", MODERATE_30)):
+        argv = ["--algorithm", algo, *QUICKSTART, *extra, "--rounds", "10"]
+        a, _, _ = run_train(torch, train, argv)
+        b, _, _ = run_train(torch, train, argv + ["--server-plane", "ref"])
+        worst = 0.0
+        for x, y in zip(leaves_of(tree_mod, a.state),
+                        leaves_of(tree_mod, b.state), strict=True):
+            d = float((x.float() - y.float()).abs().max()) if x.numel() else 0
+            worst = max(worst, d)
+            check(torch.allclose(x.float(), y.float(), rtol=1e-5, atol=1e-6),
+                  f"{algo}: fused vs plain server plane differ by {d:.3e}")
+        print(f"fused vs plain server plane, {algo}, 10 rounds: max |diff| "
+              f"{worst:.3e} (tolerance rtol 1e-5, atol 1e-6)")
+
+
+def where_time_goes(torch, train):
+    """10 rounds of the AMA-FES main path under torch.profiler: device
+    time by kernel and the device's busy share of the wall time (the
+    profiler's own host cost is in that wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    argv = ["--algorithm", "ama_fes", *QUICKSTART, "--rounds", "10"]
+    _, _, plain_dt = run_train(torch, train, argv)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, dt = run_train(torch, train, argv)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            rows.append((us, e.count, e.key))
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"where the time goes, ama_fes 10 rounds: {dt * 1e3:.1f} ms wall "
+          f"under the profiler ({plain_dt * 1e3:.1f} ms without), device "
+          f"busy {busy:.1f} ms = {busy / (dt * 1e3):.1%} of the wall")
+    for us, n, key in sorted(rows, reverse=True)[:12]:
+        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {key[:100]}")
+
+
+def port_contract(torch, train, tree_mod):
+    argv = ["--algorithm", "async_ama", *QUICKSTART, *MODERATE_30,
+            "--rounds", "10"]
+    a, ha, _ = run_train(torch, train, argv)
+    b, hb, _ = run_train(torch, train, argv + ["--no-scan"])
+    for x, y in zip(leaves_of(tree_mod, a.state), leaves_of(tree_mod, b.state),
+                    strict=True):
+        check(torch.equal(x, y), "chunked and per-round runs differ")
+    check(ha.test_acc == hb.test_acc and ha.train_loss == hb.train_loss,
+          "chunked and per-round histories differ")
+    print("port contract: 10 rounds of async_ama chunked (eval_every 5) == "
+          "per round (--no-scan), bitwise, params and ring buffer")
+
+
+# ------------------------------------------------------------------ main --
+
+def main() -> None:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
+             "checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a "
+             "CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}")
+    print(card, flush=True)
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    path, log = build.build()
+    build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{path.relative_to(ROOT)}")
+    for line in log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print("  " + line.strip())
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import server_plane as sp
+    from repro_torch.launch import train
+    from repro_torch.utils import tree as tree_mod
+    from repro_torch.utils.device import resolve_device
+    resolve_device("cuda")
+
+    mix_rec, async_rec, main_rec = [], [], []
+    check_server_mix(torch, sp, ref, mix_rec)
+    check_server_async(torch, sp, ref, async_rec)
+    # one short run first, so one-time CUDA/cuDNN set-up is not booked
+    # against the first main-path run
+    run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,
+                             "--rounds", "2"])
+    launches = main_path(torch, train, sp, tree_mod, main_rec)
+    fused_vs_plain(torch, train, tree_mod)
+    port_contract(torch, train, tree_mod)
+    where_time_goes(torch, train)
+
+    def main_shape(rec, **kw):
+        return next(r for r in rec if all(r[k] == v for k, v in kw.items()))
+
+    kernels = []
+    for name, rec, row, replaces in (
+            ("server_mix", mix_rec,
+             main_shape(mix_rec, K=MAIN_K, N=MAIN_N, dtype="torch.float32",
+                        case="t=7"),
+             "src/repro/kernels/server_plane.py:166"),
+            ("server_async", async_rec,
+             main_shape(async_rec, K=MAIN_K, Q=MAIN_Q, N=MAIN_N,
+                        dtype="torch.float32"),
+             "src/repro/kernels/server_plane.py:257")):
+        b, by = bound_ms(row["nbytes"], row["flops"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/server_plane.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in rec), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": row["library_ms"]})
+    for r in main_rec:
+        print("main:", json.dumps(r))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

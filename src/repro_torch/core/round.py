@@ -1,0 +1,102 @@
+"""The federated round and the multi-round train loop.
+
+``make_round_step`` is the paper's Algorithm 1 as one function: the C
+selected clients train in parallel (the masked client plane), then ONE
+fused server-plane kernel launch per dtype group
+(``strategy.fused_server_update``) makes the new global model.
+``make_train_loop`` runs a chunk of rounds as a Python loop over the
+stacked per-round batches and schedules (the JAX package's
+``lax.scan``). Nothing inside a round reads a device value on the host;
+the round index itself lives on the device.
+
+All algorithm behaviour comes from the ServerStrategy registry
+(``repro_torch.core.strategies``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core import strategies
+from repro_torch.core.client import make_local_train
+
+
+def check_supported(fl: FLConfig) -> None:
+    """Refuse config values whose code paths the port does not have yet
+    (they wait for later slices), rather than ignoring them."""
+    unsupported = {"client_plane": (fl.client_plane, ("masked",)),
+                   "comm_plane": (fl.comm_plane, ("none",)),
+                   "client_reduce": (fl.client_reduce, ("auto", "off")),
+                   "fes_static": (fl.fes_static, (False,)),
+                   "extended_metrics": (fl.extended_metrics, (False,)),
+                   "use_kernel": (fl.use_kernel, (False,))}
+    for field, (value, ok) in unsupported.items():
+        if value not in ok:
+            raise NotImplementedError(
+                f"FLConfig.{field}={value!r} is not ported yet "
+                f"(the port takes {ok})")
+
+
+def as_scan_scheds(sb: dict, device) -> dict:
+    """Device tensors of the schedule leaves the round consumes, from a
+    stacked ``Environment.batch`` dict (``selected`` stays on the host:
+    it addresses client datasets, not cohort slots)."""
+    return {"limited": torch.as_tensor(sb["limited"], device=device),
+            "delayed": torch.as_tensor(sb["delayed"], device=device),
+            "delays": torch.as_tensor(sb["delays"], dtype=torch.int32,
+                                      device=device),
+            "data_sizes": torch.as_tensor(sb["data_sizes"],
+                                          dtype=torch.float32,
+                                          device=device)}
+
+
+def init_state(model, fl: FLConfig, gen: torch.Generator, device,
+               strategy=None):
+    """Round-loop carry: global params, round index (a 0-dim int32 device
+    tensor) and the strategy's aux state."""
+    strategy = strategy or strategies.resolve(fl)
+    params = model.init(gen, device)
+    return {"params": params,
+            "t": torch.zeros((), dtype=torch.int32, device=device),
+            "aux": strategy.init_state(params)}
+
+
+def make_round_step(model, fl: FLConfig, strategy=None):
+    """Returns round_step(state, batch, sched) -> (state, metrics).
+
+    batch: {field: (C, steps, b, ...)}; sched: {"limited", "delayed",
+    "delays", "data_sizes"}, each (C,).
+    """
+    check_supported(fl)
+    strategy = strategy or strategies.resolve(fl)
+    local_train = make_local_train(model, fl, strategy)
+
+    def round_step(state, batch, sched):
+        t, prev_global = state["t"], state["params"]
+        client_params, losses = local_train(prev_global, batch,
+                                            sched["limited"])
+        new_params, aux = strategy.fused_server_update(
+            t, prev_global, client_params, sched, state["aux"])
+        metrics = {"loss": losses.mean(),
+                   "n_on_time": (~sched["delayed"]).sum(dtype=torch.int32)}
+        return {"params": new_params, "t": t + 1, "aux": aux}, metrics
+
+    return round_step
+
+
+def make_train_loop(model, fl: FLConfig, strategy=None):
+    """Returns train_loop(state, batch, scheds) -> (state, metrics):
+    ``batch`` and ``scheds`` leaves carry a leading (n_rounds,) axis
+    (a fresh batch every round); metrics come back stacked per round as
+    device tensors."""
+    round_step = make_round_step(model, fl, strategy)
+
+    def train_loop(state, batch, scheds):
+        rows = []
+        for r in range(scheds["limited"].shape[0]):
+            state, m = round_step(state, {k: v[r] for k, v in batch.items()},
+                                  {k: v[r] for k, v in scheds.items()})
+            rows.append(m)
+        return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+    return train_loop

@@ -1,0 +1,32 @@
+"""Synchronous AMA (paper Eq. 5) as a ServerStrategy.
+
+Client side this is the paper's AMA-FES pairing: when FES is enabled the
+gradient of computing-limited devices is masked to the classifier split
+(Eq. 2) via ``masked_update``.
+"""
+from __future__ import annotations
+
+from repro_torch.core.strategies.base import ServerStrategy, register
+from repro_torch.kernels.server_plane import mix_coefs, server_mix_tree
+from repro_torch.optim.masked import masked_update
+
+
+@register
+class AMAStrategy(ServerStrategy):
+    name = "ama"
+    aliases = ("ama_fes",)   # resolve() picks async when max_delay > 0
+
+    def local_grad_transform(self, grads, params, global_params, fes_mask,
+                             limited):
+        del params, global_params
+        if self.fl.fes_enabled:
+            return masked_update(grads, fes_mask, limited)
+        return grads
+
+    def fused_server_update(self, t, prev_global, client_params, sched,
+                            aux_state):
+        keep = (~sched["delayed"]).float()
+        new_global = server_mix_tree(
+            prev_global, client_params, sched["data_sizes"], keep,
+            mix_coefs(self.fl, t), impl=self.server_impl)
+        return new_global, aux_state

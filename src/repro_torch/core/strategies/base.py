@@ -1,0 +1,105 @@
+"""The ServerStrategy interface and the name-keyed strategy registry.
+
+The paper's contribution is the server aggregation rule; everything else
+(local SGD, the scheduler, the round loop) is shared machinery. A
+``ServerStrategy`` packages the places an aggregation rule can differ:
+
+  * ``init_state(params)`` — strategy-owned auxiliary server state (the
+    async-AMA ring buffer), carried through the round loop as a tree;
+  * ``local_grad_transform`` / ``local_steps`` — client-side hooks (the
+    FES gradient mask);
+  * ``fused_server_update(t, prev_global, client_params, sched, aux)``
+    — the server update through the fused server-plane kernels
+    (``repro_torch.kernels.server_plane``): ONE kernel launch per round
+    per dtype group. ``fl.server_plane`` selects "fused" (the kernel on
+    CUDA tensors) or "ref" (the plain PyTorch version).
+
+Implementations are functional and never read device values on the
+host: the round runs without a host sync.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import FLConfig
+
+SERVER_PLANES = ("fused", "ref")
+
+
+class ServerStrategy:
+    """Base class: stateless, no grad transform, every step active."""
+
+    #: registry key; aliases are extra names resolving to the same class
+    name: str = ""
+    aliases: tuple[str, ...] = ()
+
+    def __init__(self, fl: FLConfig):
+        if fl.server_plane not in SERVER_PLANES:
+            raise ValueError(f"unknown server_plane {fl.server_plane!r}; "
+                             f"the port has {SERVER_PLANES}")
+        self.fl = fl
+
+    # ---------------------------------------------------- server side ----
+    def init_state(self, params):
+        """Strategy-owned auxiliary server state (a tree; {} if none)."""
+        del params
+        return {}
+
+    def fused_server_update(self, t, prev_global, client_params, sched,
+                            aux_state):
+        """One server update. ``t`` is the round index (a 0-dim int32
+        device tensor); ``client_params`` has a leading client axis;
+        ``sched`` is {"limited","delayed","delays","data_sizes"}, each
+        (C,) on the device. Returns (new_global, new_aux_state)."""
+        raise NotImplementedError
+
+    @property
+    def server_impl(self) -> str:
+        return self.fl.server_plane
+
+    # ---------------------------------------------------- client side ----
+    def local_grad_transform(self, grads, params, global_params, fes_mask,
+                             limited):
+        """Per-step gradient hook over stacked (C, ...) grads."""
+        del params, global_params, fes_mask, limited
+        return grads
+
+    def local_steps(self, n_steps: int, limited):
+        """(C,) int32 active local steps per client."""
+        return torch.full(limited.shape, n_steps, dtype=torch.int32,
+                          device=limited.device)
+
+
+_REGISTRY: dict[str, type[ServerStrategy]] = {}
+
+
+def register(cls: type[ServerStrategy]) -> type[ServerStrategy]:
+    """Class decorator: file-local registration under name + aliases."""
+    assert cls.name, cls
+    for key in (cls.name,) + tuple(cls.aliases):
+        assert key not in _REGISTRY or _REGISTRY[key] is cls, key
+        _REGISTRY[key] = cls
+    return cls
+
+
+def names() -> list[str]:
+    """All registered strategy names (aliases included), sorted."""
+    return sorted(_REGISTRY)
+
+
+def get(name: str) -> type[ServerStrategy]:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown strategy {name!r}; "
+                       f"registered: {names()}") from None
+
+
+def resolve(fl: FLConfig) -> ServerStrategy:
+    """Instantiate the strategy for a config. The AMA family upgrades to
+    the asynchronous variant when the environment has delays
+    (``max_delay > 0``), as in the JAX package."""
+    cls = get(fl.algorithm)
+    if fl.max_delay > 0 and cls.name == "ama":
+        cls = get("async_ama")
+    return cls(fl)

@@ -1,0 +1,22 @@
+"""Naive FL baseline (the paper's "FedAvg"): weighted average of the
+clients that both finished (not computing-limited) and arrived on time;
+no mixing with the previous model, no staleness handling."""
+from __future__ import annotations
+
+from repro_torch.core.strategies.base import ServerStrategy, register
+from repro_torch.kernels.server_plane import mix_coefs, server_mix_tree
+
+
+@register
+class FedAvgStrategy(ServerStrategy):
+    name = "fedavg"
+
+    def fused_server_update(self, t, prev_global, client_params, sched,
+                            aux_state):
+        keep = (~sched["delayed"] & ~sched["limited"]).float()
+        # adaptive=False zeroes the alpha schedule: the plain weighted
+        # average is the alpha=0 corner of the same fused pass
+        new_global = server_mix_tree(
+            prev_global, client_params, sched["data_sizes"], keep,
+            mix_coefs(self.fl, t, adaptive=False), impl=self.server_impl)
+        return new_global, aux_state

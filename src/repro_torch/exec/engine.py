@@ -1,0 +1,173 @@
+"""The chunked execution engine (paper scale).
+
+  * ``ChunkRunner`` drives rounds in chunks through
+    ``core.round.make_train_loop``: the chunk's batches and schedules
+    cross to the device once, the rounds run back to back with no host
+    sync, and the per-round metrics come back once at the chunk's end.
+    ``use_scan=False`` replays the identical rounds one at a time (the
+    ``--no-scan`` configuration), bit-identical to the chunked run.
+  * ``SimulationEngine`` adds the data plane (``data.pipeline
+    .stage_chunk``: one gather per chunk of rounds), evaluation at an
+    ``eval_every`` cadence (``exec.evals.Evaluator``) and the
+    ``History`` stability metrics.
+
+The server rule is a ``ServerStrategy`` and the world an
+``Environment``; the engine owns only data movement, chunking and
+evaluation.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch import env as env_mod
+from repro_torch.configs.base import FLConfig
+from repro_torch.core import strategies
+from repro_torch.core.round import as_scan_scheds, init_state, make_train_loop
+from repro_torch.data.pipeline import stage_chunk
+from repro_torch.exec.evals import Evaluator
+from repro_torch.obs.metrics import stability_stats
+from repro_torch.utils.device import resolve_device
+
+
+@dataclass
+class History:
+    """Per-run metric record. ``test_acc[i]`` was measured after
+    ``eval_rounds[i]`` rounds (absolute indices), so the stability
+    window is a span of ROUNDS whatever the eval cadence."""
+
+    test_acc: list = field(default_factory=list)
+    test_loss: list = field(default_factory=list)
+    train_loss: list = field(default_factory=list)
+    eval_rounds: list = field(default_factory=list)
+
+    def stability_variance(self, last: int = 50) -> float:
+        """Paper's stability metric: variance of test accuracy over the
+        last ``last`` ROUNDS (in percentage points squared)."""
+        return stability_stats(self.eval_rounds, self.test_acc,
+                               last)["stability_variance"]
+
+    def final_accuracy(self, last: int = 50) -> float:
+        return stability_stats(self.eval_rounds, self.test_acc,
+                               last)["final_accuracy"]
+
+
+class ChunkRunner:
+    """N rounds per call on the device: chunked, or one round at a time
+    (``use_scan=False``) through the same loop."""
+
+    def __init__(self, model, fl: FLConfig, strategy=None, *,
+                 use_scan: bool = True, device=None):
+        self.fl = fl
+        self.device = resolve_device(device)
+        self.use_scan = use_scan
+        self._loop = make_train_loop(model, fl,
+                                     strategy or strategies.resolve(fl))
+
+    def run_chunk(self, state, batch: dict, sched_batch: dict, *,
+                  scan_ok: bool = True):
+        """(state, numpy batch, Environment.batch dict) -> (state,
+        metrics). ``batch`` leaves are (n, C, steps, b, ...); metrics come
+        back as numpy arrays with a leading (n,) axis. ``scan_ok=False``
+        runs the chunk one round at a time."""
+        scheds = as_scan_scheds(sched_batch, self.device)
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        if self.use_scan and scan_ok:
+            state, metrics = self._loop(state, batch, scheds)
+        else:
+            rows = []
+            for r in range(scheds["limited"].shape[0]):
+                state, m = self._loop(
+                    state, {k: v[r:r + 1] for k, v in batch.items()},
+                    {k: v[r:r + 1] for k, v in scheds.items()})
+                rows.append(m)
+            metrics = {k: torch.cat([m[k] for m in rows]) for k in rows[0]}
+        return state, {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+class SimulationEngine:
+    """Paper-scale federated simulation on the chunked engine: schedules
+    from ``Environment.batch``, client batches staged in one gather per
+    chunk, evaluation through the batched ``Evaluator``."""
+
+    def __init__(self, model, fl: FLConfig, clients, test_data,
+                 use_scan: bool = True, device=None):
+        self.model = model
+        self.fl = fl
+        self.device = resolve_device(device)
+        self.clients = clients
+        self.test_data = test_data
+        self.env = env_mod.resolve(
+            fl, data_sizes=np.array([len(c) for c in clients], np.float32))
+        self.strategy = strategies.resolve(fl)
+        self.runner = ChunkRunner(model, fl, self.strategy,
+                                  use_scan=use_scan, device=self.device)
+        self._evaluator = Evaluator(model, test_data, device=self.device)
+        self.data = clients[0].data
+        if any(c.data is not self.data for c in clients):
+            raise ValueError(
+                "the chunked data plane stages every client from ONE "
+                "shared sample store (build clients with "
+                "data.pipeline.build_clients(data, partition))")
+        gen = torch.Generator().manual_seed(fl.seed)
+        self.state = init_state(model, fl, gen, self.device, self.strategy)
+
+    # engine state — the full round carry {params, t, aux} ---------------
+    @property
+    def params(self):
+        return self.state["params"]
+
+    @property
+    def t(self) -> int:
+        return int(self.state["t"])
+
+    @property
+    def aux(self):
+        return self.state["aux"]
+
+    def _steps_per_round(self) -> int:
+        n_min = min(len(c) for c in self.clients)
+        per_epoch = max(1, n_min // self.fl.local_batch_size)
+        return self.fl.local_epochs * per_epoch
+
+    def _stage(self, t0: int, n: int):
+        sb = self.env.batch(t0, n)
+        batch = stage_chunk(self.data, self.clients, sb["selected"],
+                            self.fl.seed, t0, self._steps_per_round(),
+                            self.fl.local_batch_size)
+        return sb, batch
+
+    def evaluate(self) -> tuple[float, float]:
+        return self._evaluator(self.state["params"])
+
+    def run(self, rounds: int | None = None, eval_every: int = 1,
+            verbose: bool = False) -> History:
+        hist = History()
+        rounds = rounds or self.fl.rounds
+        t0, end = self.t, self.t + rounds
+        # chunk boundaries sit on ABSOLUTE multiples of eval_every, so a
+        # run evaluates at the same global rounds however it started
+        chunks, t = [], t0
+        while t < end:
+            n = min((t // eval_every + 1) * eval_every, end) - t
+            chunks.append((t, n))
+            t += n
+        for t, n in chunks:
+            sb, batch = self._stage(t, n)
+            self.state, metrics = self.runner.run_chunk(
+                self.state, batch, sb, scan_ok=(n == eval_every))
+            hist.train_loss.extend(float(x) for x in metrics["loss"])
+            if (t + n) % eval_every == 0:    # partial chunks: no eval
+                acc, loss = self.evaluate()
+                hist.test_acc.append(acc)
+                hist.test_loss.append(loss)
+                hist.eval_rounds.append(t + n)
+                done = t + n - t0
+                if verbose and done % 10 == 0:
+                    print(f"  round {done:4d} "
+                          f"train_loss={hist.train_loss[-1]:.4f} "
+                          f"test_acc={acc:.4f}")
+        return hist

@@ -1,0 +1,233 @@
+// Fused server-plane kernels for Hopper (sm_90a), bound with ctypes.
+//
+// server_mix   replaces the JAX package's kernels/server_plane.py:
+//              server_mix_flat (Pallas): the sync AMA / FedAvg mix.
+// server_async replaces kernels/server_plane.py: server_async_flat: the
+//              async AMA ring-buffer enqueue + pop + mix (Eqs. 6-11).
+//
+// Both are bound by HBM bytes: a handful of flops per element moved.
+// This first design is simple on purpose: each block computes the
+// round's scalars (weights, alpha schedule, staleness table) from the
+// device arrays into shared memory, then one thread per element walks a
+// grid-stride loop, accumulating in f32. Each output element is written
+// by exactly one thread and there are no atomics, so a launch is
+// deterministic. Every multiply and add is rounded on its own
+// (__fmul_rn / __fadd_rn, no contraction into FMA), in the op order of
+// the plain PyTorch versions in kernels/ref.py.
+//
+// The C entries return cudaGetLastError() after the launch; the Python
+// wrappers raise when it is not 0.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 132 * 16;  // grid-stride beyond 16 per SM
+constexpr int kMaxK = 256;                  // server_plane.py: MAX_K
+constexpr int kMaxQ = 32;                   // server_plane.py: MAX_Q
+
+// Eq. 9's alpha^- = 1 - sigmoid(1) rounded to f32 as the JAX package
+// computes it (kernels/ref.py: ALPHA_UNNORM carries the same bits).
+constexpr float kAlphaUnnorm = 0x1.13656p-2f;
+
+__device__ __forceinline__ float ld(const float* p, size_t i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// w_k = sizes_k * keep_k / max(sum_j sizes_j * keep_j, 1e-9), the sum
+// taken from k = 0 upward; writes beta * w_k into bw and returns tot.
+__device__ float beta_weights(const float* sizes, const float* keep,
+                              bool keep_is_delayed, float beta, int K,
+                              float* bw) {
+  float tot = 0.f;
+  for (int k = 0; k < K; ++k) {
+    float kk = keep_is_delayed ? __fsub_rn(1.f, keep[k]) : keep[k];
+    float wk = __fmul_rn(sizes[k], kk);
+    tot = k == 0 ? wk : __fadd_rn(tot, wk);
+    bw[k] = wk;
+  }
+  const float denom = fmaxf(tot, 1e-9f);
+  for (int k = 0; k < K; ++k) bw[k] = __fmul_rn(beta, __fdiv_rn(bw[k], denom));
+  return tot;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+server_mix_kernel(const T* __restrict__ prev, const T* __restrict__ stacked,
+                  const float* __restrict__ sizes,
+                  const float* __restrict__ keep,
+                  const float* __restrict__ coefs, T* __restrict__ out,
+                  int K, long long N) {
+  __shared__ float bw[kMaxK];
+  __shared__ float a_eff;
+  if (threadIdx.x == 0) {
+    // coefs = [alpha0, eta, alpha_cap, t]
+    const float alpha =
+        fminf(__fadd_rn(coefs[0], __fmul_rn(coefs[1], coefs[3])), coefs[2]);
+    const float beta = __fsub_rn(1.f, alpha);
+    const float tot = beta_weights(sizes, keep, false, beta, K, bw);
+    a_eff = tot > 0.f ? alpha : __fadd_rn(alpha, beta);
+  }
+  __syncthreads();
+  const size_t n = static_cast<size_t>(N);
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    float acc = __fmul_rn(ld(prev, i), a_eff);
+#pragma unroll 4
+    for (int k = 0; k < K; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(ld(stacked, k * n + i), bw[k]));
+    st(out, i, acc);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+server_async_kernel(const T* __restrict__ prev, const T* __restrict__ stacked,
+                    const float* __restrict__ qsum,
+                    const float* __restrict__ qgamma,
+                    const float* __restrict__ sizes,
+                    const float* __restrict__ delayed,
+                    const int* __restrict__ delays, const int* __restrict__ tq,
+                    const float* __restrict__ hyp, T* __restrict__ out,
+                    float* __restrict__ qsum_out,
+                    float* __restrict__ qgamma_out, int K, int Q,
+                    long long N) {
+  __shared__ float onehot[kMaxK * kMaxQ];  // gamma^-_k where arrival_k == q
+  __shared__ float bw[kMaxK];              // beta * w_k (on-time weights)
+  __shared__ float sel[kMaxQ];             // pop mask, slot t % Q
+  __shared__ float a_eff, gscale;
+  const int t = tq[0], pop = tq[1];
+  // hyp = [alpha0, eta, alpha_cap, staleness_b]
+  for (int j = threadIdx.x; j < K * Q; j += blockDim.x) {
+    const int k = j / Q, q = j % Q;
+    // gamma^- = b * sigmoid(-d), with sigmoid(-d) = 1 / (1 + exp(d))
+    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf((float)delays[k])));
+    const float g = __fmul_rn(__fmul_rn(hyp[3], sig), delayed[k]);
+    const int arrival = (t + delays[k]) % Q;
+    onehot[j] = __fmul_rn(arrival == q ? 1.f : 0.f, g);
+  }
+  for (int q = threadIdx.x; q < Q; q += blockDim.x)
+    sel[q] = q == pop ? 1.f : 0.f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float stale_gamma = 0.f;
+    for (int q = 0; q < Q; ++q) {
+      float s = onehot[q];
+      for (int k = 1; k < K; ++k) s = __fadd_rn(s, onehot[k * Q + q]);
+      const float qg = __fadd_rn(qgamma[q], s);
+      if (blockIdx.x == 0) qgamma_out[q] = __fmul_rn(qg, __fsub_rn(1.f, sel[q]));
+      const float term = __fmul_rn(qg, sel[q]);
+      stale_gamma = q == 0 ? term : __fadd_rn(stale_gamma, term);
+    }
+    const float A = fminf(__fadd_rn(hyp[0], __fmul_rn(hyp[1], (float)t)), hyp[2]);
+    const float beta = __fsub_rn(1.f, A);
+    const float denom = __fadd_rn(kAlphaUnnorm, stale_gamma);
+    const float alpha = __fmul_rn(__fdiv_rn(kAlphaUnnorm, denom), A);  // Eq. 10
+    gscale = __fdiv_rn(A, denom);                                      // Eq. 11
+    const float tot = beta_weights(sizes, delayed, true, beta, K, bw);
+    a_eff = tot > 0.f ? alpha : __fadd_rn(alpha, beta);
+  }
+  __syncthreads();
+  const size_t n = static_cast<size_t>(N);
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    // on-time chain: acc = prev * a_eff, then + x_k * (beta * w_k)
+    float acc = __fmul_rn(ld(prev, i), a_eff);
+#pragma unroll 4
+    for (int k = 0; k < K; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(ld(stacked, k * n + i), bw[k]));
+    // per-slot enqueue chains (k in order), then the pop sum from q = 0;
+    // the client rows are re-read once per slot (from L1/L2)
+    float stale = 0.f;
+    for (int q = 0; q < Q; ++q) {
+      float r = __ldg(qsum + q * n + i);
+#pragma unroll 4
+      for (int k = 0; k < K; ++k)
+        r = __fadd_rn(r, __fmul_rn(ld(stacked, k * n + i), onehot[k * Q + q]));
+      const float term = __fmul_rn(r, sel[q]);
+      stale = q == 0 ? term : __fadd_rn(stale, term);
+      qsum_out[q * n + i] = __fmul_rn(r, __fsub_rn(1.f, sel[q]));
+    }
+    st(out, i, __fadd_rn(acc, __fmul_rn(stale, gscale)));
+  }
+}
+
+int grid_for(long long N) {
+  const long long blocks = (N + kThreads - 1) / kThreads;
+  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (prev, stacked and out).
+extern "C" int server_mix(int dtype, const void* prev, const void* stacked,
+                          const void* sizes, const void* keep,
+                          const void* coefs, void* out, int K, long long N,
+                          void* stream) {
+  if (K < 1 || K > kMaxK || N < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* sz = static_cast<const float*>(sizes);
+  const auto* kp = static_cast<const float*>(keep);
+  const auto* cf = static_cast<const float*>(coefs);
+  if (dtype == 0) {
+    server_mix_kernel<float><<<grid_for(N), kThreads, 0, s>>>(
+        static_cast<const float*>(prev), static_cast<const float*>(stacked),
+        sz, kp, cf, static_cast<float*>(out), K, N);
+  } else if (dtype == 1) {
+    server_mix_kernel<__nv_bfloat16><<<grid_for(N), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(prev),
+        static_cast<const __nv_bfloat16*>(stacked), sz, kp, cf,
+        static_cast<__nv_bfloat16*>(out), K, N);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" int server_async(int dtype, const void* prev, const void* stacked,
+                            const void* qsum, const void* qgamma,
+                            const void* sizes, const void* delayed,
+                            const void* delays, const void* tq,
+                            const void* hyp, void* out, void* qsum_out,
+                            void* qgamma_out, int K, int Q, long long N,
+                            void* stream) {
+  if (K < 1 || K > kMaxK || Q < 1 || Q > kMaxQ || N < 1)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* qs = static_cast<const float*>(qsum);
+  const auto* qg = static_cast<const float*>(qgamma);
+  const auto* sz = static_cast<const float*>(sizes);
+  const auto* dl = static_cast<const float*>(delayed);
+  const auto* ds = static_cast<const int*>(delays);
+  const auto* tqp = static_cast<const int*>(tq);
+  const auto* hp = static_cast<const float*>(hyp);
+  auto* qso = static_cast<float*>(qsum_out);
+  auto* qgo = static_cast<float*>(qgamma_out);
+  if (dtype == 0) {
+    server_async_kernel<float><<<grid_for(N), kThreads, 0, s>>>(
+        static_cast<const float*>(prev), static_cast<const float*>(stacked),
+        qs, qg, sz, dl, ds, tqp, hp, static_cast<float*>(out), qso, qgo, K,
+        Q, N);
+  } else if (dtype == 1) {
+    server_async_kernel<__nv_bfloat16><<<grid_for(N), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(prev),
+        static_cast<const __nv_bfloat16*>(stacked), qs, qg, sz, dl, ds, tqp,
+        hp, static_cast<__nv_bfloat16*>(out), qso, qgo, K, Q, N);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}

@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the server-plane kernels.
+
+The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
+server_mix_math, server_async_math``, in the same op order: the
+previous model scaled first, then one multiply-add per client row in
+client order (and, for the async plane, one chain per ring slot, then
+the pop sum from slot 0 upward). Every multiply and add rounds on its
+own, as PyTorch's eager ops do, and the CUDA kernels in
+``csrc/server_plane.cu`` do the same (no fused multiply-add), so on the
+card a kernel and its plain version agree to within the few ulp that
+library ``exp`` may differ by.
+
+The wrappers in ``server_plane.py`` run these for CPU tensors; on the
+card they run only when ``fl.server_plane == "ref"``.
+"""
+from __future__ import annotations
+
+import torch
+
+# Eq. 9's alpha^- = 1 - sigmoid(1), rounded to f32 exactly as the JAX
+# package computes it; the CUDA kernel carries the same literal.
+ALPHA_UNNORM = float.fromhex("0x1.13656p-2")
+
+
+def _seq_sum(v):
+    """Sum over the leading axis, one add at a time from row 0."""
+    acc = v[0]
+    for k in range(1, v.shape[0]):
+        acc = acc + v[k]
+    return acc
+
+
+def _norm_weights(sizes, keep):
+    """w_i = |d_i|*keep_i / sum_j |d_j|*keep_j (the FedAvg convention);
+    ``keep`` is a {0,1} f32 mask. Returns (w, tot)."""
+    w = sizes.float() * keep.float()
+    tot = _seq_sum(w)
+    return w / torch.clamp(tot, min=1e-9), tot
+
+
+def server_mix_math(prev, stacked, sizes, keep, coefs):
+    """The sync server plane: participation weights + weighted client
+    accumulation + AMA mix.
+
+    prev: (n,) f32/bf16; stacked: (K, n) in prev's dtype; sizes/keep:
+    (K,) f32; coefs: (4,) f32 = [alpha0, eta, alpha_cap, t]. alpha_t =
+    min(alpha0 + eta*t, cap); fedavg passes zeros for a plain weighted
+    average. When nobody is kept (tot == 0) the whole beta budget
+    reverts to the previous model.
+    """
+    alpha = torch.minimum(coefs[0] + coefs[1] * coefs[3], coefs[2])
+    beta = 1.0 - alpha
+    w, tot = _norm_weights(sizes, keep)
+    a_eff = torch.where(tot > 0, alpha, alpha + beta)
+    acc = prev.float() * a_eff
+    for k in range(stacked.shape[0]):
+        acc = acc + stacked[k].float() * (beta * w[k])
+    return acc.to(prev.dtype)
+
+
+def server_async_math(prev, stacked, qsum, qgamma, sizes, delayed, delays,
+                      tq, hyp):
+    """The async server plane (paper Eqs. 6-11): staleness weights
+    gamma^- from ``delays``, ring-buffer enqueue of this round's delayed
+    updates, pop of the slot arriving now, and the alpha/beta/gamma mix.
+
+    prev: (n,); stacked: (K, n); qsum: (Q, n) f32; qgamma: (Q,) f32;
+    sizes/delayed: (K,) f32; delays: (K,) int32; tq: (2,) int32 =
+    [t, t % Q]; hyp: (4,) f32 = [alpha0, eta, alpha_cap, staleness_b].
+    Returns (out, new_qsum, new_qgamma).
+    """
+    K, Q = stacked.shape[0], qgamma.shape[0]
+    t, pop = tq[0], tq[1]
+    # gamma^- = b * sigmoid(-d), never b * (1 - sigmoid(d)): the latter
+    # cancels catastrophically in f32 for stale updates
+    g = hyp[3] * torch.sigmoid(-delays.float()) * delayed.float()
+    arrival = torch.remainder(t + delays, Q)                      # (K,)
+    slots = torch.arange(Q, device=prev.device)
+    onehot = (arrival[:, None] == slots[None, :]).float() * g[:, None]
+    qg = qgamma + _seq_sum(onehot)
+    sel = (slots == pop).float()                                  # pop mask
+    stale_gamma = _seq_sum(qg * sel)
+    new_qgamma = qg * (1.0 - sel)
+
+    A = torch.minimum(hyp[0] + hyp[1] * t.float(), hyp[2])
+    beta = 1.0 - A
+    denom = ALPHA_UNNORM + stale_gamma
+    # a true division (a Python number over a tensor would be computed
+    # as reciprocal-then-multiply, which rounds differently)
+    alpha = torch.full_like(denom, ALPHA_UNNORM) / denom * A      # Eq. 10
+    gscale = A / denom                                            # Eq. 11
+    w, tot = _norm_weights(sizes, 1.0 - delayed.float())
+    a_eff = torch.where(tot > 0, alpha, alpha + beta)
+
+    acc = prev.float() * a_eff
+    rows = [qsum[q] for q in range(Q)]
+    for k in range(K):
+        x = stacked[k].float()
+        acc = acc + x * (beta * w[k])
+        for q in range(Q):                  # enqueue into arrival slots
+            rows[q] = rows[q] + x * onehot[k, q]
+    stale = rows[0] * sel[0]                # pop slot t % Q
+    for q in range(1, Q):
+        stale = stale + rows[q] * sel[q]
+    acc = acc + stale * gscale
+    new_qsum = torch.stack([rows[q] * (1.0 - sel[q]) for q in range(Q)])
+    return acc.to(prev.dtype), new_qsum, new_qgamma

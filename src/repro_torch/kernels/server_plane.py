@@ -1,0 +1,245 @@
+"""Fused server-plane kernels: the whole server update in one HBM pass.
+
+Replaces the JAX package's ``kernels/server_plane.py: server_mix_flat``
+and ``server_async_flat`` (Pallas). Each round's server update is ONE
+kernel launch per dtype group:
+
+  * ``server_mix_flat``   — sync plane (ama / fedavg): streams K+1 rows
+        in, 1 out; participation weights and the alpha schedule are
+        computed in-kernel from the device arrays.
+  * ``server_async_flat`` — async plane (async_ama, Eqs. 6-11): streams
+        K+Q+1 rows in, Q+1 out; gamma^-(delays), ring-buffer enqueue,
+        slot pop and the alpha/beta/gamma mix fused.
+
+Both are bound by HBM bytes on the H100: per element the mix reads K+1
+values and writes one, ``(K+2)·N·s`` bytes for element size s; the
+async plane moves ``(K+2)·N·s + 2·Q·N·4`` bytes (the f32 ring buffer is
+read and written). Their arithmetic is a handful of flops per byte, far
+below the card's ridge point. This first design is simple on purpose:
+one thread per element in a grid-stride loop, f32 accumulation, no
+atomics (each output element is written by one thread, so a launch is
+deterministic). The async kernel loops over ring slots outside the
+client loop and so re-reads each client row Q+1 times; those re-reads
+hit L1/L2, and removing them is later work.
+
+Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
+version (``kernels/ref.py``); CUDA tensors take the kernel, or the
+wrapper raises. The tree-level functions choose the kernel (``impl="fused"``)
+or the plain version (``impl="ref"``), which is the only way the plain
+version runs on the card.
+
+Each wrapper counts its kernel launches (``server_mix_flat.launches``,
+``server_async_flat.launches``); ``plain_runs_on_cuda`` counts the
+tree-level functions' runs of the plain version on CUDA tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.utils import tree
+
+__all__ = ["server_mix_flat", "server_async_flat", "server_mix_tree",
+           "server_async_tree", "mix_coefs", "device_vector", "reset_counts",
+           "plain_runs_on_cuda", "MAX_K", "MAX_Q"]
+
+#: limits of the CUDA kernels (their shared-memory prologue tables)
+MAX_K = 256
+MAX_Q = 32
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: runs of the plain version on CUDA tensors through the tree-level functions
+plain_runs_on_cuda = {"server_mix": 0, "server_async": 0}
+
+
+def reset_counts() -> None:
+    """Zero every launch and plain-run counter of this module."""
+    server_mix_flat.launches = 0
+    server_async_flat.launches = 0
+    for k in plain_runs_on_cuda:
+        plain_runs_on_cuda[k] = 0
+
+
+def _ptr(x) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _check(name, x, shape, dtypes, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected one of "
+                        f"{dtypes}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _kernel_device(prev):
+    """True when the kernel runs (CUDA), False for the plain version
+    (CPU); anything else is refused."""
+    if prev.device.type == "cuda":
+        return True
+    if prev.device.type == "cpu":
+        return False
+    raise ValueError(f"server plane: unsupported device {prev.device}")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def device_vector(values, device):
+    """A small f32 vector on ``device`` made by in-place fills: a copy
+    from host memory would synchronize the stream inside a round."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
+
+
+def mix_coefs(fl, t, *, adaptive: bool = True):
+    """(4,) f32 = [alpha0, eta, alpha_cap, t] on ``t``'s device.
+    ``adaptive=False`` zeroes the schedule (fedavg: alpha == 0)."""
+    head = (fl.alpha0, fl.eta, fl.alpha_cap) if adaptive else (0.0,) * 3
+    out = device_vector(head + (0.0,), t.device)
+    out[3] = t
+    return out
+
+
+def server_mix_flat(prev, stacked, sizes, keep, coefs):
+    """prev: (N,) f32/bf16; stacked: (K, N) in prev's dtype; sizes/keep:
+    (K,) f32; coefs: (4,) f32. Returns out (N,) in prev's dtype."""
+    (N,) = prev.shape
+    K = stacked.shape[0]
+    dev = prev.device
+    _check("prev", prev, (N,), tuple(_DTYPE_CODE), dev)
+    _check("stacked", stacked, (K, N), (prev.dtype,), dev)
+    for name, x, n in (("sizes", sizes, K), ("keep", keep, K),
+                       ("coefs", coefs, 4)):
+        _check(name, x, (n,), (torch.float32,), dev)
+    if not _kernel_device(prev):
+        return ref.server_mix_math(prev, stacked, sizes, keep, coefs)
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"server_mix kernel takes 1 <= K <= {MAX_K}, "
+                         f"got K={K}")
+    lib = build.load()
+    out = torch.empty_like(prev)
+    err = lib.server_mix(
+        _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(stacked), _ptr(sizes),
+        _ptr(keep), _ptr(coefs), _ptr(out), K, N,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, "server_mix")
+    server_mix_flat.launches += 1
+    return out
+
+
+def server_async_flat(prev, stacked, qsum, qgamma, sizes, delayed, delays,
+                      tq, hyp):
+    """prev: (N,) f32/bf16; stacked: (K, N) in prev's dtype; qsum: (Q, N)
+    f32; qgamma: (Q,) f32; sizes/delayed: (K,) f32; delays: (K,) int32;
+    tq: (2,) int32 = [t, t % Q]; hyp: (4,) f32 = [alpha0, eta,
+    alpha_cap, staleness_b]. Returns (out (N,), new_qsum (Q, N) f32,
+    new_qgamma (Q,) f32)."""
+    (N,) = prev.shape
+    K, Q = stacked.shape[0], qgamma.shape[0]
+    dev = prev.device
+    _check("prev", prev, (N,), tuple(_DTYPE_CODE), dev)
+    _check("stacked", stacked, (K, N), (prev.dtype,), dev)
+    _check("qsum", qsum, (Q, N), (torch.float32,), dev)
+    for name, x, n in (("qgamma", qgamma, Q), ("sizes", sizes, K),
+                       ("delayed", delayed, K), ("hyp", hyp, 4)):
+        _check(name, x, (n,), (torch.float32,), dev)
+    _check("delays", delays, (K,), (torch.int32,), dev)
+    _check("tq", tq, (2,), (torch.int32,), dev)
+    if not _kernel_device(prev):
+        return ref.server_async_math(prev, stacked, qsum, qgamma, sizes,
+                                     delayed, delays, tq, hyp)
+    if not (1 <= K <= MAX_K and 1 <= Q <= MAX_Q):
+        raise ValueError(f"server_async kernel takes 1 <= K <= {MAX_K} "
+                         f"and 1 <= Q <= {MAX_Q}, got K={K}, Q={Q}")
+    lib = build.load()
+    out = torch.empty_like(prev)
+    new_qsum = torch.empty_like(qsum)
+    new_qgamma = torch.empty_like(qgamma)
+    err = lib.server_async(
+        _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(stacked), _ptr(qsum),
+        _ptr(qgamma), _ptr(sizes), _ptr(delayed), _ptr(delays), _ptr(tq),
+        _ptr(hyp), _ptr(out), _ptr(new_qsum), _ptr(new_qgamma), K, Q, N,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, "server_async")
+    server_async_flat.launches += 1
+    return out, new_qsum, new_qgamma
+
+
+server_mix_flat.launches = 0
+server_async_flat.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tree level: whole param tree -> one flat vector per dtype group ->
+# one kernel launch per round per group
+# ---------------------------------------------------------------------------
+
+def _flat_fn(impl: str, kernel, plain, key: str):
+    if impl == "fused":
+        return kernel
+    if impl != "ref":
+        raise ValueError(f"unknown server-plane impl {impl!r}; expected "
+                         "'fused' or 'ref'")
+
+    def run_plain(prev, *args):
+        if prev.is_cuda:
+            plain_runs_on_cuda[key] += 1
+        return plain(prev, *args)
+    return run_plain
+
+
+def server_mix_tree(prev, stacked, sizes, keep, coefs, *, impl="fused"):
+    """Sync server plane over param trees; ``stacked`` leaves carry a
+    leading client axis. The per-round concat/split copies of the flat
+    group vectors are kept for now; keeping params flat-resident would
+    remove them."""
+    fn = _flat_fn(impl, server_mix_flat, ref.server_mix_math, "server_mix")
+    leaves_p, leaves_s = tree.leaves(prev), tree.leaves(stacked)
+    out = [None] * len(leaves_p)
+    for idxs in tree.dtype_groups(leaves_p).values():
+        K = leaves_s[idxs[0]].shape[0]
+        fp = tree.cat([leaves_p[i].reshape(-1) for i in idxs])
+        fs = tree.cat([leaves_s[i].reshape(K, -1) for i in idxs])
+        tree.split_back(fn(fp, fs, sizes, keep, coefs), leaves_p, idxs, out)
+    return tree.unflatten(prev, out)
+
+
+def server_async_tree(prev, stacked, queue, sizes, delayed, delays, t, hyp,
+                      *, impl="fused"):
+    """Async server plane over param trees: one fused enqueue+pop+mix per
+    round per dtype group. ``queue`` = {"sum": tree with leading (Q,),
+    "gamma": (Q,)}. Returns (new_global, new_queue)."""
+    fn = _flat_fn(impl, server_async_flat, ref.server_async_math,
+                  "server_async")
+    qgamma = queue["gamma"]
+    Q = qgamma.shape[0]
+    tq = torch.stack([t, torch.remainder(t, Q)]).to(torch.int32)
+    leaves_p, leaves_s = tree.leaves(prev), tree.leaves(stacked)
+    leaves_q = tree.leaves(queue["sum"])
+    out = [None] * len(leaves_p)
+    qs = [None] * len(leaves_p)
+    new_qgamma = qgamma
+    for idxs in tree.dtype_groups(leaves_p).values():
+        K = leaves_s[idxs[0]].shape[0]
+        fp = tree.cat([leaves_p[i].reshape(-1) for i in idxs])
+        fs = tree.cat([leaves_s[i].reshape(K, -1) for i in idxs])
+        fq = tree.cat([leaves_q[i].reshape(Q, -1) for i in idxs])
+        of, oq, new_qgamma = fn(fp, fs, fq, qgamma, sizes, delayed, delays,
+                                tq, hyp)
+        tree.split_back(of, leaves_p, idxs, out)
+        tree.split_back(oq, leaves_q, idxs, qs)
+    return (tree.unflatten(prev, out),
+            {"sum": tree.unflatten(prev, qs), "gamma": new_qgamma})
