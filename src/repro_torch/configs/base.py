@@ -3,9 +3,13 @@
 The port's own copy of the JAX package's ``configs/base.py``: the same
 fields with the same defaults, so a config written for one package
 describes the same run in the other. Fields of features the port does
-not have yet (other environments, the comm plane, fedopt, the
-partitioned client plane, telemetry, pod scale) are carried unchanged
-and ignored; ``launch.train`` only sets the ones this package honours.
+not have yet (the gilbert_elliott and trace environments, the
+partitioned and fes_static client planes, ``client_reduce="force"``,
+telemetry, pod scale) are carried unchanged; ``core.round`` refuses the
+client-plane, reduce and telemetry values it cannot run, and
+``launch.train`` only sets the fields this package honours. The comm
+plane (``comm_*``), fedprox and fedopt (``fedprox_*``, ``server_*``) and
+the bandwidth environment (``bw_*``) are honoured.
 """
 from __future__ import annotations
 

@@ -9,6 +9,12 @@ stacked per-round batches and schedules (the JAX package's
 ``lax.scan``). Nothing inside a round reads a device value on the host;
 the round index itself lives on the device.
 
+With a comm plane (``fl.comm_plane != "none"``, ``repro_torch.comm``)
+the stacked client deltas are compressed before the server update, the
+error-feedback residual rides the carry as ``aux["comm"]``, and the
+server consumes the payload in-kernel (``compressed_server_update``) or,
+for strategies without that hook, densified.
+
 All algorithm behaviour comes from the ServerStrategy registry
 (``repro_torch.core.strategies``).
 """
@@ -16,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import comm
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
 from repro_torch.core.client import make_local_train
@@ -25,7 +32,6 @@ def check_supported(fl: FLConfig) -> None:
     """Refuse config values whose code paths the port does not have yet
     (they wait for later slices), rather than ignoring them."""
     unsupported = {"client_plane": (fl.client_plane, ("masked",)),
-                   "comm_plane": (fl.comm_plane, ("none",)),
                    "client_reduce": (fl.client_reduce, ("auto", "off")),
                    "fes_static": (fl.fes_static, (False,)),
                    "extended_metrics": (fl.extended_metrics, (False,)),
@@ -53,12 +59,20 @@ def as_scan_scheds(sb: dict, device) -> dict:
 def init_state(model, fl: FLConfig, gen: torch.Generator, device,
                strategy=None):
     """Round-loop carry: global params, round index (a 0-dim int32 device
-    tensor) and the strategy's aux state."""
+    tensor) and the strategy's aux state. With a comm plane the
+    error-feedback residual rides the aux under ``"comm"``: one (C, N_g)
+    f32 tensor per dtype group, C = ``fl.clients_per_round``."""
     strategy = strategy or strategies.resolve(fl)
     params = model.init(gen, device)
+    aux = strategy.init_state(params)
+    plane = comm.resolve(fl)
+    if plane is not None:
+        res = plane.init_residual(params, fl.clients_per_round)
+        if res:
+            aux = {**aux, "comm": res}
     return {"params": params,
             "t": torch.zeros((), dtype=torch.int32, device=device),
-            "aux": strategy.init_state(params)}
+            "aux": aux}
 
 
 def make_round_step(model, fl: FLConfig, strategy=None):
@@ -70,13 +84,29 @@ def make_round_step(model, fl: FLConfig, strategy=None):
     check_supported(fl)
     strategy = strategy or strategies.resolve(fl)
     local_train = make_local_train(model, fl, strategy)
+    comm_plane = comm.resolve(fl)
 
     def round_step(state, batch, sched):
         t, prev_global = state["t"], state["params"]
         client_params, losses = local_train(prev_global, batch,
                                             sched["limited"])
-        new_params, aux = strategy.fused_server_update(
-            t, prev_global, client_params, sched, state["aux"])
+        srv_aux, new_res, out = state["aux"], None, NotImplemented
+        if comm_plane is not None:
+            # the residual is comm state, not strategy state: popped
+            # here, so the strategy never sees it
+            srv_aux = {k: v for k, v in state["aux"].items() if k != "comm"}
+            groups, new_res = comm_plane.compress(
+                t, prev_global, client_params, state["aux"].get("comm", {}))
+            out = strategy.compressed_server_update(t, prev_global, groups,
+                                                    sched, srv_aux)
+            if out is NotImplemented:
+                client_params = comm_plane.reconstruct(prev_global, groups)
+        if out is NotImplemented:
+            out = strategy.fused_server_update(t, prev_global, client_params,
+                                               sched, srv_aux)
+        new_params, aux = out
+        if new_res:
+            aux = {**aux, "comm": new_res}
         metrics = {"loss": losses.mean(),
                    "n_on_time": (~sched["delayed"]).sum(dtype=torch.int32)}
         return {"params": new_params, "t": t + 1, "aux": aux}, metrics

@@ -7,7 +7,9 @@ gradient of computing-limited devices is masked to the classifier split
 from __future__ import annotations
 
 from repro_torch.core.strategies.base import ServerStrategy, register
-from repro_torch.kernels.server_plane import mix_coefs, server_mix_tree
+from repro_torch.kernels.server_plane import (mix_coefs,
+                                              server_mix_compressed_tree,
+                                              server_mix_tree)
 from repro_torch.optim.masked import masked_update
 
 
@@ -28,5 +30,15 @@ class AMAStrategy(ServerStrategy):
         keep = (~sched["delayed"]).float()
         new_global = server_mix_tree(
             prev_global, client_params, sched["data_sizes"], keep,
+            mix_coefs(self.fl, t), impl=self.server_impl)
+        return new_global, aux_state
+
+    def compressed_server_update(self, t, prev_global, groups, sched,
+                                 aux_state):
+        """Eq. 5 mix consuming compressed deltas in-kernel (q8/bf16 rows
+        or top-k pairs)."""
+        keep = (~sched["delayed"]).float()
+        new_global = server_mix_compressed_tree(
+            prev_global, groups, sched["data_sizes"], keep,
             mix_coefs(self.fl, t), impl=self.server_impl)
         return new_global, aux_state

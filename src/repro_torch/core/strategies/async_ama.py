@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from repro_torch.core import async_ama
 from repro_torch.core.strategies.ama import AMAStrategy
-from repro_torch.core.strategies.base import register
+from repro_torch.core.strategies.base import ServerStrategy, register
 from repro_torch.kernels.server_plane import (device_vector,
                                               server_async_tree)
 
@@ -16,6 +16,11 @@ from repro_torch.kernels.server_plane import (device_vector,
 class AsyncAMAStrategy(AMAStrategy):
     name = "async_ama"
     aliases = ()
+
+    # the ring buffer keeps the delayed updates dense across rounds, so
+    # the mix family's compressed hook does not apply: the round
+    # densifies the payload before fused_server_update
+    compressed_server_update = ServerStrategy.compressed_server_update
 
     def init_state(self, params):
         return {"queue": async_ama.init_queue(self.fl, params)}

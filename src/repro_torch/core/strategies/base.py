@@ -5,14 +5,19 @@ The paper's contribution is the server aggregation rule; everything else
 ``ServerStrategy`` packages the places an aggregation rule can differ:
 
   * ``init_state(params)`` — strategy-owned auxiliary server state (the
-    async-AMA ring buffer), carried through the round loop as a tree;
+    async-AMA ring buffer, fedopt's Adam moments), carried through the
+    round loop as a tree;
   * ``local_grad_transform`` / ``local_steps`` — client-side hooks (the
-    FES gradient mask);
+    FES gradient mask, FedProx's proximal pull and partial work);
   * ``fused_server_update(t, prev_global, client_params, sched, aux)``
     — the server update through the fused server-plane kernels
-    (``repro_torch.kernels.server_plane``): ONE kernel launch per round
+    (``repro_torch.kernels.server_plane``): ONE kernel call per round
     per dtype group. ``fl.server_plane`` selects "fused" (the kernel on
-    CUDA tensors) or "ref" (the plain PyTorch version).
+    CUDA tensors) or "ref" (the plain PyTorch version);
+  * ``compressed_server_update(t, prev_global, groups, sched, aux)`` —
+    the same update over a comm plane's compressed payload, consumed
+    in-kernel; ``NotImplemented`` (the default) makes the round densify
+    the payload and call ``fused_server_update``.
 
 Implementations are functional and never read device values on the
 host: the round runs without a host sync.
@@ -52,6 +57,18 @@ class ServerStrategy:
         ``sched`` is {"limited","delayed","delays","data_sizes"}, each
         (C,) on the device. Returns (new_global, new_aux_state)."""
         raise NotImplementedError
+
+    def compressed_server_update(self, t, prev_global, groups, sched,
+                                 aux_state):
+        """The server update consuming a comm plane's compressed payload
+        directly (``groups``: ``repro_torch.comm``'s ``[(leaf_idxs,
+        payload)]`` list, see ``server_mix_compressed_tree``). The mix
+        family overrides this; strategies whose update is not linear in
+        the client deltas (the async ring buffer, server-Adam) keep this
+        default, and the round densifies the payload
+        (``CommPlane.reconstruct``) before their fused update."""
+        del t, prev_global, groups, sched, aux_state
+        return NotImplemented
 
     @property
     def server_impl(self) -> str:

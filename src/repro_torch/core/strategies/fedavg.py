@@ -4,7 +4,9 @@ no mixing with the previous model, no staleness handling."""
 from __future__ import annotations
 
 from repro_torch.core.strategies.base import ServerStrategy, register
-from repro_torch.kernels.server_plane import mix_coefs, server_mix_tree
+from repro_torch.kernels.server_plane import (mix_coefs,
+                                              server_mix_compressed_tree,
+                                              server_mix_tree)
 
 
 @register
@@ -18,5 +20,14 @@ class FedAvgStrategy(ServerStrategy):
         # average is the alpha=0 corner of the same fused pass
         new_global = server_mix_tree(
             prev_global, client_params, sched["data_sizes"], keep,
+            mix_coefs(self.fl, t, adaptive=False), impl=self.server_impl)
+        return new_global, aux_state
+
+    def compressed_server_update(self, t, prev_global, groups, sched,
+                                 aux_state):
+        """The alpha=0 corner of the compressed mix."""
+        keep = (~sched["delayed"] & ~sched["limited"]).float()
+        new_global = server_mix_compressed_tree(
+            prev_global, groups, sched["data_sizes"], keep,
             mix_coefs(self.fl, t, adaptive=False), impl=self.server_impl)
         return new_global, aux_state

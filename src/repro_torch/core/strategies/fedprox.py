@@ -1,0 +1,51 @@
+"""FedProx baseline (paper Eq. 4): proximal gradient pull toward the
+global model plus "partial work" — computing-limited devices run a
+fraction of the local steps instead of masking gradients. Server side
+it is the on-time weighted average, the alpha = 0 corner of the mix."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.strategies.base import ServerStrategy, register
+from repro_torch.kernels.server_plane import (mix_coefs,
+                                              server_mix_compressed_tree,
+                                              server_mix_tree)
+from repro_torch.utils.tree import tree_map
+
+
+@register
+class FedProxStrategy(ServerStrategy):
+    name = "fedprox"
+
+    def local_grad_transform(self, grads, params, global_params, fes_mask,
+                             limited):
+        """g + 2 rho (p - p0) over the stacked (C, ...) client grads."""
+        del fes_mask, limited
+        rho = self.fl.fedprox_rho
+        return tree_map(
+            lambda g, p, p0: g + 2.0 * rho * (p.float()
+                                              - p0.float()).to(g.dtype),
+            grads, params, global_params)
+
+    def local_steps(self, n_steps: int, limited):
+        """Partial work: limited clients update for only
+        ``max(1, int(fedprox_partial * n_steps))`` of the steps."""
+        n_partial = max(1, int(self.fl.fedprox_partial * n_steps))
+        return torch.where(limited, n_partial, n_steps).to(torch.int32)
+
+    def fused_server_update(self, t, prev_global, client_params, sched,
+                            aux_state):
+        keep = (~sched["delayed"]).float()
+        new_global = server_mix_tree(
+            prev_global, client_params, sched["data_sizes"], keep,
+            mix_coefs(self.fl, t, adaptive=False), impl=self.server_impl)
+        return new_global, aux_state
+
+    def compressed_server_update(self, t, prev_global, groups, sched,
+                                 aux_state):
+        """On-time weighted average (alpha = 0) over compressed deltas."""
+        keep = (~sched["delayed"]).float()
+        new_global = server_mix_compressed_tree(
+            prev_global, groups, sched["data_sizes"], keep,
+            mix_coefs(self.fl, t, adaptive=False), impl=self.server_impl)
+        return new_global, aux_state

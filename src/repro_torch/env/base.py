@@ -132,6 +132,9 @@ class ChannelModel:
         """-> (delayed (m,) bool, delays (m,) int32 in [1, max_delay])."""
         raise NotImplementedError
 
+    def _no_delays(self, m: int) -> tuple[np.ndarray, np.ndarray]:
+        return np.zeros(m, bool), np.ones(m, np.int32)
+
     def draw_batch(self, t0: int, selected: np.ndarray
                    ) -> tuple[np.ndarray, np.ndarray]:
         """Virtual-path draw for a stacked (n_rounds, m) cohort block,

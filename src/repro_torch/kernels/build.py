@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, which ``ctypes`` loads. The library is
-built at first use into ``build/repro_torch/`` at the repository root,
-under a name keyed on a hash of the sources and flags, so a fresh
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects are linked into one shared library
+with a plain C interface, which ``ctypes`` loads. The library is built
+at first use into ``build/repro_torch/`` at the repository root, under a
+name keyed on a hash of the sources, headers and flags, so a fresh
 checkout builds by itself and an edited source rebuilds. A missing
 ``nvcc`` or a failed build raises; nothing falls back.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 #: C entry -> argtypes (every pointer and the stream as c_void_p)
@@ -34,6 +35,19 @@ SIGNATURES = {
     "server_async": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                      _P),
+    # dtype, prev, stacked, m, v, sizes, keep, scalars, out, m_out, v_out,
+    # K, N, stream
+    "server_adam": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    ctypes.c_int, ctypes.c_longlong, _P),
+    # dtype, rows, prev, dstacked, rowscale, sizes, keep, coefs, out, K, N,
+    # stream
+    "server_mix_delta": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                         _P, ctypes.c_int, ctypes.c_longlong, _P),
+    # dtype, prev, vals, idx, sizes, keep, coefs, out, acc, bw, K, kk, N,
+    # stream
+    "server_mix_scatter": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_longlong, _P),
 }
 
 
@@ -55,7 +69,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -70,18 +84,29 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        for src, p, out in zip(sources(), procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on "
+                                   f"{src.name}:\n{out}")
+        # link to a private name, then rename: concurrent builds never
+        # load a half-written library
+        so = Path(tmp, lib.name)
+        cmd = [nvcc(), "-shared", "-o", str(so), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(so, lib)
+    return lib, log
 
 
 @functools.cache

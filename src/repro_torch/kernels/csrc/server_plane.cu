@@ -18,47 +18,24 @@
 // The C entries return cudaGetLastError() after the launch; the Python
 // wrappers raise when it is not 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;  // grid-stride beyond 16 per SM
-constexpr int kMaxK = 256;                  // server_plane.py: MAX_K
+using namespace repro_torch;
+
 constexpr int kMaxQ = 32;                   // server_plane.py: MAX_Q
 
 // Eq. 9's alpha^- = 1 - sigmoid(1) rounded to f32 as the JAX package
 // computes it (kernels/ref.py: ALPHA_UNNORM carries the same bits).
 constexpr float kAlphaUnnorm = 0x1.13656p-2f;
 
-__device__ __forceinline__ float ld(const float* p, size_t i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// w_k = sizes_k * keep_k / max(sum_j sizes_j * keep_j, 1e-9), the sum
-// taken from k = 0 upward; writes beta * w_k into bw and returns tot.
+// beta * w_k into bw (see norm_weights); returns tot.
 __device__ float beta_weights(const float* sizes, const float* keep,
                               bool keep_is_delayed, float beta, int K,
                               float* bw) {
-  float tot = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float kk = keep_is_delayed ? __fsub_rn(1.f, keep[k]) : keep[k];
-    float wk = __fmul_rn(sizes[k], kk);
-    tot = k == 0 ? wk : __fadd_rn(tot, wk);
-    bw[k] = wk;
-  }
-  const float denom = fmaxf(tot, 1e-9f);
-  for (int k = 0; k < K; ++k) bw[k] = __fmul_rn(beta, __fdiv_rn(bw[k], denom));
+  const float tot = norm_weights(sizes, keep, keep_is_delayed, K, bw);
+  for (int k = 0; k < K; ++k) bw[k] = __fmul_rn(beta, bw[k]);
   return tot;
 }
 
@@ -73,8 +50,7 @@ server_mix_kernel(const T* __restrict__ prev, const T* __restrict__ stacked,
   __shared__ float a_eff;
   if (threadIdx.x == 0) {
     // coefs = [alpha0, eta, alpha_cap, t]
-    const float alpha =
-        fminf(__fadd_rn(coefs[0], __fmul_rn(coefs[1], coefs[3])), coefs[2]);
+    const float alpha = alpha_schedule(coefs);
     const float beta = __fsub_rn(1.f, alpha);
     const float tot = beta_weights(sizes, keep, false, beta, K, bw);
     a_eff = tot > 0.f ? alpha : __fadd_rn(alpha, beta);
@@ -163,11 +139,6 @@ server_async_kernel(const T* __restrict__ prev, const T* __restrict__ stacked,
     }
     st(out, i, __fadd_rn(acc, __fmul_rn(stale, gscale)));
   }
-}
-
-int grid_for(long long N) {
-  const long long blocks = (N + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
 }  // namespace

@@ -1,14 +1,16 @@
 """Plain PyTorch versions of the server-plane kernels.
 
 The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
-server_mix_math, server_async_math``, in the same op order: the
+server_mix_math, server_mix_delta_math, server_mix_scatter_math,
+server_async_math, server_adam_math``, in the same op order: the
 previous model scaled first, then one multiply-add per client row in
 client order (and, for the async plane, one chain per ring slot, then
 the pop sum from slot 0 upward). Every multiply and add rounds on its
-own, as PyTorch's eager ops do, and the CUDA kernels in
-``csrc/server_plane.cu`` do the same (no fused multiply-add), so on the
-card a kernel and its plain version agree to within the few ulp that
-library ``exp`` may differ by.
+own, as PyTorch's eager ops do, and the CUDA kernels in ``csrc/*.cu``
+do the same (no fused multiply-add), so on the card a kernel and its
+plain version agree to within the few ulp that library ``exp`` may
+differ by. Where JAX sums the weights with ``jnp.sum``, these sum them
+one add at a time from client 0 (``_seq_sum``), as the kernels do.
 
 The wrappers in ``server_plane.py`` run these for CPU tensors; on the
 card they run only when ``fl.server_plane == "ref"``.
@@ -56,6 +58,80 @@ def server_mix_math(prev, stacked, sizes, keep, coefs):
     for k in range(stacked.shape[0]):
         acc = acc + stacked[k].float() * (beta * w[k])
     return acc.to(prev.dtype)
+
+
+def _compressed_coefs(sizes, keep, coefs):
+    """(beta * w, prev's coefficient a_eff + beta * sum_k w_k) of the
+    mix over compressed deltas. a_eff is 1 when nobody is kept, so the
+    previous model comes back unchanged."""
+    alpha = torch.minimum(coefs[0] + coefs[1] * coefs[3], coefs[2])
+    beta = 1.0 - alpha
+    w, tot = _norm_weights(sizes, keep)
+    a_eff = torch.where(tot > 0, alpha, 1.0)
+    return beta * w, a_eff + beta * _seq_sum(w)
+
+
+def server_mix_delta_math(prev, dstacked, rowscale, sizes, keep, coefs):
+    """The sync server plane over compressed client deltas: row k of
+    ``dstacked`` is client k's delta x_k - prev, quantized (int8 or
+    bf16; ``rowscale[k]`` de-quantizes it):
+
+        out = prev * (a_eff + beta * sum_k w_k)
+              + sum_k (beta * w_k * rowscale[k]) * d_k
+
+    prev: (n,) f32/bf16; dstacked: (K, n) int8/bf16/f32; rowscale/
+    sizes/keep: (K,) f32; coefs: (4,) f32 = [alpha0, eta, alpha_cap, t].
+    """
+    bw, c = _compressed_coefs(sizes, keep, coefs)
+    acc = prev.float() * c
+    for k in range(dstacked.shape[0]):
+        acc = acc + dstacked[k].float() * (bw[k] * rowscale[k])
+    return acc.to(prev.dtype)
+
+
+def server_mix_scatter_math(prev, vals, idx, sizes, keep, coefs):
+    """The sync server plane over top-k sparsified client deltas: row k
+    keeps its kk largest-magnitude delta entries as (value, flat
+    position) pairs, added into the mix of prev client by client.
+
+    prev: (n,) f32/bf16; vals: (K, kk) f32; idx: (K, kk) int32 flat
+    positions, distinct within a row; sizes/keep: (K,) f32; coefs: (4,)
+    f32. A position outside [0, n) adds nothing (the JAX oracle's mask).
+    Positions are distinct within a row, so each ``index_add_`` adds at
+    most once per element and the sum runs in client order.
+    """
+    n = prev.shape[0]
+    bw, c = _compressed_coefs(sizes, keep, coefs)
+    acc = prev.float() * c
+    for k in range(vals.shape[0]):
+        inside = (idx[k] >= 0) & (idx[k] < n)
+        contrib = vals[k].float() * bw[k] * inside.float()
+        acc.index_add_(0, torch.clamp(idx[k], 0, n - 1).long(), contrib)
+    return acc.to(prev.dtype)
+
+
+def server_adam_math(prev, stacked, m, v, sizes, keep, scalars):
+    """The FedOpt server plane: weighted pseudo-gradient, one server-Adam
+    moment update and the model step.
+
+    prev: (n,) f32/bf16; stacked: (K, n) in prev's dtype; m/v: (n,) f32;
+    sizes/keep: (K,) f32; scalars: (5,) f32 = [b1, b2, lr, tau, step]
+    (step already incremented). The pseudo-gradient is 0 when nobody is
+    kept. Returns (out in prev's dtype, new_m, new_v).
+    """
+    b1, b2, lr, tau, step = (scalars[i] for i in range(5))
+    w, tot = _norm_weights(sizes, keep)
+    agg = torch.zeros(prev.shape, dtype=torch.float32, device=prev.device)
+    for k in range(stacked.shape[0]):
+        agg = agg + stacked[k].float() * w[k]
+    p32 = prev.float()
+    delta = torch.where(tot > 0, agg - p32, 0.0)
+    new_m = b1 * m + (1.0 - b1) * delta
+    new_v = b2 * v + (1.0 - b2) * delta * delta
+    bc1 = 1.0 - b1 ** step
+    bc2 = 1.0 - b2 ** step
+    update = (new_m / bc1) / (torch.sqrt(new_v / bc2) + tau)
+    return (p32 + lr * update).to(prev.dtype), new_m, new_v
 
 
 def server_async_math(prev, stacked, qsum, qgamma, sizes, delayed, delays,

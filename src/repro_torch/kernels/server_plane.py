@@ -1,23 +1,33 @@
 """Fused server-plane kernels: the whole server update in one HBM pass.
 
-Replaces the JAX package's ``kernels/server_plane.py: server_mix_flat``
-and ``server_async_flat`` (Pallas). Each round's server update is ONE
-kernel launch per dtype group:
+Replaces the JAX package's ``kernels/server_plane.py: server_mix_flat,
+server_async_flat, server_adam_flat, server_mix_delta_flat`` and
+``server_mix_scatter_flat`` (Pallas). Each round's server update is ONE
+wrapper call per dtype group:
 
-  * ``server_mix_flat``   — sync plane (ama / fedavg): streams K+1 rows
-        in, 1 out; participation weights and the alpha schedule are
-        computed in-kernel from the device arrays.
-  * ``server_async_flat`` — async plane (async_ama, Eqs. 6-11): streams
+  * ``server_mix_flat``    — sync plane (ama / fedavg / fedprox):
+        streams K+1 rows in, 1 out; participation weights and the alpha
+        schedule are computed in-kernel from the device arrays.
+  * ``server_async_flat``  — async plane (async_ama, Eqs. 6-11): streams
         K+Q+1 rows in, Q+1 out; gamma^-(delays), ring-buffer enqueue,
         slot pop and the alpha/beta/gamma mix fused.
+  * ``server_adam_flat``   — FedOpt server-Adam: streams K+3 rows in, 3
+        out; pseudo-gradient, moments, bias correction and the step.
+  * ``server_mix_delta_flat`` — the sync mix over compressed deltas
+        (int8 / bf16 rows, de-quantized in-kernel): streams the
+        compressed bytes, not a dense f32 copy.
+  * ``server_mix_scatter_flat`` — the sync mix over top-k (value,
+        position) pairs: a dense pass, then one conflict-free scatter
+        launch per client in stream order (1 + K launches a call, one
+        more for bf16 prev), deterministic and atomic-free.
 
-Both are bound by HBM bytes on the H100: per element the mix reads K+1
+All are bound by HBM bytes on the H100: per element the mix reads K+1
 values and writes one, ``(K+2)·N·s`` bytes for element size s; the
 async plane moves ``(K+2)·N·s + 2·Q·N·4`` bytes (the f32 ring buffer is
 read and written). Their arithmetic is a handful of flops per byte, far
-below the card's ridge point. This first design is simple on purpose:
-one thread per element in a grid-stride loop, f32 accumulation, no
-atomics (each output element is written by one thread, so a launch is
+below the card's ridge point. The design is simple on purpose: one
+thread per element in a grid-stride loop, f32 accumulation, no atomics
+(each output element is written by one thread, so a launch is
 deterministic). The async kernel loops over ring slots outside the
 client loop and so re-reads each client row Q+1 times; those re-reads
 hit L1/L2, and removing them is later work.
@@ -28,8 +38,8 @@ wrapper raises. The tree-level functions choose the kernel (``impl="fused"``)
 or the plain version (``impl="ref"``), which is the only way the plain
 version runs on the card.
 
-Each wrapper counts its kernel launches (``server_mix_flat.launches``,
-``server_async_flat.launches``); ``plain_runs_on_cuda`` counts the
+Each wrapper counts its calls that launch its kernel
+(``server_mix_flat.launches``, ...); ``plain_runs_on_cuda`` counts the
 tree-level functions' runs of the plain version on CUDA tensors.
 """
 from __future__ import annotations
@@ -41,24 +51,30 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.utils import tree
 
-__all__ = ["server_mix_flat", "server_async_flat", "server_mix_tree",
-           "server_async_tree", "mix_coefs", "device_vector", "reset_counts",
-           "plain_runs_on_cuda", "MAX_K", "MAX_Q"]
+__all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
+           "server_mix_delta_flat", "server_mix_scatter_flat",
+           "server_mix_tree", "server_async_tree", "server_adam_tree",
+           "server_mix_compressed_tree", "mix_coefs", "device_vector",
+           "reset_counts", "plain_runs_on_cuda", "KERNELS", "MAX_K",
+           "MAX_Q"]
 
 #: limits of the CUDA kernels (their shared-memory prologue tables)
 MAX_K = 256
 MAX_Q = 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: delta row dtypes of server_mix_delta
+_ROWS_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: runs of the plain version on CUDA tensors through the tree-level functions
-plain_runs_on_cuda = {"server_mix": 0, "server_async": 0}
+plain_runs_on_cuda = {"server_mix": 0, "server_async": 0, "server_adam": 0,
+                      "server_mix_delta": 0, "server_mix_scatter": 0}
 
 
 def reset_counts() -> None:
     """Zero every launch and plain-run counter of this module."""
-    server_mix_flat.launches = 0
-    server_async_flat.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
     for k in plain_runs_on_cuda:
         plain_runs_on_cuda[k] = 0
 
@@ -88,6 +104,15 @@ def _kernel_device(prev):
     if prev.device.type == "cpu":
         return False
     raise ValueError(f"server plane: unsupported device {prev.device}")
+
+
+def _check_k(what: str, K: int) -> None:
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{what} kernel takes 1 <= K <= {MAX_K}, got K={K}")
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -126,15 +151,12 @@ def server_mix_flat(prev, stacked, sizes, keep, coefs):
         _check(name, x, (n,), (torch.float32,), dev)
     if not _kernel_device(prev):
         return ref.server_mix_math(prev, stacked, sizes, keep, coefs)
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"server_mix kernel takes 1 <= K <= {MAX_K}, "
-                         f"got K={K}")
+    _check_k("server_mix", K)
     lib = build.load()
     out = torch.empty_like(prev)
     err = lib.server_mix(
         _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(stacked), _ptr(sizes),
-        _ptr(keep), _ptr(coefs), _ptr(out), K, N,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _ptr(keep), _ptr(coefs), _ptr(out), K, N, _stream(dev))
     _raise_on(err, "server_mix")
     server_mix_flat.launches += 1
     return out
@@ -172,14 +194,109 @@ def server_async_flat(prev, stacked, qsum, qgamma, sizes, delayed, delays,
         _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(stacked), _ptr(qsum),
         _ptr(qgamma), _ptr(sizes), _ptr(delayed), _ptr(delays), _ptr(tq),
         _ptr(hyp), _ptr(out), _ptr(new_qsum), _ptr(new_qgamma), K, Q, N,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _stream(dev))
     _raise_on(err, "server_async")
     server_async_flat.launches += 1
     return out, new_qsum, new_qgamma
 
 
-server_mix_flat.launches = 0
-server_async_flat.launches = 0
+def server_adam_flat(prev, stacked, m, v, sizes, keep, scalars):
+    """prev: (N,) f32/bf16; stacked: (K, N) in prev's dtype; m/v: (N,)
+    f32; sizes/keep: (K,) f32; scalars: (5,) f32 = [b1, b2, lr, tau,
+    step] (step already incremented). Returns (out (N,) in prev's dtype,
+    new_m (N,) f32, new_v (N,) f32)."""
+    (N,) = prev.shape
+    K = stacked.shape[0]
+    dev = prev.device
+    _check("prev", prev, (N,), tuple(_DTYPE_CODE), dev)
+    _check("stacked", stacked, (K, N), (prev.dtype,), dev)
+    for name, x in (("m", m), ("v", v)):
+        _check(name, x, (N,), (torch.float32,), dev)
+    for name, x, n in (("sizes", sizes, K), ("keep", keep, K),
+                       ("scalars", scalars, 5)):
+        _check(name, x, (n,), (torch.float32,), dev)
+    if not _kernel_device(prev):
+        return ref.server_adam_math(prev, stacked, m, v, sizes, keep,
+                                    scalars)
+    _check_k("server_adam", K)
+    lib = build.load()
+    out = torch.empty_like(prev)
+    new_m, new_v = torch.empty_like(m), torch.empty_like(v)
+    err = lib.server_adam(
+        _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(stacked), _ptr(m), _ptr(v),
+        _ptr(sizes), _ptr(keep), _ptr(scalars), _ptr(out), _ptr(new_m),
+        _ptr(new_v), K, N, _stream(dev))
+    _raise_on(err, "server_adam")
+    server_adam_flat.launches += 1
+    return out, new_m, new_v
+
+
+def server_mix_delta_flat(prev, dstacked, rowscale, sizes, keep, coefs):
+    """prev: (N,) f32/bf16; dstacked: (K, N) int8/bf16/f32 quantized
+    deltas; rowscale/sizes/keep: (K,) f32; coefs: (4,) f32. Returns out
+    (N,) in prev's dtype."""
+    (N,) = prev.shape
+    K = dstacked.shape[0]
+    dev = prev.device
+    _check("prev", prev, (N,), tuple(_DTYPE_CODE), dev)
+    _check("dstacked", dstacked, (K, N), tuple(_ROWS_CODE), dev)
+    for name, x, n in (("rowscale", rowscale, K), ("sizes", sizes, K),
+                       ("keep", keep, K), ("coefs", coefs, 4)):
+        _check(name, x, (n,), (torch.float32,), dev)
+    if not _kernel_device(prev):
+        return ref.server_mix_delta_math(prev, dstacked, rowscale, sizes,
+                                         keep, coefs)
+    _check_k("server_mix_delta", K)
+    lib = build.load()
+    out = torch.empty_like(prev)
+    err = lib.server_mix_delta(
+        _DTYPE_CODE[prev.dtype], _ROWS_CODE[dstacked.dtype], _ptr(prev),
+        _ptr(dstacked), _ptr(rowscale), _ptr(sizes), _ptr(keep), _ptr(coefs),
+        _ptr(out), K, N, _stream(dev))
+    _raise_on(err, "server_mix_delta")
+    server_mix_delta_flat.launches += 1
+    return out
+
+
+def server_mix_scatter_flat(prev, vals, idx, sizes, keep, coefs):
+    """prev: (N,) f32/bf16; vals: (K, kk) f32; idx: (K, kk) int32 flat
+    positions, distinct within a row; sizes/keep: (K,) f32; coefs: (4,)
+    f32. Returns out (N,) in prev's dtype. One call is 1 + K kernel
+    launches (one more for bf16 prev) and counts once."""
+    (N,) = prev.shape
+    K, kk = vals.shape
+    dev = prev.device
+    _check("prev", prev, (N,), tuple(_DTYPE_CODE), dev)
+    _check("vals", vals, (K, kk), (torch.float32,), dev)
+    _check("idx", idx, (K, kk), (torch.int32,), dev)
+    for name, x, n in (("sizes", sizes, K), ("keep", keep, K),
+                       ("coefs", coefs, 4)):
+        _check(name, x, (n,), (torch.float32,), dev)
+    if not _kernel_device(prev):
+        return ref.server_mix_scatter_math(prev, vals, idx, sizes, keep,
+                                           coefs)
+    _check_k("server_mix_scatter", K)
+    lib = build.load()
+    out = torch.empty_like(prev)
+    acc = out if prev.dtype == torch.float32 else torch.empty(
+        N, dtype=torch.float32, device=dev)
+    bw = torch.empty(K, dtype=torch.float32, device=dev)
+    err = lib.server_mix_scatter(
+        _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(vals), _ptr(idx),
+        _ptr(sizes), _ptr(keep), _ptr(coefs), _ptr(out), _ptr(acc), _ptr(bw),
+        K, kk, N, _stream(dev))
+    _raise_on(err, "server_mix_scatter")
+    server_mix_scatter_flat.launches += 1
+    return out
+
+
+#: kernel name -> its flat wrapper (each carries a ``launches`` count)
+KERNELS = {"server_mix": server_mix_flat, "server_async": server_async_flat,
+           "server_adam": server_adam_flat,
+           "server_mix_delta": server_mix_delta_flat,
+           "server_mix_scatter": server_mix_scatter_flat}
+for _fn in KERNELS.values():
+    _fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -243,3 +360,51 @@ def server_async_tree(prev, stacked, queue, sizes, delayed, delays, t, hyp,
         tree.split_back(oq, leaves_q, idxs, qs)
     return (tree.unflatten(prev, out),
             {"sum": tree.unflatten(prev, qs), "gamma": new_qgamma})
+
+
+def server_adam_tree(prev, stacked, m, v, sizes, keep, scalars, *,
+                     impl="fused"):
+    """FedOpt server plane over param trees. ``m``/``v`` are f32 trees
+    shaped like ``prev``. Returns (new_global, new_m, new_v)."""
+    fn = _flat_fn(impl, server_adam_flat, ref.server_adam_math,
+                  "server_adam")
+    leaves_p, leaves_s = tree.leaves(prev), tree.leaves(stacked)
+    leaves_m, leaves_v = tree.leaves(m), tree.leaves(v)
+    outs = ([None] * len(leaves_p), [None] * len(leaves_p),
+            [None] * len(leaves_p))
+    for idxs in tree.dtype_groups(leaves_p).values():
+        K = leaves_s[idxs[0]].shape[0]
+        flat = fn(tree.cat([leaves_p[i].reshape(-1) for i in idxs]),
+                  tree.cat([leaves_s[i].reshape(K, -1) for i in idxs]),
+                  tree.cat([leaves_m[i].reshape(-1) for i in idxs]),
+                  tree.cat([leaves_v[i].reshape(-1) for i in idxs]),
+                  sizes, keep, scalars)
+        for f, like, o in zip(flat, (leaves_p, leaves_m, leaves_v), outs):
+            tree.split_back(f, like, idxs, o)
+    return tuple(tree.unflatten(prev, o) for o in outs)
+
+
+def server_mix_compressed_tree(prev, groups, sizes, keep, coefs, *,
+                               impl="fused"):
+    """The sync server plane consuming a comm plane's compressed payload
+    (``repro_torch.comm``): ``groups`` is ``[(leaf_idxs, payload)]``, one
+    entry per dtype group of ``prev``, with payload ``{"kind": "delta",
+    "d": (K, N) int8|bf16, "scale": (K,) f32}`` or ``{"kind": "topk",
+    "v": (K, kk) f32, "i": (K, kk) int32}``. One call per round per
+    group, with no dense intermediate."""
+    delta = _flat_fn(impl, server_mix_delta_flat, ref.server_mix_delta_math,
+                     "server_mix_delta")
+    scatter = _flat_fn(impl, server_mix_scatter_flat,
+                       ref.server_mix_scatter_math, "server_mix_scatter")
+    leaves_p = tree.leaves(prev)
+    out = [None] * len(leaves_p)
+    for idxs, payload in groups:
+        fp = tree.cat([leaves_p[i].reshape(-1) for i in idxs])
+        if payload["kind"] == "delta":
+            of = delta(fp, payload["d"], payload["scale"], sizes, keep, coefs)
+        elif payload["kind"] == "topk":
+            of = scatter(fp, payload["v"], payload["i"], sizes, keep, coefs)
+        else:
+            raise ValueError(f"unknown payload kind {payload['kind']!r}")
+        tree.split_back(of, leaves_p, idxs, out)
+    return tree.unflatten(prev, out)

@@ -5,19 +5,26 @@ experiment with its heterogeneity knobs, driven in ``--eval-every``
 round chunks through the chunked engine; ``--no-scan`` runs the same
 rounds one at a time (bit-identical). The run is on the GPU unless
 ``--device cpu`` asks for the CPU; on the GPU the server update of
-every round is one hand-written CUDA kernel launch (``--server-plane
-ref`` runs the plain PyTorch version instead).
+every round is one hand-written CUDA kernel call (``--server-plane
+ref`` runs the plain PyTorch version instead). ``--comm-plane`` compresses
+the client uplink (bf16, q8, top-k with error feedback) and the server
+consumes the compressed payload in-kernel; ``--env bandwidth`` prices the
+(compressed) upload against a round deadline.
 
 Examples:
   python -m repro_torch.launch.train --rounds 60 --p-limited 0.5 --eval-every 5
   python -m repro_torch.launch.train --algorithm fedavg --rounds 60
+  python -m repro_torch.launch.train --algorithm fedopt --rounds 60
+  python -m repro_torch.launch.train --comm-plane q8 --rounds 60
   python -m repro_torch.launch.train --p-delay 0.3 --max-delay 10 --rounds 30
+  python -m repro_torch.launch.train --env bandwidth --max-delay 5 --comm-plane q8
   python -m repro_torch.launch.train --device cpu --rounds 2
 """
 from __future__ import annotations
 
 import argparse
 
+from repro_torch import env as env_mod
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core import strategies
@@ -42,7 +49,8 @@ def paper_scale(args, fl: FLConfig, device):
     n_clf, n_all = count_trainable(sim.params, model.fes_mask(sim.params))
     print(f"{args.arch} on {device}: {n_all} params ({n_clf} in the FES "
           f"classifier); {fl.algorithm} -> "
-          f"{type(sim.strategy).__name__}, server plane {fl.server_plane}")
+          f"{type(sim.strategy).__name__}, server plane {fl.server_plane}, "
+          f"comm plane {fl.comm_plane}, env {fl.env}")
     hist = sim.run(rounds=args.rounds, eval_every=args.eval_every,
                    verbose=True)
     print(f"final: acc={hist.final_accuracy():.4f} "
@@ -55,6 +63,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="paper-cnn", choices=sorted(ARCHS))
     ap.add_argument("--algorithm", default="ama_fes",
                     choices=strategies.names())
+    ap.add_argument("--env", default="bernoulli", choices=env_mod.names(),
+                    help="environment (channel/device/participation model)")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--clients-per-round", type=int, default=0,
@@ -71,6 +81,15 @@ def parser() -> argparse.ArgumentParser:
                     choices=("fused", "ref"),
                     help="server update: the CUDA kernel (default) or the "
                          "plain PyTorch version")
+    ap.add_argument("--comm-plane", default="none",
+                    choices=("none", "bf16", "q8", "topk"),
+                    help="compressed client->server uplink: dense f32 "
+                         "(default), bf16 cast (2x), stochastic int8 (~4x) "
+                         "or top-k sparsification, each with its "
+                         "error-feedback residual in the round state")
+    ap.add_argument("--comm-topk-frac", type=float, default=0.01,
+                    help="topk plane: surviving fraction of each dtype "
+                         "group per round")
     ap.add_argument("--no-scan", action="store_true",
                     help="run the rounds one at a time instead of in "
                          "chunks (bit-identical)")
@@ -89,9 +108,12 @@ def main(argv=None):
                   clients_per_round=(args.clients_per_round
                                      or max(2, args.clients // 4)),
                   local_epochs=2, local_batch_size=25, lr=args.lr,
-                  algorithm=args.algorithm, p_limited=args.p_limited,
+                  algorithm=args.algorithm, env=args.env,
+                  p_limited=args.p_limited,
                   p_delay=args.p_delay, max_delay=args.max_delay,
-                  server_plane=args.server_plane, seed=args.seed)
+                  server_plane=args.server_plane,
+                  comm_plane=args.comm_plane,
+                  comm_topk_frac=args.comm_topk_frac, seed=args.seed)
     return paper_scale(args, fl, device)
 
 

@@ -68,3 +68,53 @@ def test_kernels_refuse_shapes_beyond_their_tables():
         tsp.server_mix_flat(torch.zeros(N, **f), torch.zeros(K, N, **f),
                             torch.ones(K, **f), torch.ones(K, **f),
                             torch.zeros(4, **f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_fedopt_and_compressed_kernels_equal_plain_on_card(dt):
+    """server_adam, server_mix_delta (int8 and bf16 rows) and
+    server_mix_scatter (positions colliding across clients) against
+    their plain versions on the card: the same op order with every
+    operation rounded on its own, so bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    K, N, kk = 3, 1000 + 3, 100
+    prev = torch.randn(N, device=dev, generator=g).to(dt)
+    sizes = torch.rand(K, device=dev, generator=g) + 0.5
+    coefs = torch.tensor([0.1, 2.5e-3, 0.95, 5.0], device=dev)
+    for keep in (torch.tensor([1.0, 0.0, 1.0], device=dev),
+                 torch.zeros(K, device=dev)):
+        tsp.reset_counts()
+        stacked = (prev.float()[None] + 0.1 * torch.randn(
+            K, N, device=dev, generator=g)).to(dt)
+        m = 1e-3 * torch.randn(N, device=dev, generator=g)
+        v = 1e-6 * torch.rand(N, device=dev, generator=g)
+        for step in (1.0, 7.0):
+            sc = torch.tensor([0.9, 0.99, 0.1, 1e-3, step], device=dev)
+            args = (prev, stacked, m, v, sizes, keep, sc)
+            for got, want in zip(tsp.server_adam_flat(*args),
+                                 tref.server_adam_math(*args)):
+                assert torch.equal(got, want)
+        q8 = torch.randint(-127, 128, (K, N), device=dev, generator=g,
+                           dtype=torch.int8)
+        bf = (0.1 * torch.randn(K, N, device=dev, generator=g)).bfloat16()
+        scale = torch.rand(K, device=dev, generator=g) * 0.01
+        for rows, rs in ((q8, scale), (bf, torch.ones(K, device=dev))):
+            args = (prev, rows, rs, sizes, keep, coefs)
+            assert torch.equal(tsp.server_mix_delta_flat(*args),
+                               tref.server_mix_delta_math(*args))
+        # rows are windows of one permutation shifted by kk/2: distinct
+        # within a row, half of each row collides with the row before
+        perm = torch.randperm(N, device=dev, generator=g)
+        idx = torch.stack([perm[k * kk // 2:k * kk // 2 + kk]
+                           for k in range(K)]).to(torch.int32)
+        vals = torch.randn(K, kk, device=dev, generator=g)
+        args = (prev, vals, idx, sizes, keep, coefs)
+        assert torch.equal(tsp.server_mix_scatter_flat(*args),
+                           tref.server_mix_scatter_math(*args))
+        assert (tsp.server_adam_flat.launches,
+                tsp.server_mix_delta_flat.launches,
+                tsp.server_mix_scatter_flat.launches) == (2, 2, 1)

@@ -29,10 +29,22 @@ def test_launcher_runs_on_cpu_when_asked():
     assert "AsyncAMAStrategy" in p.stdout
 
 
+@pytest.mark.parametrize("argv,strategy", [
+    (["--algorithm", "fedopt"], "FedOptStrategy"),
+    (["--comm-plane", "q8", "--env", "bandwidth", "--max-delay", "5"],
+     "AsyncAMAStrategy")])
+def test_launcher_runs_this_slice_on_cpu(argv, strategy):
+    p = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+              "--rounds", "2", "--n-train", "400", *argv])
+    assert p.returncode == 0, p.stderr
+    assert "final: acc=" in p.stdout and strategy in p.stdout
+
+
 def test_launcher_and_smoke_refuse_to_run_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    p = _run(["-m", "repro_torch.launch.train", "--rounds", "2"])
+    p = _run(["-m", "repro_torch.launch.train", "--rounds", "2",
+              "--algorithm", "fedopt", "--comm-plane", "q8"])
     assert p.returncode != 0
     assert "no CUDA device" in p.stderr and "--device cpu" in p.stderr
     p = _run([str(REPO / "chip_smoke.py")])

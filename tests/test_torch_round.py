@@ -160,10 +160,10 @@ def test_chunked_equals_per_round_bitwise(world, algo, md):
 def test_unported_options_are_refused():
     model = tbuild(TARCHS["paper-cnn"])
     with pytest.raises(NotImplementedError):
-        make_round_step(model, TFL(comm_plane="q8"))
+        make_round_step(model, TFL(client_reduce="force"))
     with pytest.raises(NotImplementedError):
         make_round_step(model, TFL(client_plane="partitioned"))
     with pytest.raises(ValueError):
         tstrategies.resolve(TFL(server_plane="interpret"))
     with pytest.raises(KeyError):
-        tstrategies.resolve(TFL(algorithm="fedopt"))
+        tstrategies.resolve(TFL(algorithm="scaffold"))
