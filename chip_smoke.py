@@ -16,13 +16,20 @@ Phases (any error or out-of-tolerance result exits non-zero):
      paper CNN's full width: ama_fes, fedavg, async_ama (slice 1);
      fedprox, fedopt; the comm planes q8, bf16 and topk; fedopt and
      async_ama over a densified q8 payload; fedavg in the bandwidth
-     environment, dense and q8 (with the on-time share of each). Each run
-     asserts the exact launches of every kernel and that the plain server
-     version never ran on the card;
+     environment, dense and q8 (with the on-time share of each); the
+     legacy chain on the ama_mix kernel (``--server-plane legacy
+     --use-kernel``: ama_fes, fedavg, fedprox, fedopt, async_ama; slice
+     3). Each run asserts the exact launches of every kernel (ama_mix:
+     rounds x 8 leaves) and that no plain version ran on the card;
   5. fused against plain server planes on the card (ama_fes, async_ama,
-     fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each);
+     fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
+     chain with --use-kernel against it without (ama_fes, async_ama,
+     fedopt, 10 rounds each);
   6. the port's contract: chunked == per-round, bitwise (async_ama,
-     fedopt, ama_fes + q8);
+     fedopt, ama_fes + q8); chunked == per-round == save -> restore ->
+     continue over 20 rounds (ama_fes, async_ama, fedopt); prefetch
+     depths 0, 1, 2 bitwise equal; --metrics-out on == off bitwise, and
+     its JSONL valid;
   7. a torch.profiler breakdown of 10 ama_fes rounds.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
@@ -34,6 +41,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -442,6 +450,81 @@ def check_server_mix_scatter(torch, sp, ref, record):
         del prev, vals, idx, perm
 
 
+#: the paper CNN's 8 leaves in jax.tree order (the legacy chain launches
+#: ama_mix once per leaf per round): conv1/w, conv2/w, fc1 b/w, fc2 b/w,
+#: fc3 b/w
+LEAF_SIZES = (250, 5000, 120, 38400, 84, 10080, 10, 840)
+
+
+def check_ama_mix(torch, am, ref, record):
+    """ama_mix against ama_mix_math, bitwise in every case: K = 1 at
+    every leaf size of the paper CNN and at its whole size, K = 2 over
+    the async operand (f32 rows under f32 and bf16 prev), K = 1 with
+    alpha = 1 (fedopt), a ragged N, and N = 33,554,437."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    print("ama_mix: K, N, prev/rows dtype, case | kernel device ms, GB/s, "
+          "bound ms | plain device ms | library device ms (addmv) | eager "
+          "call ms")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(1, N, dt, dt, "leaf") for dt in (f32, bf16)
+             for N in LEAF_SIZES]
+    cases += [(1, MAIN_N, f32, f32, "whole"), (1, MAIN_N, bf16, bf16, "whole"),
+              (2, 38400, f32, f32, "async"), (2, 38400, bf16, f32, "async"),
+              (1, 38400, f32, f32, "fedopt"), (2, MAIN_N + 1, f32, f32,
+                                                "ragged"),
+              (1, BIG_N, f32, f32, "big"), (1, BIG_N, bf16, bf16, "big"),
+              (2, BIG_N, f32, f32, "big"), (2, BIG_N, bf16, f32, "big")]
+    for K, N, pdt, sdt, case in cases:
+        prev = torch.randn(N, device=dev, generator=g).to(pdt)
+        stacked = torch.randn(K, N, device=dev, generator=g).to(sdt)
+        a = 1.0 if case == "fedopt" else 0.1 + 0.8 * float(
+            torch.rand(1, generator=g, device=dev))
+        alpha = torch.full((1,), a, device=dev)
+        w = torch.rand(K, device=dev, generator=g)
+        args = (prev, stacked, alpha, w)
+        got = am.ama_mix_flat(*args)
+        want = ref.ama_mix_math(*args)
+        mag = ref.ama_mix_math(prev.float().abs(), stacked.float().abs(),
+                               alpha, w)
+        torch.cuda.synchronize()
+        tag = (f"K={K} N={N:>10,} {str(pdt)[6:]:8s} {str(sdt)[6:]:8s} "
+               f"{case:6s}")
+        err = compare(torch, f"ama_mix {tag}", got, want, mag, pdt)
+        exact = torch.equal(got, want)
+        check(exact, f"ama_mix {tag}: not bitwise equal to ama_mix_math "
+              f"(max err {err:.3e})")
+        del got, want, mag
+        ms = device_ms(torch, lambda: am.ama_mix_flat(*args))
+        eager = call_ms(torch, lambda: am.ama_mix_flat(*args))
+        plain = device_ms(torch, lambda: ref.ama_mix_math(*args),
+                          reps=2 if N == BIG_N else 10)
+        lib = None
+        if pdt == sdt == f32:
+            lib = device_ms(torch, lambda: torch.addmv(prev, stacked.T, w,
+                                                       beta=a))
+        nbytes = (2 * N * prev.element_size() + K * N * stacked.element_size()
+                  + (K + 1) * 4)
+        _report(tag, ms, eager, plain, lib, nbytes, (2 * K + 1) * N, err,
+                exact, record, K=K, N=N, dtype=str(pdt), rows=str(sdt),
+                case=case)
+        del prev, stacked
+
+
+def ama_mix_round_row(recs):
+    """The ama_mix row of the kernel record: the 8 K = 1 f32 leaf
+    launches of one legacy round, their times, bounds and library times
+    summed."""
+    rows = [r for r in recs if r["case"] == "leaf"
+            and r["dtype"] == "torch.float32"]
+    assert sorted(r["N"] for r in rows) == sorted(LEAF_SIZES)
+    return dict(ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                library_ms=sum(r["library_ms"] for r in rows),
+                nbytes=sum(r["nbytes"] for r in rows),
+                flops=sum(r["flops"] for r in rows))
+
+
 # ------------------------------------------------------------ phase 4/5 ---
 
 QUICKSTART = ["--clients", "20", "--clients-per-round", "5", "--p-limited",
@@ -492,20 +575,64 @@ MAIN_RUNS = [
 ]
 
 
-def main_path(torch, train, sp, tree_mod, main_record):
+LEGACY = ["--server-plane", "legacy", "--use-kernel"]
+
+#: slice 3: the legacy per-leaf chain on the ama_mix kernel, one launch
+#: per leaf per round, at the paper CNN's full width on the quickstart
+#: config
+LEGACY_RUNS = [
+    ("legacy ama_fes", ["--algorithm", "ama_fes", *LEGACY, "--rounds", "30"],
+     "ama_mix"),
+    ("legacy fedavg", ["--algorithm", "fedavg", *LEGACY, "--rounds", "30"],
+     "ama_mix"),
+    ("legacy fedprox", ["--algorithm", "fedprox", *LEGACY, "--rounds", "30"],
+     "ama_mix"),
+    ("legacy fedopt", ["--algorithm", "fedopt", *LEGACY, "--rounds", "30"],
+     "ama_mix"),
+    ("legacy async_ama", ["--algorithm", "async_ama", *MODERATE_30, *LEGACY,
+                          "--rounds", "30"], "ama_mix"),
+]
+
+
+class CountCudaCalls:
+    """Counts the calls of ``module.name`` on CUDA tensors while
+    installed: the plain version of a kernel must not run on the card on
+    the main path (the wrapper reaches it only for CPU tensors)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+        self.real = getattr(module, name)
+
+    def __enter__(self):
+        def counted(x, *args, **kw):
+            if x.is_cuda:
+                self.calls += 1
+            return self.real(x, *args, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
     """The main-path runs; returns {kernel: launches}. Each run's counts
     are set to 0 just before it and read just after: its kernel launched
-    exactly rounds x dtype groups times, every other kernel never, and
-    the plain server version never on the card."""
+    exactly rounds x dtype groups times (``ama_mix``: rounds x leaves),
+    every other kernel never, and the plain server version never on the
+    card."""
     totals = dict.fromkeys(sp.KERNELS, 0)
-    for label, argv, kernel in MAIN_RUNS:
+    for label, argv, kernel in runs:
         argv = [*QUICKSTART, *argv]
         sp.reset_counts()
-        sim, hist, dt = run_train(torch, train, argv)
+        with CountCudaCalls(ref, "ama_mix_math") as plain_mix:
+            sim, hist, dt = run_train(torch, train, argv)
         counts = {k: fn.launches for k, fn in sp.KERNELS.items()}
-        plain = dict(sp.plain_runs_on_cuda)
+        plain = dict(sp.plain_runs_on_cuda, ama_mix_math=plain_mix.calls)
         rounds = int(argv[argv.index("--rounds") + 1])
-        groups = len(tree_mod.dtype_groups(tree_mod.leaves(sim.params)))
+        groups = (len(tree_mod.leaves(sim.params)) if kernel == "ama_mix"
+                  else len(tree_mod.dtype_groups(
+                      tree_mod.leaves(sim.params))))
         extra = ""
         on_time = None
         if "bandwidth" in label:
@@ -519,9 +646,10 @@ def main_path(torch, train, sp, tree_mod, main_record):
               f"{hist.stability_variance():.3f}{extra}; launches "
               f"{ {k: v for k, v in counts.items() if v} }; plain on the "
               f"card {sum(plain.values())}")
+        per_round = "leaves" if kernel == "ama_mix" else "dtype groups"
         check(counts[kernel] == rounds * groups,
               f"{label}: {kernel} launched {counts[kernel]} times, expected "
-              f"{rounds} rounds x {groups} dtype groups")
+              f"{rounds} rounds x {groups} {per_round}")
         others = {k: v for k, v in counts.items() if k != kernel and v}
         check(not others, f"{label}: other kernels launched: {others}")
         check(all(v == 0 for v in plain.values()),
@@ -532,8 +660,9 @@ def main_path(torch, train, sp, tree_mod, main_record):
                   f"{label}: non-finite or off-card state")
         acc = hist.final_accuracy()
         check(0.0 <= acc <= 1.0, f"{label}: final accuracy {acc}")
-        if label in ("ama_fes", "fedavg"):
-            # the CNN learns the synthetic task (chance 0.1)
+        if label in ("ama_fes", "fedavg", "legacy ama_fes"):
+            # the CNN learns the synthetic task (chance 0.1); fedavg's 30
+            # legacy rounds are too few for it (best 0.285 on the card)
             check(max(hist.test_acc) > 0.3,
                   f"{label}: best test accuracy {max(hist.test_acc)}")
         check(all(x == x for x in hist.train_loss), f"{label}: NaN loss")
@@ -573,6 +702,31 @@ def fused_vs_plain(torch, train, tree_mod):
               f"{', bitwise equal' if exact else ''}")
 
 
+def legacy_kernel_vs_plain(torch, train, tree_mod):
+    """10 rounds of the legacy chain with --use-kernel against 10 rounds
+    without it (plain elementwise math in the kernel's op order), on the
+    card: allclose is required, bitwise equality reported."""
+    for label, extra in (("ama_fes", []),
+                         ("async_ama", ["--algorithm", "async_ama",
+                                        *MODERATE_30]),
+                         ("fedopt", ["--algorithm", "fedopt"])):
+        argv = ["--algorithm", "ama_fes", *QUICKSTART, *extra,
+                "--server-plane", "legacy", "--rounds", "10"]
+        a, _, _ = run_train(torch, train, argv + ["--use-kernel"])
+        b, _, _ = run_train(torch, train, argv)
+        worst, exact = 0.0, True
+        for x, y in zip(leaves_of(tree_mod, a.state),
+                        leaves_of(tree_mod, b.state), strict=True):
+            d = float((x.float() - y.float()).abs().max()) if x.numel() else 0
+            worst = max(worst, d)
+            exact = exact and torch.equal(x, y)
+            check(torch.allclose(x.float(), y.float(), rtol=1e-5, atol=1e-6),
+                  f"legacy {label}: --use-kernel vs plain differ by {d:.3e}")
+        print(f"legacy chain, {label}, 10 rounds: --use-kernel vs plain max "
+              f"|diff| {worst:.3e} (tolerance rtol 1e-5, atol 1e-6)"
+              f"{', bitwise equal' if exact else ', NOT bitwise equal'}")
+
+
 def where_time_goes(torch, train):
     """10 rounds of the AMA-FES main path under torch.profiler: device
     time by kernel and the device's busy share of the wall time (the
@@ -585,6 +739,10 @@ def where_time_goes(torch, train):
         _, _, dt = run_train(torch, train, argv)
     rows = []
     for e in prof.key_averages():
+        # the engine's record_function regions (obs.timing.annotate) also
+        # appear as device-side ranges; they span kernels, not add to them
+        if getattr(e, "is_user_annotation", False):
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -596,6 +754,92 @@ def where_time_goes(torch, train):
           f"busy {busy:.1f} ms = {busy / (dt * 1e3):.1%} of the wall")
     for us, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {key[:100]}")
+
+
+def _states_equal(torch, tree_mod, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(
+        leaves_of(tree_mod, a.state), leaves_of(tree_mod, b.state),
+        strict=True))
+
+
+RESTART = 10                     # rounds before and after the restart
+
+
+def restart_contract(torch, train, tree_mod, tmp):
+    """chunked == per-round == save -> restore -> continue, bitwise,
+    params and all aux (ring buffer; fedopt's m, v and step): 20 rounds
+    chunked, 20 per round, and 10 rounds --checkpoint then --resume and
+    10 more."""
+    whole, half = str(2 * RESTART), str(RESTART)
+    for label, extra in (("ama_fes", []),
+                         ("async_ama", ["--algorithm", "async_ama",
+                                        *MODERATE_30]),
+                         ("fedopt", ["--algorithm", "fedopt"])):
+        argv = ["--algorithm", "ama_fes", *QUICKSTART, *extra]
+        ck = str(Path(tmp) / f"{label}.npz")
+        a, ha, _ = run_train(torch, train, argv + ["--rounds", whole])
+        b, hb, _ = run_train(torch, train, argv + ["--rounds", whole,
+                                                   "--no-scan"])
+        run_train(torch, train, argv + ["--rounds", half, "--checkpoint",
+                                        ck])
+        c, hc, _ = run_train(torch, train, argv + ["--rounds", half,
+                                                   "--resume", ck])
+        check(c.t == 2 * RESTART, f"{label}: resumed run ended at round "
+              f"{c.t}")
+        check(_states_equal(torch, tree_mod, a, b),
+              f"{label}: chunked and per-round runs differ")
+        check(_states_equal(torch, tree_mod, a, c),
+              f"{label}: save -> restore -> continue differs from the "
+              "uninterrupted run")
+        check(ha.test_acc == hb.test_acc and ha.train_loss == hb.train_loss
+              and hc.eval_rounds == [t for t in ha.eval_rounds
+                                     if t > RESTART]
+              and hc.test_acc == ha.test_acc[len(ha.test_acc)
+                                              - len(hc.test_acc):]
+              and hc.train_loss == ha.train_loss[RESTART:],
+              f"{label}: the histories of the three runs differ")
+        print(f"port contract: 20 rounds of {label} chunked == per round "
+              "(--no-scan) == 10 rounds, --checkpoint, --resume, 10 more; "
+              "bitwise, params and all aux")
+
+
+def prefetch_and_metrics(torch, train, tree_mod, tmp):
+    """--prefetch-depth 0, 1 (the default) and 2 give bitwise the same
+    state; --metrics-out leaves the params stream bitwise as with it
+    off, and its JSONL validates."""
+    from repro_torch.obs.log import read_rows, validate_rows
+    from repro_torch.obs.metrics import ROUND_METRIC_KEYS
+    argv = ["--algorithm", "async_ama", *QUICKSTART, *MODERATE_30,
+            "--rounds", "10"]
+    base, _, _ = run_train(torch, train, argv)
+    for depth in ("0", "2"):
+        other, _, _ = run_train(torch, train,
+                                argv + ["--prefetch-depth", depth])
+        check(_states_equal(torch, tree_mod, base, other),
+              f"--prefetch-depth {depth} changed the state")
+    print("prefetch: 10 rounds of async_ama at --prefetch-depth 0, 1 and 2,"
+          " bitwise equal")
+    for plane in ([], LEGACY):
+        jsonl = str(Path(tmp) / "metrics.jsonl")
+        off, _, _ = run_train(torch, train, argv + plane)
+        on, hist, _ = run_train(torch, train,
+                                argv + plane + ["--metrics-out", jsonl])
+        check(_states_equal(torch, tree_mod, off, on),
+              "--metrics-out changed the params stream")
+        rows = read_rows(jsonl)
+        errs = validate_rows(rows)
+        check(not errs, f"metrics JSONL: {errs[:3]}")
+        rnd = [r for r in rows if r["kind"] == "round"]
+        check(len(rnd) == 10 and all(set(ROUND_METRIC_KEYS) <= set(r)
+                                     for r in rnd),
+              "metrics JSONL: missing round rows or keys")
+        check(rows[0]["provenance"]["backend"] == "cuda",
+              "metrics JSONL: header does not name the card")
+        print(f"telemetry {'legacy ' if plane else ''}async_ama: "
+              "--metrics-out on == off bitwise; JSONL valid (10 round "
+              f"rows, alpha_eff {rnd[0]['alpha_eff']:.4f} -> "
+              f"{rnd[-1]['alpha_eff']:.4f}, stale_hist "
+              f"{[sum(c) for c in zip(*(r['stale_hist'] for r in rnd))]})")
 
 
 def port_contract(torch, train, tree_mod):
@@ -648,6 +892,7 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  " + line.strip())
 
+    from repro_torch.kernels import ama_mix as am
     from repro_torch.kernels import ref
     from repro_torch.kernels import server_plane as sp
     from repro_torch.launch import train
@@ -662,13 +907,22 @@ def main() -> None:
     check_server_adam(torch, sp, ref, recs["server_adam"])
     check_server_mix_delta(torch, sp, ref, recs["server_mix_delta"])
     check_server_mix_scatter(torch, sp, ref, recs["server_mix_scatter"])
+    check_ama_mix(torch, am, ref, recs["ama_mix"])
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
     # against the first main-path run
     run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,
                              "--rounds", "2"])
-    launches = main_path(torch, train, sp, tree_mod, main_rec)
+    launches = main_path(torch, train, sp, ref, tree_mod, MAIN_RUNS,
+                         main_rec)
+    legacy = main_path(torch, train, sp, ref, tree_mod, LEGACY_RUNS,
+                       main_rec)
+    launches = {k: launches[k] + legacy[k] for k in launches}
     fused_vs_plain(torch, train, tree_mod)
+    legacy_kernel_vs_plain(torch, train, tree_mod)
     port_contract(torch, train, tree_mod)
+    with tempfile.TemporaryDirectory() as tmp:
+        restart_contract(torch, train, tree_mod, tmp)
+        prefetch_and_metrics(torch, train, tree_mod, tmp)
     where_time_goes(torch, train)
 
     f32 = "torch.float32"
@@ -680,22 +934,29 @@ def main() -> None:
                                  rows="torch.int8", case="t=7"),
         "server_mix_scatter": dict(K=MAIN_K, N=MAIN_N, dtype=f32,
                                    case="t=7")}
-    replaces = {"server_mix": 166, "server_async": 257, "server_adam": 303,
-                "server_mix_delta": 193, "server_mix_scatter": 226}
+    replaces = {"server_mix": "server_plane.py:166",
+                "server_async": "server_plane.py:257",
+                "server_adam": "server_plane.py:303",
+                "server_mix_delta": "server_plane.py:193",
+                "server_mix_scatter": "server_plane.py:226",
+                "ama_mix": "ama_mix.py:33"}
     source = {"server_mix": "server_plane.cu", "server_async":
               "server_plane.cu", "server_adam": "server_adam.cu",
               "server_mix_delta": "server_mix_compressed.cu",
-              "server_mix_scatter": "server_mix_compressed.cu"}
+              "server_mix_scatter": "server_mix_compressed.cu",
+              "ama_mix": "ama_mix.cu"}
     kernels = []
     for name, rec in recs.items():
-        row = next(r for r in rec
-                   if all(r.get(k) == v for k, v in main_shape[name].items()))
+        # ama_mix: the 8 leaf launches of one legacy round, summed
+        row = (ama_mix_round_row(rec) if name == "ama_mix" else next(
+            r for r in rec
+            if all(r.get(k) == v for k, v in main_shape[name].items())))
         check(launches[name] > 0, f"{name}: never launched on the main path")
         b, by = bound_ms(row["nbytes"], row["flops"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source[name]}",
-            "replaces": f"src/repro/kernels/server_plane.py:{replaces[name]}",
+            "replaces": f"src/repro/kernels/{replaces[name]}",
             "launches": launches[name],
             "max_abs_err": max(r["err"] for r in rec), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,

@@ -15,6 +15,15 @@ error-feedback residual rides the carry as ``aux["comm"]``, and the
 server consumes the payload in-kernel (``compressed_server_update``) or,
 for strategies without that hook, densified.
 
+``fl.client_reduce == "force"`` pre-reduces the stacked client axis
+(``reduced_server_update``: one weighted contraction, then the server
+math on (N,) sums); "auto" stays off on one GPU, as the JAX package's
+does on a one-device mesh. ``fl.extended_metrics`` adds the telemetry
+series of ``repro_torch.obs.metrics.round_metrics`` to each round's
+metrics. They only read the round's tensors (eager PyTorch has no
+cross-op fusion to perturb), so the params stream is bitwise the same
+with them on or off.
+
 All algorithm behaviour comes from the ServerStrategy registry
 (``repro_torch.core.strategies``).
 """
@@ -26,16 +35,19 @@ from repro_torch import comm
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
 from repro_torch.core.client import make_local_train
+from repro_torch.obs.metrics import payload_bytes, round_metrics
+
+CLIENT_REDUCE = ("auto", "off", "force")
 
 
 def check_supported(fl: FLConfig) -> None:
     """Refuse config values whose code paths the port does not have yet
     (they wait for later slices), rather than ignoring them."""
+    if fl.client_reduce not in CLIENT_REDUCE:
+        raise ValueError(f"unknown client_reduce {fl.client_reduce!r}; "
+                         f"expected one of {CLIENT_REDUCE}")
     unsupported = {"client_plane": (fl.client_plane, ("masked",)),
-                   "client_reduce": (fl.client_reduce, ("auto", "off")),
-                   "fes_static": (fl.fes_static, (False,)),
-                   "extended_metrics": (fl.extended_metrics, (False,)),
-                   "use_kernel": (fl.use_kernel, (False,))}
+                   "fes_static": (fl.fes_static, (False,))}
     for field, (value, ok) in unsupported.items():
         if value not in ok:
             raise NotImplementedError(
@@ -86,17 +98,27 @@ def make_round_step(model, fl: FLConfig, strategy=None):
     local_train = make_local_train(model, fl, strategy)
     comm_plane = comm.resolve(fl)
 
+    extended = fl.extended_metrics
+    force_reduce = fl.client_reduce == "force"
+
     def round_step(state, batch, sched):
         t, prev_global = state["t"], state["params"]
         client_params, losses = local_train(prev_global, batch,
                                             sched["limited"])
         srv_aux, new_res, out = state["aux"], None, NotImplemented
+        groups = None
         if comm_plane is not None:
             # the residual is comm state, not strategy state: popped
             # here, so the strategy never sees it
             srv_aux = {k: v for k, v in state["aux"].items() if k != "comm"}
             groups, new_res = comm_plane.compress(
                 t, prev_global, client_params, state["aux"].get("comm", {}))
+        if force_reduce:
+            cp = (comm_plane.reconstruct(prev_global, groups)
+                  if comm_plane is not None else client_params)
+            out = strategy.reduced_server_update(t, prev_global, cp, sched,
+                                                 srv_aux)
+        if out is NotImplemented and comm_plane is not None:
             out = strategy.compressed_server_update(t, prev_global, groups,
                                                     sched, srv_aux)
             if out is NotImplemented:
@@ -109,6 +131,12 @@ def make_round_step(model, fl: FLConfig, strategy=None):
             aux = {**aux, "comm": new_res}
         metrics = {"loss": losses.mean(),
                    "n_on_time": (~sched["delayed"]).sum(dtype=torch.int32)}
+        if extended:
+            metrics.update(round_metrics(
+                fl, strategy, t, prev_global, client_params, new_params,
+                sched, state["aux"], payload=payload_bytes(prev_global),
+                payload_compressed=(comm_plane.payload_bytes(prev_global)
+                                    if comm_plane is not None else None)))
         return {"params": new_params, "t": t + 1, "aux": aux}, metrics
 
     return round_step

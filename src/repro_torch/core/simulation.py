@@ -13,4 +13,6 @@ __all__ = ["FederatedSimulation", "History"]
 
 class FederatedSimulation(SimulationEngine):
     """The paper's §V experiment: ``run`` goes through the chunked
-    engine (``use_scan=False`` for the bit-identical per-round run)."""
+    engine (``use_scan=False`` for the bit-identical per-round run);
+    ``save``/``resume`` checkpoint the full round state, ``run_round``
+    runs one round."""

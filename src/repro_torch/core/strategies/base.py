@@ -9,15 +9,25 @@ The paper's contribution is the server aggregation rule; everything else
     round loop as a tree;
   * ``local_grad_transform`` / ``local_steps`` — client-side hooks (the
     FES gradient mask, FedProx's proximal pull and partial work);
+  * ``aggregate(t, prev_global, client_params, sched, aux)`` — the
+    legacy per-leaf server chain (``core/ama.py``, ``core/async_ama.py``),
+    whose mix runs on the ``ama_mix`` kernel when ``fl.use_kernel``;
   * ``fused_server_update(t, prev_global, client_params, sched, aux)``
-    — the server update through the fused server-plane kernels
-    (``repro_torch.kernels.server_plane``): ONE kernel call per round
-    per dtype group. ``fl.server_plane`` selects "fused" (the kernel on
-    CUDA tensors) or "ref" (the plain PyTorch version);
+    — the server update the round dispatches. ``fl.server_plane``
+    selects "fused" (ONE fused server-plane kernel call per round per
+    dtype group, ``repro_torch.kernels.server_plane``, on CUDA
+    tensors), "ref" (its plain PyTorch version) or "legacy" (the
+    ``aggregate`` chain);
   * ``compressed_server_update(t, prev_global, groups, sched, aux)`` —
     the same update over a comm plane's compressed payload, consumed
-    in-kernel; ``NotImplemented`` (the default) makes the round densify
-    the payload and call ``fused_server_update``.
+    in-kernel; ``NotImplemented`` (the default, and always under
+    "legacy") makes the round densify the payload and call
+    ``fused_server_update``;
+  * ``reduced_server_update(t, prev_global, client_params, sched, aux)``
+    — the update with the client axis pre-reduced by one weighted
+    contraction (``fl.client_reduce == "force"``);
+  * ``mix_coefficient(t, sched, aux)`` — the effective previous-model
+    mix coefficient, the telemetry's ``alpha_eff``.
 
 Implementations are functional and never read device values on the
 host: the round runs without a host sync.
@@ -27,8 +37,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.kernels.ref import _norm_weights
+from repro_torch.utils.reduce import reduce_leading
+from repro_torch.utils.tree import tree_map
 
-SERVER_PLANES = ("fused", "ref")
+SERVER_PLANES = ("fused", "ref", "legacy")
 
 
 class ServerStrategy:
@@ -39,6 +52,11 @@ class ServerStrategy:
     aliases: tuple[str, ...] = ()
 
     def __init__(self, fl: FLConfig):
+        if fl.server_plane == "interpret":
+            raise ValueError(
+                "server_plane='interpret' runs the JAX package's Pallas "
+                "kernels through the Pallas interpreter, which has no "
+                f"counterpart in the port; use one of {SERVER_PLANES}")
         if fl.server_plane not in SERVER_PLANES:
             raise ValueError(f"unknown server_plane {fl.server_plane!r}; "
                              f"the port has {SERVER_PLANES}")
@@ -50,13 +68,22 @@ class ServerStrategy:
         del params
         return {}
 
+    def aggregate(self, t, prev_global, client_params, sched, aux_state):
+        """One server update through the legacy per-leaf chain. ``t`` is
+        the round index (a 0-dim int32 device tensor); ``client_params``
+        has a leading client axis; ``sched`` is {"limited", "delayed",
+        "delays", "data_sizes"}, each (C,) on the device. Returns
+        (new_global, new_aux_state)."""
+        raise NotImplementedError
+
     def fused_server_update(self, t, prev_global, client_params, sched,
                             aux_state):
-        """One server update. ``t`` is the round index (a 0-dim int32
-        device tensor); ``client_params`` has a leading client axis;
-        ``sched`` is {"limited","delayed","delays","data_sizes"}, each
-        (C,) on the device. Returns (new_global, new_aux_state)."""
-        raise NotImplementedError
+        """The server update the round dispatches; same contract as
+        ``aggregate``. This fallback routes to ``aggregate``; the
+        built-in strategies override it with the fused kernels and route
+        to ``aggregate`` only under ``server_plane == "legacy"``."""
+        return self.aggregate(t, prev_global, client_params, sched,
+                              aux_state)
 
     def compressed_server_update(self, t, prev_global, groups, sched,
                                  aux_state):
@@ -70,9 +97,30 @@ class ServerStrategy:
         del t, prev_global, groups, sched, aux_state
         return NotImplemented
 
+    def reduced_server_update(self, t, prev_global, client_params, sched,
+                              aux_state):
+        """The server update with the stacked client axis pre-reduced:
+        every built-in rule consumes ``client_params`` only through
+        weighted sums over the client axis, so one contraction
+        (``utils.reduce.reduce_leading``) comes first and the server
+        math runs on (N,) sums. allclose to the fused plane, not bitwise
+        (another summation order). ``NotImplemented`` (this default)
+        keeps the fused plane."""
+        del t, prev_global, client_params, sched, aux_state
+        return NotImplemented
+
     @property
     def server_impl(self) -> str:
         return self.fl.server_plane
+
+    # ---------------------------------------------------- telemetry ----
+    def mix_coefficient(self, t, sched, aux_state):
+        """The effective previous-model mix coefficient alpha of this
+        round's update (the telemetry's ``alpha_eff``), a 0-dim f32 on
+        ``t``'s device; 0 for pure weighted-average rules."""
+        del sched, aux_state
+        return torch.zeros((), dtype=torch.float32,
+                           device=torch.as_tensor(t).device)
 
     # ---------------------------------------------------- client side ----
     def local_grad_transform(self, grads, params, global_params, fes_mask,
@@ -85,6 +133,19 @@ class ServerStrategy:
         """(C,) int32 active local steps per client."""
         return torch.full(limited.shape, n_steps, dtype=torch.int32,
                           device=limited.device)
+
+
+def reduced_mix_update(prev_global, client_params, sched, keep, alpha):
+    """The mix-family server plane (``kernels.ref.server_mix_math``) with
+    the client axis pre-reduced: out = a_eff * prev + sum_k (beta * w_k)
+    * x_k, the sum ONE ``reduce_leading`` contraction. Shared by ama,
+    fedavg and fedprox, which differ only in ``keep`` and alpha."""
+    beta = 1.0 - alpha
+    w, tot = _norm_weights(sched["data_sizes"], keep)
+    a_eff = torch.where(tot > 0, alpha, alpha + beta)
+    red = reduce_leading(client_params, beta * w)
+    return tree_map(lambda p, r: (p.float() * a_eff + r).to(p.dtype),
+                    prev_global, red)
 
 
 _REGISTRY: dict[str, type[ServerStrategy]] = {}

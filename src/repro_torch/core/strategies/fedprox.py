@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.strategies.base import ServerStrategy, register
+from repro_torch.core.ama import fedavg_aggregate
+from repro_torch.core.strategies.base import (ServerStrategy,
+                                              reduced_mix_update, register)
 from repro_torch.kernels.server_plane import (mix_coefs,
                                               server_mix_compressed_tree,
                                               server_mix_tree)
@@ -33,8 +35,17 @@ class FedProxStrategy(ServerStrategy):
         n_partial = max(1, int(self.fl.fedprox_partial * n_steps))
         return torch.where(limited, n_partial, n_steps).to(torch.int32)
 
+    def aggregate(self, t, prev_global, client_params, sched, aux_state):
+        del t
+        return fedavg_aggregate(prev_global, client_params,
+                                sched["data_sizes"], ~sched["delayed"],
+                                use_kernel=self.fl.use_kernel), aux_state
+
     def fused_server_update(self, t, prev_global, client_params, sched,
                             aux_state):
+        if self.server_impl == "legacy":
+            return self.aggregate(t, prev_global, client_params, sched,
+                                  aux_state)
         keep = (~sched["delayed"]).float()
         new_global = server_mix_tree(
             prev_global, client_params, sched["data_sizes"], keep,
@@ -44,8 +55,17 @@ class FedProxStrategy(ServerStrategy):
     def compressed_server_update(self, t, prev_global, groups, sched,
                                  aux_state):
         """On-time weighted average (alpha = 0) over compressed deltas."""
+        if self.server_impl == "legacy":
+            return NotImplemented
         keep = (~sched["delayed"]).float()
         new_global = server_mix_compressed_tree(
             prev_global, groups, sched["data_sizes"], keep,
             mix_coefs(self.fl, t, adaptive=False), impl=self.server_impl)
         return new_global, aux_state
+
+    def reduced_server_update(self, t, prev_global, client_params, sched,
+                              aux_state):
+        keep = (~sched["delayed"]).float()
+        alpha = torch.zeros((), dtype=torch.float32, device=keep.device)
+        return reduced_mix_update(prev_global, client_params, sched, keep,
+                                  alpha), aux_state

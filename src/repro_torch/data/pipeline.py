@@ -1,4 +1,5 @@
-"""Client data pipeline: per-round sampling + the vectorized chunk stager.
+"""Client data pipeline: per-round sampling, the vectorized chunk stager
+and the chunk prefetcher.
 
 The port's copy of the host half of ``repro.data.pipeline`` (numpy). The
 engine consumes data in CHUNKS of rounds: one fancy-gather produces the
@@ -9,8 +10,14 @@ THE STAGING CONTRACT (mirrors the ``Environment`` schedule contract):
 round t's batch indices are a pure function of (seed, t, selected[t]) —
 ``stage_chunk(t0, n)`` row i is bit-identical to staging round t0+i on
 its own, and to the JAX package's staging of the same round.
+
+``ChunkPrefetcher`` stages chunk k+1 on a host thread while chunk k runs
+on the card.
 """
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 
@@ -77,3 +84,70 @@ def stage_chunk(data: dict, clients, selected: np.ndarray, seed: int,
                                         steps, batch_size)
                     for i in range(selected.shape[0])])
     return {k: v[idx] for k, v in data.items()}
+
+
+class ChunkPrefetcher:
+    """Stage chunk k+1 on a host thread while chunk k runs on the card.
+
+    ``fn(item)`` is called on ONE worker thread in item order (so a
+    stateful environment stages as it would inline); at most ``depth``
+    staged chunks wait ahead of the consumer. An exception in ``fn`` is
+    raised on the consumer's side, at the chunk it failed on.
+    """
+
+    def __init__(self, fn, items, depth: int = 1):
+        self._q = queue.Queue(maxsize=max(depth, 1))
+        self._n = len(items)
+        self._stop = threading.Event()
+
+        def put(item) -> bool:
+            while not self._stop.is_set():      # a closed consumer
+                try:                            # releases the worker
+                    self._q.put(item, timeout=0.1)
+                    return True
+                # fedlint: disable=FED106 — bounded 0.1s poll; _stop is the exit
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            for it in items:
+                if self._stop.is_set():
+                    return
+                try:
+                    staged = (fn(it), None)
+                except Exception as e:          # surface on the consumer side
+                    put((None, e))
+                    return
+                if not put(staged):
+                    return
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                return
+
+    def close(self) -> None:
+        """Stop staging and drop the buffered chunks (an abandoned
+        iteration)."""
+        self._stop.set()
+        self._drain()
+        # an in-flight put can land after the first drain; once the
+        # worker sees the stop flag and exits, drain what it left
+        self._thread.join(timeout=1.0)
+        self._drain()
+
+    def __iter__(self):
+        try:
+            for _ in range(self._n):
+                out, err = self._q.get()
+                if err is not None:
+                    raise err
+                yield out
+        finally:
+            self.close()

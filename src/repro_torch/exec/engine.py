@@ -7,9 +7,13 @@
     ``use_scan=False`` replays the identical rounds one at a time (the
     ``--no-scan`` configuration), bit-identical to the chunked run.
   * ``SimulationEngine`` adds the data plane (``data.pipeline
-    .stage_chunk``: one gather per chunk of rounds), evaluation at an
-    ``eval_every`` cadence (``exec.evals.Evaluator``) and the
-    ``History`` stability metrics.
+    .stage_chunk``: one gather per chunk of rounds, the next chunk staged
+    on a host thread by ``ChunkPrefetcher`` while the card runs the
+    current one), evaluation at an ``eval_every`` cadence
+    (``exec.evals.Evaluator``), checkpoints of the full round state
+    ``{params, t, aux}`` (``save``/``resume``, bitwise continuation),
+    the telemetry hooks (``obs.timing.PhaseTimes`` phases, an optional
+    ``obs.log.MetricsLogger``) and the ``History`` stability metrics.
 
 The server rule is a ``ServerStrategy`` and the world an
 ``Environment``; the engine owns only data movement, chunking and
@@ -23,12 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch import env as env_mod
+from repro_torch.checkpoint.io import restore_state, save_state
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
 from repro_torch.core.round import as_scan_scheds, init_state, make_train_loop
-from repro_torch.data.pipeline import stage_chunk
+from repro_torch.data.pipeline import ChunkPrefetcher, stage_chunk
 from repro_torch.exec.evals import Evaluator
-from repro_torch.obs.metrics import stability_stats
+from repro_torch.obs.metrics import payload_bytes, stability_stats
+from repro_torch.obs.timing import PhaseTimes, annotate
 from repro_torch.utils.device import resolve_device
 
 
@@ -56,15 +62,32 @@ class History:
 
 class ChunkRunner:
     """N rounds per call on the device: chunked, or one round at a time
-    (``use_scan=False``) through the same loop."""
+    (``use_scan=False``) through the same loop.
+
+    Each dispatch books its wall time, closed by a CUDA sync, in
+    ``timer``: the first dispatch of a chunk length under "compile" (in
+    the port: the kernel library's build and load, cuDNN's set-up and
+    the first execution), later ones under "scan_dispatch" (a chunk) or
+    "round_dispatch" (one round)."""
 
     def __init__(self, model, fl: FLConfig, strategy=None, *,
-                 use_scan: bool = True, device=None):
+                 use_scan: bool = True, device=None, timer=None):
         self.fl = fl
         self.device = resolve_device(device)
         self.use_scan = use_scan
         self._loop = make_train_loop(model, fl,
                                      strategy or strategies.resolve(fl))
+        self.timer = timer if timer is not None else PhaseTimes()
+        self._seen: set = set()
+
+    def _dispatch(self, state, batch, scheds, n: int):
+        phase = ("compile" if n not in self._seen
+                 else ("scan_dispatch" if n > 1 else "round_dispatch"))
+        self._seen.add(n)
+        with self.timer.phase(phase) as span, annotate(f"train_chunk_n{n}"):
+            out = self._loop(state, batch, scheds)
+            span.sync(out)
+        return out
 
     def run_chunk(self, state, batch: dict, sched_batch: dict, *,
                   scan_ok: bool = True):
@@ -75,14 +98,15 @@ class ChunkRunner:
         scheds = as_scan_scheds(sched_batch, self.device)
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
+        n = scheds["limited"].shape[0]
         if self.use_scan and scan_ok:
-            state, metrics = self._loop(state, batch, scheds)
+            state, metrics = self._dispatch(state, batch, scheds, n)
         else:
             rows = []
-            for r in range(scheds["limited"].shape[0]):
-                state, m = self._loop(
+            for r in range(n):
+                state, m = self._dispatch(
                     state, {k: v[r:r + 1] for k, v in batch.items()},
-                    {k: v[r:r + 1] for k, v in scheds.items()})
+                    {k: v[r:r + 1] for k, v in scheds.items()}, 1)
                 rows.append(m)
             metrics = {k: torch.cat([m[k] for m in rows]) for k in rows[0]}
         return state, {k: v.cpu().numpy() for k, v in metrics.items()}
@@ -91,10 +115,14 @@ class ChunkRunner:
 class SimulationEngine:
     """Paper-scale federated simulation on the chunked engine: schedules
     from ``Environment.batch``, client batches staged in one gather per
-    chunk, evaluation through the batched ``Evaluator``."""
+    chunk (the next chunk on a host thread while the card runs the
+    current one, ``fl.prefetch_depth`` chunks ahead; 0 stages inline),
+    evaluation through the batched ``Evaluator``. ``logger`` (an
+    ``obs.log.MetricsLogger``) receives the header, the per-round rows,
+    the eval points and the phase summary."""
 
     def __init__(self, model, fl: FLConfig, clients, test_data,
-                 use_scan: bool = True, device=None):
+                 use_scan: bool = True, device=None, logger=None):
         self.model = model
         self.fl = fl
         self.device = resolve_device(device)
@@ -103,8 +131,13 @@ class SimulationEngine:
         self.env = env_mod.resolve(
             fl, data_sizes=np.array([len(c) for c in clients], np.float32))
         self.strategy = strategies.resolve(fl)
+        # one PhaseTimes spans the runner, the data plane, evaluation and
+        # checkpoints
+        self.timer = PhaseTimes()
+        self.logger = logger
         self.runner = ChunkRunner(model, fl, self.strategy,
-                                  use_scan=use_scan, device=self.device)
+                                  use_scan=use_scan, device=self.device,
+                                  timer=self.timer)
         self._evaluator = Evaluator(model, test_data, device=self.device)
         self.data = clients[0].data
         if any(c.data is not self.data for c in clients):
@@ -128,46 +161,88 @@ class SimulationEngine:
     def aux(self):
         return self.state["aux"]
 
+    def save(self, path: str) -> None:
+        """Checkpoint the whole round state (params, round index, aux:
+        ring buffer, fedopt moments, comm residuals)."""
+        with self.timer.phase("checkpoint"):
+            save_state(path, self.state)
+
+    def resume(self, path: str) -> None:
+        """Restore {params, t, aux} onto this engine's device. Staging,
+        schedules and the comm noise are pure in t, so the next chunk
+        continues bitwise where the checkpointed run left off."""
+        self.state = restore_state(path, self.state)
+
     def _steps_per_round(self) -> int:
         n_min = min(len(c) for c in self.clients)
         per_epoch = max(1, n_min // self.fl.local_batch_size)
         return self.fl.local_epochs * per_epoch
 
     def _stage(self, t0: int, n: int):
-        sb = self.env.batch(t0, n)
-        batch = stage_chunk(self.data, self.clients, sb["selected"],
-                            self.fl.seed, t0, self._steps_per_round(),
-                            self.fl.local_batch_size)
+        # on the prefetcher's worker thread when prefetching: its
+        # "stage" seconds overlap the device phases by design
+        with self.timer.phase("stage"), annotate(f"stage_t{t0}"):
+            sb = self.env.batch(t0, n)
+            batch = stage_chunk(self.data, self.clients, sb["selected"],
+                                self.fl.seed, t0, self._steps_per_round(),
+                                self.fl.local_batch_size)
         return sb, batch
 
+    def run_round(self) -> float:
+        """One round through the engine (a chunk of 1, the per-round
+        path); returns its mean client loss."""
+        sb, batch = self._stage(self.t, 1)
+        self.state, metrics = self.runner.run_chunk(self.state, batch, sb,
+                                                    scan_ok=False)
+        return float(metrics["loss"][0])
+
     def evaluate(self) -> tuple[float, float]:
-        return self._evaluator(self.state["params"])
+        with self.timer.phase("eval"), annotate("eval"):
+            return self._evaluator(self.state["params"])
 
     def run(self, rounds: int | None = None, eval_every: int = 1,
             verbose: bool = False) -> History:
         hist = History()
         rounds = rounds or self.fl.rounds
         t0, end = self.t, self.t + rounds
+        if self.logger is not None:
+            self.logger.header(self.fl, payload=payload_bytes(self.params),
+                               resumed_at=t0 if t0 else None,
+                               extra={"device": str(self.device)})
         # chunk boundaries sit on ABSOLUTE multiples of eval_every, so a
-        # run evaluates at the same global rounds however it started
+        # resumed run evaluates at the same global rounds as the
+        # uninterrupted run it continues
         chunks, t = [], t0
         while t < end:
             n = min((t // eval_every + 1) * eval_every, end) - t
             chunks.append((t, n))
             t += n
-        for t, n in chunks:
-            sb, batch = self._stage(t, n)
-            self.state, metrics = self.runner.run_chunk(
-                self.state, batch, sb, scan_ok=(n == eval_every))
-            hist.train_loss.extend(float(x) for x in metrics["loss"])
-            if (t + n) % eval_every == 0:    # partial chunks: no eval
-                acc, loss = self.evaluate()
-                hist.test_acc.append(acc)
-                hist.test_loss.append(loss)
-                hist.eval_rounds.append(t + n)
-                done = t + n - t0
-                if verbose and done % 10 == 0:
-                    print(f"  round {done:4d} "
-                          f"train_loss={hist.train_loss[-1]:.4f} "
-                          f"test_acc={acc:.4f}")
+        depth = self.fl.prefetch_depth
+        staged = (ChunkPrefetcher(lambda c: self._stage(*c), chunks,
+                                  depth=depth) if depth > 0
+                  else (self._stage(*c) for c in chunks))
+        try:
+            for (t, n), (sb, batch) in zip(chunks, staged):
+                self.state, metrics = self.runner.run_chunk(
+                    self.state, batch, sb, scan_ok=(n == eval_every))
+                hist.train_loss.extend(float(x) for x in metrics["loss"])
+                if self.logger is not None:
+                    self.logger.rounds(t, metrics)
+                if (t + n) % eval_every == 0:    # partial chunks: no eval
+                    acc, loss = self.evaluate()
+                    hist.test_acc.append(acc)
+                    hist.test_loss.append(loss)
+                    hist.eval_rounds.append(t + n)
+                    if self.logger is not None:
+                        self.logger.eval(t + n, acc, loss)
+                    done = t + n - t0
+                    if verbose and done % 10 == 0:
+                        print(f"  round {done:4d} "
+                              f"train_loss={hist.train_loss[-1]:.4f} "
+                              f"test_acc={acc:.4f}")
+        finally:
+            if isinstance(staged, ChunkPrefetcher):
+                staged.close()           # abandoned mid-run: release the
+            if self.logger is not None:  # worker and the buffered chunks
+                self.logger.phases(self.timer)
         return hist

@@ -48,6 +48,10 @@ SIGNATURES = {
     "server_mix_scatter": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_longlong, _P),
+    # prev dtype, stacked dtype, prev, stacked, alpha, weights, out, K, N,
+    # stream
+    "ama_mix": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+                ctypes.c_int, ctypes.c_longlong, _P),
 }
 
 

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the server-plane kernels.
+"""Plain PyTorch versions of the server-plane kernels and of ``ama_mix``.
 
 The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
 server_mix_math, server_mix_delta_math, server_mix_scatter_math,
-server_async_math, server_adam_math``, in the same op order: the
+server_async_math, server_adam_math`` (and, for ``ama_mix_math``, of the
+Pallas body of ``kernels/ama_mix.py``), in the same op order: the
 previous model scaled first, then one multiply-add per client row in
 client order (and, for the async plane, one chain per ring slot, then
 the pop sum from slot 0 upward). Every multiply and add rounds on its
@@ -12,8 +13,9 @@ plain version agree to within the few ulp that library ``exp`` may
 differ by. Where JAX sums the weights with ``jnp.sum``, these sum them
 one add at a time from client 0 (``_seq_sum``), as the kernels do.
 
-The wrappers in ``server_plane.py`` run these for CPU tensors; on the
-card they run only when ``fl.server_plane == "ref"``.
+The wrappers in ``server_plane.py`` and ``ama_mix.py`` run these for CPU
+tensors; on the card the server-plane ones run only when
+``fl.server_plane == "ref"``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,20 @@ def _seq_sum(v):
     for k in range(1, v.shape[0]):
         acc = acc + v[k]
     return acc
+
+
+def ama_mix_math(prev, stacked, alpha, weights):
+    """alpha * prev + sum_k weights[k] * stacked[k], accumulated in f32
+    one client row at a time (the Pallas body's order, not the JAX
+    oracle's einsum), output in prev's dtype.
+
+    prev: (n,) f32/bf16; stacked: (K, n) f32/bf16; alpha: (1,) f32;
+    weights: (K,) f32.
+    """
+    acc = prev.float() * alpha[0]
+    for k in range(stacked.shape[0]):
+        acc = acc + stacked[k].float() * weights[k]
+    return acc.to(prev.dtype)
 
 
 def _norm_weights(sizes, keep):

@@ -44,11 +44,13 @@ tree-level functions' runs of the plain version on CUDA tensors.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._launch import (MAX_K, _DTYPE_CODE, _check,
+                                         _check_k, _kernel_device, _ptr,
+                                         _raise_on, _stream)
+from repro_torch.kernels.ama_mix import ama_mix_flat
 from repro_torch.utils import tree
 
 __all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
@@ -58,17 +60,18 @@ __all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
            "reset_counts", "plain_runs_on_cuda", "KERNELS", "MAX_K",
            "MAX_Q"]
 
-#: limits of the CUDA kernels (their shared-memory prologue tables)
-MAX_K = 256
+#: limit of the async kernel's ring (its shared-memory prologue table)
 MAX_Q = 32
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: delta row dtypes of server_mix_delta
 _ROWS_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-#: runs of the plain version on CUDA tensors through the tree-level functions
+#: runs of the plain version on CUDA tensors through the tree-level
+#: functions; "ama_mix" counts the legacy chain's plain mix on CUDA
+#: leaves (``core/ama.py``: the chain without ``use_kernel``)
 plain_runs_on_cuda = {"server_mix": 0, "server_async": 0, "server_adam": 0,
-                      "server_mix_delta": 0, "server_mix_scatter": 0}
+                      "server_mix_delta": 0, "server_mix_scatter": 0,
+                      "ama_mix": 0}
 
 
 def reset_counts() -> None:
@@ -77,47 +80,6 @@ def reset_counts() -> None:
         fn.launches = 0
     for k in plain_runs_on_cuda:
         plain_runs_on_cuda[k] = 0
-
-
-def _ptr(x) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _check(name, x, shape, dtypes, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected one of "
-                        f"{dtypes}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _kernel_device(prev):
-    """True when the kernel runs (CUDA), False for the plain version
-    (CPU); anything else is refused."""
-    if prev.device.type == "cuda":
-        return True
-    if prev.device.type == "cpu":
-        return False
-    raise ValueError(f"server plane: unsupported device {prev.device}")
-
-
-def _check_k(what: str, K: int) -> None:
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{what} kernel takes 1 <= K <= {MAX_K}, got K={K}")
-
-
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
 def device_vector(values, device):
@@ -294,7 +256,8 @@ def server_mix_scatter_flat(prev, vals, idx, sizes, keep, coefs):
 KERNELS = {"server_mix": server_mix_flat, "server_async": server_async_flat,
            "server_adam": server_adam_flat,
            "server_mix_delta": server_mix_delta_flat,
-           "server_mix_scatter": server_mix_scatter_flat}
+           "server_mix_scatter": server_mix_scatter_flat,
+           "ama_mix": ama_mix_flat}
 for _fn in KERNELS.values():
     _fn.launches = 0
 

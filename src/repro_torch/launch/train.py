@@ -11,6 +11,19 @@ the client uplink (bf16, q8, top-k with error feedback) and the server
 consumes the compressed payload in-kernel; ``--env bandwidth`` prices the
 (compressed) upload against a round deadline.
 
+``--server-plane legacy`` runs the pre-fusion per-leaf server chain
+instead (``core/ama.py``); with ``--use-kernel`` its mix is the
+hand-written ``ama_mix`` kernel, one launch per leaf per round.
+``--checkpoint`` saves and ``--resume`` restores the full round state
+{params, t, aux}, in the JAX package's npz layout, so continuation is
+bitwise. ``--prefetch-depth`` sets how many chunks a host thread stages
+ahead of the card (0: inline). ``--metrics-out run.jsonl`` turns on the
+telemetry plane (per-round staleness, participation, mix, norm and wire
+series as schema-3 JSONL, summarized by ``python -m
+repro_torch.obs.report run.jsonl``); ``--profile DIR`` writes a
+``torch.profiler`` trace of the run into DIR. ``--client-reduce force``
+pre-reduces the client axis before the server update.
+
 Examples:
   python -m repro_torch.launch.train --rounds 60 --p-limited 0.5 --eval-every 5
   python -m repro_torch.launch.train --algorithm fedavg --rounds 60
@@ -18,6 +31,10 @@ Examples:
   python -m repro_torch.launch.train --comm-plane q8 --rounds 60
   python -m repro_torch.launch.train --p-delay 0.3 --max-delay 10 --rounds 30
   python -m repro_torch.launch.train --env bandwidth --max-delay 5 --comm-plane q8
+  python -m repro_torch.launch.train --server-plane legacy --use-kernel
+  python -m repro_torch.launch.train --rounds 10 --checkpoint ck.npz
+  python -m repro_torch.launch.train --rounds 10 --resume ck.npz
+  python -m repro_torch.launch.train --metrics-out run.jsonl --rounds 20
   python -m repro_torch.launch.train --device cpu --rounds 2
 """
 from __future__ import annotations
@@ -34,7 +51,17 @@ from repro_torch.data.partition import shard_partition
 from repro_torch.data.pipeline import build_clients
 from repro_torch.data.synth import make_image_classification
 from repro_torch.models.api import build_model
+from repro_torch.obs.log import MetricsLogger
+from repro_torch.obs.timing import profile_trace
 from repro_torch.utils.device import resolve_device
+
+
+def _print_phases(timer) -> None:
+    summary = timer.summary()
+    if summary:
+        print("phases: " + "  ".join(
+            f"{k}={v['seconds']:.2f}s/{v['calls']}"
+            for k, v in summary.items()))
 
 
 def paper_scale(args, fl: FLConfig, device):
@@ -44,17 +71,37 @@ def paper_scale(args, fl: FLConfig, device):
         n_train=args.n_train, n_test=400, seed=fl.seed)
     clients = build_clients(
         train, shard_partition(train["label"], fl.num_clients, seed=fl.seed))
+    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
     sim = FederatedSimulation(model, fl, clients, test,
-                              use_scan=not args.no_scan, device=device)
+                              use_scan=not args.no_scan, device=device,
+                              logger=logger)
     n_clf, n_all = count_trainable(sim.params, model.fes_mask(sim.params))
     print(f"{args.arch} on {device}: {n_all} params ({n_clf} in the FES "
           f"classifier); {fl.algorithm} -> "
-          f"{type(sim.strategy).__name__}, server plane {fl.server_plane}, "
+          f"{type(sim.strategy).__name__}, server plane {fl.server_plane}"
+          f"{' (ama_mix kernel)' if fl.use_kernel else ''}, "
           f"comm plane {fl.comm_plane}, env {fl.env}")
-    hist = sim.run(rounds=args.rounds, eval_every=args.eval_every,
-                   verbose=True)
+    if args.resume:
+        sim.resume(args.resume)
+        print(f"resumed {args.resume} at round {sim.t}")
+    try:
+        with profile_trace(args.profile):
+            hist = sim.run(rounds=args.rounds, eval_every=args.eval_every,
+                           verbose=True)
+    finally:
+        if logger is not None:
+            logger.close()
     print(f"final: acc={hist.final_accuracy():.4f} "
           f"stability_var={hist.stability_variance():.3f}")
+    _print_phases(sim.timer)
+    if args.checkpoint:
+        sim.save(args.checkpoint)
+        print(f"saved {args.checkpoint} (full round state, t={sim.t})")
+    if args.profile:
+        print(f"profile -> {args.profile}/trace.json")
+    if logger is not None:
+        print(f"metrics -> {args.metrics_out} "
+              f"(python -m repro_torch.obs.report {args.metrics_out})")
     return sim, hist
 
 
@@ -78,9 +125,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=1,
                     help="eval cadence == chunk length")
     ap.add_argument("--server-plane", default="fused",
-                    choices=("fused", "ref"),
-                    help="server update: the CUDA kernel (default) or the "
-                         "plain PyTorch version")
+                    choices=("fused", "ref", "interpret", "legacy"),
+                    help="server update: one fused CUDA kernel per round "
+                         "(default), its plain PyTorch version, or the "
+                         "pre-fusion per-leaf chain ('legacy'); "
+                         "'interpret' is the JAX package's Pallas "
+                         "interpreter and is refused")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="run the legacy chain's mix on the ama_mix CUDA "
+                         "kernel (one launch per leaf); only meaningful "
+                         "with --server-plane legacy")
+    ap.add_argument("--client-reduce", default="auto",
+                    choices=("auto", "off", "force"),
+                    help="pre-reduce the stacked client axis before the "
+                         "server update ('auto' is off on one GPU)")
     ap.add_argument("--comm-plane", default="none",
                     choices=("none", "bf16", "q8", "topk"),
                     help="compressed client->server uplink: dense f32 "
@@ -93,6 +151,23 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-scan", action="store_true",
                     help="run the rounds one at a time instead of in "
                          "chunks (bit-identical)")
+    ap.add_argument("--prefetch-depth", type=int, default=1,
+                    help="staged chunks a host thread keeps ahead of the "
+                         "card (host memory ~ depth x chunk bytes; 0 "
+                         "stages inline)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write schema-versioned telemetry JSONL here "
+                         "(turns on the extended per-round metrics; "
+                         "summarize with python -m repro_torch.obs.report)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="run under torch.profiler and write the Chrome "
+                         "trace to DIR/trace.json")
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the full round state {params, t, aux} here "
+                         "after the run")
+    ap.add_argument("--resume", default=None,
+                    help="restore a full round state before the run and "
+                         "continue (bitwise as an uninterrupted run)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
 
@@ -112,8 +187,16 @@ def main(argv=None):
                   p_limited=args.p_limited,
                   p_delay=args.p_delay, max_delay=args.max_delay,
                   server_plane=args.server_plane,
+                  use_kernel=args.use_kernel,
+                  client_reduce=args.client_reduce,
+                  prefetch_depth=args.prefetch_depth,
+                  extended_metrics=bool(args.metrics_out),
                   comm_plane=args.comm_plane,
                   comm_topk_frac=args.comm_topk_frac, seed=args.seed)
+    try:
+        strategies.resolve(fl)
+    except ValueError as e:
+        ap.error(str(e))
     return paper_scale(args, fl, device)
 
 

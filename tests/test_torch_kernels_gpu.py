@@ -118,3 +118,42 @@ def test_fedopt_and_compressed_kernels_equal_plain_on_card(dt):
         assert (tsp.server_adam_flat.launches,
                 tsp.server_mix_delta_flat.launches,
                 tsp.server_mix_scatter_flat.launches) == (2, 2, 1)
+
+
+def _ama_mix_cases(dev, g):
+    """The phase-3 cases of chip_smoke.py at test size: K = 1 f32 and bf16
+    at the paper CNN's leaf sizes and at its whole size, K = 2 over the
+    async operand (f32 rows under f32 and bf16 prev), K = 1 with
+    alpha = 1 (fedopt), a ragged N."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for N in (250, 5000, 38400, 120, 10080, 84, 840, 10, 54_784):
+        for dt in (f32, bf16):
+            yield 1, N, dt, dt, 0.37
+    for dt in (f32, bf16):
+        yield 2, 38400, dt, f32, 0.21
+    yield 1, 38400, f32, f32, 1.0
+    yield 3, 1000 + 3, f32, f32, 0.5
+
+
+@pytest.mark.gpu
+def test_ama_mix_kernel_equals_plain_on_card():
+    """The ama_mix kernel against ama_mix_math on the card, bit for bit
+    (every multiply and add rounded on its own in the same order), one
+    launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels.ama_mix import ama_mix_flat
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    tsp.reset_counts()
+    n = 0
+    for K, N, pdt, sdt, a in _ama_mix_cases(dev, g):
+        prev = torch.randn(N, device=dev, generator=g).to(pdt)
+        stacked = torch.randn(K, N, device=dev, generator=g).to(sdt)
+        alpha = torch.full((1,), a, device=dev)
+        w = torch.rand(K, device=dev, generator=g)
+        got = ama_mix_flat(prev, stacked, alpha, w)
+        want = tref.ama_mix_math(prev, stacked, alpha, w)
+        n += 1
+        assert got.dtype == pdt and torch.equal(got, want), (K, N, pdt, sdt)
+    assert ama_mix_flat.launches == n

@@ -2,6 +2,7 @@
 silently leave the GPU, chip_smoke.py's refusal to run without one, and
 the port's independence from JAX and from the JAX package."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -38,6 +39,31 @@ def test_launcher_runs_this_slice_on_cpu(argv, strategy):
               "--rounds", "2", "--n-train", "400", *argv])
     assert p.returncode == 0, p.stderr
     assert "final: acc=" in p.stdout and strategy in p.stdout
+
+
+def test_launcher_runs_the_legacy_plane_with_checkpoint_and_telemetry(
+        tmp_path):
+    """Slice 3's flags on the CPU: the legacy chain on the ama_mix
+    kernel's entry point, --metrics-out, --checkpoint, then --resume,
+    and the report CLI over the JSONL."""
+    ck, run = str(tmp_path / "ck.npz"), str(tmp_path / "run.jsonl")
+    base = ["-m", "repro_torch.launch.train", "--device", "cpu",
+            "--n-train", "400", "--rounds", "2", "--algorithm", "async_ama",
+            "--p-delay", "0.3", "--max-delay", "2", "--server-plane",
+            "legacy", "--use-kernel", "--prefetch-depth", "2"]
+    p = _run([*base, "--metrics-out", run, "--checkpoint", ck])
+    assert p.returncode == 0, p.stderr
+    assert "server plane legacy (ama_mix kernel)" in p.stdout
+    assert "phases: stage=" in p.stdout and "saved " + ck in p.stdout
+    p = _run([*base, "--resume", ck, "--client-reduce", "force"])
+    assert p.returncode == 0, p.stderr
+    assert f"resumed {ck} at round 2" in p.stdout
+    p = _run(["-m", "repro_torch.obs.report", run])
+    assert p.returncode == 0, p.stderr
+    assert "run: algorithm=async_ama" in p.stdout
+    p = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+              "--server-plane", "interpret"])
+    assert p.returncode == 2 and "Pallas interpreter" in p.stderr
 
 
 def test_launcher_and_smoke_refuse_to_run_without_a_gpu(tmp_path):
@@ -77,3 +103,16 @@ print("BAD", bad)
                        timeout=300)
     assert p.returncode == 0, p.stderr
     assert "BAD []" in p.stdout, p.stdout
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    """The same independence read off the sources: no import statement
+    of src/repro_torch or chip_smoke.py names jax, jaxlib or repro."""
+    bad_import = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", re.M)
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 40
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
+            for m in bad_import.finditer(f.read_text())]
+    assert hits == []

@@ -158,12 +158,18 @@ def test_chunked_equals_per_round_bitwise(world, algo, md):
 
 
 def test_unported_options_are_refused():
+    """Options of later slices raise NotImplementedError; values that
+    are not options at all, and the JAX-only Pallas interpreter plane,
+    raise ValueError (client_reduce="force", use_kernel and
+    extended_metrics are ported: tests/test_torch_legacy.py)."""
     model = tbuild(TARCHS["paper-cnn"])
-    with pytest.raises(NotImplementedError):
-        make_round_step(model, TFL(client_reduce="force"))
+    with pytest.raises(ValueError, match="client_reduce"):
+        make_round_step(model, TFL(client_reduce="bogus"))
     with pytest.raises(NotImplementedError):
         make_round_step(model, TFL(client_plane="partitioned"))
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError):
+        make_round_step(model, TFL(fes_static=True))
+    with pytest.raises(ValueError, match="interpret"):
         tstrategies.resolve(TFL(server_plane="interpret"))
     with pytest.raises(KeyError):
         tstrategies.resolve(TFL(algorithm="scaffold"))

@@ -288,7 +288,7 @@ def test_kernel_entries_keep_their_plain_versions_signatures():
     tsp.reset_counts()
     assert {k: f.launches for k, f in tsp.KERNELS.items()} == dict.fromkeys(
         ["server_mix", "server_async", "server_adam", "server_mix_delta",
-         "server_mix_scatter"], 0)
+         "server_mix_scatter", "ama_mix"], 0)
     assert set(tsp.plain_runs_on_cuda) == set(tsp.KERNELS)
 
 
