@@ -9,10 +9,14 @@ Phases (any error or out-of-tolerance result exits non-zero):
      (one nvcc per source, started together);
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
-     ragged tails, top-k positions colliding across clients), with
+     ragged tails, top-k positions colliding across clients; server_mix
+     at the LLM path's N = 2,583,711,744 bf16, K = 2; the flash-attention
+     forward and both backward passes at the LLM path's (B 2, S 2048, H
+     32, hd 128) bf16 causal and at hd 64 / 96, f32, a window, non-causal,
+     one tile and B*H = 1, under FlashAttention's error rule), with
      device times (CUDA-graph replay) beside the least time the card
      could take (its bound), the plain version's and a library call's;
-  4. the main path: ``repro_torch.launch.train`` in this process at the
+  4. the main paths: ``repro_torch.launch.train`` in this process at the
      paper CNN's full width: ama_fes, fedavg, async_ama (slice 1);
      fedprox, fedopt; the comm planes q8, bf16 and topk; fedopt and
      async_ama over a densified q8 payload; fedavg in the bandwidth
@@ -20,17 +24,24 @@ Phases (any error or out-of-tolerance result exits non-zero):
      legacy chain on the ama_mix kernel (``--server-plane legacy
      --use-kernel``: ama_fes, fedavg, fedprox, fedopt, async_ama; slice
      3). Each run asserts the exact launches of every kernel (ama_mix:
-     rounds x 8 leaves) and that no plain version ran on the card;
+     rounds x 8 leaves) and that no plain version ran on the card. The
+     LLM path: ``--pod`` federated training of minitron-8b at full width (2 of
+     its 32 layers, 2,583,711,744 bf16 parameters; 2 cohorts x 2 local
+     steps x 1 x 2048 tokens, 3 rounds), ama_fes and fedavg, with the
+     exact flash-attention and server_mix launches, rounds/s, tokens/s
+     and the peak device memory;
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
-     fedopt, 10 rounds each);
+     fedopt, 10 rounds each); the reduced LLM path in f32 on the card
+     (kernels) against the CPU (plain versions);
   6. the port's contract: chunked == per-round, bitwise (async_ama,
-     fedopt, ama_fes + q8); chunked == per-round == save -> restore ->
-     continue over 20 rounds (ama_fes, async_ama, fedopt); prefetch
-     depths 0, 1, 2 bitwise equal; --metrics-out on == off bitwise, and
-     its JSONL valid;
-  7. a torch.profiler breakdown of 10 ama_fes rounds.
+     fedopt, ama_fes + q8, and the reduced LLM path); chunked ==
+     per-round == save -> restore -> continue over 20 rounds (ama_fes,
+     async_ama, fedopt); prefetch depths 0, 1, 2 bitwise equal;
+     --metrics-out on == off bitwise, and its JSONL valid;
+  7. torch.profiler breakdowns of 10 ama_fes rounds and of 2 full-width
+     LLM rounds (through the launcher's --profile).
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -38,6 +49,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,6 +62,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 MAIN_N = 54_784                  # the paper CNN's parameter count
 MAIN_K = 5                       # quickstart: 5 clients per round
 MAIN_Q = 11                      # async at max_delay 10
@@ -113,8 +126,9 @@ def call_ms(torch, fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -525,6 +539,215 @@ def ama_mix_round_row(recs):
                 flops=sum(r["flops"] for r in rows))
 
 
+LLM_N = 2_583_711_744            # minitron-8b, 2 layers, full width
+LLM_K = 2                        # the pod path's cohorts
+
+
+def check_server_mix_llm(torch, sp, ref, record):
+    """server_mix at the LLM path's size: N = 2,583,711,744 bf16 (past
+    2**31, so every index is 64-bit), K = 2, bitwise against the plain
+    version; the plain version's time is an eager call (its ~40 GB of f32
+    temporaries do not fit a graph of several calls)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    K, N = LLM_K, LLM_N
+    prev = torch.randn(N, device=dev, generator=g, dtype=torch.bfloat16)
+    stacked = torch.randn(K, N, device=dev, generator=g, dtype=torch.bfloat16)
+    sizes = torch.ones(K, device=dev)
+    keep = torch.tensor([1.0, 0.0], device=dev)
+    coefs = torch.tensor([0.1, 2.5e-3, 0.95, 7.0], device=dev)
+    args = (prev, stacked, sizes, keep, coefs)
+    got = sp.server_mix_flat(*args)
+    want = ref.server_mix_math(*args)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    check(exact, "server_mix at N = 2,583,711,744 bf16: not bitwise equal "
+          "to the plain version")
+    del got, want
+    ms = device_ms(torch, lambda: sp.server_mix_flat(*args), reps=2,
+                   replays=5)
+    eager = call_ms(torch, lambda: sp.server_mix_flat(*args), iters=3)
+    plain = call_ms(torch, lambda: ref.server_mix_math(*args), iters=2)
+    nbytes = (K + 2) * N * 2 + 2 * K * 4 + 16
+    _report(f"K={K} N={N:,} bfloat16 LLM      ", ms, eager, plain, None,
+            nbytes, (2 * K + 1) * N, 0.0, exact, record, K=K, N=N,
+            dtype="torch.bfloat16", case="LLM")
+    del prev, stacked, args
+    torch.cuda.empty_cache()
+
+
+#: (dtype, hd, causal, window, B, S, H): the LLM path's shape first, then
+#: the variations phase 3 holds the kernels to
+FLASH_MAIN = ("bfloat16", 128, True, 0, 2, 2048, 32)
+FLASH_CASES = [FLASH_MAIN,
+               ("bfloat16", 64, True, 0, 2, 2048, 32),
+               ("bfloat16", 96, True, 0, 2, 2048, 32),
+               ("float32", 128, True, 0, 2, 2048, 32),
+               ("bfloat16", 128, True, 256, 2, 2048, 32),
+               ("bfloat16", 128, False, 0, 2, 2048, 32),
+               ("bfloat16", 128, True, 0, 2, 128, 32),
+               ("bfloat16", 128, True, 0, 1, 2048, 1)]
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """Query-key pairs the mask lets through (the work this input needs)."""
+    total = 0
+    for i in range(S):
+        hi = i if causal else S - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_rule(torch, name, got, want32, plain) -> float:
+    """FlashAttention's own rule: in bf16 the kernel's max error against
+    the plain version run in f32 on the same inputs is at most twice the
+    plain version's own error when run in bf16, with a floor of 1e-3 x
+    max|want|; in f32, atol 1e-5 + rtol 1e-5 against the plain version.
+    Returns the kernel's max error."""
+    err = float((got.float() - want32).abs().max())
+    if got.dtype == torch.float32:
+        ok = torch.allclose(got, want32, rtol=1e-5, atol=1e-5)
+        limit = "atol 1e-5 + rtol 1e-5"
+    else:
+        own = float((plain.float() - want32).abs().max())
+        bound = max(2 * own, 1e-3 * float(want32.abs().max()))
+        ok = err <= bound
+        limit = f"{bound:.3e} (2 x the plain bf16 error {own:.3e})"
+    check(ok, f"{name}: max error {err:.3e} beyond {limit}")
+    return err
+
+
+def check_flash(torch, fa, ref, record):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkdv against their plain
+    versions on the same inputs in every FLASH_CASES case; device times
+    at the LLM path's shape beside the compute bound, the plain version
+    and scaled_dot_product_attention (forward; backward through
+    autograd), a yardstick the port never calls."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    F = torch.nn.functional
+    print("flash attention: dtype, hd, causal, window, B, S, H | max error "
+          "of fwd / dq / dk / dv against the plain version in f32 (the "
+          "plain version's own bf16 error)")
+    for case in FLASH_CASES:
+        dtn, hd, causal, window, B, S, H = case
+        dt = getattr(torch, dtn)
+        q, k, v, dout = (torch.randn(B, S, H, hd, device=dev, generator=g)
+                         .to(dt) for _ in range(4))
+        kw = dict(causal=causal, window=window)
+        tag = f"{dtn} hd={hd} causal={causal} window={window} B={B} S={S} H={H}"
+        up = [x.float() for x in (dout, q, k, v)]
+        out32, _ = ref.flash_attention_ref(*up[1:], **kw)
+        out_lo, lse_lo = ref.flash_attention_ref(q, k, v, **kw)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        errs = [flash_rule(torch, f"flash_fwd {tag}", out, out32, out_lo)]
+        own = float((out_lo.float() - out32).abs().max())
+        check(torch.allclose(lse, lse_lo, rtol=1e-5, atol=1e-5),
+              f"flash_fwd {tag}: lse differs by "
+              f"{float((lse - lse_lo).abs().max()):.3e}")
+        del out32
+        dq32, _ = ref.flash_bwd_dq_ref(*up, out_lo.float(), lse_lo, **kw)
+        dq_lo, d_lo = ref.flash_bwd_dq_ref(dout, q, k, v, out_lo, lse_lo,
+                                           **kw)
+        dq, delta = fa.flash_bwd_dq(dout, q, k, v, out_lo, lse_lo, **kw)
+        torch.cuda.synchronize()
+        errs.append(flash_rule(torch, f"flash_bwd_dq {tag}", dq, dq32,
+                               dq_lo))
+        check(torch.allclose(delta, d_lo, rtol=1e-5, atol=1e-5),
+              f"flash_bwd_dq {tag}: D differs by "
+              f"{float((delta - d_lo).abs().max()):.3e}")
+        del dq32, dq_lo
+        dk32, dv32 = ref.flash_bwd_dkdv_ref(*up, lse_lo, d_lo, **kw)
+        dk_lo, dv_lo = ref.flash_bwd_dkdv_ref(dout, q, k, v, lse_lo, d_lo,
+                                              **kw)
+        dk, dv = fa.flash_bwd_dkdv(dout, q, k, v, lse_lo, d_lo, **kw)
+        torch.cuda.synchronize()
+        errs.append(flash_rule(torch, f"flash_bwd_dkdv dk {tag}", dk, dk32,
+                               dk_lo))
+        errs.append(flash_rule(torch, f"flash_bwd_dkdv dv {tag}", dv, dv32,
+                               dv_lo))
+        print(f"  {tag} | {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} / "
+              f"{errs[3]:.3e} (fwd plain bf16 {own:.3e})")
+        rec = dict(case=case, err_fwd=errs[0], err_dq=errs[1],
+                   err_dkdv=max(errs[2:]))
+        if case == FLASH_MAIN:
+            rec.update(time_flash(torch, fa, ref, F, case, q, k, v, dout,
+                                  out_lo, lse_lo, d_lo))
+        record.append(rec)
+        del q, k, v, dout, up, out, lse, out_lo, lse_lo, dq, delta, d_lo
+        del dk32, dv32, dk_lo, dv_lo, dk, dv
+        torch.cuda.empty_cache()
+    for S in (200, 130):
+        x = torch.zeros(1, S, 2, 128, device=dev, dtype=torch.bfloat16)
+        for fn in (fa.flash_attention, fa.flash_fwd):
+            try:
+                fn(x, x, x)
+            except ValueError:
+                continue
+            fail(f"{fn.__name__} took S={S}, which the TPU kernel refuses")
+    print("flash attention: S = 200 and S = 130 refused (S must be a "
+          "multiple of min(128, S))")
+
+
+def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
+    """Device times of the three kernels, their plain versions and SDPA at
+    one shape, with each kernel's bound (its flops at the peak rate of
+    the input type, against its bytes)."""
+    dtn, hd, causal, window, B, S, H = case
+    kw = dict(causal=causal, window=window)
+    rate = BF16_FLOPS_PER_S if dtn == "bfloat16" else F32_FLOPS_PER_S
+    s = q.element_size()
+    E, rows = B * S * H * hd, B * H * S * 4
+    n = B * H * visible_pairs(S, causal, window) * hd
+    work = {"flash_fwd": (4 * E * s + rows, 4 * n),
+            "flash_bwd_dq": (6 * E * s + 2 * rows, 6 * n + 2 * E),
+            "flash_bwd_dkdv": (6 * E * s + 2 * rows, 8 * n)}
+    kernels = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(dout, q, k, v, out, lse,
+                                                **kw),
+        "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(dout, q, k, v, lse,
+                                                    delta, **kw)}
+    plains = {
+        "flash_fwd": lambda: ref.flash_attention_ref(q, k, v, **kw),
+        "flash_bwd_dq": lambda: ref.flash_bwd_dq_ref(dout, q, k, v, out,
+                                                     lse, **kw),
+        "flash_bwd_dkdv": lambda: ref.flash_bwd_dkdv_ref(dout, q, k, v,
+                                                         lse, delta, **kw)}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), reps=10, replays=10)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    do = dout.transpose(1, 2)
+    lib_bwd = call_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), do, retain_graph=True), iters=10)
+    out_rec = {"library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
+    print(f"flash attention at {dtn} hd={hd} causal={causal} B={B} S={S} "
+          f"H={H}: kernel device ms | bound ms (by) | plain device ms | "
+          "library")
+    for name, fn in kernels.items():
+        ms = device_ms(torch, fn, reps=3, replays=5)
+        plain = device_ms(torch, plains[name], reps=1, replays=3)
+        nbytes, flops = work[name]
+        bnd, by = bound_ms(nbytes, flops, rate)
+        lib = lib_fwd if name == "flash_fwd" else None
+        print(f"  {name:15s} | {ms:9.4f} ms | {bnd:.4f} ({by}, "
+              f"{flops / 1e9:.1f} GFLOP) | plain {plain:9.4f} | lib "
+              f"{'-' if lib is None else f'{lib:.4f}'}")
+        out_rec[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             nbytes=nbytes, flops=flops, bound_ms=bnd,
+                             bound_by=by)
+        torch.cuda.empty_cache()
+    bwd = out_rec["flash_bwd_dq"]["ms"] + out_rec["flash_bwd_dkdv"]["ms"]
+    print(f"  backward (dq + dkdv) {bwd:.4f} ms | SDPA backward through "
+          f"autograd, eager call {lib_bwd:.4f} ms | SDPA forward "
+          f"{lib_fwd:.4f} ms")
+    return out_rec
+
+
 # ------------------------------------------------------------ phase 4/5 ---
 
 QUICKSTART = ["--clients", "20", "--clients-per-round", "5", "--p-limited",
@@ -861,6 +1084,205 @@ def port_contract(torch, train, tree_mod):
               "== per round (--no-scan), bitwise, params and all aux")
 
 
+# ------------------------------------------------------- the LLM path ----
+
+#: the pod path at full width: 2 cohorts x 2 local steps x 1 x 2048 tokens
+POD_ROUNDS, POD_STEPS, POD_C, POD_B, POD_S = 3, 2, 2, 1, 2048
+POD = ["--arch", "minitron-8b", "--pod", "--cohorts", str(POD_C),
+       "--local-steps", str(POD_STEPS), "--batch", str(POD_B), "--seq",
+       str(POD_S), "--p-limited", "0.5"]
+LN_VOCAB = 12.452932                 # ln(256000): the loss of a uniform guess
+
+
+def llm_full_width():
+    """minitron-8b at its published widths, depth cut from 32 layers to
+    2 (one body block, one tail block)."""
+    from repro_torch.configs.registry import get_arch
+    return get_arch("minitron-8b").with_(num_layers=2, fes_tail_layers=1)
+
+
+def llm_reduced():
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    return reduced(get_arch("minitron-8b"), dtype="float32")
+
+
+#: the reduced LLM path (the config comes from llm_reduced())
+REDUCED_POD = ["--arch", "minitron-8b", "--pod", "--reduced", "--cohorts",
+               str(POD_C), "--local-steps", str(POD_STEPS), "--p-limited",
+               "0.5", "--algorithm", "ama_fes"]
+
+
+def run_pod(torch, train, argv, cfg, device="cuda"):
+    args = train.parser().parse_args(argv)
+    return train.pod_scale(args, train.fl_config(args), torch.device(device),
+                           cfg)
+
+
+class CountPlainFlash:
+    """Counts the plain flash-attention versions' calls on CUDA tensors
+    while installed (the wrappers reach them only for CPU tensors)."""
+
+    NAMES = ("flash_attention_ref", "flash_bwd_dq_ref", "flash_bwd_dkdv_ref")
+
+    def __init__(self, ref):
+        self.counters = [CountCudaCalls(ref, n) for n in self.NAMES]
+
+    def __enter__(self):
+        for c in self.counters:
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.counters:
+            c.__exit__(*exc)
+
+    @property
+    def calls(self):
+        return {c.name: c.calls for c in self.counters}
+
+
+def pod_main_path(torch, train, fa, sp, ref, tree_mod, main_record):
+    """The LLM main path: minitron-8b at full width, ama_fes and
+    fedavg, 3 rounds each through ``launch.train.pod_scale``. Each run's
+    counts are set to 0 just before it and read just after: the flash
+    kernels launched rounds x local steps x layers times each (one
+    vmapped call covers both cohorts), server_mix rounds x dtype groups,
+    no other kernel and no plain version on the card."""
+    cfg = llm_full_width()
+    totals = {}
+    for algo in ("ama_fes", "fedavg"):
+        argv = [*POD, "--algorithm", algo, "--rounds", str(POD_ROUNDS)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sp.reset_counts()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        with CountPlainFlash(ref) as plain_flash:
+            state, metrics, dt = run_pod(torch, train, argv, cfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: fn.launches for k, fn in
+                  {**sp.KERNELS, **fa.KERNELS}.items()}
+        plain = dict(sp.plain_runs_on_cuda, **plain_flash.calls)
+        params = tree_mod.leaves(state["params"])
+        n_params = sum(x.numel() for x in params)
+        groups = len(tree_mod.dtype_groups(params))
+        loss = metrics["loss"]
+        tokens = POD_ROUNDS * POD_C * POD_STEPS * POD_B * POD_S
+        print(f"LLM main path {algo}: minitron-8b full width, 2 layers, "
+              f"{n_params:,} params; {POD_ROUNDS} rounds in {dt:.3f} s = "
+              f"{POD_ROUNDS / dt:.3f} rounds/s, {tokens / dt:,.0f} tokens/s "
+              f"(first-call set-up included; {wall:.1f} s with init); "
+              f"losses {[round(float(x), 4) for x in loss]}; peak device "
+              f"memory {peak / 1e9:.2f} GB; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; plain on the "
+              f"card {sum(plain.values())}")
+        check(n_params == LLM_N, f"{algo}: {n_params} params, expected "
+              f"{LLM_N}")
+        check(all(math.isfinite(float(x)) for x in loss),
+              f"{algo}: non-finite loss {loss}")
+        check(abs(float(loss[0]) - LN_VOCAB) < 1.0,
+              f"{algo}: round 0 loss {loss[0]} not within 1.0 of ln(256000)")
+        per_run = POD_ROUNDS * POD_STEPS * cfg.num_layers
+        for name in fa.KERNELS:
+            check(counts[name] == per_run,
+                  f"{algo}: {name} launched {counts[name]} times, expected "
+                  f"{POD_ROUNDS} rounds x {POD_STEPS} steps x "
+                  f"{cfg.num_layers} layers")
+        check(counts["server_mix"] == POD_ROUNDS * groups,
+              f"{algo}: server_mix launched {counts['server_mix']} times, "
+              f"expected {POD_ROUNDS} x {groups} dtype group(s)")
+        others = {k: v for k, v in counts.items()
+                  if k not in fa.KERNELS and k != "server_mix" and v}
+        check(not others, f"{algo}: other kernels launched: {others}")
+        check(all(v == 0 for v in plain.values()),
+              f"{algo}: a plain version ran on the card: {plain}")
+        check(int(state["t"]) == POD_ROUNDS, f"{algo}: ended at round "
+              f"{int(state['t'])}")
+        check(all(x.is_cuda and bool(torch.isfinite(x).all())
+                  for x in params), f"{algo}: non-finite or off-card params")
+        check(peak < 75e9, f"{algo}: peak device memory {peak / 1e9:.2f} GB "
+              "beyond 75 GB")
+        for k in counts:
+            totals[k] = totals.get(k, 0) + counts[k]
+        main_record.append(dict(run=f"llm {algo}", rounds=POD_ROUNDS,
+                                seconds=dt, rounds_per_s=POD_ROUNDS / dt,
+                                tokens_per_s=tokens / dt,
+                                losses=[float(x) for x in loss],
+                                peak_bytes=peak, params=n_params))
+        del state, params
+        torch.cuda.empty_cache()
+    return totals
+
+
+def llm_card_vs_cpu(torch, train, fa, tree_mod):
+    """The reduced LLM path in f32 (TF32 off), the same params (drawn on
+    the CPU from the seed) and tokens: on the card through the kernels,
+    on the CPU through the plain versions; params and losses within rtol
+    1e-4, atol 1e-5 after 2 rounds."""
+    argv = [*REDUCED_POD, "--rounds", "2"]
+    fa.reset_counts()
+    a, ma, _ = run_pod(torch, train, argv, llm_reduced(), "cuda")
+    check(fa.flash_fwd.launches == 2 * POD_STEPS * 2,
+          f"reduced LLM on the card: flash_fwd launched "
+          f"{fa.flash_fwd.launches} times")
+    b, mb, _ = run_pod(torch, train, argv, llm_reduced(), "cpu")
+    worst = 0.0
+    for x, y in zip(tree_mod.leaves(a["params"]), tree_mod.leaves(b["params"]),
+                    strict=True):
+        worst = max(worst, float((x.cpu() - y).abs().max()))
+        check(torch.allclose(x.cpu(), y, rtol=1e-4, atol=1e-5),
+              f"reduced LLM: card and CPU params differ by {worst:.3e}")
+    check(all(abs(p - q) <= 1e-5 + 1e-4 * abs(q)
+              for p, q in zip(ma["loss"], mb["loss"])),
+          f"reduced LLM: losses {ma['loss']} (card) vs {mb['loss']} (CPU)")
+    print(f"reduced LLM f32, 2 rounds: card (flash + server kernels) vs CPU "
+          f"(plain versions) max |diff| {worst:.3e} (tolerance rtol 1e-4, "
+          f"atol 1e-5); losses {list(ma['loss'])} vs {list(mb['loss'])}")
+
+
+def llm_contract(torch, train, tree_mod):
+    """chunked == per-round (--no-scan), bitwise, on the reduced LLM path
+    on the card: ama_fes, 3 rounds."""
+    argv = [*REDUCED_POD, "--rounds", "3"]
+    a, ma, _ = run_pod(torch, train, argv, llm_reduced())
+    b, mb, _ = run_pod(torch, train, argv + ["--no-scan"], llm_reduced())
+    check(all(torch.equal(x, y) for x, y in zip(
+        tree_mod.leaves(a), tree_mod.leaves(b), strict=True)),
+          "reduced LLM: chunked and per-round runs differ")
+    check(list(ma["loss"]) == list(mb["loss"]),
+          "reduced LLM: chunked and per-round losses differ")
+    print("port contract: 3 rounds of the reduced LLM path (ama_fes) "
+          "chunked == per round (--no-scan), bitwise, params and losses")
+
+
+def llm_where_time_goes(torch, train, tmp):
+    """2 full-width LLM rounds under the launcher's --profile: device time
+    by kernel from the Chrome trace, the flash kernels' share of it, and
+    the device's idle share of the training wall time."""
+    trace_dir = str(Path(tmp) / "llm_profile")
+    argv = [*POD, "--algorithm", "ama_fes", "--rounds", "2", "--profile",
+            trace_dir]
+    _, _, dt = run_pod(torch, train, argv, llm_full_width())
+    with open(Path(trace_dir) / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            n, us = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    check(busy > 0, "LLM profile: the trace holds no device time")
+    flash = sum(us for k, (_, us) in by_name.items() if "flash_" in k) / 1e3
+    print(f"where the time goes, LLM full width, 2 rounds: {dt * 1e3:.1f} ms "
+          f"training wall under the profiler, device busy {busy:.1f} ms = "
+          f"{busy / (dt * 1e3):.1%} (idle {1 - busy / (dt * 1e3):.1%}); "
+          f"flash kernels {flash:.1f} ms = {flash / busy:.1%} of device time")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> None:
@@ -893,6 +1315,7 @@ def main() -> None:
             print("  " + line.strip())
 
     from repro_torch.kernels import ama_mix as am
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import server_plane as sp
     from repro_torch.launch import train
@@ -900,14 +1323,17 @@ def main() -> None:
     from repro_torch.utils.device import resolve_device
     resolve_device("cuda")
 
-    recs = {k: [] for k in sp.KERNELS}
+    recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS}}
+    flash_rec = []
     main_rec = []
     check_server_mix(torch, sp, ref, recs["server_mix"])
+    check_server_mix_llm(torch, sp, ref, recs["server_mix"])
     check_server_async(torch, sp, ref, recs["server_async"])
     check_server_adam(torch, sp, ref, recs["server_adam"])
     check_server_mix_delta(torch, sp, ref, recs["server_mix_delta"])
     check_server_mix_scatter(torch, sp, ref, recs["server_mix_scatter"])
     check_ama_mix(torch, am, ref, recs["ama_mix"])
+    check_flash(torch, fa, ref, flash_rec)
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
     # against the first main-path run
     run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,
@@ -916,14 +1342,19 @@ def main() -> None:
                          main_rec)
     legacy = main_path(torch, train, sp, ref, tree_mod, LEGACY_RUNS,
                        main_rec)
-    launches = {k: launches[k] + legacy[k] for k in launches}
+    llm = pod_main_path(torch, train, fa, sp, ref, tree_mod, main_rec)
+    launches = {k: launches.get(k, 0) + legacy.get(k, 0) + llm.get(k, 0)
+                for k in recs}
     fused_vs_plain(torch, train, tree_mod)
     legacy_kernel_vs_plain(torch, train, tree_mod)
+    llm_card_vs_cpu(torch, train, fa, tree_mod)
     port_contract(torch, train, tree_mod)
+    llm_contract(torch, train, tree_mod)
     with tempfile.TemporaryDirectory() as tmp:
         restart_contract(torch, train, tree_mod, tmp)
         prefetch_and_metrics(torch, train, tree_mod, tmp)
-    where_time_goes(torch, train)
+        where_time_goes(torch, train)
+        llm_where_time_goes(torch, train, tmp)
 
     f32 = "torch.float32"
     main_shape = {  # the row of each kernel at the main path's shape
@@ -934,38 +1365,56 @@ def main() -> None:
                                  rows="torch.int8", case="t=7"),
         "server_mix_scatter": dict(K=MAIN_K, N=MAIN_N, dtype=f32,
                                    case="t=7")}
-    replaces = {"server_mix": "server_plane.py:166",
-                "server_async": "server_plane.py:257",
-                "server_adam": "server_plane.py:303",
-                "server_mix_delta": "server_plane.py:193",
-                "server_mix_scatter": "server_plane.py:226",
-                "ama_mix": "ama_mix.py:33"}
+    replaces = {"server_mix": "kernels/server_plane.py:166",
+                "server_async": "kernels/server_plane.py:257",
+                "server_adam": "kernels/server_plane.py:303",
+                "server_mix_delta": "kernels/server_plane.py:193",
+                "server_mix_scatter": "kernels/server_plane.py:226",
+                "ama_mix": "kernels/ama_mix.py:33",
+                "flash_fwd": "kernels/flash_attention.py:76",
+                # the TPU path has no backward kernel: XLA differentiates
+                # chunked_attention
+                "flash_bwd_dq": "models/attention.py:44",
+                "flash_bwd_dkdv": "models/attention.py:44"}
     source = {"server_mix": "server_plane.cu", "server_async":
               "server_plane.cu", "server_adam": "server_adam.cu",
               "server_mix_delta": "server_mix_compressed.cu",
               "server_mix_scatter": "server_mix_compressed.cu",
-              "ama_mix": "ama_mix.cu"}
+              "ama_mix": "ama_mix.cu", "flash_fwd": "flash_attention.cu",
+              "flash_bwd_dq": "flash_attention.cu",
+              "flash_bwd_dkdv": "flash_attention.cu"}
+    flash_main = next(r for r in flash_rec if r["case"] == FLASH_MAIN)
+    flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
+                 "flash_bwd_dkdv": "err_dkdv"}
     kernels = []
-    for name, rec in recs.items():
-        # ama_mix: the 8 leaf launches of one legacy round, summed
-        row = (ama_mix_round_row(rec) if name == "ama_mix" else next(
-            r for r in rec
-            if all(r.get(k) == v for k, v in main_shape[name].items())))
+    for name in recs:
         check(launches[name] > 0, f"{name}: never launched on the main path")
-        b, by = bound_ms(row["nbytes"], row["flops"])
+        if name in fa.KERNELS:
+            row = flash_main[name]
+            b, by = row["bound_ms"], row["bound_by"]
+            err = max(r[flash_err[name]] for r in flash_rec)
+        else:
+            rec = recs[name]
+            # ama_mix: the 8 leaf launches of one legacy round, summed
+            row = (ama_mix_round_row(rec) if name == "ama_mix" else next(
+                r for r in rec
+                if all(r.get(k) == v for k, v in main_shape[name].items())))
+            b, by = bound_ms(row["nbytes"], row["flops"])
+            err = max(r["err"] for r in rec)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source[name]}",
-            "replaces": f"src/repro/kernels/{replaces[name]}",
+            "replaces": f"src/repro/{replaces[name]}",
             "launches": launches[name],
-            "max_abs_err": max(r["err"] for r in rec), "ms": row["ms"],
+            "max_abs_err": err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": row["library_ms"]})
     for r in main_rec:
         print("main:", json.dumps(r))
     for name, rec in recs.items():
-        print(f"{name}: bitwise equal to the plain version in "
-              f"{sum(r['exact'] for r in rec)} of {len(rec)} cases")
+        if name not in fa.KERNELS:
+            print(f"{name}: bitwise equal to the plain version in "
+                  f"{sum(r['exact'] for r in rec)} of {len(rec)} cases")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ fields with the same defaults, so a config written for one package
 describes the same run in the other. Fields of features the port does
 not have yet (the gilbert_elliott and trace environments, the
 partitioned and fes_static client planes, ``client_reduce="force"``,
-telemetry, pod scale) are carried unchanged; ``core.round`` refuses the
+telemetry) are carried unchanged; ``core.round`` refuses the
 client-plane, reduce and telemetry values it cannot run, and
 ``launch.train`` only sets the fields this package honours. The comm
-plane (``comm_*``), fedprox and fedopt (``fedprox_*``, ``server_*``) and
-the bandwidth environment (``bw_*``) are honoured.
+plane (``comm_*``), fedprox and fedopt (``fedprox_*``, ``server_*``),
+the bandwidth environment (``bw_*``) and pod scale (``cohorts``,
+``local_steps``) are honoured. ``reduced`` is the JAX package's
+CPU-sized same-family variant of a model config.
 """
 from __future__ import annotations
 
@@ -199,3 +201,36 @@ class FLConfig:
 
     def with_(self, **kw) -> "FLConfig":
         return replace(self, **kw)
+
+
+def reduced(cfg: ModelConfig, **kw) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests."""
+    small = dict(
+        num_layers=2,
+        d_model=min(cfg.d_model, 256),
+        d_ff=min(cfg.d_ff, 512),
+        vocab_size=min(cfg.vocab_size, 512),
+        train_fsdp=False,
+        serve_2d=False,
+    )
+    if cfg.num_heads:
+        small["num_heads"] = min(cfg.num_heads, 4)
+        small["num_kv_heads"] = max(1, min(cfg.num_kv_heads, 2))
+        small["head_dim"] = 64
+    if cfg.num_experts:
+        small["num_experts"] = min(cfg.num_experts, 4)
+    if cfg.ssm_state:
+        small["ssm_state"] = min(cfg.ssm_state, 16)
+    if cfg.encoder_layers:
+        small["encoder_layers"] = 2
+        small["encoder_seq"] = min(cfg.encoder_seq, 64)
+    if cfg.num_patches:
+        small["num_patches"] = min(cfg.num_patches, 16)
+        small["vision_dim"] = min(cfg.vision_dim or cfg.d_model, 128)
+    if cfg.sliding_window:
+        small["sliding_window"] = min(cfg.sliding_window, 64)
+    if cfg.attn_every:
+        small["attn_every"] = 2
+    small["fes_tail_layers"] = 1
+    small.update(kw)
+    return cfg.with_(**small)

@@ -5,9 +5,9 @@ selected clients train in parallel (the masked client plane), then ONE
 fused server-plane kernel launch per dtype group
 (``strategy.fused_server_update``) makes the new global model.
 ``make_train_loop`` runs a chunk of rounds as a Python loop over the
-stacked per-round batches and schedules (the JAX package's
-``lax.scan``). Nothing inside a round reads a device value on the host;
-the round index itself lives on the device.
+stacked per-round schedules and batches, or one batch fed to every
+round (the JAX package's ``lax.scan``). Nothing inside a round reads a
+device value on the host; the round index itself lives on the device.
 
 With a comm plane (``fl.comm_plane != "none"``, ``repro_torch.comm``)
 the stacked client deltas are compressed before the server update, the
@@ -142,17 +142,23 @@ def make_round_step(model, fl: FLConfig, strategy=None):
     return round_step
 
 
-def make_train_loop(model, fl: FLConfig, strategy=None):
+def make_train_loop(model, fl: FLConfig, strategy=None, *,
+                    per_round_batch: bool = False):
     """Returns train_loop(state, batch, scheds) -> (state, metrics):
-    ``batch`` and ``scheds`` leaves carry a leading (n_rounds,) axis
-    (a fresh batch every round); metrics come back stacked per round as
-    device tensors."""
+    ``scheds`` leaves carry a leading (n_rounds,) axis; metrics come back
+    stacked per round as device tensors. With ``per_round_batch`` the
+    batch leaves carry a leading (n_rounds,) axis too (a fresh batch
+    every round, the paper-scale engine); without it the same (C, steps,
+    b, ...) batch is fed to every round (the pod path's throughput
+    configuration, as in the JAX package)."""
     round_step = make_round_step(model, fl, strategy)
 
     def train_loop(state, batch, scheds):
         rows = []
         for r in range(scheds["limited"].shape[0]):
-            state, m = round_step(state, {k: v[r] for k, v in batch.items()},
+            b = ({k: v[r] for k, v in batch.items()} if per_round_batch
+                 else batch)
+            state, m = round_step(state, b,
                                   {k: v[r] for k, v in scheds.items()})
             rows.append(m)
         return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}

@@ -5,7 +5,9 @@
 linearly trivial: each class is a random frequency-structured template +
 per-sample random affine-ish jitter + noise. The FL-relevant properties of
 the paper's setup — class structure, non-iid shardability, train/test
-split — are preserved.
+split — are preserved. ``make_lm_tokens`` generates the token streams
+of the pod-scale LLM path: class-conditional first-order Markov chains
+over an active vocabulary slice.
 """
 from __future__ import annotations
 
@@ -43,3 +45,20 @@ def make_image_classification(n_train: int = 6000, n_test: int = 1000,
                 "label": labels.astype(np.int32)}
 
     return gen(n_train), gen(n_test)
+
+
+def make_lm_tokens(n_seqs: int, seq_len: int, vocab: int, n_topics: int = 10,
+                   seed: int = 0):
+    """Class-conditional first-order Markov token streams."""
+    rng = np.random.RandomState(seed)
+    V = min(vocab, 1024)          # active vocab slice (rest unused)
+    trans = rng.dirichlet(np.full(V, 0.05), size=(n_topics, V))   # (T, V, V)
+    topics = rng.randint(0, n_topics, size=n_seqs)
+    out = np.empty((n_seqs, seq_len), np.int32)
+    for i in range(n_seqs):
+        T = trans[topics[i]]
+        tok = rng.randint(0, V)
+        for j in range(seq_len):
+            out[i, j] = tok
+            tok = rng.choice(V, p=T[tok])
+    return {"tokens": out, "label": topics.astype(np.int32)}

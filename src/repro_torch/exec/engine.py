@@ -6,6 +6,8 @@
     sync, and the per-round metrics come back once at the chunk's end.
     ``use_scan=False`` replays the identical rounds one at a time (the
     ``--no-scan`` configuration), bit-identical to the chunked run.
+    ``per_round_batch=False`` feeds one batch to every round (the pod
+    path).
   * ``SimulationEngine`` adds the data plane (``data.pipeline
     .stage_chunk``: one gather per chunk of rounds, the next chunk staged
     on a host thread by ``ChunkPrefetcher`` while the card runs the
@@ -64,6 +66,10 @@ class ChunkRunner:
     """N rounds per call on the device: chunked, or one round at a time
     (``use_scan=False``) through the same loop.
 
+    ``per_round_batch=True`` (paper scale) takes a fresh (n, C, steps, b,
+    ...) batch row per round; ``False`` (pod scale) re-feeds one (C,
+    steps, b, ...) batch every round.
+
     Each dispatch books its wall time, closed by a CUDA sync, in
     ``timer``: the first dispatch of a chunk length under "compile" (in
     the port: the kernel library's build and load, cuDNN's set-up and
@@ -71,12 +77,15 @@ class ChunkRunner:
     "round_dispatch" (one round)."""
 
     def __init__(self, model, fl: FLConfig, strategy=None, *,
-                 use_scan: bool = True, device=None, timer=None):
+                 per_round_batch: bool = True, use_scan: bool = True,
+                 device=None, timer=None):
         self.fl = fl
         self.device = resolve_device(device)
+        self.per_round_batch = per_round_batch
         self.use_scan = use_scan
         self._loop = make_train_loop(model, fl,
-                                     strategy or strategies.resolve(fl))
+                                     strategy or strategies.resolve(fl),
+                                     per_round_batch=per_round_batch)
         self.timer = timer if timer is not None else PhaseTimes()
         self._seen: set = set()
 
@@ -91,10 +100,11 @@ class ChunkRunner:
 
     def run_chunk(self, state, batch: dict, sched_batch: dict, *,
                   scan_ok: bool = True):
-        """(state, numpy batch, Environment.batch dict) -> (state,
-        metrics). ``batch`` leaves are (n, C, steps, b, ...); metrics come
-        back as numpy arrays with a leading (n,) axis. ``scan_ok=False``
-        runs the chunk one round at a time."""
+        """(state, batch, Environment.batch dict) -> (state, metrics).
+        ``batch`` leaves (numpy or tensors) are (n, C, steps, b, ...) when
+        ``per_round_batch``, else (C, steps, b, ...); metrics come back as
+        numpy arrays with a leading (n,) axis. ``scan_ok=False`` runs the
+        chunk one round at a time."""
         scheds = as_scan_scheds(sched_batch, self.device)
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
@@ -104,9 +114,10 @@ class ChunkRunner:
         else:
             rows = []
             for r in range(n):
+                b = ({k: v[r:r + 1] for k, v in batch.items()}
+                     if self.per_round_batch else batch)
                 state, m = self._dispatch(
-                    state, {k: v[r:r + 1] for k, v in batch.items()},
-                    {k: v[r:r + 1] for k, v in scheds.items()}, 1)
+                    state, b, {k: v[r:r + 1] for k, v in scheds.items()}, 1)
                 rows.append(m)
             metrics = {k: torch.cat([m[k] for m in rows]) for k in rows[0]}
         return state, {k: v.cpu().numpy() for k, v in metrics.items()}

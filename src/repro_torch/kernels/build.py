@@ -25,6 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
+#: B, S, H, causal, window, scale of the flash-attention entries
+_GEO = (ctypes.c_int,) * 5 + (ctypes.c_float,)
 #: C entry -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # dtype, prev, stacked, sizes, keep, coefs, out, K, N, stream
@@ -52,6 +54,17 @@ SIGNATURES = {
     # stream
     "ama_mix": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
                 ctypes.c_int, ctypes.c_longlong, _P),
+    # dtype, hd, q, k, v, out, lse, B, S, H, causal, window, scale, stream
+    "flash_fwd": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+                  *_GEO, _P),
+    # dtype, hd, dout, q, k, v, out, lse, dq, delta, B, S, H, causal,
+    # window, scale, stream
+    "flash_bwd_dq": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+                     _P, *_GEO, _P),
+    # dtype, hd, dout, q, k, v, lse, delta, dk, dv, B, S, H, causal,
+    # window, scale, stream
+    "flash_bwd_dkdv": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                       _P, _P, *_GEO, _P),
 }
 
 

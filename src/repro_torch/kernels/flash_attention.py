@@ -1,0 +1,257 @@
+"""Flash attention, forward and backward: three hand-written CUDA kernels
+and the autograd plumbing that lets ``torch.func`` differentiate and
+vmap through them.
+
+Replaces the JAX package's ``kernels/flash_attention.py: flash_attention``
+(Pallas) for the forward; the backward replaces the XLA autodiff of
+``models/attention.py: chunked_attention`` (the Pallas kernel has none).
+The kernels are CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``):
+
+  * ``flash_fwd``      — online-softmax attention; also writes the row
+                         log-sum-exp ``lse`` (B, H, S) f32;
+  * ``flash_bwd_dq``   — D = rowsum(dO * O) and dQ, one block per q tile;
+  * ``flash_bwd_dkdv`` — dK and dV, one block per kv tile, reading D.
+
+The backward is two passes, so no atomics: every launch is deterministic
+and the port's chunked == per-round contract holds bitwise. Each kernel
+is bound by operations (its flops at the bf16 tensor-core rate); the
+first design computes on the CUDA cores in f32 (see the source's note).
+
+Dispatch is by device: a CPU tensor takes the plain version in
+``kernels/ref.py`` (``flash_attention_ref``, ``flash_bwd_dq_ref``,
+``flash_bwd_dkdv_ref``, the same signatures); a CUDA tensor launches the
+kernel, or the wrapper raises. Each kernel wrapper counts its launches
+(``flash_fwd.launches``, ...).
+
+``flash_attention(q, k, v, *, causal=True, window=0, scale=None)`` is
+the differentiable entry, with the TPU kernel's positional signature and
+its shape contract (S a multiple of min(128, S)). It is built from two
+``torch.autograd.Function``s, ``FlashAttention`` and
+``FlashAttentionBwd``, each with a ``vmap`` rule: the client plane runs
+``vmap(grad_and_value(loss))`` over the cohorts, and a ctypes kernel
+cannot take a batched tensor, so the rule moves the vmapped dim to the
+front, folds it into B, launches once and unfolds the result. One
+vmapped call is one forward launch and one launch of each backward
+kernel, whatever the cohort count.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels._launch import (_DTYPE_CODE, _check, _kernel_device,
+                                         _ptr, _raise_on, _stream)
+
+__all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+           "FlashAttention", "FlashAttentionBwd", "KERNELS", "reset_counts",
+           "HEAD_DIMS"]
+
+#: head dims the CUDA kernels are instantiated for
+HEAD_DIMS = (64, 96, 128)
+
+
+def _check_seq(S: int) -> None:
+    """The TPU kernel's shape contract (its 128-row blocks)."""
+    if S < 1 or S % min(128, S):
+        raise ValueError(f"flash attention takes S a multiple of "
+                         f"min(128, S) (its 128-row blocks), got S={S}")
+
+
+def _geometry(q, k, v):
+    """(B, S, H, hd) of matching, contiguous f32/bf16 q, k, v."""
+    B, S, H, hd = q.shape
+    dev = q.device
+    _check("q", q, (B, S, H, hd), tuple(_DTYPE_CODE), dev)
+    _check("k", k, (B, S, H, hd), (q.dtype,), dev)
+    _check("v", v, (B, S, H, hd), (q.dtype,), dev)
+    _check_seq(S)
+    return B, S, H, hd
+
+
+def _args(causal, window, scale, hd):
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    return int(bool(causal)), int(window), scale
+
+
+def _launch_checks(hd):
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernels take head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+
+
+def flash_fwd(q, k, v, *, causal=True, window=0, scale=None):
+    """q/k/v: (B, S, H, hd) f32/bf16, kv head-repeated. Returns (out
+    (B, S, H, hd) in q's dtype, lse (B, H, S) f32)."""
+    B, S, H, hd = _geometry(q, k, v)
+    if not _kernel_device(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+    _launch_checks(hd)
+    c, w, sc = _args(causal, window, scale, hd)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = build.load().flash_fwd(
+        _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        _ptr(lse), B, S, H, c, w, ctypes.c_float(sc), _stream(q.device))
+    _raise_on(err, "flash_fwd")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def _check_rows(name, x, B, H, S, dev):
+    _check(name, x, (B, H, S), (torch.float32,), dev)
+
+
+def flash_bwd_dq(dout, q, k, v, out, lse, *, causal=True, window=0,
+                 scale=None):
+    """dout/out: (B, S, H, hd) in q's dtype; lse: (B, H, S) f32 from the
+    forward. Returns (dq in q's dtype, D = rowsum(dout * out) (B, H, S)
+    f32, which ``flash_bwd_dkdv`` takes)."""
+    B, S, H, hd = _geometry(q, k, v)
+    dev = q.device
+    _check("dout", dout, (B, S, H, hd), (q.dtype,), dev)
+    _check("out", out, (B, S, H, hd), (q.dtype,), dev)
+    _check_rows("lse", lse, B, H, S, dev)
+    if not _kernel_device(q):
+        return ref.flash_bwd_dq_ref(dout, q, k, v, out, lse, causal=causal,
+                                    window=window, scale=scale)
+    _launch_checks(hd)
+    c, w, sc = _args(causal, window, scale, hd)
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    err = build.load().flash_bwd_dq(
+        _DTYPE_CODE[q.dtype], hd, _ptr(dout), _ptr(q), _ptr(k), _ptr(v),
+        _ptr(out), _ptr(lse), _ptr(dq), _ptr(delta), B, S, H, c, w,
+        ctypes.c_float(sc), _stream(dev))
+    _raise_on(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkdv(dout, q, k, v, lse, delta, *, causal=True, window=0,
+                   scale=None):
+    """dout: (B, S, H, hd) in q's dtype; lse, delta: (B, H, S) f32 (delta
+    from ``flash_bwd_dq``). Returns (dk, dv) in k's and v's dtype."""
+    B, S, H, hd = _geometry(q, k, v)
+    dev = q.device
+    _check("dout", dout, (B, S, H, hd), (q.dtype,), dev)
+    _check_rows("lse", lse, B, H, S, dev)
+    _check_rows("delta", delta, B, H, S, dev)
+    if not _kernel_device(q):
+        return ref.flash_bwd_dkdv_ref(dout, q, k, v, lse, delta,
+                                      causal=causal, window=window,
+                                      scale=scale)
+    _launch_checks(hd)
+    c, w, sc = _args(causal, window, scale, hd)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = build.load().flash_bwd_dkdv(
+        _DTYPE_CODE[q.dtype], hd, _ptr(dout), _ptr(q), _ptr(k), _ptr(v),
+        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, S, H, c, w,
+        ctypes.c_float(sc), _stream(dev))
+    _raise_on(err, "flash_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+#: kernel name -> its wrapper (each carries a ``launches`` count)
+KERNELS = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+           "flash_bwd_dkdv": flash_bwd_dkdv}
+for _fn in KERNELS.values():
+    _fn.launches = 0
+
+
+def reset_counts() -> None:
+    """Zero the launch count of every flash-attention kernel."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd and vmap
+# ---------------------------------------------------------------------------
+
+def _fold(x, dim, size):
+    """The vmapped dim of ``x`` (or a broadcast of an unbatched ``x``)
+    folded into its leading B axis, contiguous."""
+    x = x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+    return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def _unfold(x, size):
+    return x.reshape(size, x.shape[0] // size, *x.shape[1:])
+
+
+class FlashAttention(torch.autograd.Function):
+    """(q, k, v, causal, window, scale) -> (out, lse); lse is not
+    differentiable. The backward is ``FlashAttentionBwd``."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        return flash_fwd(q, k, v, causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.attn = (causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBwd.apply(dout.contiguous(), q, k, v, out,
+                                             lse, *ctx.attn)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
+        n = info.batch_size
+        qf, kf, vf = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims))
+        out, lse = FlashAttention.apply(qf, kf, vf, causal, window, scale)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class FlashAttentionBwd(torch.autograd.Function):
+    """(dout, q, k, v, out, lse, causal, window, scale) -> (dq, dk, dv):
+    the dQ pass, then the dK/dV pass. Not differentiable itself (no
+    double backward)."""
+
+    @staticmethod
+    def forward(dout, q, k, v, out, lse, causal, window, scale):
+        kw = dict(causal=causal, window=window, scale=scale)
+        dq, delta = flash_bwd_dq(dout, q, k, v, out, lse, **kw)
+        dk, dv = flash_bwd_dkdv(dout, q, k, v, lse, delta, **kw)
+        return dq, dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no double backward")
+
+    @staticmethod
+    def vmap(info, in_dims, dout, q, k, v, out, lse, causal, window, scale):
+        n = info.batch_size
+        folded = [_fold(x, d, n) for x, d
+                  in zip((dout, q, k, v, out, lse), in_dims)]
+        grads = FlashAttentionBwd.apply(*folded, causal, window, scale)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Differentiable flash attention. q/k/v: (B, S, H, hd) f32/bf16, kv
+    already head-repeated, S a multiple of min(128, S); ``scale=None`` is
+    hd**-0.5, applied to q in f32 inside the kernel (the TPU kernel's
+    semantics). Returns out (B, S, H, hd) in q's dtype."""
+    _geometry(q, k, v)
+    out, _ = FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), bool(causal), int(window),
+                                  scale)
+    return out

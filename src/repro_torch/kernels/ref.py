@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the server-plane kernels and of ``ama_mix``.
+"""Plain PyTorch versions of the port's kernels: the server plane,
+``ama_mix`` and flash attention.
 
 The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
 server_mix_math, server_mix_delta_math, server_mix_scatter_math,
@@ -13,9 +14,15 @@ plain version agree to within the few ulp that library ``exp`` may
 differ by. Where JAX sums the weights with ``jnp.sum``, these sum them
 one add at a time from client 0 (``_seq_sum``), as the kernels do.
 
-The wrappers in ``server_plane.py`` and ``ama_mix.py`` run these for CPU
-tensors; on the card the server-plane ones run only when
-``fl.server_plane == "ref"``.
+``flash_attention_ref`` is the math of the JAX package's
+``kernels/ref.py: flash_attention_ref`` (plain masked softmax attention
+in f32), returning the log-sum-exp rows as well; ``flash_attention_bwd_ref``
+is its gradient by the explicit formula the backward kernels compute
+(``D = rowsum(dO * O)``, ``dS = P * (dP - D)``).
+
+The wrappers in ``server_plane.py``, ``ama_mix.py`` and
+``flash_attention.py`` run these for CPU tensors; on the card the
+server-plane ones run only when ``fl.server_plane == "ref"``.
 """
 from __future__ import annotations
 
@@ -197,3 +204,87 @@ def server_async_math(prev, stacked, qsum, qgamma, sizes, delayed, delays,
     acc = acc + stale * gscale
     new_qsum = torch.stack([rows[q] * (1.0 - sel[q]) for q in range(Q)])
     return acc.to(prev.dtype), new_qsum, new_qgamma
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+#: the masked-score sentinel of the JAX package's attention code
+NEG_INF = -1e30
+
+
+def attention_mask(S: int, causal: bool, window: int, device):
+    """(S, S) bool, True where query row i may attend to key j: j <= i
+    when causal, j > i - window when windowed (the Pallas kernel's
+    masks)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask = kpos <= qpos
+    if window:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _scores(q, k, causal, window, scale):
+    """Masked f32 scores (B, H, S, S) and the mask."""
+    S, hd = q.shape[1], q.shape[-1]
+    scale = hd ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = attention_mask(S, causal, window, q.device)
+    return torch.where(mask, s, NEG_INF), mask, scale
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """Plain softmax attention. q/k/v: (B, S, H, hd), kv already
+    head-repeated; ``scale=None`` is hd**-0.5. Returns (out (B, S, H, hd)
+    in q's dtype, lse (B, H, S) f32, the log-sum-exp of each row's
+    scaled, masked scores)."""
+    s, _, _ = _scores(q, k, causal, window, scale)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype).contiguous(), torch.logsumexp(s, dim=-1)
+
+
+def flash_bwd_dq_ref(dout, q, k, v, out, lse, *, causal=True, window=0,
+                     scale=None):
+    """The plain version of the ``flash_bwd_dq`` kernel: D = rowsum(dO *
+    O) (B, H, S) f32 and dQ = scale * dS K with P = exp(s - lse), dP =
+    dO V^T, dS = P * (dP - D). Returns (dq in q's dtype, D)."""
+    s, mask, scale = _scores(q, k, causal, window, scale)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    do = dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", do, out.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(q.dtype).contiguous(), delta.contiguous()
+
+
+def flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, *, causal=True, window=0,
+                       scale=None):
+    """The plain version of the ``flash_bwd_dkdv`` kernel, given D from
+    the dQ pass: dV = P^T dO and dK = scale * dS^T Q. Returns (dk, dv) in
+    the dtypes of k and v."""
+    s, mask, scale = _scores(q, k, causal, window, scale)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    do = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
+def flash_attention_bwd_ref(dout, q, k, v, out, lse, *, causal=True,
+                            window=0, scale=None):
+    """The gradient of ``flash_attention_ref``'s output by the explicit
+    formula, in f32: P = exp(s - lse), D = rowsum(dO * O), dV = P^T dO,
+    dP = dO V^T, dS = P * (dP - D), dQ = scale * dS K, dK = scale * dS^T
+    Q. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    dq, delta = flash_bwd_dq_ref(dout, q, k, v, out, lse, **kw)
+    dk, dv = flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, **kw)
+    return dq, dk, dv

@@ -1,9 +1,19 @@
-"""Federated training launcher (paper scale) for the PyTorch/CUDA port.
+"""Federated training launcher for the PyTorch/CUDA port.
 
-K simulated clients over the synthetic non-iid shards, the paper's §V
-experiment with its heterogeneity knobs, driven in ``--eval-every``
-round chunks through the chunked engine; ``--no-scan`` runs the same
-rounds one at a time (bit-identical). The run is on the GPU unless
+Two configurations of one engine (``repro_torch.exec``):
+  * paper scale (default): K simulated clients over the synthetic non-iid
+    shards, the paper's §V experiment with its heterogeneity knobs,
+    driven in ``--eval-every`` round chunks through the chunked engine;
+  * ``--pod``: C cohorts of a decoder LM (``--arch minitron-8b``) each
+    take ``--local-steps`` local SGD steps on their own token streams
+    (``data/synth.py: make_lm_tokens``), and the same fused server plane
+    aggregates them: the paper's FL at LLM scale. The whole run is one
+    chunk of ``--rounds`` rounds re-feeding one batch (``--no-scan``: one
+    round at a time, bit-identical); attention runs on the hand-written
+    flash-attention kernels, forward and backward. ``--reduced`` takes
+    the JAX package's CPU-sized variant of the architecture.
+
+``--no-scan`` runs the same rounds one at a time (bit-identical). The run is on the GPU unless
 ``--device cpu`` asks for the CPU; on the GPU the server update of
 every round is one hand-written CUDA kernel call (``--server-plane
 ref`` runs the plain PyTorch version instead). ``--comm-plane`` compresses
@@ -36,23 +46,32 @@ Examples:
   python -m repro_torch.launch.train --rounds 10 --resume ck.npz
   python -m repro_torch.launch.train --metrics-out run.jsonl --rounds 20
   python -m repro_torch.launch.train --device cpu --rounds 2
+  python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 3
+  python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
+import torch
+
 from repro_torch import env as env_mod
-from repro_torch.configs.base import FLConfig
+from repro_torch.checkpoint.io import restore_state, save_state
+from repro_torch.configs.base import FLConfig, ModelConfig, reduced
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core import strategies
 from repro_torch.core.fes import count_trainable
+from repro_torch.core.round import init_state
 from repro_torch.core.simulation import FederatedSimulation
 from repro_torch.data.partition import shard_partition
 from repro_torch.data.pipeline import build_clients
-from repro_torch.data.synth import make_image_classification
+from repro_torch.data.synth import make_image_classification, make_lm_tokens
+from repro_torch.exec.engine import ChunkRunner
 from repro_torch.models.api import build_model
 from repro_torch.obs.log import MetricsLogger
-from repro_torch.obs.timing import profile_trace
+from repro_torch.obs.metrics import payload_bytes
+from repro_torch.obs.timing import profile_trace, sync_time
 from repro_torch.utils.device import resolve_device
 
 
@@ -103,6 +122,104 @@ def paper_scale(args, fl: FLConfig, device):
         print(f"metrics -> {args.metrics_out} "
               f"(python -m repro_torch.obs.report {args.metrics_out})")
     return sim, hist
+
+
+def _pod_batch(cfg: ModelConfig, fl: FLConfig, args):
+    """{"tokens": (C, steps, b, S) int32}: C x steps x b Markov token
+    streams of S + 1 tokens over C topics (the last token is dropped, as
+    in the JAX package)."""
+    C, steps, b, S = fl.cohorts, fl.local_steps, args.batch, args.seq
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"the pod batch of the {cfg.family!r} family (patch / frame "
+            "embeddings) comes with that family's slice")
+    data = make_lm_tokens(C * steps * b, S + 1, cfg.vocab_size,
+                          n_topics=C, seed=fl.seed)
+    return {"tokens": np.ascontiguousarray(
+        data["tokens"][:, :S].reshape(C, steps, b, S))}
+
+
+def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
+    """C cohorts of a decoder LM, one chunk of ``args.rounds`` rounds
+    (per round with ``args.no_scan``). ``cfg`` overrides ``--arch`` /
+    ``--reduced`` (a depth-cut full-width config, say). Returns (state,
+    metrics {"loss", "n_on_time"} as numpy (rounds,), the training
+    seconds closed by a device sync)."""
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
+    model = build_model(cfg)
+    # the stacked client axis is the cohort count: align the config so
+    # comm-plane residual state (sized by fl.clients_per_round) matches
+    fl = fl.with_(clients_per_round=fl.cohorts)
+    strategy = strategies.resolve(fl)
+    state = init_state(model, fl, torch.Generator().manual_seed(fl.seed),
+                       device, strategy)
+    if args.resume:
+        state = restore_state(args.resume, state)
+        print(f"resumed {args.resume} at round {int(state['t'])}")
+    C = fl.cohorts
+    environment = env_mod.resolve(fl.with_(num_clients=C,
+                                           clients_per_round=C))
+    batch = _pod_batch(cfg, fl, args)
+    runner = ChunkRunner(model, fl, strategy, per_round_batch=False,
+                         use_scan=not args.no_scan, device=device)
+    n_clf, n_all = count_trainable(state["params"],
+                                   model.fes_mask(state["params"]))
+    S = batch["tokens"].shape[-1]
+    print(f"{cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on "
+          f"{device}: {n_all} params ({n_clf} in the FES classifier); "
+          f"{fl.algorithm} -> {type(strategy).__name__}, {C} cohorts x "
+          f"{fl.local_steps} local steps x batch {args.batch} x seq {S}")
+    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
+    if logger is not None:
+        logger.header(fl, payload=payload_bytes(state["params"]),
+                      resumed_at=int(state["t"]) or None,
+                      extra={"device": str(device), "arch": cfg.name})
+    t_start = int(state["t"])
+    rows, dt = [], 0.0
+    try:
+        with profile_trace(args.profile):
+            if args.no_scan:
+                for r in range(args.rounds):
+                    tr, (state, m) = sync_time(
+                        runner.run_chunk, state, batch,
+                        environment.batch(t_start + r, 1), scan_ok=False)
+                    dt += tr
+                    rows.append(m)
+                    if logger is not None:
+                        logger.rounds(t_start + r, m)
+                    print(f"round {r}: loss={float(m['loss'][0]):.4f} "
+                          f"on_time={int(m['n_on_time'][0])}/{C} "
+                          f"({tr:.2f}s)")
+            else:
+                dt, (state, m) = sync_time(
+                    runner.run_chunk, state, batch,
+                    environment.batch(t_start, args.rounds))
+                rows.append(m)
+                if logger is not None:
+                    logger.rounds(t_start, m)
+                for r in range(args.rounds):
+                    print(f"round {r}: loss={m['loss'][r]:.4f} "
+                          f"on_time={int(m['n_on_time'][r])}/{C}")
+    finally:
+        if logger is not None:
+            logger.phases(runner.timer)
+            logger.close()
+    metrics = {k: np.concatenate([m[k] for m in rows]) for k in rows[0]}
+    engine = "per-round loop" if args.no_scan else "one chunk"
+    print(f"{args.rounds} rounds ({engine}): {dt:.2f}s total "
+          f"({dt / args.rounds * 1e3:.1f} ms/round, first-call set-up "
+          "included)")
+    _print_phases(runner.timer)
+    if args.checkpoint:
+        save_state(args.checkpoint, state)
+        print(f"saved {args.checkpoint} (full round state, "
+              f"t={int(state['t'])})")
+    if args.metrics_out:
+        print(f"metrics -> {args.metrics_out}")
+    return state, metrics, dt
 
 
 def parser() -> argparse.ArgumentParser:
@@ -168,8 +285,42 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default=None,
                     help="restore a full round state before the run and "
                          "continue (bitwise as an uninterrupted run)")
+    ap.add_argument("--pod", action="store_true",
+                    help="LLM scale: C cohorts of --arch (a decoder LM) "
+                         "train locally and the server plane aggregates "
+                         "them; one chunk of --rounds rounds")
+    ap.add_argument("--reduced", action="store_true",
+                    help="pod: the CPU-sized variant of --arch")
+    ap.add_argument("--cohorts", type=int, default=2,
+                    help="pod: parallel client cohorts C")
+    ap.add_argument("--local-steps", type=int, default=2,
+                    help="pod: local SGD steps per cohort per round")
+    ap.add_argument("--batch", type=int, default=2,
+                    help="pod: sequences per local step")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="pod: tokens per sequence")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
+
+
+def fl_config(args) -> FLConfig:
+    """The run's FLConfig from the parsed command line."""
+    return FLConfig(num_clients=args.clients,
+                    clients_per_round=(args.clients_per_round
+                                       or max(2, args.clients // 4)),
+                    local_epochs=2, local_batch_size=25, lr=args.lr,
+                    algorithm=args.algorithm, env=args.env,
+                    p_limited=args.p_limited,
+                    p_delay=args.p_delay, max_delay=args.max_delay,
+                    server_plane=args.server_plane,
+                    use_kernel=args.use_kernel,
+                    client_reduce=args.client_reduce,
+                    prefetch_depth=args.prefetch_depth,
+                    extended_metrics=bool(args.metrics_out),
+                    comm_plane=args.comm_plane,
+                    comm_topk_frac=args.comm_topk_frac,
+                    cohorts=args.cohorts, local_steps=args.local_steps,
+                    seed=args.seed)
 
 
 def main(argv=None):
@@ -179,24 +330,13 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    fl = FLConfig(num_clients=args.clients,
-                  clients_per_round=(args.clients_per_round
-                                     or max(2, args.clients // 4)),
-                  local_epochs=2, local_batch_size=25, lr=args.lr,
-                  algorithm=args.algorithm, env=args.env,
-                  p_limited=args.p_limited,
-                  p_delay=args.p_delay, max_delay=args.max_delay,
-                  server_plane=args.server_plane,
-                  use_kernel=args.use_kernel,
-                  client_reduce=args.client_reduce,
-                  prefetch_depth=args.prefetch_depth,
-                  extended_metrics=bool(args.metrics_out),
-                  comm_plane=args.comm_plane,
-                  comm_topk_frac=args.comm_topk_frac, seed=args.seed)
+    fl = fl_config(args)
     try:
         strategies.resolve(fl)
     except ValueError as e:
         ap.error(str(e))
+    if args.pod:
+        return pod_scale(args, fl, device)
     return paper_scale(args, fl, device)
 
 

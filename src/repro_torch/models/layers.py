@@ -1,8 +1,17 @@
-"""Neural-net primitives on params-as-dicts (the slice's part of the JAX
-package's ``models/layers.py``)."""
+"""Neural-net primitives on params-as-dicts (the port of the JAX
+package's ``models/layers.py``: dense, embedding, RMSNorm, rotary
+embeddings, the gated/GELU MLP and the cross-entropy losses).
+
+The f32 casts sit exactly where the JAX package has them: RMSNorm, RoPE
+and the losses compute in f32 and return in the input's dtype (the
+losses in f32). Initializers draw from a ``torch.Generator`` on the
+CPU; the JAX package's ``jax.random`` streams cannot be reproduced, so
+the tests carry JAX's params across instead.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
@@ -29,13 +38,118 @@ def dense(p: dict, x):
     return y
 
 
-def cross_entropy_loss(logits, labels):
-    """Mean cross entropy in f32: ``logsumexp - gold`` averaged over the
-    batch. The gold logit is an iota-compare masked sum, as in the JAX
-    package."""
+def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
+    """N(0, 1) drawn in f32, cast to ``dtype``, then scaled by 0.02 in
+    ``dtype`` (the JAX order)."""
+    table = torch.randn((vocab, d), generator=gen, dtype=torch.float32)
+    return {"table": table.to(dtype) * 0.02}
+
+
+def embedding(p: dict, ids):
+    """Rows of the table at ``ids`` (``jnp.take`` along axis 0)."""
+    return F.embedding(ids.long(), p["table"])
+
+
+def rmsnorm_init(d: int, dtype) -> dict:
+    return {"g": torch.ones((d,), dtype=dtype)}
+
+
+def rmsnorm(p: dict, x, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["g"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------- rotary ----
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------- MLP ----
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+             gated: bool = True) -> dict:
+    p = {"w_in": dense_init(gen, d_model, d_ff, dtype),
+         "w_out": dense_init(gen, d_ff, d_model, dtype)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype)
+    return p
+
+
+def mlp(p: dict, x):
+    """SwiGLU when the params carry ``w_gate``, else GELU (tanh
+    approximation, ``jax.nn.gelu``'s default)."""
+    h = dense(p["w_in"], x)
+    if "w_gate" in p:
+        h = F.silu(dense(p["w_gate"], x)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return dense(p["w_out"], h)
+
+
+# ---------------------------------------------------------------- losses ----
+
+def _gold(logits, labels):
+    """The gold logit of ``chunked_cross_entropy``. JAX sums an
+    iota-compare masked row; exactly one term of that sum is non-zero, so
+    a gather gives the same bits without a (..., V) mask (at a 256,000
+    vocabulary that mask is the size of the logits)."""
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean token-level cross entropy in f32: ``logsumexp - gold``
+    averaged over the batch (over ``mask`` when given). The gold logit is
+    an iota-compare masked sum, as in the JAX package."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     iota = torch.arange(logits.shape[-1], device=logits.device)
     gold = torch.where(iota == labels[..., None], logits,
                        torch.zeros((), device=logits.device)).sum(-1)
-    return (logz - gold).mean()
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def chunked_cross_entropy(x, head: dict, labels, mask, *, chunk: int = 1024):
+    """Sequence-chunked CE: the logits are formed one sequence chunk at a
+    time. The JAX package rematerializes each chunk in the backward
+    (``jax.checkpoint``); that changes memory, not values, and the port
+    keeps each chunk's logits for the backward instead.
+
+    x: (B, S, d) final hidden states; head: lm_head param dict;
+    labels/mask: (B, S). Returns the mean nll over ``mask``.
+    """
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(x.shape[1] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = dense(head, x[:, sl]).float()
+        nll = torch.logsumexp(logits, dim=-1) - _gold(logits, labels[:, sl])
+        tot = tot + torch.sum(nll * mask[:, sl].float())
+    return tot / torch.clamp(torch.sum(mask.float()), min=1.0)

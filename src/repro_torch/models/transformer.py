@@ -1,0 +1,136 @@
+"""The decoder stack of the dense family (the port of the JAX package's
+``models/transformer.py`` for ``family == "dense"``).
+
+The stack is split into BODY and TAIL block groups so the paper's FES
+scheme (feature extractor = embed + body; classifier = tail + final norm
++ lm head) is a param-tree boundary. Blocks are stacked on a leading
+layer axis under ``body`` and ``tail``, as in the JAX tree, and applied
+by a Python loop over that axis (JAX: ``lax.scan``).
+
+JAX wraps each block in ``jax.checkpoint`` when ``cfg.remat``; that
+changes memory, not values, and the port keeps every block's
+activations for the backward instead (the pod path runs two layers).
+The ssm, hybrid, moe, vlm and audio families raise NotImplementedError:
+they come with later slices of the port.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (chunked_cross_entropy, dense,
+                                       dense_init, embedding, embedding_init,
+                                       mlp, mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.utils.tree import leaves, tree_map, unflatten
+
+#: family -> the slice of the port that brings it
+_LATER = {"ssm": "the rwkv6 slice", "hybrid": "the mamba2/hybrid slice",
+          "moe": "the MoE slice", "vlm": "the VLM slice",
+          "audio": "the encoder-decoder slice"}
+
+
+def check_family(cfg) -> None:
+    family = "moe" if cfg.num_experts else cfg.family
+    if family != "dense":
+        raise NotImplementedError(
+            f"model family {family!r} ({cfg.name}) is not ported yet: it "
+            f"comes with {_LATER.get(family, 'a later slice')}")
+
+
+# ------------------------------------------------------------- blocks ------
+
+def block_init(gen: torch.Generator, cfg, dtype) -> dict:
+    """One block of the dense family."""
+    check_family(cfg)
+    return {"ln1": rmsnorm_init(cfg.d_model, dtype),
+            "ln2": rmsnorm_init(cfg.d_model, dtype),
+            "attn": attn.attn_init(gen, cfg, dtype),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.mlp_gated)}
+
+
+def _stacked_block_init(gen: torch.Generator, cfg, n: int, dtype):
+    """n blocks stacked on a leading layer axis (None when n == 0)."""
+    if n == 0:
+        return None
+    blocks = [block_init(gen, cfg, dtype) for _ in range(n)]
+    return unflatten(blocks[0], [torch.stack(xs) for xs
+                                 in zip(*(leaves(b) for b in blocks))])
+
+
+def block_fwd(p, cfg, x, positions, aux):
+    """Full-sequence block application. Returns (x, aux)."""
+    h = attn.attention_fwd(p["attn"], cfg, rmsnorm(p["ln1"], x), positions)
+    x = x + h
+    h = mlp(p["mlp"], rmsnorm(p["ln2"], x))
+    return x + h, aux
+
+
+def _run_blocks(stacked, cfg, x, positions, aux):
+    """Apply a stacked group of blocks, layer by layer."""
+    if stacked is None:
+        return x, aux
+    for i in range(leaves(stacked)[0].shape[0]):
+        x, aux = block_fwd(tree_map(lambda a, i=i: a[i], stacked), cfg, x,
+                           positions, aux)
+    return x, aux
+
+
+# ------------------------------------------------------------- params ------
+
+def init_params(cfg, gen: torch.Generator, device=None) -> dict:
+    """The JAX package's tree, shapes and distributions, drawn from
+    ``gen`` on the CPU (so a seed gives the same params on every device)
+    and moved to ``device`` leaf by leaf."""
+    check_family(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    n_tail = min(cfg.fes_tail_layers, cfg.num_layers)
+    n_body = cfg.num_layers - n_tail
+    params = {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "body": _stacked_block_init(gen, cfg, n_body, dtype),
+        "tail": _stacked_block_init(gen, cfg, n_tail, dtype),
+        "final_norm": rmsnorm_init(cfg.d_model, dtype),
+        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_size, dtype),
+    }
+    return tree_map(lambda x: x.to(device), params)
+
+
+# ------------------------------------------------------------ forward ------
+
+def embed_inputs(params, cfg, batch):
+    """Returns (x, positions): the token embeddings and the aligned
+    positions 0..S-1."""
+    x = embedding(params["embed"], batch["tokens"])
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return x, positions
+
+
+def hidden_states(params, cfg, batch):
+    """Final-norm hidden states (no logits) and the aux loss (0 for the
+    dense family)."""
+    x, positions = embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_blocks(params["body"], cfg, x, positions, aux)
+    x, aux = _run_blocks(params["tail"], cfg, x, positions, aux)
+    return rmsnorm(params["final_norm"], x), aux
+
+
+def forward(params, cfg, batch):
+    """Full-sequence logits (B, S, V) and the aux loss."""
+    x, aux = hidden_states(params, cfg, batch)
+    return dense(params["lm_head"], x), aux
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token CE (+ 0.01 x the aux loss), chunked over the sequence
+    so the logits never form at (B, S, V)."""
+    x, aux = hidden_states(params, cfg, batch)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                      torch.zeros_like(tokens[:, :1])], dim=1)
+    loss = chunked_cross_entropy(x, params["lm_head"], labels, mask)
+    return loss + 0.01 * aux

@@ -14,7 +14,11 @@ import torch
 
 
 def flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
-    """[(path, leaf)] in ``jax.tree`` order; paths are "a/b/c"."""
+    """[(path, leaf)] in ``jax.tree`` order; paths are "a/b/c". ``None``
+    is an empty subtree, as in ``jax.tree`` (a transformer without body
+    blocks has ``"body": None``)."""
+    if tree is None:
+        return []
     if not isinstance(tree, dict):
         return [(prefix, tree)]
     out = []
@@ -33,6 +37,8 @@ def unflatten(like, new_leaves) -> dict:
     it = iter(new_leaves)
 
     def build(node):
+        if node is None:
+            return None
         if not isinstance(node, dict):
             return next(it)
         return {k: build(node[k]) for k in sorted(node)}
@@ -50,16 +56,34 @@ def tree_map(fn, tree, *rest):
                             in zip(leaves(tree), *others, strict=True)])
 
 
+def _to_torch(x):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes, as JAX hands it out) is not a
+        # dtype torch.from_numpy takes: carry the bits across as int16
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
 def params_from_numpy(tree, device=None) -> dict:
-    """A tree of array-likes (numpy, or anything ``np.asarray`` takes)
-    -> the same tree of torch tensors, bits unchanged."""
-    return tree_map(lambda x: torch.from_numpy(
-        np.array(np.asarray(x), copy=True)).to(device), tree)
+    """A tree of array-likes (numpy, or anything ``np.asarray`` takes,
+    bfloat16 arrays included) -> the same tree of torch tensors, bits
+    unchanged."""
+    return tree_map(lambda x: _to_torch(x).to(device), tree)
+
+
+def _to_numpy(x):
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        # numpy's bfloat16 is ml_dtypes' (registered once JAX is loaded)
+        return x.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    return x.numpy()
 
 
 def params_to_numpy(tree) -> dict:
-    """The inverse of ``params_from_numpy``."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    """The inverse of ``params_from_numpy``, bits unchanged (bf16 leaves
+    need numpy's bfloat16 dtype registered, as JAX's ml_dtypes does)."""
+    return tree_map(_to_numpy, tree)
 
 
 # --------------------------------------------------------------------------

@@ -157,3 +157,76 @@ def test_ama_mix_kernel_equals_plain_on_card():
         n += 1
         assert got.dtype == pdt and torch.equal(got, want), (K, N, pdt, sdt)
     assert ama_mix_flat.launches == n
+
+
+def _within_flash_rule(got, want32, plain):
+    """FlashAttention's own rule: in bf16 the kernel's max error against
+    the plain version run in f32 (on the same bf16 inputs) is at most
+    twice the plain version's own error when run in bf16, with a floor
+    of 1e-3 x max|want|; in f32, atol 1e-5 + rtol 1e-5 against the plain
+    version."""
+    if got.dtype == torch.float32:
+        return torch.allclose(got, want32, rtol=1e-5, atol=1e-5)
+    err = (got.float() - want32).abs().max()
+    own = (plain.float() - want32).abs().max()
+    return bool(err <= max(2 * own, 1e-3 * want32.abs().max()))
+
+
+#: (dtype, hd, causal, window, B, S, H): the phase-3 cases of
+#: chip_smoke.py at test size, ragged S = 100 (one partial tile) included
+FLASH_CASES = [("bfloat16", 128, True, 0, 2, 256, 4),
+               ("bfloat16", 64, True, 0, 1, 128, 2),
+               ("bfloat16", 96, True, 0, 2, 128, 2),
+               ("float32", 128, True, 0, 1, 256, 2),
+               ("bfloat16", 128, True, 64, 1, 384, 2),
+               ("bfloat16", 64, False, 0, 2, 128, 2),
+               ("float32", 64, False, 32, 1, 100, 3),
+               ("bfloat16", 128, True, 0, 1, 64, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,hd,causal,window,B,S,H", FLASH_CASES)
+def test_flash_kernels_match_plain_on_card(dt, hd, causal, window, B, S, H):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkdv against their plain
+    versions on the same inputs, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import flash_attention as tfa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, dout = (torch.randn(B, S, H, hd, device=dev, generator=g)
+                     .to(dt) for _ in range(4))
+    kw = dict(causal=causal, window=window)
+    tfa.reset_counts()
+    up = [x.float() for x in (dout, q, k, v)]
+    out32, lse32 = tref.flash_attention_ref(*up[1:], **kw)
+    out_lo, lse_lo = tref.flash_attention_ref(q, k, v, **kw)
+    out, lse = tfa.flash_fwd(q, k, v, **kw)
+    assert _within_flash_rule(out, out32, out_lo)
+    torch.testing.assert_close(lse, lse_lo, rtol=1e-5, atol=1e-5)
+    # the backward passes on the plain forward's outputs
+    dq32, d32 = tref.flash_bwd_dq_ref(*up, out_lo.float(), lse_lo, **kw)
+    dq_lo, d_lo = tref.flash_bwd_dq_ref(dout, q, k, v, out_lo, lse_lo, **kw)
+    dq, delta = tfa.flash_bwd_dq(dout, q, k, v, out_lo, lse_lo, **kw)
+    assert _within_flash_rule(dq, dq32, dq_lo)
+    torch.testing.assert_close(delta, d_lo, rtol=1e-5, atol=1e-5)
+    dk32, dv32 = tref.flash_bwd_dkdv_ref(*up, lse_lo, d_lo, **kw)
+    dk_lo, dv_lo = tref.flash_bwd_dkdv_ref(dout, q, k, v, lse_lo, d_lo, **kw)
+    dk, dv = tfa.flash_bwd_dkdv(dout, q, k, v, lse_lo, d_lo, **kw)
+    assert _within_flash_rule(dk, dk32, dk_lo)
+    assert _within_flash_rule(dv, dv32, dv_lo)
+    assert all(fn.launches == 1 for fn in tfa.KERNELS.values())
+
+
+@pytest.mark.gpu
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import flash_attention as tfa
+    dev = torch.device("cuda")
+    for S, hd, dt in ((200, 64, torch.bfloat16), (128, 80, torch.bfloat16),
+                      (128, 64, torch.float16)):
+        x = torch.zeros(1, S, 2, hd, device=dev, dtype=dt)
+        with pytest.raises((ValueError, TypeError)):
+            tfa.flash_attention(x, x, x)
