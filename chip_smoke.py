@@ -10,12 +10,16 @@ Phases (any error or out-of-tolerance result exits non-zero):
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
      ragged tails, top-k positions colliding across clients; server_mix
-     at the LLM path's N = 2,583,711,744 bf16, K = 2; the flash-attention
-     forward and both backward passes at the LLM path's (B 2, S 2048, H
-     32, hd 128) bf16 causal and at hd 64 / 96, f32, a window, non-causal,
-     one tile and B*H = 1, under FlashAttention's error rule), with
-     device times (CUDA-graph replay) beside the least time the card
-     could take (its bound), the plain version's and a library call's;
+     at the LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
+     the flash-attention forward and both backward passes at the LLM
+     path's (B 2, S 2048, H 32, hd 128) bf16 causal and at hd 64 / 96,
+     f32, a window, non-causal, one tile and B*H = 1, under
+     FlashAttention's error rule; the rwkv6 recurrence forward and
+     backward at the rwkv6 path's (B 2, S 2048, H 40, hd 64) f32 and at
+     B*H = 1, S 64 / 96, hd 16 / 32, a ragged segment and decays near 0
+     and 1, within 1e-5 x (1 + max |plain|)), with device times
+     (CUDA-graph replay) beside the least time the card could take (its
+     bound), the plain version's and a library call's;
   4. the main paths: ``repro_torch.launch.train`` in this process at the
      paper CNN's full width: ama_fes, fedavg, async_ama (slice 1);
      fedprox, fedopt; the comm planes q8, bf16 and topk; fedopt and
@@ -25,23 +29,27 @@ Phases (any error or out-of-tolerance result exits non-zero):
      --use-kernel``: ama_fes, fedavg, fedprox, fedopt, async_ama; slice
      3). Each run asserts the exact launches of every kernel (ama_mix:
      rounds x 8 leaves) and that no plain version ran on the card. The
-     LLM path: ``--pod`` federated training of minitron-8b at full width (2 of
-     its 32 layers, 2,583,711,744 bf16 parameters; 2 cohorts x 2 local
-     steps x 1 x 2048 tokens, 3 rounds), ama_fes and fedavg, with the
-     exact flash-attention and server_mix launches, rounds/s, tokens/s
-     and the peak device memory;
+     LLM paths: ``--pod`` federated training at full width of
+     minitron-8b (2 of its 32 layers, 2,583,711,744 bf16 parameters;
+     slice 4) and of rwkv6-3b (8 of its 32 layers, 1,018,698,240 bf16
+     parameters; slice 5), 2 cohorts x 2 local steps x 1 x 2048 tokens, 3
+     rounds, ama_fes and fedavg each, with the exact launches of the
+     path's kernels (flash attention or the rwkv6 recurrence) and of
+     server_mix, falling losses, rounds/s, tokens/s and the peak device
+     memory (under 75 GB);
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
-     fedopt, 10 rounds each); the reduced LLM path in f32 on the card
-     (kernels) against the CPU (plain versions);
+     fedopt, 10 rounds each); the reduced LLM paths (minitron-8b,
+     rwkv6-3b) in f32 on the card (kernels) against the CPU (plain
+     versions);
   6. the port's contract: chunked == per-round, bitwise (async_ama,
-     fedopt, ama_fes + q8, and the reduced LLM path); chunked ==
+     fedopt, ama_fes + q8, and both reduced LLM paths); chunked ==
      per-round == save -> restore -> continue over 20 rounds (ama_fes,
      async_ama, fedopt); prefetch depths 0, 1, 2 bitwise equal;
      --metrics-out on == off bitwise, and its JSONL valid;
   7. torch.profiler breakdowns of 10 ama_fes rounds and of 2 full-width
-     LLM rounds (through the launcher's --profile).
+     rounds of each LLM (through the launcher's --profile).
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -540,17 +548,47 @@ def ama_mix_round_row(recs):
 
 
 LLM_N = 2_583_711_744            # minitron-8b, 2 layers, full width
+RWKV_N = 1_018_698_240           # rwkv6-3b, 8 layers, full width
 LLM_K = 2                        # the pod path's cohorts
+CUBLAS_ROWS = 1 << 30            # addmv rows a call, below 2**31
 
 
-def check_server_mix_llm(torch, sp, ref, record):
-    """server_mix at the LLM path's size: N = 2,583,711,744 bf16 (past
-    2**31, so every index is 64-bit), K = 2, bitwise against the plain
-    version; the plain version's time is an eager call (its ~40 GB of f32
-    temporaries do not fit a graph of several calls)."""
+def addmv_ms(torch, prev, stacked, sizes, keep, coefs) -> float:
+    """Device time of the library yardstick of server_mix: one
+    torch.addmv, alpha * prev + stacked^T w in prev's dtype. cuBLAS's
+    sizes are 32-bit, so past CUBLAS_ROWS elements the rows are cut into
+    contiguous slices of CUBLAS_ROWS (copied outside the timing) and the
+    slices' calls are timed together."""
+    alpha = min(float(coefs[0] + coefs[1] * coefs[3]), float(coefs[2]))
+    w = sizes * keep
+    tot = float(w.sum())
+    vec = ((1.0 - alpha) * w / max(tot, 1e-9)).to(prev.dtype)
+    a_eff = alpha if tot > 0 else 1.0
+    N = prev.numel()
+    if N <= CUBLAS_ROWS:
+        return device_ms(torch, lambda: torch.addmv(prev, stacked.T, vec,
+                                                    beta=a_eff),
+                         reps=2, replays=5)
+    parts = [(prev[a:a + CUBLAS_ROWS], stacked[:, a:a + CUBLAS_ROWS]
+              .contiguous()) for a in range(0, N, CUBLAS_ROWS)]
+
+    def sliced():
+        for p, m in parts:
+            torch.addmv(p, m.T, vec, beta=a_eff)
+    ms = device_ms(torch, sliced, reps=2, replays=5)
+    del parts
+    return ms
+
+
+def check_server_mix_llm(torch, sp, ref, record, N, label):
+    """server_mix at an LLM path's size: N bf16 (past 2**31 for
+    minitron-8b, so every index is 64-bit), K = 2, bitwise against the
+    plain version; the plain version's time is an eager call (its f32
+    temporaries do not fit a graph of several calls); the library
+    yardstick is addmv in bf16 (``addmv_ms``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    K, N = LLM_K, LLM_N
+    K = LLM_K
     prev = torch.randn(N, device=dev, generator=g, dtype=torch.bfloat16)
     stacked = torch.randn(K, N, device=dev, generator=g, dtype=torch.bfloat16)
     sizes = torch.ones(K, device=dev)
@@ -561,17 +599,19 @@ def check_server_mix_llm(torch, sp, ref, record):
     want = ref.server_mix_math(*args)
     torch.cuda.synchronize()
     exact = torch.equal(got, want)
-    check(exact, "server_mix at N = 2,583,711,744 bf16: not bitwise equal "
-          "to the plain version")
+    check(exact, f"server_mix at N = {N:,} bf16: not bitwise equal to the "
+          "plain version")
     del got, want
     ms = device_ms(torch, lambda: sp.server_mix_flat(*args), reps=2,
                    replays=5)
     eager = call_ms(torch, lambda: sp.server_mix_flat(*args), iters=3)
     plain = call_ms(torch, lambda: ref.server_mix_math(*args), iters=2)
+    torch.cuda.empty_cache()
+    lib = addmv_ms(torch, *args)
     nbytes = (K + 2) * N * 2 + 2 * K * 4 + 16
-    _report(f"K={K} N={N:,} bfloat16 LLM      ", ms, eager, plain, None,
+    _report(f"K={K} N={N:,} bfloat16 {label:9s}", ms, eager, plain, lib,
             nbytes, (2 * K + 1) * N, 0.0, exact, record, K=K, N=N,
-            dtype="torch.bfloat16", case="LLM")
+            dtype="torch.bfloat16", case=label)
     del prev, stacked, args
     torch.cuda.empty_cache()
 
@@ -746,6 +786,139 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
           f"autograd, eager call {lib_bwd:.4f} ms | SDPA forward "
           f"{lib_fwd:.4f} ms")
     return out_rec
+
+
+#: (B, S, H, hd, decay, label): the rwkv6 path's shape first (B 2 = 2
+#: cohorts x 1 sequence, S 2048, H 40, hd 64, decays over the model's
+#: whole range exp(-exp([-8, 4])) = [2.3e-24, 0.99966]), then the
+#: variations phase 3 holds the kernels to: B*H = 1, the Pallas kernel's
+#: test shapes (S 64 and 96 at chunk 32, hd 16), a ragged last segment
+#: at hd 32, decays all near 0 and all near 1
+RWKV_MAIN = (2, 2048, 40, 64, "model", "main")
+RWKV_CASES = [RWKV_MAIN,
+              (1, 2048, 1, 64, "model", "B*H = 1"),
+              (2, 64, 2, 16, "model", "S 64, chunk 32, hd 16"),
+              (2, 96, 2, 64, "model", "S 96, chunk 32"),
+              (1, 100, 3, 32, "model", "ragged, hd 32"),
+              (2, 256, 4, 64, "near 0", "decay ~2e-24"),
+              (2, 2048, 4, 64, "near 1", "decay 0.99966")]
+
+
+def rwkv6_inputs(torch, g, B, S, H, hd, decay):
+    dev = torch.device("cuda")
+    r, k, v, dy = (0.5 * torch.randn(B, S, H, hd, device=dev, generator=g)
+                   for _ in range(4))
+    z = torch.rand(B, S, H, hd, device=dev, generator=g)
+    if decay == "model":
+        w = torch.exp(-torch.exp(12.0 * z - 8.0))
+    elif decay == "near 0":
+        w = torch.exp(-torch.exp(3.9 + 0.1 * z))      # 2.3e-24 .. 1e-21
+    else:
+        w = torch.full_like(z, math.exp(-math.exp(-8.0)))
+    u = 0.1 * torch.randn(B, H, hd, device=dev, generator=g)  # per row
+    s0, ds = (0.1 * torch.randn(B, H, hd, hd, device=dev, generator=g)
+              for _ in range(2))
+    return r, k, v, w, u, s0, dy, ds
+
+
+def check_rwkv6(torch, rs, ref, record):
+    """rwkv6_fwd and rwkv6_bwd against their plain versions on the same
+    inputs (s0, d(s_final) and u non-zero) in every RWKV_CASES case:
+    every output and gradient within 1e-5 x (1 + max |plain|); the
+    entry's contract (S a multiple of min(chunk, S)) at S = 64 and 96
+    with chunk 32; device times at the path's shape beside the bound and
+    the plain version (no single library call computes the recurrence)."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(8)
+    names = ("y", "s_final", "states", "dr", "dk", "dv", "dw", "du", "ds0")
+    print("rwkv6: B, S, H, hd, case | max |kernel - plain| / (1 + max "
+          "|plain|) over y, s_final, states / dr, dk, dv, dw, du, ds0 "
+          "(limit 1e-5) | max |kernel - plain| fwd / bwd")
+    for case in RWKV_CASES:
+        B, S, H, hd, decay, label = case
+        r, k, v, w, u, s0, dy, ds = rwkv6_inputs(torch, g, B, S, H, hd,
+                                                 decay)
+        got = rs.rwkv6_fwd(r, k, v, w, u, s0)
+        want = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+        got += rs.rwkv6_bwd(dy, ds, r, k, v, w, u, want[2])
+        want += ref.rwkv6_scan_bwd_ref(dy, ds, r, k, v, w, u, want[2])
+        torch.cuda.synchronize()
+        errs, abss = [], []
+        for name, a, b in zip(names, got, want, strict=True):
+            check(a.shape == b.shape, f"rwkv6 {label}: {name} shape")
+            abss.append(float((a - b).abs().max()))
+            e = abss[-1] / (1.0 + float(b.abs().max()))
+            check(e <= 1e-5, f"rwkv6 {label} (B={B} S={S} H={H} hd={hd}): "
+                  f"{name} differs by {e:.3e} x (1 + max |plain|)")
+            errs.append(e)
+        if S in (64, 96):                   # the Pallas tests' chunk 32
+            y, sf = rs.rwkv6_scan(r, k, v, w, u[0], s0, chunk=32)
+            y1, sf1, _ = rs.rwkv6_fwd(r, k, v, w,
+                                      u[0].expand(B, H, hd).contiguous(), s0)
+            check(torch.equal(y, y1) and torch.equal(sf, sf1),
+                  f"rwkv6_scan {label}: differs from rwkv6_fwd")
+        print(f"  B={B} S={S:5d} H={H:2d} hd={hd} {label:22s} | "
+              f"{max(errs[:3]):.2e} / {max(errs[3:]):.2e} | "
+              f"{max(abss[:3]):.2e} / {max(abss[3:]):.2e}")
+        rec = dict(case=case, err_fwd=max(abss[:3]), err_bwd=max(abss[3:]))
+        if case == RWKV_MAIN:
+            rec.update(time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0,
+                                  dy, ds, want[2]))
+        record.append(rec)
+        del r, k, v, w, u, s0, dy, ds, got, want
+        torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    x = torch.zeros(1, 200, 2, 64, device=dev)
+    try:
+        rs.rwkv6_scan(x, x, x, x, torch.zeros(2, 64, device=dev),
+                      torch.zeros(1, 2, 64, 64, device=dev))
+    except ValueError:
+        print("rwkv6: S = 200 refused at chunk 128 (S must be a multiple of "
+              "min(chunk, S))")
+    else:
+        fail("rwkv6_scan took S=200, which the TPU kernel refuses")
+
+
+def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
+    """Device times of both kernels and their plain versions at one
+    shape, with each kernel's bound: the bytes and flops of the function
+    it computes, not of its design (the states the forward saves every
+    RWKV6_CKPT steps and the backward's recomputation of them are left
+    out). Bytes: each input read once, each output written once; forward
+    r, k, v, w, u, s0 -> y, s_final; backward dy, d(s_final), r, k, v, w,
+    u, s0 -> dr, dk, dv, dw, du, ds0. Flops a step per (b, h) at the f32
+    rate: forward 5 hd^2 + 5 hd (r . S, w * S + k^T v, and the bonus as
+    (sum_i r_i u_i k_i) v); backward 11 hd^2 + 16 hd (dr, dk, dv, dw by
+    matrix-vector products, the adjoint's update, the bonus terms)."""
+    B, S, H, hd = case[:4]
+    E, BH, nu = B * S * H * hd, B * H, u.numel()
+    mat, steps = BH * hd * hd, BH * S
+    work = {"rwkv6_fwd": (4 * (5 * E + nu + 2 * mat),
+                          steps * (5 * hd * hd + 5 * hd)),
+            "rwkv6_bwd": (4 * (9 * E + 2 * nu + 3 * mat),
+                          steps * (11 * hd * hd + 16 * hd))}
+    kernels = {"rwkv6_fwd": lambda: rs.rwkv6_fwd(r, k, v, w, u, s0),
+               "rwkv6_bwd": lambda: rs.rwkv6_bwd(dy, ds, r, k, v, w, u,
+                                                 states)}
+    plains = {"rwkv6_fwd": lambda: ref.rwkv6_scan_ref(r, k, v, w, u, s0),
+              "rwkv6_bwd": lambda: ref.rwkv6_scan_bwd_ref(dy, ds, r, k, v,
+                                                          w, u, states)}
+    print(f"rwkv6 at B={B} S={S} H={H} hd={hd} f32: kernel device ms | "
+          "bound ms (by) | plain device ms | library: none (no single call "
+          "computes the recurrence)")
+    out = {}
+    for name, fn in kernels.items():
+        ms = device_ms(torch, fn, reps=5, replays=10)
+        plain = device_ms(torch, plains[name], reps=1, replays=3)
+        nbytes, flops = work[name]
+        bnd, by = bound_ms(nbytes, flops)
+        print(f"  {name:10s} | {ms:9.4f} ms | {bnd:.4f} ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | plain "
+              f"{plain:9.4f}")
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                         nbytes=nbytes, flops=flops, bound_ms=bnd,
+                         bound_by=by)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ phase 4/5 ---
@@ -1084,33 +1257,52 @@ def port_contract(torch, train, tree_mod):
               "== per round (--no-scan), bitwise, params and all aux")
 
 
-# ------------------------------------------------------- the LLM path ----
+# ------------------------------------------------------- the LLM paths ---
 
 #: the pod path at full width: 2 cohorts x 2 local steps x 1 x 2048 tokens
 POD_ROUNDS, POD_STEPS, POD_C, POD_B, POD_S = 3, 2, 2, 1, 2048
-POD = ["--arch", "minitron-8b", "--pod", "--cohorts", str(POD_C),
-       "--local-steps", str(POD_STEPS), "--batch", str(POD_B), "--seq",
-       str(POD_S), "--p-limited", "0.5"]
-LN_VOCAB = 12.452932                 # ln(256000): the loss of a uniform guess
+
+#: arch -> its full-width depth cut (layers, FES tail layers), parameter
+#: count there, the plain versions of its kernels, and the name its
+#: kernels carry in a trace. minitron-8b: 2 of 32 layers (one body, one
+#: tail block); rwkv6-3b: 8 of 32 (6 body, the config's own 2 tail
+#: blocks). Both keep 2 cohorts of the un-rematerialised stack on one
+#: card.
+LLMS = {
+    "minitron-8b": dict(layers=2, tail=1, params=LLM_N,
+                        plain=("flash_attention_ref", "flash_bwd_dq_ref",
+                               "flash_bwd_dkdv_ref"), trace="flash_"),
+    "rwkv6-3b": dict(layers=8, tail=2, params=RWKV_N,
+                     plain=("rwkv6_scan_ref", "rwkv6_scan_bwd_ref"),
+                     trace="rwkv6_"),
+}
 
 
-def llm_full_width():
-    """minitron-8b at its published widths, depth cut from 32 layers to
-    2 (one body block, one tail block)."""
+def pod_argv(arch):
+    return ["--arch", arch, "--pod", "--cohorts", str(POD_C),
+            "--local-steps", str(POD_STEPS), "--batch", str(POD_B), "--seq",
+            str(POD_S), "--p-limited", "0.5"]
+
+
+def llm_full_width(arch):
+    """The arch at its published widths, depth cut as LLMS says."""
     from repro_torch.configs.registry import get_arch
-    return get_arch("minitron-8b").with_(num_layers=2, fes_tail_layers=1)
+    spec = LLMS[arch]
+    return get_arch(arch).with_(num_layers=spec["layers"],
+                                fes_tail_layers=spec["tail"])
 
 
-def llm_reduced():
+def llm_reduced(arch):
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_arch
-    return reduced(get_arch("minitron-8b"), dtype="float32")
+    return reduced(get_arch(arch), dtype="float32")
 
 
-#: the reduced LLM path (the config comes from llm_reduced())
-REDUCED_POD = ["--arch", "minitron-8b", "--pod", "--reduced", "--cohorts",
-               str(POD_C), "--local-steps", str(POD_STEPS), "--p-limited",
-               "0.5", "--algorithm", "ama_fes"]
+def reduced_pod(arch):
+    """The reduced LLM path (the config comes from llm_reduced())."""
+    return ["--arch", arch, "--pod", "--reduced", "--cohorts", str(POD_C),
+            "--local-steps", str(POD_STEPS), "--p-limited", "0.5",
+            "--algorithm", "ama_fes"]
 
 
 def run_pod(torch, train, argv, cfg, device="cuda"):
@@ -1119,14 +1311,13 @@ def run_pod(torch, train, argv, cfg, device="cuda"):
                            cfg)
 
 
-class CountPlainFlash:
-    """Counts the plain flash-attention versions' calls on CUDA tensors
-    while installed (the wrappers reach them only for CPU tensors)."""
+class CountPlain:
+    """Counts the calls of ``ref``'s plain versions ``names`` on CUDA
+    tensors while installed (the wrappers reach them only for CPU
+    tensors)."""
 
-    NAMES = ("flash_attention_ref", "flash_bwd_dq_ref", "flash_bwd_dkdv_ref")
-
-    def __init__(self, ref):
-        self.counters = [CountCudaCalls(ref, n) for n in self.NAMES]
+    def __init__(self, ref, names):
+        self.counters = [CountCudaCalls(ref, n) for n in names]
 
     def __enter__(self):
         for c in self.counters:
@@ -1142,71 +1333,82 @@ class CountPlainFlash:
         return {c.name: c.calls for c in self.counters}
 
 
-def pod_main_path(torch, train, fa, sp, ref, tree_mod, main_record):
-    """The LLM main path: minitron-8b at full width, ama_fes and
-    fedavg, 3 rounds each through ``launch.train.pod_scale``. Each run's
-    counts are set to 0 just before it and read just after: the flash
-    kernels launched rounds x local steps x layers times each (one
+def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
+                  main_record):
+    """An LLM main path: ``arch`` at full width, ama_fes and fedavg, 3
+    rounds each through ``launch.train.pod_scale``. Each run's counts are
+    set to 0 just before it and read just after: each of the arch's
+    kernels (``km``) launched rounds x local steps x layers times (one
     vmapped call covers both cohorts), server_mix rounds x dtype groups,
-    no other kernel and no plain version on the card."""
-    cfg = llm_full_width()
+    no other kernel of ``kmods`` (the kernel modules, the server plane's
+    first) and no plain version on the card."""
+    spec = LLMS[arch]
+    cfg = llm_full_width(arch)
+    sp = kmods[0]
+    ln_vocab = math.log(cfg.vocab_size)   # the loss of a uniform guess
     totals = {}
     for algo in ("ama_fes", "fedavg"):
-        argv = [*POD, "--algorithm", algo, "--rounds", str(POD_ROUNDS)]
+        argv = [*pod_argv(arch), "--algorithm", algo, "--rounds",
+                str(POD_ROUNDS)]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        sp.reset_counts()
-        fa.reset_counts()
+        for m in kmods:
+            m.reset_counts()
         t0 = time.perf_counter()
-        with CountPlainFlash(ref) as plain_flash:
+        with CountPlain(ref, spec["plain"]) as plain_calls:
             state, metrics, dt = run_pod(torch, train, argv, cfg)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        counts = {k: fn.launches for k, fn in
-                  {**sp.KERNELS, **fa.KERNELS}.items()}
-        plain = dict(sp.plain_runs_on_cuda, **plain_flash.calls)
+        counts = {k: fn.launches for m in kmods
+                  for k, fn in m.KERNELS.items()}
+        plain = dict(sp.plain_runs_on_cuda, **plain_calls.calls)
         params = tree_mod.leaves(state["params"])
         n_params = sum(x.numel() for x in params)
         groups = len(tree_mod.dtype_groups(params))
         loss = metrics["loss"]
         tokens = POD_ROUNDS * POD_C * POD_STEPS * POD_B * POD_S
-        print(f"LLM main path {algo}: minitron-8b full width, 2 layers, "
-              f"{n_params:,} params; {POD_ROUNDS} rounds in {dt:.3f} s = "
-              f"{POD_ROUNDS / dt:.3f} rounds/s, {tokens / dt:,.0f} tokens/s "
-              f"(first-call set-up included; {wall:.1f} s with init); "
-              f"losses {[round(float(x), 4) for x in loss]}; peak device "
-              f"memory {peak / 1e9:.2f} GB; launches "
+        print(f"LLM main path {arch} {algo}: full width, {cfg.num_layers} "
+              f"layers, {n_params:,} params; {POD_ROUNDS} rounds in "
+              f"{dt:.3f} s = {POD_ROUNDS / dt:.3f} rounds/s, "
+              f"{tokens / dt:,.0f} tokens/s (first-call set-up included; "
+              f"{wall:.1f} s with init); losses "
+              f"{[round(float(x), 4) for x in loss]}; peak device memory "
+              f"{peak / 1e9:.2f} GB; launches "
               f"{ {k: v for k, v in counts.items() if v} }; plain on the "
               f"card {sum(plain.values())}")
-        check(n_params == LLM_N, f"{algo}: {n_params} params, expected "
-              f"{LLM_N}")
+        check(n_params == spec["params"], f"{arch} {algo}: {n_params} "
+              f"params, expected {spec['params']}")
         check(all(math.isfinite(float(x)) for x in loss),
-              f"{algo}: non-finite loss {loss}")
-        check(abs(float(loss[0]) - LN_VOCAB) < 1.0,
-              f"{algo}: round 0 loss {loss[0]} not within 1.0 of ln(256000)")
+              f"{arch} {algo}: non-finite loss {loss}")
+        check(abs(float(loss[0]) - ln_vocab) < 1.0,
+              f"{arch} {algo}: round 0 loss {loss[0]} not within 1.0 of "
+              f"ln({cfg.vocab_size})")
+        check(float(loss[-1]) < float(loss[0]),
+              f"{arch} {algo}: the loss did not fall: {loss}")
         per_run = POD_ROUNDS * POD_STEPS * cfg.num_layers
-        for name in fa.KERNELS:
+        for name in km.KERNELS:
             check(counts[name] == per_run,
-                  f"{algo}: {name} launched {counts[name]} times, expected "
-                  f"{POD_ROUNDS} rounds x {POD_STEPS} steps x "
+                  f"{arch} {algo}: {name} launched {counts[name]} times, "
+                  f"expected {POD_ROUNDS} rounds x {POD_STEPS} steps x "
                   f"{cfg.num_layers} layers")
         check(counts["server_mix"] == POD_ROUNDS * groups,
-              f"{algo}: server_mix launched {counts['server_mix']} times, "
-              f"expected {POD_ROUNDS} x {groups} dtype group(s)")
+              f"{arch} {algo}: server_mix launched {counts['server_mix']} "
+              f"times, expected {POD_ROUNDS} x {groups} dtype group(s)")
         others = {k: v for k, v in counts.items()
-                  if k not in fa.KERNELS and k != "server_mix" and v}
-        check(not others, f"{algo}: other kernels launched: {others}")
+                  if k not in km.KERNELS and k != "server_mix" and v}
+        check(not others, f"{arch} {algo}: other kernels launched: {others}")
         check(all(v == 0 for v in plain.values()),
-              f"{algo}: a plain version ran on the card: {plain}")
-        check(int(state["t"]) == POD_ROUNDS, f"{algo}: ended at round "
-              f"{int(state['t'])}")
+              f"{arch} {algo}: a plain version ran on the card: {plain}")
+        check(int(state["t"]) == POD_ROUNDS, f"{arch} {algo}: ended at "
+              f"round {int(state['t'])}")
         check(all(x.is_cuda and bool(torch.isfinite(x).all())
-                  for x in params), f"{algo}: non-finite or off-card params")
-        check(peak < 75e9, f"{algo}: peak device memory {peak / 1e9:.2f} GB "
-              "beyond 75 GB")
+                  for x in params), f"{arch} {algo}: non-finite or off-card "
+              "params")
+        check(peak < 75e9, f"{arch} {algo}: peak device memory "
+              f"{peak / 1e9:.2f} GB beyond 75 GB")
         for k in counts:
             totals[k] = totals.get(k, 0) + counts[k]
-        main_record.append(dict(run=f"llm {algo}", rounds=POD_ROUNDS,
+        main_record.append(dict(run=f"llm {arch} {algo}", rounds=POD_ROUNDS,
                                 seconds=dt, rounds_per_s=POD_ROUNDS / dt,
                                 tokens_per_s=tokens / dt,
                                 losses=[float(x) for x in loss],
@@ -1216,55 +1418,60 @@ def pod_main_path(torch, train, fa, sp, ref, tree_mod, main_record):
     return totals
 
 
-def llm_card_vs_cpu(torch, train, fa, tree_mod):
+def llm_card_vs_cpu(torch, train, arch, km, tree_mod):
     """The reduced LLM path in f32 (TF32 off), the same params (drawn on
     the CPU from the seed) and tokens: on the card through the kernels,
     on the CPU through the plain versions; params and losses within rtol
     1e-4, atol 1e-5 after 2 rounds."""
-    argv = [*REDUCED_POD, "--rounds", "2"]
-    fa.reset_counts()
-    a, ma, _ = run_pod(torch, train, argv, llm_reduced(), "cuda")
-    check(fa.flash_fwd.launches == 2 * POD_STEPS * 2,
-          f"reduced LLM on the card: flash_fwd launched "
-          f"{fa.flash_fwd.launches} times")
-    b, mb, _ = run_pod(torch, train, argv, llm_reduced(), "cpu")
+    argv = [*reduced_pod(arch), "--rounds", "2"]
+    km.reset_counts()
+    cfg = llm_reduced(arch)
+    a, ma, _ = run_pod(torch, train, argv, cfg, "cuda")
+    for name, fn in km.KERNELS.items():
+        check(fn.launches == 2 * POD_STEPS * cfg.num_layers,
+              f"reduced {arch} on the card: {name} launched {fn.launches} "
+              "times")
+    b, mb, _ = run_pod(torch, train, argv, cfg, "cpu")
     worst = 0.0
     for x, y in zip(tree_mod.leaves(a["params"]), tree_mod.leaves(b["params"]),
                     strict=True):
         worst = max(worst, float((x.cpu() - y).abs().max()))
         check(torch.allclose(x.cpu(), y, rtol=1e-4, atol=1e-5),
-              f"reduced LLM: card and CPU params differ by {worst:.3e}")
+              f"reduced {arch}: card and CPU params differ by {worst:.3e}")
     check(all(abs(p - q) <= 1e-5 + 1e-4 * abs(q)
               for p, q in zip(ma["loss"], mb["loss"])),
-          f"reduced LLM: losses {ma['loss']} (card) vs {mb['loss']} (CPU)")
-    print(f"reduced LLM f32, 2 rounds: card (flash + server kernels) vs CPU "
-          f"(plain versions) max |diff| {worst:.3e} (tolerance rtol 1e-4, "
-          f"atol 1e-5); losses {list(ma['loss'])} vs {list(mb['loss'])}")
+          f"reduced {arch}: losses {ma['loss']} (card) vs {mb['loss']} "
+          "(CPU)")
+    print(f"reduced {arch} f32, 2 rounds: card ({LLMS[arch]['trace']}* + "
+          f"server kernels) vs CPU (plain versions) max |diff| {worst:.3e} "
+          f"(tolerance rtol 1e-4, atol 1e-5); losses {list(ma['loss'])} vs "
+          f"{list(mb['loss'])}")
 
 
-def llm_contract(torch, train, tree_mod):
+def llm_contract(torch, train, arch, tree_mod):
     """chunked == per-round (--no-scan), bitwise, on the reduced LLM path
     on the card: ama_fes, 3 rounds."""
-    argv = [*REDUCED_POD, "--rounds", "3"]
-    a, ma, _ = run_pod(torch, train, argv, llm_reduced())
-    b, mb, _ = run_pod(torch, train, argv + ["--no-scan"], llm_reduced())
+    argv = [*reduced_pod(arch), "--rounds", "3"]
+    a, ma, _ = run_pod(torch, train, argv, llm_reduced(arch))
+    b, mb, _ = run_pod(torch, train, argv + ["--no-scan"], llm_reduced(arch))
     check(all(torch.equal(x, y) for x, y in zip(
         tree_mod.leaves(a), tree_mod.leaves(b), strict=True)),
-          "reduced LLM: chunked and per-round runs differ")
+          f"reduced {arch}: chunked and per-round runs differ")
     check(list(ma["loss"]) == list(mb["loss"]),
-          "reduced LLM: chunked and per-round losses differ")
-    print("port contract: 3 rounds of the reduced LLM path (ama_fes) "
+          f"reduced {arch}: chunked and per-round losses differ")
+    print(f"port contract: 3 rounds of the reduced {arch} path (ama_fes) "
           "chunked == per round (--no-scan), bitwise, params and losses")
 
 
-def llm_where_time_goes(torch, train, tmp):
-    """2 full-width LLM rounds under the launcher's --profile: device time
-    by kernel from the Chrome trace, the flash kernels' share of it, and
-    the device's idle share of the training wall time."""
-    trace_dir = str(Path(tmp) / "llm_profile")
-    argv = [*POD, "--algorithm", "ama_fes", "--rounds", "2", "--profile",
-            trace_dir]
-    _, _, dt = run_pod(torch, train, argv, llm_full_width())
+def llm_where_time_goes(torch, train, arch, tmp):
+    """2 full-width rounds of ``arch`` under the launcher's --profile:
+    device time by kernel from the Chrome trace, the arch's kernels'
+    share of it, and the device's idle share of the training wall
+    time."""
+    trace_dir = str(Path(tmp) / f"profile_{arch}")
+    argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds", "2",
+            "--profile", trace_dir]
+    _, _, dt = run_pod(torch, train, argv, llm_full_width(arch))
     with open(Path(trace_dir) / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     by_name: dict = {}
@@ -1273,12 +1480,14 @@ def llm_where_time_goes(torch, train, tmp):
             n, us = by_name.get(e["name"], (0, 0.0))
             by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
     busy = sum(us for _, us in by_name.values()) / 1e3
-    check(busy > 0, "LLM profile: the trace holds no device time")
-    flash = sum(us for k, (_, us) in by_name.items() if "flash_" in k) / 1e3
-    print(f"where the time goes, LLM full width, 2 rounds: {dt * 1e3:.1f} ms "
-          f"training wall under the profiler, device busy {busy:.1f} ms = "
-          f"{busy / (dt * 1e3):.1%} (idle {1 - busy / (dt * 1e3):.1%}); "
-          f"flash kernels {flash:.1f} ms = {flash / busy:.1%} of device time")
+    check(busy > 0, f"{arch} profile: the trace holds no device time")
+    tag = LLMS[arch]["trace"]
+    own = sum(us for k, (_, us) in by_name.items() if tag in k) / 1e3
+    print(f"where the time goes, {arch} full width, 2 rounds: "
+          f"{dt * 1e3:.1f} ms training wall under the profiler, device busy "
+          f"{busy:.1f} ms = {busy / (dt * 1e3):.1%} (idle "
+          f"{1 - busy / (dt * 1e3):.1%}); {tag}* kernels {own:.1f} ms = "
+          f"{own / busy:.1%} of device time")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 
@@ -1286,6 +1495,7 @@ def llm_where_time_goes(torch, train, tmp):
 # ------------------------------------------------------------------ main --
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
              "checkout of the repository")
@@ -1317,23 +1527,28 @@ def main() -> None:
     from repro_torch.kernels import ama_mix as am
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import server_plane as sp
     from repro_torch.launch import train
     from repro_torch.utils import tree as tree_mod
     from repro_torch.utils.device import resolve_device
     resolve_device("cuda")
 
-    recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS}}
-    flash_rec = []
+    recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS, **rs.KERNELS}}
+    flash_rec, rwkv_rec = [], []
     main_rec = []
+    kmods = (sp, fa, rs)
     check_server_mix(torch, sp, ref, recs["server_mix"])
-    check_server_mix_llm(torch, sp, ref, recs["server_mix"])
+    check_server_mix_llm(torch, sp, ref, recs["server_mix"], LLM_N, "LLM")
+    check_server_mix_llm(torch, sp, ref, recs["server_mix"], RWKV_N,
+                         "rwkv6 LLM")
     check_server_async(torch, sp, ref, recs["server_async"])
     check_server_adam(torch, sp, ref, recs["server_adam"])
     check_server_mix_delta(torch, sp, ref, recs["server_mix_delta"])
     check_server_mix_scatter(torch, sp, ref, recs["server_mix_scatter"])
     check_ama_mix(torch, am, ref, recs["ama_mix"])
     check_flash(torch, fa, ref, flash_rec)
+    check_rwkv6(torch, rs, ref, rwkv_rec)
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
     # against the first main-path run
     run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,
@@ -1342,19 +1557,25 @@ def main() -> None:
                          main_rec)
     legacy = main_path(torch, train, sp, ref, tree_mod, LEGACY_RUNS,
                        main_rec)
-    llm = pod_main_path(torch, train, fa, sp, ref, tree_mod, main_rec)
-    launches = {k: launches.get(k, 0) + legacy.get(k, 0) + llm.get(k, 0)
+    llm = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
+                        tree_mod, main_rec)
+    rwkv = pod_main_path(torch, train, "rwkv6-3b", rs, kmods, ref, tree_mod,
+                         main_rec)
+    launches = {k: sum(run.get(k, 0) for run in (launches, legacy, llm, rwkv))
                 for k in recs}
     fused_vs_plain(torch, train, tree_mod)
     legacy_kernel_vs_plain(torch, train, tree_mod)
-    llm_card_vs_cpu(torch, train, fa, tree_mod)
+    llm_card_vs_cpu(torch, train, "minitron-8b", fa, tree_mod)
+    llm_card_vs_cpu(torch, train, "rwkv6-3b", rs, tree_mod)
     port_contract(torch, train, tree_mod)
-    llm_contract(torch, train, tree_mod)
+    llm_contract(torch, train, "minitron-8b", tree_mod)
+    llm_contract(torch, train, "rwkv6-3b", tree_mod)
     with tempfile.TemporaryDirectory() as tmp:
         restart_contract(torch, train, tree_mod, tmp)
         prefetch_and_metrics(torch, train, tree_mod, tmp)
         where_time_goes(torch, train)
-        llm_where_time_goes(torch, train, tmp)
+        llm_where_time_goes(torch, train, "minitron-8b", tmp)
+        llm_where_time_goes(torch, train, "rwkv6-3b", tmp)
 
     f32 = "torch.float32"
     main_shape = {  # the row of each kernel at the main path's shape
@@ -1375,17 +1596,24 @@ def main() -> None:
                 # the TPU path has no backward kernel: XLA differentiates
                 # chunked_attention
                 "flash_bwd_dq": "models/attention.py:44",
-                "flash_bwd_dkdv": "models/attention.py:44"}
+                "flash_bwd_dkdv": "models/attention.py:44",
+                "rwkv6_fwd": "kernels/rwkv6_scan.py:49",
+                # the TPU path has no backward kernel: XLA differentiates
+                # the scan of time_mix
+                "rwkv6_bwd": "models/rwkv6.py:119"}
     source = {"server_mix": "server_plane.cu", "server_async":
               "server_plane.cu", "server_adam": "server_adam.cu",
               "server_mix_delta": "server_mix_compressed.cu",
               "server_mix_scatter": "server_mix_compressed.cu",
               "ama_mix": "ama_mix.cu", "flash_fwd": "flash_attention.cu",
               "flash_bwd_dq": "flash_attention.cu",
-              "flash_bwd_dkdv": "flash_attention.cu"}
+              "flash_bwd_dkdv": "flash_attention.cu",
+              "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu"}
     flash_main = next(r for r in flash_rec if r["case"] == FLASH_MAIN)
     flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
                  "flash_bwd_dkdv": "err_dkdv"}
+    rwkv_main = next(r for r in rwkv_rec if r["case"] == RWKV_MAIN)
+    rwkv_err = {"rwkv6_fwd": "err_fwd", "rwkv6_bwd": "err_bwd"}
     kernels = []
     for name in recs:
         check(launches[name] > 0, f"{name}: never launched on the main path")
@@ -1393,6 +1621,10 @@ def main() -> None:
             row = flash_main[name]
             b, by = row["bound_ms"], row["bound_by"]
             err = max(r[flash_err[name]] for r in flash_rec)
+        elif name in rs.KERNELS:
+            row = rwkv_main[name]
+            b, by = row["bound_ms"], row["bound_by"]
+            err = max(r[rwkv_err[name]] for r in rwkv_rec)
         else:
             rec = recs[name]
             # ama_mix: the 8 leaf launches of one legacy round, summed
@@ -1412,9 +1644,11 @@ def main() -> None:
     for r in main_rec:
         print("main:", json.dumps(r))
     for name, rec in recs.items():
-        if name not in fa.KERNELS:
+        if name in sp.KERNELS:
             print(f"{name}: bitwise equal to the plain version in "
                   f"{sum(r['exact'] for r in rec)} of {len(rec)} cases")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s on the card, "
+          "build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

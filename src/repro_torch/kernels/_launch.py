@@ -1,7 +1,8 @@
 """What every kernel wrapper of the port shares: operand checks, the
 device dispatch (a CUDA tensor launches the kernel, a CPU tensor takes
-the plain version, anything else is refused), and the ctypes plumbing
-of a launch (pointers, PyTorch's current stream, the error code)."""
+the plain version, anything else is refused), the ctypes plumbing of a
+launch (pointers, PyTorch's current stream, the error code), and the
+folding of a vmapped dim into a kernel's batch axis."""
 from __future__ import annotations
 
 import ctypes
@@ -53,3 +54,14 @@ def _stream(dev) -> ctypes.c_void_p:
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _fold(x, dim, size):
+    """The vmapped dim of ``x`` (or a broadcast of an unbatched ``x``)
+    folded into its leading B axis, contiguous."""
+    x = x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+    return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def _unfold(x, size):
+    return x.reshape(size, x.shape[0] // size, *x.shape[1:])

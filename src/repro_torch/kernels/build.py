@@ -65,6 +65,13 @@ SIGNATURES = {
     # window, scale, stream
     "flash_bwd_dkdv": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                        _P, _P, *_GEO, _P),
+    # hd, ckpt, r, k, v, w, u, s0, y, s_final, states, B, S, H, stream
+    "rwkv6_fwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 9,
+                  *(ctypes.c_int,) * 3, _P),
+    # hd, ckpt, dy, ds, r, k, v, w, u, states, dr, dk, dv, dw, du, ds0,
+    # scratch, B, S, H, stream
+    "rwkv6_bwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 15,
+                  *(ctypes.c_int,) * 3, _P),
 }
 
 

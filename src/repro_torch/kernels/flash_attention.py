@@ -41,8 +41,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._launch import (_DTYPE_CODE, _check, _kernel_device,
-                                         _ptr, _raise_on, _stream)
+from repro_torch.kernels._launch import (_DTYPE_CODE, _check, _fold,
+                                         _kernel_device, _ptr, _raise_on,
+                                         _stream, _unfold)
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
            "FlashAttention", "FlashAttentionBwd", "KERNELS", "reset_counts",
@@ -173,17 +174,6 @@ def reset_counts() -> None:
 # ---------------------------------------------------------------------------
 # autograd and vmap
 # ---------------------------------------------------------------------------
-
-def _fold(x, dim, size):
-    """The vmapped dim of ``x`` (or a broadcast of an unbatched ``x``)
-    folded into its leading B axis, contiguous."""
-    x = x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
-    return x.reshape(size * x.shape[1], *x.shape[2:]).contiguous()
-
-
-def _unfold(x, size):
-    return x.reshape(size, x.shape[0] // size, *x.shape[1:])
-
 
 class FlashAttention(torch.autograd.Function):
     """(q, k, v, causal, window, scale) -> (out, lse); lse is not

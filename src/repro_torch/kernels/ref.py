@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels: the server plane,
-``ama_mix`` and flash attention.
+``ama_mix``, flash attention and the RWKV-6 recurrence.
 
 The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
 server_mix_math, server_mix_delta_math, server_mix_scatter_math,
@@ -20,9 +20,17 @@ in f32), returning the log-sum-exp rows as well; ``flash_attention_bwd_ref``
 is its gradient by the explicit formula the backward kernels compute
 (``D = rowsum(dO * O)``, ``dS = P * (dP - D)``).
 
-The wrappers in ``server_plane.py``, ``ama_mix.py`` and
-``flash_attention.py`` run these for CPU tensors; on the card the
-server-plane ones run only when ``fl.server_plane == "ref"``.
+``rwkv6_scan_ref`` is the RWKV-6 recurrence of the JAX package's
+``kernels/ref.py: rwkv6_scan_ref``, a loop over time, returning the
+states it saves every ``RWKV6_CKPT`` steps as well;
+``rwkv6_scan_bwd_ref`` is its gradient by the explicit adjoint
+recurrence the backward kernel computes, recomputing each segment's
+states from the saved ones.
+
+The wrappers in ``server_plane.py``, ``ama_mix.py``,
+``flash_attention.py`` and ``rwkv6_scan.py`` run these for CPU
+tensors; on the card the server-plane ones run only when
+``fl.server_plane == "ref"``.
 """
 from __future__ import annotations
 
@@ -288,3 +296,76 @@ def flash_attention_bwd_ref(dout, q, k, v, out, lse, *, causal=True,
     dq, delta = flash_bwd_dq_ref(dout, q, k, v, out, lse, **kw)
     dk, dv = flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, **kw)
     return dq, dk, dv
+
+
+# --------------------------------------------------------------------------
+# RWKV-6 recurrence
+# --------------------------------------------------------------------------
+
+#: steps between the states the forward saves for the backward (the CUDA
+#: source's kCk)
+RWKV6_CKPT = 16
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0):
+    """RWKV-6 recurrence, one step at a time: y_t = r_t (S + diag(u)
+    k_t^T v_t), then S <- diag(w_t) S + k_t^T v_t, per (batch, head).
+
+    r/k/v/w: (B, S, H, hd) f32 (w in (0, 1)); u: (B, H, hd) f32, one row
+    per batch row; s0: (B, H, hd, hd) f32. Returns (y
+    (B, S, H, hd) f32, s_final (B, H, hd, hd) f32, states (B, H,
+    ceil(S / RWKV6_CKPT), hd, hd) f32: the state entering every
+    RWKV6_CKPT-th step, s0 first), the states being what the backward
+    restarts from."""
+    S = r.shape[1]
+    uu = u[..., None]
+    St = s0
+    ys, states = [], []
+    for t in range(S):
+        if t % RWKV6_CKPT == 0:
+            states.append(St)
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], St + uu * kv))
+        St = w[:, t, :, :, None] * St + kv
+    return torch.stack(ys, 1), St, torch.stack(states, 2)
+
+
+def rwkv6_scan_bwd_ref(dy, ds, r, k, v, w, u, states):
+    """The gradient of ``rwkv6_scan_ref``'s (y, s_final) by the adjoint
+    recurrence. dy: (B, S, H, hd) f32; ds: (B, H, hd, hd) f32, the
+    gradient of s_final; states: the forward's saved states. Walking
+    time backward with G the adjoint of the state after step t:
+
+        dr_t = (S_{t-1} + diag(u) k_t^T v_t) dy_t
+        dk_t = r_t * u * (dy_t . v_t) + G v_t
+        dv_t = (sum_i r_t,i u_i k_t,i) dy_t + G^T k_t
+        dw_t = rowsum(G * S_{t-1})
+        du  += r_t * k_t * (dy_t . v_t)
+        G   <- diag(w_t) G + r_t^T dy_t
+
+    S_{t-1} is recomputed forward from the saved state of its segment
+    (never by dividing by w, which reaches 1e-24). Returns (dr, dk, dv,
+    dw, du (B, H, hd), ds0), f32."""
+    S = r.shape[1]
+    G = ds
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for g in reversed(range(states.shape[2])):
+        t0 = g * RWKV6_CKPT
+        St, prev = states[:, :, g], []
+        for t in range(t0, min(t0 + RWKV6_CKPT, S)):
+            prev.append(St)
+            kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+            St = w[:, t, :, :, None] * St + kv
+        for t in reversed(range(t0, t0 + len(prev))):
+            Sp = prev[t - t0]
+            r_t, k_t, v_t, w_t, dy_t = (x[:, t] for x in (r, k, v, w, dy))
+            dyv = (dy_t * v_t).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", Sp, dy_t) + u * k_t * dyv
+            dk[:, t] = r_t * u * dyv + torch.einsum("bhij,bhj->bhi", G, v_t)
+            dv[:, t] = ((r_t * u * k_t).sum(-1, keepdim=True) * dy_t
+                        + torch.einsum("bhij,bhi->bhj", G, k_t))
+            dw[:, t] = (G * Sp).sum(-1)
+            du = du + r_t * k_t * dyv
+            G = w_t[..., :, None] * G + r_t[..., :, None] * dy_t[..., None, :]
+    return dr, dk, dv, dw, du, G

@@ -1,5 +1,6 @@
 """Unified model API (the port's part of the JAX package's
-``models/api.py``: the paper CNN and the dense transformer family):
+``models/api.py``: the paper CNN and the dense and ssm (RWKV-6)
+transformer families):
 
     model = build_model(cfg)
     params = model.init(generator, device)

@@ -1,12 +1,12 @@
 """Neural-net primitives on params-as-dicts (the port of the JAX
-package's ``models/layers.py``: dense, embedding, RMSNorm, rotary
-embeddings, the gated/GELU MLP and the cross-entropy losses).
+package's ``models/layers.py``: dense, embedding, RMSNorm, LayerNorm,
+rotary embeddings, the gated/GELU MLP and the cross-entropy losses).
 
-The f32 casts sit exactly where the JAX package has them: RMSNorm, RoPE
-and the losses compute in f32 and return in the input's dtype (the
-losses in f32). Initializers draw from a ``torch.Generator`` on the
-CPU; the JAX package's ``jax.random`` streams cannot be reproduced, so
-the tests carry JAX's params across instead.
+The f32 casts sit exactly where the JAX package has them: RMSNorm,
+LayerNorm, RoPE and the losses compute in f32 and return in the input's
+dtype (the losses in f32). Initializers draw from a ``torch.Generator``
+on the CPU; the JAX package's ``jax.random`` streams cannot be
+reproduced, so the tests carry JAX's params across instead.
 """
 from __future__ import annotations
 
@@ -59,6 +59,22 @@ def rmsnorm(p: dict, x, eps: float = 1e-6):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["g"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype) -> dict:
+    return {"g": torch.ones((d,), dtype=dtype),
+            "b": torch.zeros((d,), dtype=dtype)}
+
+
+def layernorm(p: dict, x, eps: float = 1e-5):
+    """LayerNorm in f32 over the last axis, returned in x's dtype. The
+    variance is the population variance (``jnp.var``), not PyTorch's
+    default unbiased one."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"].float() + p["b"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------- rotary ----

@@ -1,5 +1,6 @@
-"""The decoder stack of the dense family (the port of the JAX package's
-``models/transformer.py`` for ``family == "dense"``).
+"""The decoder stack of the dense and ssm (RWKV-6) families (the port of
+the JAX package's ``models/transformer.py`` for ``family`` "dense" and
+"ssm").
 
 The stack is split into BODY and TAIL block groups so the paper's FES
 scheme (feature extractor = embed + body; classifier = tail + final norm
@@ -9,29 +10,30 @@ by a Python loop over that axis (JAX: ``lax.scan``).
 
 JAX wraps each block in ``jax.checkpoint`` when ``cfg.remat``; that
 changes memory, not values, and the port keeps every block's
-activations for the backward instead (the pod path runs two layers).
-The ssm, hybrid, moe, vlm and audio families raise NotImplementedError:
-they come with later slices of the port.
+activations for the backward instead (the pod path runs a depth-cut
+stack). The hybrid, moe, vlm and audio families raise
+NotImplementedError: they come with later slices of the port.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import (chunked_cross_entropy, dense,
                                        dense_init, embedding, embedding_init,
                                        mlp, mlp_init, rmsnorm, rmsnorm_init)
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 #: family -> the slice of the port that brings it
-_LATER = {"ssm": "the rwkv6 slice", "hybrid": "the mamba2/hybrid slice",
+_LATER = {"hybrid": "the mamba2/hybrid slice",
           "moe": "the MoE slice", "vlm": "the VLM slice",
           "audio": "the encoder-decoder slice"}
 
 
 def check_family(cfg) -> None:
     family = "moe" if cfg.num_experts else cfg.family
-    if family != "dense":
+    if family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"model family {family!r} ({cfg.name}) is not ported yet: it "
             f"comes with {_LATER.get(family, 'a later slice')}")
@@ -40,8 +42,12 @@ def check_family(cfg) -> None:
 # ------------------------------------------------------------- blocks ------
 
 def block_init(gen: torch.Generator, cfg, dtype) -> dict:
-    """One block of the dense family."""
+    """One block of the config's family."""
     check_family(cfg)
+    if cfg.family == "ssm":                       # rwkv6
+        return {"rwkv": rwkv6.rwkv6_init(gen, cfg, dtype),
+                "ln1": rmsnorm_init(cfg.d_model, dtype),
+                "ln2": rmsnorm_init(cfg.d_model, dtype)}
     return {"ln1": rmsnorm_init(cfg.d_model, dtype),
             "ln2": rmsnorm_init(cfg.d_model, dtype),
             "attn": attn.attn_init(gen, cfg, dtype),
@@ -58,7 +64,15 @@ def _stacked_block_init(gen: torch.Generator, cfg, n: int, dtype):
 
 
 def block_fwd(p, cfg, x, positions, aux):
-    """Full-sequence block application. Returns (x, aux)."""
+    """Full-sequence block application. Returns (x, aux). An rwkv6
+    block starts from a fresh zero state and drops the new one, as in
+    the JAX package."""
+    if cfg.family == "ssm":
+        st = rwkv6.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
+        h, st = rwkv6.time_mix(p["rwkv"], cfg, rmsnorm(p["ln1"], x), st)
+        x = x + h
+        h, _ = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x), st)
+        return x + h, aux
     h = attn.attention_fwd(p["attn"], cfg, rmsnorm(p["ln1"], x), positions)
     x = x + h
     h = mlp(p["mlp"], rmsnorm(p["ln2"], x))
@@ -109,7 +123,7 @@ def embed_inputs(params, cfg, batch):
 
 def hidden_states(params, cfg, batch):
     """Final-norm hidden states (no logits) and the aux loss (0 for the
-    dense family)."""
+    dense and ssm families)."""
     x, positions = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = _run_blocks(params["body"], cfg, x, positions, aux)

@@ -230,3 +230,58 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
         x = torch.zeros(1, S, 2, hd, device=dev, dtype=dt)
         with pytest.raises((ValueError, TypeError)):
             tfa.flash_attention(x, x, x)
+
+
+#: (B, S, H, hd, decay range, u scale): the phase-3 cases of
+#: chip_smoke.py at test size; S = 100 leaves a ragged last segment
+RWKV6_CASES = [(2, 256, 4, 64, (0.4, 0.9), 0.1),
+               (1, 64, 1, 16, (0.4, 0.9), 0.1),
+               (1, 100, 2, 32, (0.4, 0.9), 0.5),
+               (2, 96, 2, 64, (2e-24, 1e-23), 0.1),
+               (2, 96, 2, 64, (0.99966, 0.99966), 0.1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd,decay,us", RWKV6_CASES)
+def test_rwkv6_kernels_match_plain_on_card(B, S, H, hd, decay, us):
+    """rwkv6_fwd and rwkv6_bwd against their plain versions on the same
+    inputs, s0 and d(s_final) non-zero, one launch each: every output
+    within 1e-5 x (1 + max |plain|) (f32 sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import rwkv6_scan as trs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    r, k, v, dy = (torch.randn(B, S, H, hd, device=dev, generator=g) * 0.5
+                   for _ in range(4))
+    lo, hi = decay
+    w = lo + (hi - lo) * torch.rand(B, S, H, hd, device=dev, generator=g)
+    u = us * torch.randn(B, H, hd, device=dev, generator=g)  # per row
+    s0, ds = (0.1 * torch.randn(B, H, hd, hd, device=dev, generator=g)
+              for _ in range(2))
+    trs.reset_counts()
+    got = trs.rwkv6_fwd(r, k, v, w, u, s0)
+    want = tref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    got_b = trs.rwkv6_bwd(dy, ds, r, k, v, w, u, want[2])
+    want_b = tref.rwkv6_scan_bwd_ref(dy, ds, r, k, v, w, u, want[2])
+    for a, b in zip((*got, *got_b), (*want, *want_b)):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * (
+            1 + float(b.abs().max()))
+    assert all(fn.launches == 1 for fn in trs.KERNELS.values())
+
+
+@pytest.mark.gpu
+def test_rwkv6_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import rwkv6_scan as trs
+    dev = torch.device("cuda")
+    for hd, dt in ((128, torch.float32), (48, torch.float32),
+                   (64, torch.bfloat16)):
+        x = torch.zeros(1, 32, 2, hd, device=dev, dtype=dt)
+        with pytest.raises((ValueError, TypeError)):
+            trs.rwkv6_fwd(x, x, x, x,
+                          torch.zeros(1, 2, hd, device=dev, dtype=dt),
+                          torch.zeros(1, 2, hd, hd, device=dev, dtype=dt))

@@ -146,6 +146,7 @@ def test_kernel_entries_keep_their_plain_versions_signatures():
     """The port's counterpart of fedlint FED204: each kernel wrapper takes
     exactly its plain version's positional parameters."""
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rwkv6_scan as trs
     from repro_torch.kernels.ama_mix import ama_mix_flat
     for kernel, plain in ((tsp.server_mix_flat, tref.server_mix_math),
                           (tsp.server_async_flat, tref.server_async_math),
@@ -153,7 +154,9 @@ def test_kernel_entries_keep_their_plain_versions_signatures():
                           (tfa.flash_fwd, tref.flash_attention_ref),
                           (tfa.flash_bwd_dq, tref.flash_bwd_dq_ref),
                           (tfa.flash_bwd_dkdv, tref.flash_bwd_dkdv_ref),
-                          (tfa.flash_attention, tref.flash_attention_ref)):
+                          (tfa.flash_attention, tref.flash_attention_ref),
+                          (trs.rwkv6_fwd, tref.rwkv6_scan_ref),
+                          (trs.rwkv6_bwd, tref.rwkv6_scan_bwd_ref)):
         assert (list(inspect.signature(kernel).parameters)
                 == list(inspect.signature(plain).parameters))
 
