@@ -6,15 +6,19 @@
 Phases (any error or out-of-tolerance result exits non-zero):
   1. header: torch / CUDA versions and the card's name and power limit;
   2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-     (one nvcc per source, started together);
+     (one nvcc per source, started together); ptxas's registers, spills
+     and static shared memory of every kernel;
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
      ragged tails, top-k positions colliding across clients; server_mix
      at the LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
      the flash-attention forward and both backward passes at the LLM
-     path's (B 2, S 2048, H 32, hd 128) bf16 causal and at hd 64 / 96,
-     f32, a window, non-causal, one tile and B*H = 1, under
-     FlashAttention's error rule; the rwkv6 recurrence forward and
+     path's (B 2, S 2048, H 32, hd 128) bf16 causal, kv head-repeated
+     and at its 8 kv heads (GQA), and at hd 64 / 96, f32, a window,
+     non-causal, one tile, B*H = 1, GQA at n_rep 2 and ragged S = 100,
+     under FlashAttention's error rule, each dtype on its own design
+     (bf16 on the tensor cores, f32 on the CUDA cores); the rwkv6
+     recurrence forward and
      backward at the rwkv6 path's (B 2, S 2048, H 40, hd 64) f32 and at
      B*H = 1, S 64 / 96, hd 16 / 32, a ragged segment and decays near 0
      and 1, within 1e-5 x (1 + max |plain|)), with device times
@@ -34,9 +38,9 @@ Phases (any error or out-of-tolerance result exits non-zero):
      slice 4) and of rwkv6-3b (8 of its 32 layers, 1,018,698,240 bf16
      parameters; slice 5), 2 cohorts x 2 local steps x 1 x 2048 tokens, 3
      rounds, ama_fes and fedavg each, with the exact launches of the
-     path's kernels (flash attention or the rwkv6 recurrence) and of
-     server_mix, falling losses, rounds/s, tokens/s and the peak device
-     memory (under 75 GB);
+     path's kernels (flash attention, all on the tensor cores, or the
+     rwkv6 recurrence) and of server_mix, falling losses, rounds/s,
+     tokens/s and the peak device memory (under 75 GB);
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -616,17 +621,28 @@ def check_server_mix_llm(torch, sp, ref, record, N, label):
     torch.cuda.empty_cache()
 
 
-#: (dtype, hd, causal, window, B, S, H): the LLM path's shape first, then
-#: the variations phase 3 holds the kernels to
-FLASH_MAIN = ("bfloat16", 128, True, 0, 2, 2048, 32)
-FLASH_CASES = [FLASH_MAIN,
-               ("bfloat16", 64, True, 0, 2, 2048, 32),
-               ("bfloat16", 96, True, 0, 2, 2048, 32),
-               ("float32", 128, True, 0, 2, 2048, 32),
-               ("bfloat16", 128, True, 256, 2, 2048, 32),
-               ("bfloat16", 128, False, 0, 2, 2048, 32),
-               ("bfloat16", 128, True, 0, 2, 128, 32),
-               ("bfloat16", 128, True, 0, 1, 2048, 1)]
+#: (dtype, hd, causal, window, B, S, H, Hkv): minitron's attention with kv
+#: head-repeated (Hkv = H, the TPU kernel's contract) and as the LLM path
+#: calls it (its 8 kv heads), then the variations phase 3 holds the
+#: kernels to: hd 64 / 96, f32 (the CUDA-core kernels, GQA included), a
+#: window, non-causal, one tile, B*H = 1, GQA at n_rep 2, and ragged S =
+#: 100 (one partial tile) in bf16
+FLASH_MAIN = ("bfloat16", 128, True, 0, 2, 2048, 32, 32)
+FLASH_GQA = ("bfloat16", 128, True, 0, 2, 2048, 32, 8)
+FLASH_CASES = [FLASH_MAIN, FLASH_GQA,
+               ("bfloat16", 64, True, 0, 2, 2048, 32, 32),
+               ("bfloat16", 96, True, 0, 2, 2048, 32, 32),
+               ("float32", 128, True, 0, 2, 2048, 32, 32),
+               ("bfloat16", 128, True, 256, 2, 2048, 32, 32),
+               ("bfloat16", 128, False, 0, 2, 2048, 32, 32),
+               ("bfloat16", 128, True, 0, 2, 128, 32, 32),
+               ("bfloat16", 128, True, 0, 1, 2048, 1, 1),
+               ("bfloat16", 64, True, 0, 2, 2048, 32, 16),
+               ("float32", 128, True, 0, 2, 512, 8, 2),
+               ("bfloat16", 128, True, 0, 1, 100, 4, 2),
+               ("bfloat16", 64, False, 32, 1, 100, 3, 1)]
+#: the kernel design each input dtype must take (flash_design_counts)
+FLASH_DESIGN = {"bfloat16": "wgmma", "float32": "cuda_cores"}
 
 
 def visible_pairs(S: int, causal: bool, window: int) -> int:
@@ -660,23 +676,29 @@ def flash_rule(torch, name, got, want32, plain) -> float:
 
 def check_flash(torch, fa, ref, record):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkdv against their plain
-    versions on the same inputs in every FLASH_CASES case; device times
-    at the LLM path's shape beside the compute bound, the plain version
-    and scaled_dot_product_attention (forward; backward through
+    versions on the same inputs in every FLASH_CASES case, each dtype on
+    its own design (bf16 on the tensor cores, f32 on the CUDA cores:
+    the C entries' per-design launch counts); device times at minitron's
+    shape, kv head-repeated and GQA, beside the compute bound, the plain
+    version and scaled_dot_product_attention (forward; backward through
     autograd), a yardstick the port never calls."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     F = torch.nn.functional
-    print("flash attention: dtype, hd, causal, window, B, S, H | max error "
-          "of fwd / dq / dk / dv against the plain version in f32 (the "
-          "plain version's own bf16 error)")
+    print("flash attention: dtype, hd, causal, window, B, S, H / Hkv | max "
+          "error of fwd / dq / dk / dv against the plain version in f32 "
+          "(the plain version's own bf16 error)")
     for case in FLASH_CASES:
-        dtn, hd, causal, window, B, S, H = case
+        dtn, hd, causal, window, B, S, H, Hkv = case
         dt = getattr(torch, dtn)
-        q, k, v, dout = (torch.randn(B, S, H, hd, device=dev, generator=g)
-                         .to(dt) for _ in range(4))
+        q, dout = (torch.randn(B, S, H, hd, device=dev, generator=g).to(dt)
+                   for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, hd, device=dev, generator=g).to(dt)
+                for _ in range(2))
         kw = dict(causal=causal, window=window)
-        tag = f"{dtn} hd={hd} causal={causal} window={window} B={B} S={S} H={H}"
+        tag = (f"{dtn} hd={hd} causal={causal} window={window} B={B} S={S} "
+               f"H={H}/{Hkv}")
+        before = fa.design_launches()
         up = [x.float() for x in (dout, q, k, v)]
         out32, _ = ref.flash_attention_ref(*up[1:], **kw)
         out_lo, lse_lo = ref.flash_attention_ref(q, k, v, **kw)
@@ -708,11 +730,18 @@ def check_flash(torch, fa, ref, record):
                                dk_lo))
         errs.append(flash_rule(torch, f"flash_bwd_dkdv dv {tag}", dv, dv32,
                                dv_lo))
+        after = fa.design_launches()
+        want = FLASH_DESIGN[dtn]
+        for name in fa.KERNELS:
+            moved = {d: after[name][d] - before[name][d] for d in fa.DESIGNS}
+            check(moved == {d: int(d == want) for d in fa.DESIGNS},
+                  f"{name} {tag}: launches by design {moved}, expected one "
+                  f"on {want}")
         print(f"  {tag} | {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} / "
-              f"{errs[3]:.3e} (fwd plain bf16 {own:.3e})")
+              f"{errs[3]:.3e} (fwd plain bf16 {own:.3e}) | {want}")
         rec = dict(case=case, err_fwd=errs[0], err_dq=errs[1],
                    err_dkdv=max(errs[2:]))
-        if case == FLASH_MAIN:
+        if case in (FLASH_MAIN, FLASH_GQA):
             rec.update(time_flash(torch, fa, ref, F, case, q, k, v, dout,
                                   out_lo, lse_lo, d_lo))
         record.append(rec)
@@ -733,17 +762,19 @@ def check_flash(torch, fa, ref, record):
 
 def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
     """Device times of the three kernels, their plain versions and SDPA at
-    one shape, with each kernel's bound (its flops at the peak rate of
-    the input type, against its bytes)."""
-    dtn, hd, causal, window, B, S, H = case
+    one shape, with each kernel's bound (the function's flops at the peak
+    rate of the input type, against its bytes: q, out, dO, dq at H heads,
+    k, v, dk, dv at Hkv heads)."""
+    dtn, hd, causal, window, B, S, H, Hkv = case
     kw = dict(causal=causal, window=window)
     rate = BF16_FLOPS_PER_S if dtn == "bfloat16" else F32_FLOPS_PER_S
     s = q.element_size()
-    E, rows = B * S * H * hd, B * H * S * 4
+    E, Ekv, rows = B * S * H * hd, B * S * Hkv * hd, B * H * S * 4
     n = B * H * visible_pairs(S, causal, window) * hd
-    work = {"flash_fwd": (4 * E * s + rows, 4 * n),
-            "flash_bwd_dq": (6 * E * s + 2 * rows, 6 * n + 2 * E),
-            "flash_bwd_dkdv": (6 * E * s + 2 * rows, 8 * n)}
+    work = {"flash_fwd": ((2 * E + 2 * Ekv) * s + rows, 4 * n),
+            "flash_bwd_dq": ((4 * E + 2 * Ekv) * s + 2 * rows,
+                             6 * n + 2 * E),
+            "flash_bwd_dkdv": ((2 * E + 4 * Ekv) * s + 2 * rows, 8 * n)}
     kernels = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(dout, q, k, v, out, lse,
@@ -757,17 +788,18 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
         "flash_bwd_dkdv": lambda: ref.flash_bwd_dkdv_ref(dout, q, k, v,
                                                          lse, delta, **kw)}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = dict(enable_gqa=True) if Hkv != H else {}
     lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal), reps=10, replays=10)
+        qt, kt, vt, is_causal=causal, **gqa), reps=10, replays=10)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, **gqa)
     do = dout.transpose(1, 2)
     lib_bwd = call_ms(torch, lambda: torch.autograd.grad(
         o, (qg, kg, vg), do, retain_graph=True), iters=10)
     out_rec = {"library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
     print(f"flash attention at {dtn} hd={hd} causal={causal} B={B} S={S} "
-          f"H={H}: kernel device ms | bound ms (by) | plain device ms | "
-          "library")
+          f"H={H} Hkv={Hkv}: kernel device ms | bound ms (by) | plain device "
+          "ms | library")
     for name, fn in kernels.items():
         ms = device_ms(torch, fn, reps=3, replays=5)
         plain = device_ms(torch, plains[name], reps=1, replays=3)
@@ -782,9 +814,9 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
                              bound_by=by)
         torch.cuda.empty_cache()
     bwd = out_rec["flash_bwd_dq"]["ms"] + out_rec["flash_bwd_dkdv"]["ms"]
-    print(f"  backward (dq + dkdv) {bwd:.4f} ms | SDPA backward through "
-          f"autograd, eager call {lib_bwd:.4f} ms | SDPA forward "
-          f"{lib_fwd:.4f} ms")
+    print(f"  backward (dq + dkdv) {bwd:.4f} ms | SDPA{' (GQA)' * bool(gqa)} "
+          f"backward through autograd, eager call {lib_bwd:.4f} ms | SDPA "
+          f"forward {lib_fwd:.4f} ms")
     return out_rec
 
 
@@ -1354,6 +1386,8 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
         torch.cuda.reset_peak_memory_stats()
         for m in kmods:
             m.reset_counts()
+        designs = getattr(km, "design_launches", None)
+        before = designs() if designs else None
         t0 = time.perf_counter()
         with CountPlain(ref, spec["plain"]) as plain_calls:
             state, metrics, dt = run_pod(torch, train, argv, cfg)
@@ -1391,6 +1425,14 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
                   f"{arch} {algo}: {name} launched {counts[name]} times, "
                   f"expected {POD_ROUNDS} rounds x {POD_STEPS} steps x "
                   f"{cfg.num_layers} layers")
+        if designs:   # the bf16 model never reaches the CUDA-core kernels
+            after = designs()
+            moved = {k: {d: after[k][d] - before[k][d] for d in after[k]}
+                     for k in after}
+            check(all(m == {"cuda_cores": 0, "wgmma": per_run}
+                      for m in moved.values()),
+                  f"{arch} {algo}: launches by design {moved}, expected "
+                  f"{per_run} each on wgmma")
         check(counts["server_mix"] == POD_ROUNDS * groups,
               f"{arch} {algo}: server_mix launched {counts['server_mix']} "
               f"times, expected {POD_ROUNDS} x {groups} dtype group(s)")
@@ -1492,6 +1534,51 @@ def llm_where_time_goes(torch, train, arch, tmp):
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 
 
+# ----------------------------------------------------------------- build --
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel symbol (the length-prefixed
+    identifier that ends in ``_kernel``, then its float / bf16 / integer
+    template arguments); the symbol itself when there is none."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group(0)
+        for i in range(len(digits)):
+            n, at = int(digits[i:]), m.end()
+            ident = mangled[at:at + n]
+            if n and ident.endswith("_kernel") and ident.isidentifier():
+                rest = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E",
+                                mangled[at + n:])
+                args = re.findall(r"f|13__nv_bfloat16|Li(\d+)E",
+                                  rest.group(1)) if rest else []
+                toks = [a or "float" for a in args]
+                if rest and "13__nv_bfloat16" in rest.group(1):
+                    toks[0] = "bf16"
+                return ident + (f"<{', '.join(toks)}>" if toks else "")
+    return mangled
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's -Xptxas=-v log: its name
+    and template arguments, registers, spills and static shared memory
+    (the tensor-core flash kernels' tiles are dynamic shared memory,
+    sized in their source); then every note that ptxas serialized
+    wgmma."""
+    lines, name, spill = [], "?", ""
+    for raw in log.splitlines():
+        line = raw.strip()
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spill = line
+        elif line.startswith("ptxas info") and ": Used" in line:
+            lines.append(f"{name}: {line.split(': Used', 1)[1].strip()}; "
+                         f"{spill}")
+        elif "C7512" in line or "serialized" in line:
+            lines.append("WARNING " + line)
+    return lines
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> None:
@@ -1520,9 +1607,8 @@ def main() -> None:
     build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{path.relative_to(ROOT)}")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("  " + line.strip())
+    for line in ptxas_summary(log):
+        print("  " + line)
 
     from repro_torch.kernels import ama_mix as am
     from repro_torch.kernels import flash_attention as fa
@@ -1605,11 +1691,14 @@ def main() -> None:
               "server_plane.cu", "server_adam": "server_adam.cu",
               "server_mix_delta": "server_mix_compressed.cu",
               "server_mix_scatter": "server_mix_compressed.cu",
-              "ama_mix": "ama_mix.cu", "flash_fwd": "flash_attention.cu",
-              "flash_bwd_dq": "flash_attention.cu",
-              "flash_bwd_dkdv": "flash_attention.cu",
+              "ama_mix": "ama_mix.cu",
+              # the main path's bf16 calls run the tensor-core kernels
+              "flash_fwd": "flash_attention_sm90.cu",
+              "flash_bwd_dq": "flash_attention_sm90.cu",
+              "flash_bwd_dkdv": "flash_attention_sm90.cu",
               "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu"}
-    flash_main = next(r for r in flash_rec if r["case"] == FLASH_MAIN)
+    # the flash rows at minitron's shape as the main path calls it (GQA)
+    flash_main = next(r for r in flash_rec if r["case"] == FLASH_GQA)
     flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
                  "flash_bwd_dkdv": "err_dkdv"}
     rwkv_main = next(r for r in rwkv_rec if r["case"] == RWKV_MAIN)

@@ -25,8 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
-#: B, S, H, causal, window, scale of the flash-attention entries
-_GEO = (ctypes.c_int,) * 5 + (ctypes.c_float,)
+#: B, S, H, Hkv, causal, window, scale of the flash-attention entries
+_GEO = (ctypes.c_int,) * 6 + (ctypes.c_float,)
 #: C entry -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # dtype, prev, stacked, sizes, keep, coefs, out, K, N, stream
@@ -54,14 +54,15 @@ SIGNATURES = {
     # stream
     "ama_mix": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
                 ctypes.c_int, ctypes.c_longlong, _P),
-    # dtype, hd, q, k, v, out, lse, B, S, H, causal, window, scale, stream
+    # dtype, hd, q, k, v, out, lse, B, S, H, Hkv, causal, window, scale,
+    # stream
     "flash_fwd": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
                   *_GEO, _P),
-    # dtype, hd, dout, q, k, v, out, lse, dq, delta, B, S, H, causal,
+    # dtype, hd, dout, q, k, v, out, lse, dq, delta, B, S, H, Hkv, causal,
     # window, scale, stream
     "flash_bwd_dq": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                      _P, *_GEO, _P),
-    # dtype, hd, dout, q, k, v, lse, delta, dk, dv, B, S, H, causal,
+    # dtype, hd, dout, q, k, v, lse, delta, dk, dv, B, S, H, Hkv, causal,
     # window, scale, stream
     "flash_bwd_dkdv": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                        _P, _P, *_GEO, _P),
@@ -72,6 +73,11 @@ SIGNATURES = {
     # scratch, B, S, H, stream
     "rwkv6_bwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 15,
                   *(ctypes.c_int,) * 3, _P),
+}
+#: C entries that return nothing -> argtypes
+VOID_SIGNATURES = {
+    # counts: 6 int64, launches per flash kernel and design
+    "flash_design_counts": (_P,),
 }
 
 
@@ -142,4 +148,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    for name, argtypes in VOID_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = None
     return lib

@@ -1,21 +1,28 @@
-// Flash attention for Hopper (sm_90a), forward and backward, bound with
-// ctypes.
+// Flash attention on Hopper's CUDA cores (sm_90a), f32, forward and
+// backward, and the C entries of all flash-attention kernels, bound with
+// ctypes. The entries dispatch by dtype: f32 inputs launch this file's
+// kernels, bf16 inputs the tensor-core kernels of flash_attention_sm90.cu
+// (which holds that design's note). A bf16 call never reaches the kernels
+// here; each entry counts its launches per design (flash_design_counts).
 //
 // flash_fwd replaces the JAX package's kernels/flash_attention.py:
 // flash_attention (Pallas, src/repro/kernels/flash_attention.py:76):
 // causal (optionally sliding-window, or non-causal) online-softmax
-// attention over q/k/v (B, S, H, hd) with kv already head-repeated. It
-// also writes lse = m + log(l) (f32, (B, H, S)) for the backward.
-// flash_bwd_dq and flash_bwd_dkdv replace what the TPU path has no
-// kernel for: the XLA autodiff of models/attention.py: chunked_attention
-// (the Pallas kernel has no backward). They are FlashAttention-2's
-// backward split into two passes so that no atomics are needed:
+// attention over q (B, S, H, hd) and k, v (B, S, Hkv, hd), H % Hkv == 0,
+// query head h reading kv head h / (H / Hkv) (Hkv == H is the TPU
+// kernel's head-repeated contract). It also writes lse = m + log(l) (f32,
+// (B, H, S)) for the backward. flash_bwd_dq and flash_bwd_dkdv replace
+// what the TPU path has no kernel for: the XLA autodiff of
+// models/attention.py: chunked_attention (the Pallas kernel has no
+// backward). They are FlashAttention-2's backward split into two passes
+// so that no atomics are needed:
 //   flash_bwd_dq    one block per q tile loops over the kv tiles its rows
 //                   see; its prologue computes D = rowsum(dO * O) for its
 //                   rows and writes it to a (B, H, S) f32 scratch;
-//   flash_bwd_dkdv  one block per kv tile loops over the q tiles that see
-//                   it and accumulates dK and dV; it reads D, so it runs
-//                   after flash_bwd_dq on the same stream.
+//   flash_bwd_dkdv  one block per (kv head, kv tile) loops over the query
+//                   heads of its kv head and the q tiles that see it, and
+//                   accumulates dK and dV; it reads D, so it runs after
+//                   flash_bwd_dq on the same stream.
 // Both recompute P = exp(s - lse). Every output element is written by one
 // thread and nothing is accumulated across blocks, so each launch is
 // deterministic: the port's chunked == per-round contract holds bitwise.
@@ -25,33 +32,33 @@
 // the product), masked where causal (key > query) or outside the window
 // (key <= query - window); the online softmax keeps m, l and acc in f32,
 // with exp(s - m_new) and the correction exp(m - m_new); out = acc /
-// max(l, 1e-30) in q's dtype. Backward: dV = P^T dO, dP = dO V^T,
-// dS = P * (dP - D), dQ = scale * dS K, dK = dS^T (q * scale).
+// max(l, 1e-30). Backward: dV = P^T dO, dP = dO V^T, dS = P * (dP - D),
+// dQ = scale * dS K, dK = dS^T (q * scale), dK and dV summed over the
+// query heads of a kv head.
 //
-// Layout: the kernels index the (B, S, H, hd) tensors directly (one block
-// per (b*H + h, tile)), so the wrapper folds nothing and copies nothing.
-// Tiles are 64 queries by 64 keys; the kv loop runs from the window's
-// lower edge up to the causal frontier, as the Pallas kernel's does
+// Layout: the kernels index the (B, S, H, hd) and (B, S, Hkv, hd) tensors
+// directly, so the wrapper folds nothing and copies nothing. Tiles are
+// 64 queries by 64 keys; the kv loop runs from the window's lower edge up
+// to the causal frontier, as the Pallas kernel's does
 // (flash_attention.py:37-44). Templated on hd in {64, 96, 128} (the
 // repo's attention configs: reduced() and zamba2/whisper 64, phi-3-vision
-// 96, minitron/llama/mixtral 128) and on f32 / bf16 I/O.
+// 96, minitron/llama/mixtral 128).
 //
 // Bound: operations. With n = B*H * (visible query-key pairs) * hd, the
 // forward does 4n flops (two products), flash_bwd_dq 6n (s, dP, dQ) and
 // flash_bwd_dkdv 8n (s, dP, dV, dK; s and dP recomputed), on a few bytes
 // per pair: far above the card's ridge point, so the bound is those flops
-// at 989 TFLOP/s (bf16 tensor cores). This first design is
-// simple on purpose and far from that bound: every product runs on the
-// CUDA cores in f32 from shared-memory tiles (4 x 4 register tiles a
-// thread, 256 threads a block, one block an SM at hd = 128). Left for
-// later PRs: wgmma on bf16 tiles, TMA loads into a pipelined ring, and
-// GQA-native kv indexing instead of the head-repeated kv the Pallas
-// kernel's signature takes.
+// at 67 TFLOP/s (f32 outside the tensor cores). The design is simple:
+// every product runs on the CUDA cores in f32 from shared-memory tiles
+// (4 x 4 register tiles a thread, 256 threads a block). It stays so
+// because f32 callers need f32 products: the reduced f32 model is held
+// card against CPU at rtol 1e-4, and TF32 tensor cores would not meet it.
 //
 // The C entries return cudaGetLastError() after the launch; the Python
 // wrapper (kernels/flash_attention.py) raises when it is not 0.
 
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -62,23 +69,22 @@ constexpr int kP = kTile + 1;      // padded row of a transposed tile
 constexpr int kFlashThreads = 256; // 16 x 16: 4 rows x 4 (or hd/16) cols
 constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF
 
-// Geometry of one (batch, head): element (s, d) of q/k/v/out/dq/... sits
-// at base + s * rs + d.
+// Geometry of one (batch, head) of a (B, S, Hx, hd) tensor: element
+// (s, d) sits at base + s * rs + d.
 struct Rows {
   size_t base;  // offset of (b, 0, h, 0)
-  size_t rs;    // H * hd
+  size_t rs;    // Hx * hd
 };
 
 template <int HD>
-__device__ __forceinline__ Rows rows_of(int bh, int S, int H) {
-  const int b = bh / H, h = bh % H;
-  return {(static_cast<size_t>(b) * S * H + h) * HD,
-          static_cast<size_t>(H) * HD};
+__device__ __forceinline__ Rows rows_of(int b, int h, int S, int Hx) {
+  return {(static_cast<size_t>(b) * S * Hx + h) * HD,
+          static_cast<size_t>(Hx) * HD};
 }
 
 // dst[d * kP + r] = src row (s0 + r), element d, times mul (0 past S).
-template <typename T, int HD>
-__device__ void load_t(float* dst, const T* __restrict__ src, Rows g,
+template <int HD>
+__device__ void load_t(float* dst, const float* __restrict__ src, Rows g,
                        int s0, int S, float mul) {
   for (int idx = threadIdx.x; idx < kTile * HD; idx += kFlashThreads) {
     const int r = idx / HD, d = idx % HD;
@@ -89,8 +95,8 @@ __device__ void load_t(float* dst, const T* __restrict__ src, Rows g,
 }
 
 // dst[r * HD + d] = src row (s0 + r), element d (0 past S).
-template <typename T, int HD>
-__device__ void load_r(float* dst, const T* __restrict__ src, Rows g,
+template <int HD>
+__device__ void load_r(float* dst, const float* __restrict__ src, Rows g,
                        int s0, int S) {
   for (int idx = threadIdx.x; idx < kTile * HD; idx += kFlashThreads) {
     const int r = idx / HD, d = idx % HD;
@@ -144,12 +150,12 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * HD * kP + kTile * HD + kTile * kP);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int causal,
-                 int window, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int n_rep,
+                 int causal, int window, float scale) {
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
   float* Qt = smem;              // [HD][kP]  q * scale
@@ -157,9 +163,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vr = Kt + HD * kP;      // [kTile][HD]
   float* P = Vr + kTile * HD;    // [kTile][kP]
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
+  const int b = bh / H, h = bh % H;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Rows g = rows_of<HD>(bh, S, H);
-  load_t<T, HD>(Qt, q, g, q0, S, scale);
+  const Rows g = rows_of<HD>(b, h, S, H);
+  const Rows gk = rows_of<HD>(b, h / n_rep, S, H / n_rep);
+  load_t<HD>(Qt, q, g, q0, S, scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -174,8 +182,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();             // the last tile's Kt, Vr and P are read
-    load_t<T, HD>(Kt, k, g, k0, S, 1.f);
-    load_r<T, HD>(Vr, v, g, k0, S);
+    load_t<HD>(Kt, k, gk, k0, S, 1.f);
+    load_r<HD>(Vr, v, gk, k0, S);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -252,13 +260,13 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * HD * kP + kTile * kP);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
-                    const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ out, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ delta, int S,
-                    int H, int causal, int window, float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
+                    const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ out, const float* __restrict__ lse,
+                    float* __restrict__ dq, float* __restrict__ delta, int S,
+                    int H, int n_rep, int causal, int window, float scale) {
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
   float* Qt = smem;              // [HD][kP]  q * scale
@@ -267,10 +275,12 @@ flash_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   float* Vt = Kt + HD * kP;      // [HD][kP]
   float* dS = Vt + HD * kP;      // [kTile][kP]
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
+  const int b = bh / H, h = bh % H;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Rows g = rows_of<HD>(bh, S, H);
-  load_t<T, HD>(Qt, q, g, q0, S, scale);
-  load_t<T, HD>(dOt, dout, g, q0, S, 1.f);
+  const Rows g = rows_of<HD>(b, h, S, H);
+  const Rows gk = rows_of<HD>(b, h / n_rep, S, H / n_rep);
+  load_t<HD>(Qt, q, g, q0, S, scale);
+  load_t<HD>(dOt, dout, g, q0, S, 1.f);
 
   // prologue: D = rowsum(dO * O) and lse of this thread's four rows
   float D[4], L[4];
@@ -300,8 +310,8 @@ flash_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_t<T, HD>(Kt, k, g, k0, S, 1.f);
-    load_t<T, HD>(Vt, v, g, k0, S, 1.f);
+    load_t<HD>(Kt, k, gk, k0, S, 1.f);
+    load_t<HD>(Vt, v, gk, k0, S, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -371,14 +381,14 @@ constexpr size_t dkdv_smem() {
   return sizeof(float) * (4 * HD * kP + 2 * kTile * kP + 2 * kTile);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
-                      const T* __restrict__ k, const T* __restrict__ v,
+flash_bwd_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ q,
+                      const float* __restrict__ k, const float* __restrict__ v,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int H, int causal,
-                      int window, float scale) {
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int S, int Hkv, int n_rep,
+                      int causal, int window, float scale) {
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
   float* Kt = smem;              // [HD][kP]
@@ -389,11 +399,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   float* dSt = Pt + kTile * kP;  // [kTile keys][kP queries]
   float* Ls = dSt + kTile * kP;  // [kTile] lse of the q tile's rows
   float* Ds = Ls + kTile;        // [kTile] D of the q tile's rows
-  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
+  const int bk = blockIdx.x, k0 = blockIdx.y * kTile;
+  const int b = bk / Hkv, hk = bk % Hkv, H = Hkv * n_rep;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Rows g = rows_of<HD>(bh, S, H);
-  load_t<T, HD>(Kt, k, g, k0, S, 1.f);
-  load_t<T, HD>(Vt, v, g, k0, S, 1.f);
+  const Rows gk = rows_of<HD>(b, hk, S, Hkv);
+  load_t<HD>(Kt, k, gk, k0, S, 1.f);
+  load_t<HD>(Vt, v, gk, k0, S, 1.f);
 
   // this thread's keys: k0 + 4 * ty + jj; its columns: tx + 16 * c
   float ak[4][NC], av[4][NC];
@@ -403,14 +414,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
     for (int c = 0; c < NC; ++c) ak[jj][c] = av[jj][c] = 0.f;
   int qt_lo, qt_hi;
   q_range(k0, S, causal, window, &qt_lo, &qt_hi);
-  for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int q0 = qt * kTile;
+  const int nq = qt_hi - qt_lo;
+  // the q tiles of every query head of kv head hk, one head after another
+  for (int step = 0; step < n_rep * nq; ++step) {
+    const int h = hk * n_rep + step / nq, q0 = (qt_lo + step % nq) * kTile;
+    const Rows g = rows_of<HD>(b, h, S, H);
     __syncthreads();
-    load_t<T, HD>(Qt, q, g, q0, S, scale);
-    load_t<T, HD>(dOt, dout, g, q0, S, 1.f);
+    load_t<HD>(Qt, q, g, q0, S, scale);
+    load_t<HD>(dOt, dout, g, q0, S, 1.f);
     for (int r = threadIdx.x; r < kTile; r += kFlashThreads) {
       const bool in = q0 + r < S;
-      const size_t e = static_cast<size_t>(bh) * S + q0 + r;
+      const size_t e = (static_cast<size_t>(b) * H + h) * S + q0 + r;
       Ls[r] = in ? lse[e] : 0.f;
       Ds[r] = in ? delta[e] : 0.f;
     }
@@ -482,7 +496,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
     if (kp >= S) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const size_t e = g.base + kp * g.rs + tx + 16 * c;
+      const size_t e = gk.base + kp * gk.rs + tx + 16 * c;
       st(dk, e, ak[jj][c]);
       st(dv, e, av[jj][c]);
     }
@@ -504,118 +518,163 @@ cudaError_t prepare(Kernel kernel, size_t smem, bool* done) {
   return e;
 }
 
-struct Geo {
-  int B, S, H, causal, window;
-  float scale;
-  cudaStream_t stream;
-  dim3 grid() const {
-    return dim3(static_cast<unsigned>(B * H),
-                static_cast<unsigned>((S + kTile - 1) / kTile));
-  }
-};
+dim3 grid(int rows, int S) {
+  return dim3(static_cast<unsigned>(rows),
+              static_cast<unsigned>((S + kTile - 1) / kTile));
+}
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                float* lse, const Geo& G) {
-  auto kernel = flash_fwd_kernel<T, HD>;
+                float* lse, const FlashGeo& G) {
+  auto kernel = flash_fwd_kernel<HD>;
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, fwd_smem<HD>(), &ready)) return e;
-  kernel<<<G.grid(), kFlashThreads, fwd_smem<HD>(), G.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, G.S, G.H,
-      G.causal, G.window, G.scale);
+  kernel<<<grid(G.B * G.H, G.S), kFlashThreads, fwd_smem<HD>(), G.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, G.S, G.H,
+      G.H / G.Hkv, G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t bwd_dq(const void* dout, const void* q, const void* k,
                    const void* v, const void* out, const float* lse,
-                   void* dq, float* delta, const Geo& G) {
-  auto kernel = flash_bwd_dq_kernel<T, HD>;
+                   void* dq, float* delta, const FlashGeo& G) {
+  auto kernel = flash_bwd_dq_kernel<HD>;
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, dq_smem<HD>(), &ready)) return e;
-  kernel<<<G.grid(), kFlashThreads, dq_smem<HD>(), G.stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(out), lse, static_cast<T*>(dq), delta, G.S, G.H,
+  kernel<<<grid(G.B * G.H, G.S), kFlashThreads, dq_smem<HD>(), G.stream>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(out), lse, static_cast<float*>(dq), delta, G.S, G.H,
+      G.H / G.Hkv, G.causal, G.window, G.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t bwd_dkdv(const void* dout, const void* q, const void* k,
+                     const void* v, const float* lse, const float* delta,
+                     void* dk, void* dv, const FlashGeo& G) {
+  auto kernel = flash_bwd_dkdv_kernel<HD>;
+  static bool ready = false;
+  if (cudaError_t e = prepare(kernel, dkdv_smem<HD>(), &ready)) return e;
+  kernel<<<grid(G.B * G.Hkv, G.S), kFlashThreads, dkdv_smem<HD>(),
+           G.stream>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), G.S, G.Hkv, G.H / G.Hkv,
       G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t bwd_dkdv(const void* dout, const void* q, const void* k,
-                     const void* v, const float* lse, const float* delta,
-                     void* dk, void* dv, const Geo& G) {
-  auto kernel = flash_bwd_dkdv_kernel<T, HD>;
-  static bool ready = false;
-  if (cudaError_t e = prepare(kernel, dkdv_smem<HD>(), &ready)) return e;
-  kernel<<<G.grid(), kFlashThreads, dkdv_smem<HD>(), G.stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), G.S, G.H, G.causal,
-      G.window, G.scale);
-  return cudaGetLastError();
-}
-
-bool valid_geo(int dtype, int hd, const Geo& G) {
+bool valid_geo(int dtype, int hd, const FlashGeo& G) {
   return (dtype == 0 || dtype == 1) && (hd == 64 || hd == 96 || hd == 128) &&
-         G.B >= 1 && G.S >= 1 && G.H >= 1 && G.window >= 0 &&
+         G.B >= 1 && G.S >= 1 && G.H >= 1 && G.Hkv >= 1 &&
+         G.H % G.Hkv == 0 && G.window >= 0 &&
          static_cast<long long>(G.B) * G.H < (1LL << 31) &&
          (G.S + kTile - 1) / kTile <= 65535;
 }
 
-// dtype 0 = float32, 1 = bfloat16; hd in {64, 96, 128}
-#define REPRO_FLASH_DISPATCH(FN, ...)                                   \
-  switch (dtype * 1000 + hd) {                                          \
-    case 64: return FN<float, 64>(__VA_ARGS__);                         \
-    case 96: return FN<float, 96>(__VA_ARGS__);                         \
-    case 128: return FN<float, 128>(__VA_ARGS__);                       \
-    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);               \
-    case 1096: return FN<__nv_bfloat16, 96>(__VA_ARGS__);               \
-    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);              \
+// f32 on the CUDA cores; hd in {64, 96, 128}
+#define REPRO_FLASH_F32_DISPATCH(FN, ...)                               \
+  switch (hd) {                                                         \
+    case 64: return FN<64>(__VA_ARGS__);                                \
+    case 96: return FN<96>(__VA_ARGS__);                                \
+    case 128: return FN<128>(__VA_ARGS__);                              \
     default: return cudaErrorInvalidValue;                              \
   }
 
-}  // namespace
-
-// q, k, v, out: (B, S, H, hd) contiguous in dtype; lse: (B, H, S) f32.
-extern "C" int flash_fwd(int dtype, int hd, const void* q, const void* k,
-                         const void* v, void* out, void* lse, int B, int S,
-                         int H, int causal, int window, float scale,
-                         void* stream) {
-  const Geo G{B, S, H, causal, window, scale,
-              static_cast<cudaStream_t>(stream)};
-  if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
-  auto* lse_f = static_cast<float*>(lse);
-  REPRO_FLASH_DISPATCH(fwd, q, k, v, out, lse_f, G)
+cudaError_t fwd_f32(int hd, const void* q, const void* k, const void* v,
+                    void* out, float* lse, const FlashGeo& G) {
+  REPRO_FLASH_F32_DISPATCH(fwd, q, k, v, out, lse, G)
+}
+cudaError_t bwd_dq_f32(int hd, const void* dout, const void* q,
+                       const void* k, const void* v, const void* out,
+                       const float* lse, void* dq, float* delta,
+                       const FlashGeo& G) {
+  REPRO_FLASH_F32_DISPATCH(bwd_dq, dout, q, k, v, out, lse, dq, delta, G)
+}
+cudaError_t bwd_dkdv_f32(int hd, const void* dout, const void* q,
+                         const void* k, const void* v, const float* lse,
+                         const float* delta, void* dk, void* dv,
+                         const FlashGeo& G) {
+  REPRO_FLASH_F32_DISPATCH(bwd_dkdv, dout, q, k, v, lse, delta, dk, dv, G)
 }
 
-// dout, q, k, v, out, dq: (B, S, H, hd) in dtype; lse, delta: (B, H, S)
-// f32 (delta is written: D = rowsum(dout * out)).
+// launches per kernel (fwd, dq, dkdv) and design (0: f32 on the CUDA
+// cores here, 1: bf16 on the tensor cores, flash_attention_sm90.cu)
+long long g_launches[3][2] = {};
+
+cudaError_t counted(cudaError_t e, int kernel, int dtype) {
+  if (e == cudaSuccess) ++g_launches[kernel][dtype];
+  return e;
+}
+
+}  // namespace
+
+using repro_torch::FlashGeo;
+using repro_torch::flash_bwd_dkdv_sm90;
+using repro_torch::flash_bwd_dq_sm90;
+using repro_torch::flash_fwd_sm90;
+
+// q, out: (B, S, H, hd), k, v: (B, S, Hkv, hd), contiguous in dtype
+// (0 = float32, 1 = bfloat16); lse: (B, H, S) f32.
+extern "C" int flash_fwd(int dtype, int hd, const void* q, const void* k,
+                         const void* v, void* out, void* lse, int B, int S,
+                         int H, int Hkv, int causal, int window, float scale,
+                         void* stream) {
+  const FlashGeo G{B, S, H, Hkv, causal, window, scale,
+                   static_cast<cudaStream_t>(stream)};
+  if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
+  auto* lse_f = static_cast<float*>(lse);
+  return counted(dtype == 1 ? flash_fwd_sm90(hd, q, k, v, out, lse_f, G)
+                            : fwd_f32(hd, q, k, v, out, lse_f, G),
+                 0, dtype);
+}
+
+// dout, q, out, dq: (B, S, H, hd), k, v: (B, S, Hkv, hd) in dtype; lse,
+// delta: (B, H, S) f32 (delta is written: D = rowsum(dout * out)).
 extern "C" int flash_bwd_dq(int dtype, int hd, const void* dout,
                             const void* q, const void* k, const void* v,
                             const void* out, const void* lse, void* dq,
-                            void* delta, int B, int S, int H, int causal,
-                            int window, float scale, void* stream) {
-  const Geo G{B, S, H, causal, window, scale,
-              static_cast<cudaStream_t>(stream)};
+                            void* delta, int B, int S, int H, int Hkv,
+                            int causal, int window, float scale,
+                            void* stream) {
+  const FlashGeo G{B, S, H, Hkv, causal, window, scale,
+                   static_cast<cudaStream_t>(stream)};
   if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
   const auto* lse_f = static_cast<const float*>(lse);
   auto* delta_f = static_cast<float*>(delta);
-  REPRO_FLASH_DISPATCH(bwd_dq, dout, q, k, v, out, lse_f, dq, delta_f, G)
+  return counted(
+      dtype == 1
+          ? flash_bwd_dq_sm90(hd, dout, q, k, v, out, lse_f, dq, delta_f, G)
+          : bwd_dq_f32(hd, dout, q, k, v, out, lse_f, dq, delta_f, G),
+      1, dtype);
 }
 
-// dout, q, k, v, dk, dv: (B, S, H, hd) in dtype; lse, delta: (B, H, S) f32
-// (delta as flash_bwd_dq wrote it).
+// dout, q: (B, S, H, hd), k, v, dk, dv: (B, S, Hkv, hd) in dtype; lse,
+// delta: (B, H, S) f32 (delta as flash_bwd_dq wrote it).
 extern "C" int flash_bwd_dkdv(int dtype, int hd, const void* dout,
                               const void* q, const void* k, const void* v,
                               const void* lse, const void* delta, void* dk,
-                              void* dv, int B, int S, int H, int causal,
-                              int window, float scale, void* stream) {
-  const Geo G{B, S, H, causal, window, scale,
-              static_cast<cudaStream_t>(stream)};
+                              void* dv, int B, int S, int H, int Hkv,
+                              int causal, int window, float scale,
+                              void* stream) {
+  const FlashGeo G{B, S, H, Hkv, causal, window, scale,
+                   static_cast<cudaStream_t>(stream)};
   if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
   const auto* lse_f = static_cast<const float*>(lse);
   const auto* delta_f = static_cast<const float*>(delta);
-  REPRO_FLASH_DISPATCH(bwd_dkdv, dout, q, k, v, lse_f, delta_f, dk, dv, G)
+  return counted(
+      dtype == 1
+          ? flash_bwd_dkdv_sm90(hd, dout, q, k, v, lse_f, delta_f, dk, dv, G)
+          : bwd_dkdv_f32(hd, dout, q, k, v, lse_f, delta_f, dk, dv, G),
+      2, dtype);
+}
+
+// counts[2 * kernel + design] = launches so far (kernel: 0 fwd, 1 dq,
+// 2 dkdv; design: 0 f32 CUDA cores, 1 bf16 tensor cores)
+extern "C" void flash_design_counts(long long* counts) {
+  for (int k = 0; k < 3; ++k)
+    for (int d = 0; d < 2; ++d) counts[2 * k + d] = g_launches[k][d];
 }

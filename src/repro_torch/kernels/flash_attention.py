@@ -5,17 +5,28 @@ vmap through them.
 Replaces the JAX package's ``kernels/flash_attention.py: flash_attention``
 (Pallas) for the forward; the backward replaces the XLA autodiff of
 ``models/attention.py: chunked_attention`` (the Pallas kernel has none).
-The kernels are CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``):
+The kernels are CUDA C++ for ``sm_90a``:
 
   * ``flash_fwd``      — online-softmax attention; also writes the row
                          log-sum-exp ``lse`` (B, H, S) f32;
   * ``flash_bwd_dq``   — D = rowsum(dO * O) and dQ, one block per q tile;
-  * ``flash_bwd_dkdv`` — dK and dV, one block per kv tile, reading D.
+  * ``flash_bwd_dkdv`` — dK and dV, one block per (kv head, kv tile),
+                         looping over the query heads of its kv head,
+                         reading D.
 
-The backward is two passes, so no atomics: every launch is deterministic
-and the port's chunked == per-round contract holds bitwise. Each kernel
-is bound by operations (its flops at the bf16 tensor-core rate); the
-first design computes on the CUDA cores in f32 (see the source's note).
+Each takes q (B, S, H, hd) and k, v (B, S, Hkv, hd) with H % Hkv == 0:
+query head h reads kv head h // (H // Hkv), as ``repeat_interleave``
+of kv would give (grouped-query attention without the copy); dk and dv
+come back at Hkv heads. ``Hkv == H`` is the TPU kernel's contract (kv
+already head-repeated). The C entries dispatch by dtype: bf16 runs on
+the tensor cores (``csrc/flash_attention_sm90.cu``: wgmma, TMA tile
+loads, P and dS rounded to bf16 as FlashAttention rounds them), f32 on
+the CUDA cores in f32 (``csrc/flash_attention.cu``), since f32 callers
+are held to f32 products. ``design_launches()`` reads the launches each
+design has made on the card. The backward is two passes, so no
+atomics: every launch is deterministic and the port's chunked ==
+per-round contract holds bitwise. Each kernel is bound by operations
+(its flops at the tensor-core or f32 rate; see the sources' notes).
 
 Dispatch is by device: a CPU tensor takes the plain version in
 ``kernels/ref.py`` (``flash_attention_ref``, ``flash_bwd_dq_ref``,
@@ -47,7 +58,7 @@ from repro_torch.kernels._launch import (_DTYPE_CODE, _check, _fold,
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
            "FlashAttention", "FlashAttentionBwd", "KERNELS", "reset_counts",
-           "HEAD_DIMS"]
+           "design_launches", "HEAD_DIMS"]
 
 #: head dims the CUDA kernels are instantiated for
 HEAD_DIMS = (64, 96, 128)
@@ -61,14 +72,19 @@ def _check_seq(S: int) -> None:
 
 
 def _geometry(q, k, v):
-    """(B, S, H, hd) of matching, contiguous f32/bf16 q, k, v."""
+    """(B, S, H, Hkv, hd) of contiguous f32/bf16 q (B, S, H, hd) and k, v
+    (B, S, Hkv, hd), H a multiple of Hkv."""
     B, S, H, hd = q.shape
+    Hkv = k.shape[2] if k.dim() == 4 else H    # else _check refuses k
     dev = q.device
     _check("q", q, (B, S, H, hd), tuple(_DTYPE_CODE), dev)
-    _check("k", k, (B, S, H, hd), (q.dtype,), dev)
-    _check("v", v, (B, S, H, hd), (q.dtype,), dev)
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"k has {Hkv} heads, which must divide q's {H} "
+                         f"(shape {tuple(k.shape)})")
+    _check("k", k, (B, S, Hkv, hd), (q.dtype,), dev)
+    _check("v", v, (B, S, Hkv, hd), (q.dtype,), dev)
     _check_seq(S)
-    return B, S, H, hd
+    return B, S, H, Hkv, hd
 
 
 def _args(causal, window, scale, hd):
@@ -85,9 +101,9 @@ def _launch_checks(hd):
 
 
 def flash_fwd(q, k, v, *, causal=True, window=0, scale=None):
-    """q/k/v: (B, S, H, hd) f32/bf16, kv head-repeated. Returns (out
+    """q: (B, S, H, hd), k/v: (B, S, Hkv, hd), f32/bf16. Returns (out
     (B, S, H, hd) in q's dtype, lse (B, H, S) f32)."""
-    B, S, H, hd = _geometry(q, k, v)
+    B, S, H, Hkv, hd = _geometry(q, k, v)
     if not _kernel_device(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
@@ -97,7 +113,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0, scale=None):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     err = build.load().flash_fwd(
         _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-        _ptr(lse), B, S, H, c, w, ctypes.c_float(sc), _stream(q.device))
+        _ptr(lse), B, S, H, Hkv, c, w, ctypes.c_float(sc), _stream(q.device))
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
@@ -112,7 +128,7 @@ def flash_bwd_dq(dout, q, k, v, out, lse, *, causal=True, window=0,
     """dout/out: (B, S, H, hd) in q's dtype; lse: (B, H, S) f32 from the
     forward. Returns (dq in q's dtype, D = rowsum(dout * out) (B, H, S)
     f32, which ``flash_bwd_dkdv`` takes)."""
-    B, S, H, hd = _geometry(q, k, v)
+    B, S, H, Hkv, hd = _geometry(q, k, v)
     dev = q.device
     _check("dout", dout, (B, S, H, hd), (q.dtype,), dev)
     _check("out", out, (B, S, H, hd), (q.dtype,), dev)
@@ -126,7 +142,7 @@ def flash_bwd_dq(dout, q, k, v, out, lse, *, causal=True, window=0,
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     err = build.load().flash_bwd_dq(
         _DTYPE_CODE[q.dtype], hd, _ptr(dout), _ptr(q), _ptr(k), _ptr(v),
-        _ptr(out), _ptr(lse), _ptr(dq), _ptr(delta), B, S, H, c, w,
+        _ptr(out), _ptr(lse), _ptr(dq), _ptr(delta), B, S, H, Hkv, c, w,
         ctypes.c_float(sc), _stream(dev))
     _raise_on(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
@@ -136,8 +152,9 @@ def flash_bwd_dq(dout, q, k, v, out, lse, *, causal=True, window=0,
 def flash_bwd_dkdv(dout, q, k, v, lse, delta, *, causal=True, window=0,
                    scale=None):
     """dout: (B, S, H, hd) in q's dtype; lse, delta: (B, H, S) f32 (delta
-    from ``flash_bwd_dq``). Returns (dk, dv) in k's and v's dtype."""
-    B, S, H, hd = _geometry(q, k, v)
+    from ``flash_bwd_dq``). Returns (dk, dv) (B, S, Hkv, hd) in k's and
+    v's dtype, summed over the query heads of each kv head."""
+    B, S, H, Hkv, hd = _geometry(q, k, v)
     dev = q.device
     _check("dout", dout, (B, S, H, hd), (q.dtype,), dev)
     _check_rows("lse", lse, B, H, S, dev)
@@ -151,7 +168,7 @@ def flash_bwd_dkdv(dout, q, k, v, lse, delta, *, causal=True, window=0,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = build.load().flash_bwd_dkdv(
         _DTYPE_CODE[q.dtype], hd, _ptr(dout), _ptr(q), _ptr(k), _ptr(v),
-        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, S, H, c, w,
+        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, S, H, Hkv, c, w,
         ctypes.c_float(sc), _stream(dev))
     _raise_on(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
@@ -169,6 +186,20 @@ def reset_counts() -> None:
     """Zero the launch count of every flash-attention kernel."""
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+#: the kernels' two designs, in the order of the C entries' counts
+DESIGNS = ("cuda_cores", "wgmma")
+
+
+def design_launches() -> dict:
+    """{kernel: {"cuda_cores": n, "wgmma": m}}: the launches the C entries
+    have made so far in this process, by design (f32 on the CUDA cores,
+    bf16 on the tensor cores). Needs the built library (the card)."""
+    counts = (ctypes.c_longlong * 6)()
+    build.load().flash_design_counts(counts)
+    return {name: dict(zip(DESIGNS, counts[2 * i:2 * i + 2]))
+            for i, name in enumerate(KERNELS)}
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +267,11 @@ class FlashAttentionBwd(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """Differentiable flash attention. q/k/v: (B, S, H, hd) f32/bf16, kv
-    already head-repeated, S a multiple of min(128, S); ``scale=None`` is
-    hd**-0.5, applied to q in f32 inside the kernel (the TPU kernel's
-    semantics). Returns out (B, S, H, hd) in q's dtype."""
+    """Differentiable flash attention. q: (B, S, H, hd), k/v: (B, S, Hkv,
+    hd) f32/bf16, H a multiple of Hkv (Hkv == H: kv already
+    head-repeated, the TPU kernel's contract), S a multiple of min(128,
+    S); ``scale=None`` is hd**-0.5 (the TPU kernel's semantics). Returns
+    out (B, S, H, hd) in q's dtype."""
     _geometry(q, k, v)
     out, _ = FlashAttention.apply(q.contiguous(), k.contiguous(),
                                   v.contiguous(), bool(causal), int(window),

@@ -236,8 +236,22 @@ def attention_mask(S: int, causal: bool, window: int, device):
     return mask
 
 
+def _repeat_kv(x, H):
+    """kv (B, S, Hkv, hd) repeated to H heads: query head h reads kv head
+    h // (H // Hkv), as the kernels index it."""
+    Hkv = x.shape[2]
+    return x if Hkv == H else torch.repeat_interleave(x, H // Hkv, dim=2)
+
+
+def _sum_groups(g, Hkv):
+    """A gradient (B, S, H, hd) f32 of repeated kv summed back to Hkv
+    heads."""
+    B, S, H, hd = g.shape
+    return g if Hkv == H else g.reshape(B, S, Hkv, H // Hkv, hd).sum(3)
+
+
 def _scores(q, k, causal, window, scale):
-    """Masked f32 scores (B, H, S, S) and the mask."""
+    """Masked f32 scores (B, H, S, S) and the mask; k at q's heads."""
     S, hd = q.shape[1], q.shape[-1]
     scale = hd ** -0.5 if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -246,13 +260,15 @@ def _scores(q, k, causal, window, scale):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """Plain softmax attention. q/k/v: (B, S, H, hd), kv already
-    head-repeated; ``scale=None`` is hd**-0.5. Returns (out (B, S, H, hd)
-    in q's dtype, lse (B, H, S) f32, the log-sum-exp of each row's
-    scaled, masked scores)."""
-    s, _, _ = _scores(q, k, causal, window, scale)
+    """Plain softmax attention. q: (B, S, H, hd), k/v: (B, S, Hkv, hd),
+    H a multiple of Hkv (kv repeated here to H heads; Hkv == H is the TPU
+    kernel's head-repeated contract); ``scale=None`` is hd**-0.5. Returns
+    (out (B, S, H, hd) in q's dtype, lse (B, H, S) f32, the log-sum-exp
+    of each row's scaled, masked scores)."""
+    H = q.shape[2]
+    s, _, _ = _scores(q, _repeat_kv(k, H), causal, window, scale)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _repeat_kv(v, H).float())
     return out.to(q.dtype).contiguous(), torch.logsumexp(s, dim=-1)
 
 
@@ -260,7 +276,10 @@ def flash_bwd_dq_ref(dout, q, k, v, out, lse, *, causal=True, window=0,
                      scale=None):
     """The plain version of the ``flash_bwd_dq`` kernel: D = rowsum(dO *
     O) (B, H, S) f32 and dQ = scale * dS K with P = exp(s - lse), dP =
-    dO V^T, dS = P * (dP - D). Returns (dq in q's dtype, D)."""
+    dO V^T, dS = P * (dP - D); k/v at Hkv heads as in
+    ``flash_attention_ref``. Returns (dq in q's dtype, D)."""
+    H = q.shape[2]
+    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     s, mask, scale = _scores(q, k, causal, window, scale)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     do = dout.float()
@@ -274,16 +293,19 @@ def flash_bwd_dq_ref(dout, q, k, v, out, lse, *, causal=True, window=0,
 def flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, *, causal=True, window=0,
                        scale=None):
     """The plain version of the ``flash_bwd_dkdv`` kernel, given D from
-    the dQ pass: dV = P^T dO and dK = scale * dS^T Q. Returns (dk, dv) in
-    the dtypes of k and v."""
-    s, mask, scale = _scores(q, k, causal, window, scale)
+    the dQ pass: dV = P^T dO and dK = scale * dS^T Q, at H heads, then
+    summed in f32 over the query heads of each kv head. Returns (dk, dv)
+    (B, S, Hkv, hd) in the dtypes of k and v."""
+    H, Hkv = q.shape[2], k.shape[2]
+    s, mask, scale = _scores(q, _repeat_kv(k, H), causal, window, scale)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     do = dout.float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, _repeat_kv(v, H).float())
     ds = p * (dp - delta[..., None])
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
-    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+    return (_sum_groups(dk, Hkv).to(k.dtype).contiguous(),
+            _sum_groups(dv, Hkv).to(v.dtype).contiguous())
 
 
 def flash_attention_bwd_ref(dout, q, k, v, out, lse, *, causal=True,
@@ -291,7 +313,8 @@ def flash_attention_bwd_ref(dout, q, k, v, out, lse, *, causal=True,
     """The gradient of ``flash_attention_ref``'s output by the explicit
     formula, in f32: P = exp(s - lse), D = rowsum(dO * O), dV = P^T dO,
     dP = dO V^T, dS = P * (dP - D), dQ = scale * dS K, dK = scale * dS^T
-    Q. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    Q (dK, dV summed over each kv head's query heads). Returns (dq, dk,
+    dv) in the dtypes and shapes of q, k, v."""
     kw = dict(causal=causal, window=window, scale=scale)
     dq, delta = flash_bwd_dq_ref(dout, q, k, v, out, lse, **kw)
     dk, dv = flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, **kw)

@@ -1,11 +1,14 @@
 """Attention: GQA + RoPE + optional sliding window, on the flash kernel.
 
 The port of the JAX package's ``models/attention.py`` for full-sequence
-self-attention (train): ``attn_init``, ``_split_heads``, ``_repeat_kv``
-and ``attention_fwd``. The JAX model runs the XLA ``chunked_attention``
-there; the port runs ``kernels.flash_attention`` (the same online-softmax
-math, the hand-written CUDA kernels on the card, their plain version on
-the CPU). The tests hold the port against JAX's own ``chunked_attention``.
+self-attention (train): ``attn_init``, ``_split_heads`` and
+``attention_fwd``. The JAX model repeats kv to the query heads
+(``_repeat_kv``) and runs the XLA ``chunked_attention``; the port hands
+``kernels.flash_attention`` the kv heads as they are (its kernels read
+kv head h // n_rep for query head h: the same math without the copy and
+without autograd's sum of the copies' gradients) and runs the
+hand-written CUDA kernels on the card, their plain version on the CPU.
+The tests hold the port against JAX's own ``chunked_attention``.
 Decode, chunked prefill and the paged KV pool wait for the serving slice;
 cross-attention waits for the encoder-decoder family.
 """
@@ -34,12 +37,6 @@ def _split_heads(x, n_heads: int, hd: int):
     return x.reshape(*x.shape[:-1], n_heads, hd)
 
 
-def _repeat_kv(k, n_rep: int):
-    if n_rep == 1:
-        return k
-    return torch.repeat_interleave(k, n_rep, dim=2)
-
-
 def attention_fwd(p, cfg, x, positions, *, causal=True, window=None):
     """Full-sequence self-attention (train). x: (B, S, d); positions:
     (B, S), the aligned 0..S-1 of ``transformer.embed_inputs`` (the
@@ -51,14 +48,11 @@ def attention_fwd(p, cfg, x, positions, *, causal=True, window=None):
     bf16 model rounds at the same place in both packages.
     """
     hd = cfg.resolved_head_dim
-    n_rep = cfg.num_heads // cfg.num_kv_heads
     q = _split_heads(dense(p["wq"], x), cfg.num_heads, hd)
     k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads, hd)
     v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    k = _repeat_kv(k, n_rep)
-    v = _repeat_kv(v, n_rep)
     w = cfg.sliding_window if window is None else window
     out = flash_attention(q * hd ** -0.5, k, v, causal=causal, window=w,
                           scale=1.0)

@@ -52,9 +52,11 @@ CASES = [(64, True, 0, 128), (64, True, 48, 128), (64, False, 0, 64),
          (96, True, 0, 64), (128, True, 0, 128), (64, False, 32, 64)]
 
 
-def _qkv(seed, B, S, H, hd):
+def _qkv(seed, B, S, H, hd, Hkv=None):
+    """q (B, S, H, hd) and k, v (B, S, Hkv, hd), Hkv = H by default."""
     rng = np.random.RandomState(seed)
-    return [rng.randn(B, S, H, hd).astype(np.float32) for _ in range(3)]
+    return [rng.randn(B, S, h, hd).astype(np.float32)
+            for h in (H, Hkv or H, Hkv or H)]
 
 
 def _jref_lse(q, k, causal, window):
@@ -211,5 +213,160 @@ def test_attention_fwd_matches_jax_chunked_attention(window):
                                                              jp)),
                               tcfg, torch.from_numpy(x),
                               torch.from_numpy(pos.copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+# -------------------------------------------------------------- GQA kv --
+
+#: (hd, causal, window, S, H, Hkv): n_rep 2 and 4
+GQA_CASES = [(64, True, 0, 128, 4, 2), (64, True, 48, 128, 4, 1),
+             (96, False, 0, 64, 8, 2), (128, True, 0, 128, 4, 2),
+             (64, False, 32, 64, 8, 4)]
+
+
+@pytest.mark.parametrize("hd,causal,window,S,H,Hkv", GQA_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_gqa_forward_matches_jax_ref(hd, causal, window, S, H, Hkv,
+                                           dtype):
+    """The plain forward with k, v at Hkv < H heads against JAX's
+    flash_attention_ref on kv repeated by jnp.repeat (the JAX model's
+    _repeat_kv)."""
+    q, k, v = _qkv(7, 2, S, H, hd, Hkv)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    n_rep = H // Hkv
+    want = np.asarray(jref(jq, jnp.repeat(jk, n_rep, axis=2),
+                           jnp.repeat(jv, n_rep, axis=2), causal=causal,
+                           window=window).astype(jnp.float32))
+    tq, tk, tv = (params_from_numpy(np.asarray(x)) for x in (jq, jk, jv))
+    out, lse = tref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                        window=window)
+    assert out.shape == tq.shape and lse.shape == (2, H, S)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(), want, **tol)
+    np.testing.assert_allclose(
+        lse.numpy(), _jref_lse(np.asarray(jq.astype(jnp.float32)),
+                               np.repeat(np.asarray(jk.astype(jnp.float32)),
+                                         n_rep, axis=2), causal, window),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd,causal,window,S,H,Hkv", GQA_CASES)
+def test_plain_gqa_backward_matches_jax_grad(hd, causal, window, S, H, Hkv):
+    """Both plain backward passes with k, v at Hkv < H heads against
+    jax.vjp of JAX's plain attention on kv repeated by jnp.repeat: dk and
+    dv come back at Hkv heads, summed over each kv head's query heads."""
+    q, k, v = _qkv(8, 2, S, H, hd, Hkv)
+    dout = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+    n_rep = H // Hkv
+
+    def fn(a, b, c):
+        return jref(a, jnp.repeat(b, n_rep, axis=2),
+                    jnp.repeat(c, n_rep, axis=2), causal=causal,
+                    window=window)
+    out, vjp = jax.vjp(fn, q, k, v)
+    jgrads = vjp(jnp.asarray(dout))
+    t = [torch.from_numpy(x) for x in (dout, q, k, v)]
+    tout, lse = tref.flash_attention_ref(*t[1:], causal=causal,
+                                         window=window)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(out), **F32_TOL)
+    dq, delta = tref.flash_bwd_dq_ref(t[0], *t[1:], tout, lse,
+                                      causal=causal, window=window)
+    dk, dv = tref.flash_bwd_dkdv_ref(t[0], *t[1:], lse, delta,
+                                     causal=causal, window=window)
+    assert dk.shape == t[2].shape and dv.shape == t[3].shape
+    for name, a, b in zip("qkv", (dq, dk, dv), jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **(F32_TOL if hd < 128
+                                      else _grad_tol(np.asarray(b))))
+    # the composed reference gives the same gradients
+    for a, b in zip(tref.flash_attention_bwd_ref(t[0], *t[1:], tout, lse,
+                                                 causal=causal,
+                                                 window=window),
+                    (dq, dk, dv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("window,unbatched_kv", [(0, False), (24, True)])
+def test_gqa_autograd_function_under_vmap_matches_autograd_of_plain_math(
+        monkeypatch, window, unbatched_kv):
+    """vmap(grad_and_value) over 3 cohorts through FlashAttention with k
+    and v at 2 of q's 4 heads (the vmap rules fold the cohort axis of
+    the 2-head kv into B as they do q's) against autograd of the plain
+    math: one forward and one call of each backward pass."""
+    plain = tref.flash_attention_ref
+    count = _Count(monkeypatch)
+    C, B, S, H, Hkv, hd = 3, 2, 64, 4, 2, 32
+    rng = np.random.RandomState(10)
+    w = torch.from_numpy(rng.randn(C, hd, hd).astype(np.float32) * 0.3)
+    x = torch.from_numpy(rng.randn(C, B, S, H, hd).astype(np.float32))
+    kv = torch.from_numpy(rng.randn(B, S, Hkv, hd).astype(np.float32))
+    kv_c = kv if unbatched_kv else kv.expand(C, *kv.shape).clone()
+
+    def loss(fn, w, x, kv):
+        q, k = x @ w, kv @ w.T
+        return torch.sum(fn(q, k, kv) * x)
+
+    def via_kernel(q, k, v):
+        return tfa.flash_attention(q, k, v, causal=True, window=window)
+
+    def via_plain(q, k, v):
+        return plain(q, k, v, causal=True, window=window)[0]
+
+    in_dims = (0, 0, None if unbatched_kv else 0)
+    g, val = vmap(grad_and_value(lambda *a: loss(via_kernel, *a),
+                                 argnums=(0, 1)), in_dims=in_dims)(w, x, kv_c)
+    assert count.calls == dict.fromkeys(_Count.NAMES, 1)
+    g2, val2 = vmap(grad_and_value(lambda *a: loss(via_plain, *a),
+                                   argnums=(0, 1)), in_dims=in_dims)(w, x,
+                                                                     kv_c)
+    torch.testing.assert_close(val, val2, **F32_TOL)
+    for a, b in zip(g, g2):
+        torch.testing.assert_close(a, b, **_grad_tol(b.numpy()))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_fwd",
+                                  "flash_bwd_dq", "flash_bwd_dkdv"])
+def test_wrappers_refuse_kv_heads_that_do_not_divide_q_heads(name):
+    """H % Hkv != 0 is refused by every entry (the kernels would read past
+    the last kv head)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(11, 1, 64, 6, 32, 4))
+    fn = getattr(tfa, name)
+    B, S, H, _ = q.shape
+    rows = torch.zeros(B, H, S)
+    args = {"flash_attention": (q, k, v), "flash_fwd": (q, k, v),
+            "flash_bwd_dq": (q, q, k, v, q, rows),
+            "flash_bwd_dkdv": (q, q, k, v, rows, rows)}[name]
+    with pytest.raises(ValueError, match="must divide"):
+        fn(*args)
+
+
+def test_attention_fwd_hands_the_kernel_unrepeated_kv(monkeypatch):
+    """attention_fwd on the reduced minitron-8b (4 query heads over 2 kv
+    heads) gives the flash entry k and v at 2 heads (no _repeat_kv in the
+    port) and matches JAX's attention_fwd (kv repeated, chunked_attention)
+    in f32."""
+    assert not hasattr(tattn, "_repeat_kv")
+    kw = dict(dtype="float32", attn_chunk=32)
+    jcfg = jreduced(JARCHS["minitron-8b"], **kw)
+    tcfg = treduced(TARCHS["minitron-8b"], **kw)
+    assert (tcfg.num_heads, tcfg.num_kv_heads) == (4, 2)
+    seen = []
+    real = tattn.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[2], k.shape[2], v.shape[2]))
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    jp = jattn.attn_init(jax.random.PRNGKey(1), jcfg, jnp.float32)
+    x = np.random.RandomState(12).randn(2, 128, jcfg.d_model).astype(
+        np.float32)
+    pos = np.broadcast_to(np.arange(128, dtype=np.int32), (2, 128))
+    want = jattn.attention_fwd(jp, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    got = tattn.attention_fwd(params_from_numpy(jax.tree.map(np.asarray,
+                                                             jp)),
+                              tcfg, torch.from_numpy(x),
+                              torch.from_numpy(pos.copy()))
+    assert seen == [(4, 2, 2)]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

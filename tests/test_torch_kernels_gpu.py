@@ -173,7 +173,8 @@ def _within_flash_rule(got, want32, plain):
 
 
 #: (dtype, hd, causal, window, B, S, H): the phase-3 cases of
-#: chip_smoke.py at test size, ragged S = 100 (one partial tile) included
+#: chip_smoke.py at test size, ragged S = 100 (one partial tile) in f32
+#: and bf16 included; kv head-repeated (Hkv = H)
 FLASH_CASES = [("bfloat16", 128, True, 0, 2, 256, 4),
                ("bfloat16", 64, True, 0, 1, 128, 2),
                ("bfloat16", 96, True, 0, 2, 128, 2),
@@ -181,24 +182,51 @@ FLASH_CASES = [("bfloat16", 128, True, 0, 2, 256, 4),
                ("bfloat16", 128, True, 64, 1, 384, 2),
                ("bfloat16", 64, False, 0, 2, 128, 2),
                ("float32", 64, False, 32, 1, 100, 3),
-               ("bfloat16", 128, True, 0, 1, 64, 1)]
+               ("bfloat16", 128, True, 0, 1, 64, 1),
+               ("bfloat16", 64, False, 32, 1, 100, 3)]
+
+#: (dtype, hd, causal, window, B, S, H, Hkv): kv at fewer heads (GQA,
+#: n_rep 2, 3 and 4; minitron's 32 over 8 at test size), both designs
+FLASH_GQA_CASES = [("bfloat16", 128, True, 0, 2, 256, 8, 2),
+                   ("bfloat16", 64, True, 0, 1, 384, 4, 2),
+                   ("bfloat16", 96, False, 0, 1, 128, 6, 2),
+                   ("bfloat16", 128, True, 64, 1, 384, 4, 1),
+                   ("bfloat16", 128, True, 0, 1, 100, 4, 2),
+                   ("float32", 128, True, 0, 1, 256, 4, 2),
+                   ("float32", 64, False, 32, 1, 100, 3, 1)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt,hd,causal,window,B,S,H", FLASH_CASES)
 def test_flash_kernels_match_plain_on_card(dt, hd, causal, window, B, S, H):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkdv against their plain
-    versions on the same inputs, one launch each."""
+    versions on the same inputs, one launch each, on the dtype's design."""
+    _check_flash_on_card(dt, hd, causal, window, B, S, H, H)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,hd,causal,window,B,S,H,Hkv", FLASH_GQA_CASES)
+def test_flash_kernels_match_plain_on_card_gqa(dt, hd, causal, window, B, S,
+                                               H, Hkv):
+    """The same with k and v at Hkv < H heads: query head h reads kv head
+    h // (H // Hkv), dk and dv sum over the query heads of each kv
+    head."""
+    _check_flash_on_card(dt, hd, causal, window, B, S, H, Hkv)
+
+
+def _check_flash_on_card(dt, hd, causal, window, B, S, H, Hkv):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import flash_attention as tfa
     torch.backends.cuda.matmul.allow_tf32 = False
+    design = {"bfloat16": "wgmma", "float32": "cuda_cores"}[dt]
     dev, dt = torch.device("cuda"), getattr(torch, dt)
     g = torch.Generator(device=dev).manual_seed(3)
-    q, k, v, dout = (torch.randn(B, S, H, hd, device=dev, generator=g)
-                     .to(dt) for _ in range(4))
+    q, k, v, dout = (torch.randn(B, S, h, hd, device=dev, generator=g)
+                     .to(dt) for h in (H, Hkv, Hkv, H))
     kw = dict(causal=causal, window=window)
     tfa.reset_counts()
+    before = tfa.design_launches()
     up = [x.float() for x in (dout, q, k, v)]
     out32, lse32 = tref.flash_attention_ref(*up[1:], **kw)
     out_lo, lse_lo = tref.flash_attention_ref(q, k, v, **kw)
@@ -216,7 +244,12 @@ def test_flash_kernels_match_plain_on_card(dt, hd, causal, window, B, S, H):
     dk, dv = tfa.flash_bwd_dkdv(dout, q, k, v, lse_lo, d_lo, **kw)
     assert _within_flash_rule(dk, dk32, dk_lo)
     assert _within_flash_rule(dv, dv32, dv_lo)
+    assert dk.shape == k.shape and dv.shape == v.shape
     assert all(fn.launches == 1 for fn in tfa.KERNELS.values())
+    after = tfa.design_launches()
+    for name in tfa.KERNELS:    # bf16 never reaches the CUDA-core kernels
+        assert {d: after[name][d] - before[name][d] for d in tfa.DESIGNS} \
+            == {d: int(d == design) for d in tfa.DESIGNS}, name
 
 
 @pytest.mark.gpu
@@ -230,6 +263,11 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
         x = torch.zeros(1, S, 2, hd, device=dev, dtype=dt)
         with pytest.raises((ValueError, TypeError)):
             tfa.flash_attention(x, x, x)
+    q = torch.zeros(1, 128, 6, 64, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 128, 4, 64, device=dev, dtype=torch.bfloat16)
+    for fn in (tfa.flash_attention, tfa.flash_fwd):
+        with pytest.raises(ValueError, match="must divide"):
+            fn(q, kv, kv)
 
 
 #: (B, S, H, hd, decay range, u scale): the phase-3 cases of
