@@ -10,7 +10,9 @@ Phases (any error or out-of-tolerance result exits non-zero):
      and static shared memory of every kernel;
   3. every kernel against its plain PyTorch version on the card, at the
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
-     ragged tails, top-k positions colliding across clients; server_mix
+     ragged tails, top-k positions colliding across clients, K-fold and
+     at K = 256, with server_mix_scatter's one device kernel a call
+     counted in a profiler trace; server_mix
      at the LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
      the flash-attention forward and both backward passes at the LLM
      path's (B 2, S 2048, H 32, hd 128) bf16 causal, kv head-repeated
@@ -20,8 +22,9 @@ Phases (any error or out-of-tolerance result exits non-zero):
      (bf16 on the tensor cores, f32 on the CUDA cores); the rwkv6
      recurrence forward and
      backward at the rwkv6 path's (B 2, S 2048, H 40, hd 64) f32 and at
-     B*H = 1, S 64 / 96, hd 16 / 32, a ragged segment and decays near 0
-     and 1, within 1e-5 x (1 + max |plain|)), with device times
+     B*H = 1, S 64 / 96, hd 16 / 32, ragged segments (S 100, S 2047),
+     one segment (S 16) and decays near 0 and 1, within 1e-5 x (1 + max
+     |plain|)), with device times
      (CUDA-graph replay) beside the least time the card could take (its
      bound), the plain version's and a library call's;
   4. the main paths: ``repro_torch.launch.train`` in this process at the
@@ -53,7 +56,8 @@ Phases (any error or out-of-tolerance result exits non-zero):
      async_ama, fedopt); prefetch depths 0, 1, 2 bitwise equal;
      --metrics-out on == off bitwise, and its JSONL valid;
   7. torch.profiler breakdowns of 10 ama_fes rounds and of 2 full-width
-     rounds of each LLM (through the launcher's --profile).
+     rounds of each LLM (through the launcher's --profile), with each of
+     the LLM's kernel wrappers' device time and share.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -421,27 +425,54 @@ def check_server_mix_delta(torch, sp, ref, record):
         del prev, rows
 
 
+def device_kernels(torch, fn) -> list[str]:
+    """Names of the device kernels one ``fn()`` call runs, from a
+    torch.profiler trace (kernels, copies and sets on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def check_server_mix_scatter(torch, sp, ref, record):
-    """The mix over top-k pairs: 1 + K launches a call (one more for bf16
-    prev), all timed together; positions collide across clients."""
+    """The mix over top-k pairs: one cooperative launch a call, counted
+    in a profiler trace of one call of every case; positions collide
+    across clients (half of each row with the row before; in the K-fold
+    case every row holds the same positions in another order), and K
+    reaches the kernel's table limit (256)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     print("server_mix_scatter: K, N, kk, dtype, case | kernel device ms "
-          "(1 + K launches, +1 for bf16), GB/s, bound ms | plain device ms "
-          "| library (index_add on pre-scaled operands) | eager call ms")
+          "(one launch), GB/s, bound ms | plain device ms | library "
+          "(index_add on pre-scaled operands) | eager call ms")
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(5, MAIN_N, MAIN_KK, f32, "t=7"), (5, MAIN_N, MAIN_KK, bf16, "t=7"),
              (5, MAIN_N, MAIN_KK, f32, "nobody kept"),
              (1, MAIN_N + 1, MAIN_KK, f32, "t=7"),
+             (5, MAIN_N, MAIN_KK, f32, "K-fold"),
+             (sp.MAX_K, MAIN_N, MAIN_KK, f32, "K = 256"),
              (10, BIG_N, 335_544, f32, "t=7"), (10, BIG_N, 335_544, bf16, "t=7")]
     coefs = torch.tensor([0.1, 2.5e-3, 0.95, 7.0], device=dev)
     for K, N, kk, dt, case in cases:
         prev = torch.randn(N, device=dev, generator=g).to(dt)
-        # rows are windows of one permutation shifted by kk/2: distinct
-        # within a row, half of each row collides with the row before
         perm = torch.randperm(N, device=dev, generator=g)
-        idx = torch.stack([perm[k * kk // 2:k * kk // 2 + kk]
-                           for k in range(K)]).to(torch.int32)
+        if case == "K-fold":   # one set of positions, K orders of it
+            idx = torch.stack([perm[:kk][torch.randperm(
+                kk, device=dev, generator=g)] for _ in range(K)])
+        else:   # rows are windows of one permutation shifted by kk/2
+            # (mod N): distinct within a row, half of each row collides
+            # with the row before
+            idx = torch.stack([perm[(k * kk // 2 + torch.arange(
+                kk, device=dev)) % N] for k in range(K)])
+        idx = idx.to(torch.int32)
         vals = 0.01 * torch.randn(K, kk, device=dev, generator=g)
         sizes, keep = _weights(torch, g, K, case)
         args = (prev, vals, idx, sizes, keep, coefs)
@@ -450,10 +481,17 @@ def check_server_mix_scatter(torch, sp, ref, record):
         mag = ref.server_mix_scatter_math(prev.float().abs(), vals.abs(), idx,
                                           sizes, keep, coefs)
         torch.cuda.synchronize()
-        tag = f"K={K:2d} N={N:>10,} kk={kk:>7,} {str(dt)[6:]:8s} {case:11s}"
+        tag = f"K={K:3d} N={N:>10,} kk={kk:>7,} {str(dt)[6:]:8s} {case:11s}"
         err = compare(torch, f"server_mix_scatter {tag}", got, want, mag, dt)
         exact = torch.equal(got, want)
+        check(exact, f"server_mix_scatter {tag}: not bitwise equal to the "
+              "plain version")
         del got, want, mag
+        names = device_kernels(torch,
+                               lambda: sp.server_mix_scatter_flat(*args))
+        check(len(names) == 1 and "server_mix_scatter" in names[0],
+              f"server_mix_scatter {tag}: one call ran {len(names)} device "
+              f"kernels {names}, expected exactly one")
         ms = device_ms(torch, lambda: sp.server_mix_scatter_flat(*args))
         eager = call_ms(torch, lambda: sp.server_mix_scatter_flat(*args))
         plain = device_ms(torch, lambda: ref.server_mix_scatter_math(*args),
@@ -825,7 +863,8 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
 #: whole range exp(-exp([-8, 4])) = [2.3e-24, 0.99966]), then the
 #: variations phase 3 holds the kernels to: B*H = 1, the Pallas kernel's
 #: test shapes (S 64 and 96 at chunk 32, hd 16), a ragged last segment
-#: at hd 32, decays all near 0 and all near 1
+#: at hd 32, decays all near 0 and all near 1, a ragged last segment
+#: after 127 whole ones at the main width, exactly one segment at B*H 80
 RWKV_MAIN = (2, 2048, 40, 64, "model", "main")
 RWKV_CASES = [RWKV_MAIN,
               (1, 2048, 1, 64, "model", "B*H = 1"),
@@ -833,7 +872,9 @@ RWKV_CASES = [RWKV_MAIN,
               (2, 96, 2, 64, "model", "S 96, chunk 32"),
               (1, 100, 3, 32, "model", "ragged, hd 32"),
               (2, 256, 4, 64, "near 0", "decay ~2e-24"),
-              (2, 2048, 4, 64, "near 1", "decay 0.99966")]
+              (2, 2048, 4, 64, "near 1", "decay 0.99966"),
+              (2, 2047, 40, 64, "model", "S 2047, ragged"),
+              (2, 16, 40, 64, "model", "one segment")]
 
 
 def rwkv6_inputs(torch, g, B, S, H, hd, decay):
@@ -1303,10 +1344,11 @@ POD_ROUNDS, POD_STEPS, POD_C, POD_B, POD_S = 3, 2, 2, 1, 2048
 LLMS = {
     "minitron-8b": dict(layers=2, tail=1, params=LLM_N,
                         plain=("flash_attention_ref", "flash_bwd_dq_ref",
-                               "flash_bwd_dkdv_ref"), trace="flash_"),
+                               "flash_bwd_dkdv_ref"), trace="flash_",
+                        parts=("flash_fwd", "flash_bwd")),
     "rwkv6-3b": dict(layers=8, tail=2, params=RWKV_N,
                      plain=("rwkv6_scan_ref", "rwkv6_scan_bwd_ref"),
-                     trace="rwkv6_"),
+                     trace="rwkv6_", parts=("rwkv6_fwd", "rwkv6_bwd")),
 }
 
 
@@ -1530,6 +1572,11 @@ def llm_where_time_goes(torch, train, arch, tmp):
           f"{busy:.1f} ms = {busy / (dt * 1e3):.1%} (idle "
           f"{1 - busy / (dt * 1e3):.1%}); {tag}* kernels {own:.1f} ms = "
           f"{own / busy:.1%} of device time")
+    for part in LLMS[arch]["parts"]:   # a kernel wrapper's launches
+        n = sum(c for k, (c, _) in by_name.items() if part in k)
+        ms = sum(us for k, (_, us) in by_name.items() if part in k) / 1e3
+        print(f"  {part}: {ms:.1f} ms in {n} launches = {ms / busy:.1%} of "
+              "device time")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 

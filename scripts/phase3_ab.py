@@ -1,0 +1,99 @@
+"""Phase-3 kernel checks of two checkouts on one card, in turns.
+
+chip_smoke.py's phase 3 holds each kernel against its plain version and
+times it. To compare two versions of a kernel (this checkout and another,
+e.g. the parent commit unpacked with ``git archive`` into a git-ignored
+directory), this script runs the named phase-3 checks of both checkouts'
+own chip_smoke.py in turns, other, this, this, other, each in a process
+of its own (both packages are ``repro_torch``), on the same card:
+
+    python3 scripts/phase3_ab.py --other experiments/parent \\
+        --checks server_mix_scatter,rwkv6 [--turns other,this,this,other] \\
+        [--out ab.json]
+
+Each run builds its checkout's kernels, prints its check's own table and
+ends with one JSON line of its records; the script collects them into
+one JSON list (``--out``) and prints the card's name and power limit.
+The check ``rwkv6_pod`` is phase 4's rwkv6-3b run (full width, 8 layers,
+ama_fes and fedavg, 3 rounds each): its records hold the losses, which
+are deterministic, so one turn a checkout is enough there. Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: check name -> the chip_smoke call that runs it and fills ``rec``
+CHECKS = {
+    "server_mix_scatter": "cs.check_server_mix_scatter(torch, sp, ref, rec)",
+    "rwkv6": "cs.check_rwkv6(torch, rs, ref, rec)",
+    "rwkv6_pod": "cs.pod_main_path(torch, train, 'rwkv6-3b', rs, "
+                 "(sp, fa, rs), ref, tree_mod, rec)",
+}
+
+_RUN = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rwkv6_scan as rs
+from repro_torch.kernels import server_plane as sp
+from repro_torch.launch import train
+from repro_torch.utils import tree as tree_mod
+build.build(); build.load()
+out = {{}}
+for name, call in {checks!r}:
+    rec = []
+    eval(call)
+    out[name] = rec
+print("AB-RECORD " + json.dumps(out, default=str))
+"""
+
+
+def run(checkout: Path, checks) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _RUN.format(checks=checks)],
+                          cwd=checkout, capture_output=True, text=True,
+                          timeout=1800)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        raise SystemExit(f"{checkout}: exit {proc.returncode}")
+    line = next(x for x in proc.stdout.splitlines()
+                if x.startswith("AB-RECORD "))
+    return json.loads(line[len("AB-RECORD "):])
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, required=True)
+    ap.add_argument("--checks", default="server_mix_scatter,rwkv6")
+    ap.add_argument("--turns", default="other,this,this,other")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    checks = [(c, CHECKS[c]) for c in args.checks.split(",")]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    results = []
+    where = {"other": args.other, "this": ROOT}
+    for tag in args.turns.split(","):
+        checkout = where[tag]
+        print(f"=== {tag}: {checkout.resolve()}", flush=True)
+        results.append(dict(run=tag, card=card, **run(checkout.resolve(),
+                                                     checks)))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(results, indent=1))
+
+
+if __name__ == "__main__":
+    main()

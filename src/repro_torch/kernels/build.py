@@ -45,9 +45,9 @@ SIGNATURES = {
     # stream
     "server_mix_delta": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                          _P, ctypes.c_int, ctypes.c_longlong, _P),
-    # dtype, prev, vals, idx, sizes, keep, coefs, out, acc, bw, K, kk, N,
+    # dtype, prev, vals, idx, sizes, keep, coefs, out, acc, K, kk, N,
     # stream
-    "server_mix_scatter": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "server_mix_scatter": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                            ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_longlong, _P),
     # prev dtype, stacked dtype, prev, stacked, alpha, weights, out, K, N,

@@ -27,37 +27,64 @@
 // kCk steps of r, k, w, v is staged in shared memory by one coalesced
 // load a step, so a step costs no barrier.
 //
-// The backward is one launch of two kinds of block (blockIdx.y):
-//   rows    (y = 0): thread i owns row i of S and of G. dr, dk, dw and du
-//           reduce over j, which is inside the thread; the row of S_{t-1}
-//           is recomputed forward from the segment's saved state (never
-//           by dividing by w: the decay reaches exp(-exp(4)) ~ 2e-24) into
-//           a per-block scratch of kCk states, then read back in reverse.
-//           Thread i writes and reads only its own elements of the
-//           scratch, so it needs no barrier.
-//   columns (y = 1): thread j owns column j of G, which needs no S at all;
-//           dv reduces over i, inside the thread.
-// du is written per (b, h) (B, H, hd); where u is shared, autograd sums
-// it over b (kernels/rwkv6_scan.py expands u once). Nothing is
-// accumulated across blocks and no atomics are used, so each launch is
-// deterministic: the port's chunked == per-round contract holds bitwise.
+// The backward is chunk-parallel. Its only serial dependence is the
+// adjoint G at segment boundaries: with L = kCk, segment c covering steps
+// t0 = c L .. t0 + L - 1, and G_e(c) the adjoint of the state leaving it,
+//   G_e(c - 1) = diag(W_c) G_e(c) + Delta_c,   W_c = prod_t w_t,
+//   Delta_c = sum_t diag(prod_{t0<=tau<t} w_tau) r_t^T dy_t.
+// Two launches:
+//   1. rwkv6_bwd_scan_kernel, one block per (b, h): the scan over the
+//      segments only (128 at S = 2048, against 2048 steps before), from
+//      d(s_final) to ds0, writing G_e(c) for every segment. Each
+//      segment's Delta_c (an (hd x L)(L x hd) product), W_c and du's part
+//      are formed on the fly from its inputs, which cp.async stages while
+//      the segment before is computed;
+//   2. rwkv6_bwd_seg_kernel, one block per (b, h, c): dr, dk, dv, dw of
+//      the segment from its saved state and G_e(c), in matrix form (the
+//      kernel's note): three (hd x hd)(hd x L) products (S0 dy^T, G_e
+//      v^T, (k Q) G_e), the L x L Gram matrix v dy^T and, per row i, sums
+//      over pairs and triples of steps weighted by decay products. No
+//      per-step state is ever formed, so no history of L states (256 KB
+//      a unit at hd 64) is kept anywhere. B H ceil(S/L) units: 10,240 at
+//      the main shape, against 80 serial chains before.
+// Every decay product is a running product (never a division by w, never
+// a difference of log-sums): the decay reaches exp(-exp(4)) ~ 2e-24, a
+// product over a few steps underflows to 0, and that 0 is right. The
+// segment's inputs, its saved state and G_e(c) are staged into shared
+// memory by cp.async; rows are padded to hd + 1 floats (a warp reading a
+// column hits 32 banks). A ragged last segment is padded with steps that
+// change nothing (r = k = v = dy = 0, w = 1). du is written per (b, h)
+// (B, H, hd); where u is shared, autograd sums it over b
+// (kernels/rwkv6_scan.py expands u once). Nothing is accumulated across
+// blocks and no atomics are used; every sum runs in a fixed order, so
+// each call is deterministic: the port's chunked == per-round contract
+// holds bitwise.
 //
 // Bound. At (B 2, S 2048, H 40, hd 64) the forward's function reads r,
 // k, v, w and s0 and writes y and s_final (212 MB, 0.063 ms at 3.35
 // TB/s) and needs 5 hd^2 + O(hd) f32 flops a step per (b, h) (3.4 GFLOP,
 // 0.050 ms at 67 TFLOP/s): bound by bytes (chip_smoke.py: time_rwkv6
 // counts both kernels; the saved states are this design's, not the
-// function's, and are not counted). This first design is latency-bound
-// instead: 80 blocks of 64 threads (2 warps on 80 of 132 SMs) each walk
-// a 2048-step chain. Left for later PRs: the chunked (matrix) form of
-// the recurrence on the tensor cores, which trades the serial chain for
-// intra-chunk products.
+// function's, and are not counted). The forward is latency-bound: 80
+// blocks of 64 threads (2 warps on 80 of 132 SMs) each walk a 2048-step
+// chain; the chunked form is the next PR's. The backward's function
+// moves 381.5 MB and needs 7.55 GFLOP (time_rwkv6: 0.114 ms, bytes). Its
+// design moves more: pass 1 reads r, k, v, w, dy (210 MB) and writes
+// G_e (168 MB, B H ceil(S/L) hd^2 f32); pass 2 reads the five inputs, the
+// saved states and G_e (546 MB) and writes dr, dk, dv, dw (168 MB):
+// 1.09 GB, 0.33 ms at 3.35 TB/s, beside about 7 GFLOP (0.10 ms), so the
+// design's bound is its own bytes, 2.9x the function's. Neither pass
+// reaches it: pass 1 runs 80 blocks (one a recurrence) on 80 of 132 SMs
+// and its 128 segments' sums follow one another in each, so it waits on
+// each segment's compute (its staging is hidden); pass 2 issues more
+// shared-memory loads and multiply-adds per unit than its bytes take to
+// stream. Their device times are in PERF.md.
 //
 // Templated on hd in {16, 32, 64} (64 is the model's HEAD_DIM; 16 is the
 // Pallas kernel's test width). The checkpoint interval kCk is owned by
 // kernels/ref.py (RWKV6_CKPT), which sizes the states and the scratch:
 // the wrapper passes it as `ckpt` and the entries refuse any other value.
-// The C entries return cudaGetLastError() after the launch; the Python
+// The C entries return cudaGetLastError() after each launch; the Python
 // wrapper (kernels/rwkv6_scan.py) raises when it is not 0.
 
 #include "common.cuh"
@@ -130,133 +157,400 @@ __global__ void __launch_bounds__(HD)
   for (int i = 0; i < HD; ++i) s_final[mat<HD>(bh) + i * HD + j] = col[i];
 }
 
-// Thread i: row i of S and G; dr, dk, dw, du and row i of ds0.
+// ---------------------------------------------------------------------------
+// The backward in chunk-parallel form: two launches (see the note).
+// ---------------------------------------------------------------------------
+
+// one 4-byte asynchronous copy global -> shared (sm_80+)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// sm[t * (HD + 1) + c] = x[b, t0 + t, h, c] for t < Lc, `fill` for
+// Lc <= t < kCk: a ragged segment is padded with steps that change
+// nothing (r = k = v = dy = 0, w = 1). Rows are padded to HD + 1 floats so
+// a warp reading one column of 32 rows hits 32 banks.
 template <int HD>
-__device__ void bwd_rows(const float* __restrict__ dy,
-                         const float* __restrict__ ds,
+__device__ __forceinline__ void stage_seg(float* sm, const float* x, int b,
+                                          int t0, int Lc, int h, int S,
+                                          int H, float fill) {
+  for (int e = threadIdx.x; e < kCk * HD; e += blockDim.x) {
+    const int t = e / HD, c = e % HD;
+    if (t < Lc)
+      cp_async4(sm + t * (HD + 1) + c, x + at<HD>(b, t0 + t, h, S, H) + c);
+    else
+      sm[t * (HD + 1) + c] = fill;
+  }
+}
+
+// one 16-byte asynchronous copy global -> shared, through L2 only
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// sm[t * HD + c] = x[b, t0 + t, h, c] as stage_seg, rows unpadded, in
+// 16-byte copies (rows of HD floats are 16-byte aligned)
+template <int HD>
+__device__ __forceinline__ void stage_seg16(float* sm, const float* x,
+                                            int b, int t0, int Lc, int h,
+                                            int S, int H, float fill) {
+  for (int e = threadIdx.x; e < kCk * HD / 4; e += blockDim.x) {
+    const int t = e / (HD / 4), c = (e % (HD / 4)) * 4;
+    if (t < Lc)
+      cp_async16(sm + t * HD + c, x + at<HD>(b, t0 + t, h, S, H) + c);
+    else
+      *reinterpret_cast<float4*>(sm + t * HD + c) =
+          make_float4(fill, fill, fill, fill);
+  }
+}
+
+// sm[i * (HD + 1) + j] = x[i * HD + j], an (HD, HD) matrix
+template <int HD>
+__device__ __forceinline__ void stage_mat(float* sm, const float* x) {
+  for (int e = threadIdx.x; e < HD * HD; e += blockDim.x)
+    cp_async4(sm + (e / HD) * (HD + 1) + e % HD, x + e);
+}
+
+// cp.async groups: close the group issued since the last commit; wait
+// until at most N groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// segments pass 1 keeps in flight: it stages segment c - (kScanBufs - 1)
+// while it computes segment c
+constexpr int kScanBufs = 4;
+
+template <int HD>
+struct ScanSmem {
+  static constexpr int SEG = kCk * HD;
+  static constexpr size_t bytes =
+      sizeof(float) * (kScanBufs * 5 * SEG + kCk * HD + HD + kCk);
+};
+
+// Pass 1, one block per (b, h), 8 hd threads: the boundary scan. It walks
+// the segments last first from G = d(s_final); for each it writes G (the
+// adjoint leaving segment c) to gout[c], then forms the segment's sums
+//   Delta[i][j] = sum_t P_t[i] r_t[i] dy_t[j],  P_t = prod_{tau<t} w_tau,
+//   W[i] = prod_t w_t[i]   (running products, never a division)
+// and steps G <- W G + Delta; du += sum_t r_t k_t (dy_t . v_t). ds0 = G at
+// the end. cp.async stages segments kScanBufs - 1 ahead of the one being
+// computed (16-byte copies into unpadded rows: this pass reads no
+// columns), so the walk waits on the memory's latency once, not once a
+// segment. Thread (j, rows i0 .. i0 + HD/8 - 1) keeps its HD/8 elements
+// of G in registers and reads its rows' P_t r_t as float4s.
+template <int HD>
+__global__ void __launch_bounds__(8 * HD)
+    rwkv6_bwd_scan_kernel(const float* __restrict__ dy,
+                          const float* __restrict__ ds,
+                          const float* __restrict__ r,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ w,
+                          float* __restrict__ gout, float* __restrict__ du,
+                          float* __restrict__ ds0, int S, int H, int NC) {
+  constexpr int SEG = ScanSmem<HD>::SEG, NR = HD / 8;
+  constexpr int LT = 8 * HD / kCk;  // lanes a step in the dot products
+  extern __shared__ __align__(16) float smem[];
+  float* pr = smem;  // [kCk][HD]: P_t r_t (float4-read, so first)
+  float* buf = pr + kCk * HD;  // kScanBufs x (r, k, v, w, dy) of a segment
+  float* wtot = buf + kScanBufs * 5 * SEG;
+  float* dyv = wtot + HD;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int j = tid % HD, i0 = (tid / HD) * NR;
+  const auto stage = [&](int c) {
+    if (c < 0) return;
+    const int t0 = c * kCk, Lc = min(kCk, S - t0);
+    float* sb = buf + (c % kScanBufs) * 5 * SEG;
+    stage_seg16<HD>(sb, r, b, t0, Lc, h, S, H, 0.f);
+    stage_seg16<HD>(sb + SEG, k, b, t0, Lc, h, S, H, 0.f);
+    stage_seg16<HD>(sb + 2 * SEG, v, b, t0, Lc, h, S, H, 0.f);
+    stage_seg16<HD>(sb + 3 * SEG, w, b, t0, Lc, h, S, H, 1.f);
+    stage_seg16<HD>(sb + 4 * SEG, dy, b, t0, Lc, h, S, H, 0.f);
+  };
+  float G[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) G[q] = ds[mat<HD>(bh) + (i0 + q) * HD + j];
+  float du_acc = 0.f;
+  for (int q = 1; q < kScanBufs; ++q) {  // one group a segment, even empty
+    stage(NC - q);
+    cp_async_commit();
+  }
+  for (int c = NC - 1; c >= 0; --c) {
+    cp_async_wait<kScanBufs - 2>();  // segment c's group is complete
+    __syncthreads();  // ... for every thread; segment c + 1's reads done
+    stage(c - (kScanBufs - 1));  // into segment c + 1's buffer
+    cp_async_commit();
+    const float* sb = buf + (c % kScanBufs) * 5 * SEG;
+    const float *sr = sb, *sk = sb + SEG, *sv = sb + 2 * SEG,
+                *sw = sb + 3 * SEG, *sdy = sb + 4 * SEG;
+    if (tid < HD) {
+      float p = 1.f;
+#pragma unroll
+      for (int t = 0; t < kCk; ++t) {
+        pr[t * HD + tid] = p * sr[t * HD + tid];
+        p *= sw[t * HD + tid];
+      }
+      wtot[tid] = p;
+    }
+    {  // dyv[t] = dy_t . v_t: LT lanes a step, reduced by shuffles
+      const int t = tid / LT, l = tid % LT;
+      float acc = 0.f;
+#pragma unroll
+      for (int jj = l; jj < HD; jj += LT) acc += sdy[t * HD + jj] * sv[t * HD + jj];
+#pragma unroll
+      for (int off = LT / 2; off > 0; off /= 2)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (l == 0) dyv[t] = acc;
+    }
+    __syncthreads();
+    if (tid < HD) {
+#pragma unroll
+      for (int t = 0; t < kCk; ++t)
+        du_acc += sr[t * HD + tid] * sk[t * HD + tid] * dyv[t];
+    }
+    float* go = gout + (static_cast<size_t>(bh) * NC + c) * HD * HD + j;
+    float d[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      go[(i0 + q) * HD] = G[q];
+      d[q] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < kCk; ++t) {
+      const float y = sdy[t * HD + j];
+      const float* pt = pr + t * HD + i0;
+      if constexpr (NR % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < NR; q += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pt + q);
+          d[q] += p4.x * y; d[q + 1] += p4.y * y;
+          d[q + 2] += p4.z * y; d[q + 3] += p4.w * y;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < NR; ++q) d[q] += pt[q] * y;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NR; ++q) G[q] = wtot[i0 + q] * G[q] + d[q];
+  }
+#pragma unroll
+  for (int q = 0; q < NR; ++q) ds0[mat<HD>(bh) + (i0 + q) * HD + j] = G[q];
+  if (tid < HD) du[static_cast<size_t>(bh) * HD + tid] = du_acc;
+}
+
+// shared memory of pass 2, in floats. Steps (a)-(b) use s0, ge and the
+// transposed dy, v, k Q (the float4-read arrays, first); step (c) uses sd,
+// gv, kg and the alpha scratch instead, in the same place (99 KB -> 70 KB
+// at hd 64: three blocks an SM).
+template <int HD>
+struct SegSmem {
+  static constexpr int P = HD + 1, NT = 4 * HD, W = HD < 32 ? HD : 32;
+  static constexpr int dyT = 0, vT = dyT + HD * kCk, kqT = vT + HD * kCk,
+                       s0 = kqT + HD * kCk, ge = s0 + HD * P,
+                       ab_end = ge + HD * P;
+  static constexpr int sd = 0, gv = sd + kCk * P, kg = gv + kCk * P,
+                       alpha = kg + kCk * P, c_end = alpha + kCk * NT;
+  static constexpr int r = ab_end > c_end ? ab_end : c_end, k = r + kCk * P,
+                       v = k + kCk * P, w = v + kCk * P, dy = w + kCk * P,
+                       vd = dy + kCk * P, apart = vd + kCk * kCk,
+                       u = apart + kCk * kCk * (HD / W), gs = u + HD,
+                       cc = gs + HD, total = cc + kCk;
+  static constexpr size_t bytes = sizeof(float) * total;
+};
+
+// Pass 2, one block per segment (bh, c) of L = kCk steps: every output of
+// the segment from its entering state S0 (the forward's saved state) and
+// the adjoint Ge leaving it (pass 1), in matrix form. Within the segment,
+// with D(a, b)[i] = prod_{a<rho<b} w_rho[i] (a running product),
+// P_t = D(-1, t), Q_t = D(t, L):
+//   S_{t-1} = P_t S0 + sum_{tau<t} D(tau, t) k_tau^T v_tau
+//   G_t     = Q_t Ge + sum_{sigma>t} D(t, sigma) r_sigma^T dy_sigma
+// so with SD = S0 dy^T, GV = Ge v^T, VD[tau][sigma] = v_tau . dy_sigma:
+//   dr_t = P_t SD_t + sum_{tau<t} D(tau,t) k_tau VD[tau][t] + u k_t VD[t][t]
+//   dk_t = r_t u VD[t][t] + Q_t GV_t + sum_{sigma>t} D(t,sigma) r_sigma
+//          VD[t][sigma]
+//   dv_t = c_t dy_t + (k_t Q_t) Ge + sum_{sigma>t} A[t][sigma] dy_sigma,
+//          A[t][sigma] = sum_i k_t D(t,sigma) r_sigma, c_t = sum_i r u k
+//   dw_t = Q_t P_t rowsum(Ge * S0) + Q_t sum_{tau<t} D(tau,t) k_tau GV_tau
+//          + P_t sum_{sigma>t} D(t,sigma) r_sigma SD_sigma
+//          + sum_{sigma>t} D(t,sigma) r_sigma sum_{tau<t} D(tau,t) k_tau
+//            VD[tau][sigma]
+// (per row i; products and sums over i, j as written). Every decay
+// product is formed by multiplication, so one that underflows is 0.
+template <int HD>
+__global__ void __launch_bounds__(4 * HD)
+    rwkv6_bwd_seg_kernel(const float* __restrict__ dy,
                          const float* __restrict__ r,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const float* __restrict__ w,
+                         const float* __restrict__ u,
                          const float* __restrict__ states,
+                         const float* __restrict__ gbuf,
                          float* __restrict__ dr, float* __restrict__ dk,
-                         float* __restrict__ dw, float* __restrict__ du,
-                         float* __restrict__ ds0, float* __restrict__ scr,
-                         const float* su, float (*sr)[HD], float (*sk)[HD],
-                         float (*sw)[HD], float (*sv)[HD],
-                         float (*sdy)[HD], int S, int H) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, i = threadIdx.x;
-  const int NC = (S + kCk - 1) / kCk;
-  float G[HD];
-#pragma unroll
-  for (int j = 0; j < HD; ++j) G[j] = ds[mat<HD>(bh) + i * HD + j];
-  float du_acc = 0.f;
-  for (int g = NC - 1; g >= 0; --g) {
-    const int t0 = g * kCk, L = min(kCk, S - t0);
-    __syncthreads();  // the previous segment's reads are done
-    stage<HD>(sr, r, b, t0, L, h, S, H, i);
-    stage<HD>(sk, k, b, t0, L, h, S, H, i);
-    stage<HD>(sw, w, b, t0, L, h, S, H, i);
-    stage<HD>(sv, v, b, t0, L, h, S, H, i);
-    stage<HD>(sdy, dy, b, t0, L, h, S, H, i);
-    __syncthreads();
-    {  // recompute: scr[s][j][i] = row i of the state entering t0 + s
-      const float* sp = states + (static_cast<size_t>(bh) * NC + g) * HD * HD;
-      float row[HD];
-#pragma unroll
-      for (int j = 0; j < HD; ++j) row[j] = sp[i * HD + j];
-      for (int s = 0; s < L; ++s) {
-        const float ki = sk[s][i], wi = sw[s][i];
-#pragma unroll
-        for (int j = 0; j < HD; ++j) {
-          scr[(s * HD + j) * HD + i] = row[j];
-          const float kv = ki * sv[s][j];
-          row[j] = wi * row[j] + kv;
+                         float* __restrict__ dv, float* __restrict__ dw,
+                         int S, int H, int NC) {
+  using M = SegSmem<HD>;
+  constexpr int P = M::P, NT = M::NT, W = M::W;
+  extern __shared__ __align__(16) float smem[];
+  float *dyT = smem + M::dyT, *vT = smem + M::vT, *kqT = smem + M::kqT;
+  // step (c)'s arrays overlay step (a)-(b)'s
+  float *sr = smem + M::r, *sk = smem + M::k, *sv = smem + M::v,
+        *sw = smem + M::w, *sdy = smem + M::dy, *s0 = smem + M::s0,
+        *ge = smem + M::ge, *sd = smem + M::sd, *gv = smem + M::gv,
+        *kg = smem + M::kg, *vd = smem + M::vd, *apart = smem + M::apart,
+        *alpha = smem + M::alpha, *su = smem + M::u, *gs = smem + M::gs,
+        *cc = smem + M::cc;
+  const int bh = blockIdx.x / NC, c = blockIdx.x % NC;
+  const int b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int t0 = c * kCk, Lc = min(kCk, S - t0);
+  const size_t seg = static_cast<size_t>(bh) * NC + c;
+  stage_seg<HD>(sr, r, b, t0, Lc, h, S, H, 0.f);
+  stage_seg<HD>(sk, k, b, t0, Lc, h, S, H, 0.f);
+  stage_seg<HD>(sv, v, b, t0, Lc, h, S, H, 0.f);
+  stage_seg<HD>(sw, w, b, t0, Lc, h, S, H, 1.f);
+  stage_seg<HD>(sdy, dy, b, t0, Lc, h, S, H, 0.f);
+  stage_mat<HD>(s0, states + seg * HD * HD);
+  stage_mat<HD>(ge, gbuf + seg * HD * HD);
+  if (tid < HD) su[tid] = u[static_cast<size_t>(bh) * HD + tid];
+  cp_async_wait_all();
+  __syncthreads();
+
+  // (a) transposed dy, v; k_t Q_t; rowsum(Ge * S0); c_t; VD; A's parts
+  for (int e = tid; e < HD * kCk; e += NT) {
+    const int j = e / kCk, t = e % kCk;
+    dyT[e] = sdy[t * P + j];
+    vT[e] = sv[t * P + j];
+  }
+  if (tid < HD) {
+    float q = 1.f;
+    for (int t = kCk - 1; t >= 0; --t) {
+      kqT[tid * kCk + t] = sk[t * P + tid] * q;
+      q *= sw[t * P + tid];
+    }
+  } else if (tid < 2 * HD) {
+    const int i = tid - HD;
+    float acc = 0.f;
+    for (int j = 0; j < HD; ++j) acc += ge[i * P + j] * s0[i * P + j];
+    gs[i] = acc;
+  } else if (tid < 2 * HD + kCk) {
+    const int t = tid - 2 * HD;
+    float acc = 0.f;
+    for (int i = 0; i < HD; ++i) acc += sr[t * P + i] * su[i] * sk[t * P + i];
+    cc[t] = acc;
+  }
+  for (int p = tid; p < kCk * kCk; p += NT) {
+    const int ta = p / kCk, sg = p % kCk;
+    float acc = 0.f;
+    for (int j = 0; j < HD; ++j) acc += sv[ta * P + j] * sdy[sg * P + j];
+    vd[ta * kCk + sg] = acc;
+  }
+  {  // A[t][sigma]: lanes over i, reduced over groups of W lanes
+    const int lane = tid % 32;
+    for (int f0 = (tid / 32) * 32; f0 < kCk * HD; f0 += NT) {
+      const int t = (f0 + lane) / HD, i = (f0 + lane) % HD;
+      const float kt = sk[t * P + i];
+      float e = 1.f;
+      // uniform over the warp, from its first lane's step
+      for (int sg = f0 / HD + 1; sg < kCk; ++sg) {
+        float term = 0.f;
+        if (sg > t) {
+          term = kt * e * sr[sg * P + i];
+          e *= sw[sg * P + i];
         }
-      }
-    }
-    const float ui = su[i];
-    for (int s = L - 1; s >= 0; --s) {
-      const float ri = sr[s][i], ki = sk[s][i], wi = sw[s][i];
-      float dyv = 0.f, drs = 0.f, dks = 0.f, dws = 0.f;
 #pragma unroll
-      for (int j = 0; j < HD; ++j) {
-        const float sj = scr[(s * HD + j) * HD + i];
-        const float dyj = sdy[s][j], vj = sv[s][j];
-        dyv += dyj * vj;
-        drs += sj * dyj;
-        dks += G[j] * vj;
-        dws += G[j] * sj;
-        G[j] = wi * G[j] + ri * dyj;
+        for (int off = W / 2; off > 0; off /= 2)
+          term += __shfl_xor_sync(0xffffffffu, term, off);
+        if (i % W == 0) apart[(t * kCk + sg) * (HD / W) + i / W] = term;
       }
-      const size_t o = at<HD>(b, t0 + s, h, S, H) + i;
-      dr[o] = drs + ui * ki * dyv;
-      dk[o] = ri * ui * dyv + dks;
-      dw[o] = dws;
-      du_acc += ri * ki * dyv;
     }
   }
-  du[static_cast<size_t>(bh) * HD + i] = du_acc;
-#pragma unroll
-  for (int j = 0; j < HD; ++j) ds0[mat<HD>(bh) + i * HD + j] = G[j];
-}
+  __syncthreads();
 
-// Thread j: column j of G; dv.
-template <int HD>
-__device__ void bwd_cols(const float* __restrict__ dy,
-                         const float* __restrict__ ds,
-                         const float* __restrict__ r,
-                         const float* __restrict__ k,
-                         const float* __restrict__ w,
-                         float* __restrict__ dv, const float* su,
-                         float (*sr)[HD], float (*sk)[HD], float (*sw)[HD],
-                         float (*sdy)[HD], int S, int H) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, j = threadIdx.x;
-  const int NC = (S + kCk - 1) / kCk;
-  float G[HD];
+  // (b) SD = S0 dy^T, GV = Ge v^T (thread: row i, steps 4 tg .. 4 tg + 3)
+  //     and KG = (k Q) Ge (thread: column j, the same steps)
+  {
+    const int x = tid % HD, t4 = (tid / HD) * 4;
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, g[4] = {0.f, 0.f, 0.f, 0.f},
+          kgs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int j = 0; j < HD; ++j) {
+      const float s = s0[x * P + j], gg = ge[x * P + j];
+      const float4 d4 = *reinterpret_cast<const float4*>(dyT + j * kCk + t4);
+      const float4 v4 = *reinterpret_cast<const float4*>(vT + j * kCk + t4);
+      a[0] += s * d4.x; a[1] += s * d4.y; a[2] += s * d4.z; a[3] += s * d4.w;
+      g[0] += gg * v4.x; g[1] += gg * v4.y; g[2] += gg * v4.z;
+      g[3] += gg * v4.w;
+    }
+#pragma unroll 4
+    for (int i = 0; i < HD; ++i) {
+      const float gg = ge[i * P + x];
+      const float4 q4 = *reinterpret_cast<const float4*>(kqT + i * kCk + t4);
+      kgs[0] += gg * q4.x; kgs[1] += gg * q4.y; kgs[2] += gg * q4.z;
+      kgs[3] += gg * q4.w;
+    }
+    __syncthreads();  // s0, ge and the transposes are dead from here
 #pragma unroll
-  for (int i = 0; i < HD; ++i) G[i] = ds[mat<HD>(bh) + i * HD + j];
-  for (int g = NC - 1; g >= 0; --g) {
-    const int t0 = g * kCk, L = min(kCk, S - t0);
-    __syncthreads();
-    stage<HD>(sr, r, b, t0, L, h, S, H, j);
-    stage<HD>(sk, k, b, t0, L, h, S, H, j);
-    stage<HD>(sw, w, b, t0, L, h, S, H, j);
-    stage<HD>(sdy, dy, b, t0, L, h, S, H, j);
-    __syncthreads();
-    for (int s = L - 1; s >= 0; --s) {
-      const float dyj = sdy[s][j];
-      float c = 0.f, acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < HD; ++i) {
-        const float ri = sr[s][i], ki = sk[s][i];
-        c += ri * su[i] * ki;
-        acc += G[i] * ki;
-        G[i] = sw[s][i] * G[i] + ri * dyj;
-      }
-      dv[at<HD>(b, t0 + s, h, S, H) + j] = c * dyj + acc;
+    for (int q = 0; q < 4; ++q) {
+      sd[(t4 + q) * P + x] = a[q];
+      gv[(t4 + q) * P + x] = g[q];
+      kg[(t4 + q) * P + x] = kgs[q];
     }
   }
-}
+  __syncthreads();
 
-template <int HD>
-__global__ void __launch_bounds__(HD)
-    rwkv6_bwd_kernel(const float* dy, const float* ds, const float* r,
-                     const float* k, const float* v, const float* w,
-                     const float* u, const float* states, float* dr,
-                     float* dk, float* dv, float* dw, float* du, float* ds0,
-                     float* scratch, int S, int H) {
-  __shared__ float sr[kCk][HD], sk[kCk][HD], sw[kCk][HD], sv[kCk][HD],
-      sdy[kCk][HD];
-  __shared__ float su[HD];
-  const int bh = blockIdx.x;
-  su[threadIdx.x] = u[static_cast<size_t>(bh) * HD + threadIdx.x];
-  if (blockIdx.y == 0) {
-    bwd_rows<HD>(dy, ds, r, k, v, w, states, dr, dk, dw, du, ds0,
-                 scratch + static_cast<size_t>(bh) * kCk * HD * HD, su, sr,
-                 sk, sw, sv, sdy, S, H);
-  } else {
-    bwd_cols<HD>(dy, ds, r, k, w, dv, su, sr, sk, sw, sdy, S, H);
+  // (c) dr, dk, dw for (t, i) and dv for (t, j): thread x, steps tg + 4 m
+  const int x = tid % HD, tg = tid / HD;
+  const float ux = su[x], gsx = gs[x];
+  float* al = alpha + tid;  // this thread's D(tau, t) k_tau, stride NT
+  for (int t = tg; t < Lc; t += 4) {
+    float d = 1.f, s_r = 0.f, s_g = 0.f;
+    for (int ta = t - 1; ta >= 0; --ta) {
+      const float a = d * sk[ta * P + x];
+      al[ta * NT] = a;
+      s_r += a * vd[ta * kCk + t];
+      s_g += a * gv[ta * P + x];
+      d *= sw[ta * P + x];
+    }
+    const float Pt = d;
+    float e = 1.f, s_k = 0.f, s_s = 0.f, cross = 0.f;
+    for (int sg = t + 1; sg < kCk; ++sg) {
+      const float bb = e * sr[sg * P + x];
+      s_k += bb * vd[t * kCk + sg];
+      s_s += bb * sd[sg * P + x];
+      float inner = 0.f;
+      for (int ta = 0; ta < t; ++ta) inner += al[ta * NT] * vd[ta * kCk + sg];
+      cross += bb * inner;
+      e *= sw[sg * P + x];
+    }
+    const float Qt = e, dyv = vd[t * kCk + t];
+    const float kx = sk[t * P + x], rx = sr[t * P + x];
+    const size_t o = at<HD>(b, t0 + t, h, S, H) + x;
+    dr[o] = Pt * sd[t * P + x] + s_r + ux * kx * dyv;
+    dk[o] = rx * ux * dyv + Qt * gv[t * P + x] + s_k;
+    dw[o] = Qt * Pt * gsx + Qt * s_g + Pt * s_s + cross;
+    float acc = cc[t] * sdy[t * P + x] + kg[t * P + x];
+    for (int sg = t + 1; sg < kCk; ++sg) {
+      float A = 0.f;
+#pragma unroll
+      for (int q = 0; q < HD / W; ++q) A += apart[(t * kCk + sg) * (HD / W) + q];
+      acc += A * sdy[sg * P + x];
+    }
+    dv[o] = acc;
   }
 }
 
@@ -293,9 +587,10 @@ extern "C" int rwkv6_fwd(int hd, int ckpt, const void* r, const void* k,
 }
 
 // dy: (B, S, H, hd) f32; ds: (B, H, hd, hd) f32; r, k, v, w, u, states as
-// rwkv6_fwd took and wrote them; scratch: (B * H, ckpt, hd, hd) f32; ckpt
-// as for rwkv6_fwd. Writes dr, dk, dv, dw (B, S, H, hd), du (B, H, hd) per
-// batch row and ds0 (B, H, hd, hd), all f32.
+// rwkv6_fwd took and wrote them; scratch: (B * H, ceil(S / ckpt), hd, hd)
+// f32; ckpt as for rwkv6_fwd. Writes dr, dk, dv, dw (B, S, H, hd), du (B,
+// H, hd) per batch row and ds0 (B, H, hd, hd), all f32. Two launches on
+// the stream: the boundary scan, then the segments.
 extern "C" int rwkv6_bwd(int hd, int ckpt, const void* dy,
                          const void* ds, const void* r, const void* k,
                          const void* v, const void* w, const void* u,
@@ -304,14 +599,33 @@ extern "C" int rwkv6_bwd(int hd, int ckpt, const void* dy,
                          void* ds0, void* scratch, int B, int S, int H,
                          void* stream) {
   if (!valid(B, S, H, ckpt)) return cudaErrorInvalidValue;
-  const dim3 grid(B * H, 2);
   auto st = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto o = [](void* p) { return static_cast<float*>(p); };
+  const int BH = B * H, NC = (S + kCk - 1) / kCk;
+  int err = 0;
 #define REPRO_RWKV6_BWD(HD)                                                  \
-  rwkv6_bwd_kernel<HD><<<grid, HD, 0, st>>>(                                 \
-      f(dy), f(ds), f(r), f(k), f(v), f(w), f(u), f(states), o(dr), o(dk),   \
-      o(dv), o(dw), o(du), o(ds0), o(scratch), S, H)
+  {                                                                          \
+    float* gbuf = o(scratch);                                                \
+    constexpr size_t scan_smem = ScanSmem<HD>::bytes;                        \
+    err = cudaFuncSetAttribute(rwkv6_bwd_scan_kernel<HD>,                    \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                               static_cast<int>(scan_smem));                 \
+    if (err != 0) return err;                                                \
+    rwkv6_bwd_scan_kernel<HD><<<BH, 8 * HD, scan_smem, st>>>(                \
+        f(dy), f(ds), f(r), f(k), f(v), f(w), gbuf, o(du), o(ds0), S, H,     \
+        NC);                                                                 \
+    err = cudaGetLastError();                                                \
+    if (err != 0) return err;                                                \
+    constexpr size_t smem = SegSmem<HD>::bytes;                              \
+    err = cudaFuncSetAttribute(rwkv6_bwd_seg_kernel<HD>,                     \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                               static_cast<int>(smem));                      \
+    if (err != 0) return err;                                                \
+    rwkv6_bwd_seg_kernel<HD><<<BH * NC, 4 * HD, smem, st>>>(                 \
+        f(dy), f(r), f(k), f(v), f(w), f(u), f(states), gbuf, o(dr), o(dk),  \
+        o(dv), o(dw), S, H, NC);                                             \
+  }
   switch (hd) {
     case 16: REPRO_RWKV6_BWD(16); break;
     case 32: REPRO_RWKV6_BWD(32); break;

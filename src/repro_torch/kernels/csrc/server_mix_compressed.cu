@@ -16,18 +16,42 @@
 //
 // server_mix_scatter does NOT follow the Pallas design, where every tile
 // reads the whole (K, kk) list: that is O(tiles·K·kk) reads, quadratic
-// in N at a fixed density. Here one call is a short sequence of
-// launches on the caller's stream: a dense pass writes the f32
-// accumulator prev * (a_eff + beta * sum_k w_k) (and the K row
-// coefficients beta * w_k), then one launch per client k = 0..K-1 adds
-// its kk contributions, then (bf16 prev only) a cast pass. Positions
-// are distinct within a row, so each scatter launch writes every
-// position at most once with no atomics, and the launches run in
-// stream order: every element receives its contributions in client
-// order, exactly as the plain version's index_add_ per client. Bytes:
-// 2·N·s + K·kk·8 plus the accumulator's round trip for bf16 prev.
+// in N at a fixed density. Here one call is ONE cooperative launch
+// (cudaLaunchCooperativeKernel) whose grid walks K + 1 phases (K + 2 for
+// bf16 prev), separated by grid-wide barriers
+// (cooperative_groups::this_grid().sync()): a dense phase writes the f32
+// accumulator prev * (a_eff + beta * sum_k w_k), then one phase per
+// client k = 0..K-1 adds its kk contributions, then (bf16 prev only) a
+// cast phase writes out. Every block computes the K row coefficients
+// beta * w_k itself, in the plain version's op order, so no phase waits
+// for them. Positions are distinct within a row, so a scatter phase
+// writes every position at most once with no atomics, and the barriers
+// order the phases: every element receives its contributions in client
+// order, exactly as the plain version's index_add_ per client.
+//
+// Bound: bytes, 2·N·s + K·kk·8 (plus the accumulator's round trip for
+// bf16 prev). The grid is a block for every 2048 elements of max(N, kk),
+// at least one block an SM and at most the blocks resident at once (the
+// cooperative launch's condition: the card refuses more, the C entry
+// returns the error and the wrapper raises). At large N the phases
+// stream bytes as the 1 + K launch design did. At the paper CNN's shape
+// (K 5, N 54,784, kk 547) every phase is a few hundred nanoseconds of
+// work and the call is latency: each client phase pays a grid barrier
+// (a fence, one atomic arrival a block, a spin on the grid's counter)
+// and a dependent read-modify-write of acc in L2, together about 1.5 us
+// on an H100, about what a launch gap cost the 1 + K design. One
+// launch therefore saves only the launch itself there, and index_add's
+// one atomic pass stays faster (PERF.md). grid.sync() needs no
+// relocatable device code (-rdc) since CUDA 11; the build's flags are
+// unchanged, and the card runs it at the build's -gencode sm_90a.
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,57 +102,81 @@ server_mix_delta_kernel(const T* __restrict__ prev,
   }
 }
 
-// acc = prev * c over all N; block 0 also publishes bw for the scatters
+// The whole scatter mix in one cooperative launch: acc = prev * c, then
+// client k's kk pairs into acc for k = 0..K-1, then (bf16) out = acc,
+// each phase after a grid barrier. acc is out itself for f32 prev.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-scatter_dense_kernel(const T* __restrict__ prev,
-                     const float* __restrict__ sizes,
-                     const float* __restrict__ keep,
-                     const float* __restrict__ coefs,
-                     float* __restrict__ acc, float* __restrict__ bw_out,
-                     int K, long long N) {
+server_mix_scatter_kernel(const T* __restrict__ prev,
+                          const float* __restrict__ vals,
+                          const int* __restrict__ idx,
+                          const float* __restrict__ sizes,
+                          const float* __restrict__ keep,
+                          const float* __restrict__ coefs, T* out,
+                          float* acc, int K, long long kk, long long N) {
   __shared__ float bw[kMaxK];
   __shared__ float c;
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0)
     c = compressed_coefs(sizes, keep, coefs, nullptr, K, bw);
-    if (blockIdx.x == 0)
-      for (int k = 0; k < K; ++k) bw_out[k] = bw[k];
-  }
   __syncthreads();
+  cg::grid_group grid = cg::this_grid();
   const size_t n = static_cast<size_t>(N);
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    acc[i] = __fmul_rn(ld(prev, i), c);
-}
-
-// client k's kk pairs into acc; positions are distinct within the row,
-// so no two threads of this launch touch one element
-__global__ void __launch_bounds__(kThreads)
-scatter_row_kernel(const float* __restrict__ vals,
-                   const int* __restrict__ idx,
-                   const float* __restrict__ bw, float* __restrict__ acc,
-                   int k, long long kk, long long N) {
-  const float bwk = bw[k];
-  const size_t row = static_cast<size_t>(k) * static_cast<size_t>(kk);
   const size_t m = static_cast<size_t>(kk);
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t j = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < m; j += stride) {
-    const long long p = __ldg(idx + row + j);
-    if (p < 0 || p >= N) continue;  // outside the vector: adds nothing
-    acc[p] = __fadd_rn(acc[p], __fmul_rn(__ldg(vals + row + j), bwk));
+  const size_t first =
+      static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (size_t i = first; i < n; i += stride)
+    acc[i] = __fmul_rn(ld(prev, i), c);
+  for (int k = 0; k < K && m > 0; ++k) {
+    grid.sync();  // every earlier phase's writes are visible
+    const float bwk = bw[k];
+    const size_t row = static_cast<size_t>(k) * m;
+    for (size_t j = first; j < m; j += stride) {
+      const long long p = __ldg(idx + row + j);
+      if (p < 0 || p >= N) continue;  // outside the vector: adds nothing
+      acc[p] = __fadd_rn(acc[p], __fmul_rn(__ldg(vals + row + j), bwk));
+    }
+  }
+  if constexpr (!std::is_same_v<T, float>) {
+    grid.sync();
+    for (size_t i = first; i < n; i += stride) st(out, i, acc[i]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-cast_bf16_kernel(const float* __restrict__ acc,
-                 __nv_bfloat16* __restrict__ out, long long N) {
-  const size_t n = static_cast<size_t>(N);
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = __float2bfloat16_rn(acc[i]);
+// One cooperative launch of server_mix_scatter_kernel<T>: a block for
+// every kScatterPerBlock elements of max(N, kk), at least one block an SM
+// (a phase's cost is its latency, not its bytes, below that), at most the
+// blocks resident at once.
+constexpr long long kScatterPerBlock = 8LL * kThreads;
+
+template <typename T>
+int launch_scatter(const void* prev, const void* vals, const void* idx,
+                   const float* sz, const float* kp, const float* cf,
+                   void* out, float* acc, int K, long long kk, long long N,
+                   cudaStream_t s) {
+  const auto kernel = server_mix_scatter_kernel<T>;
+  int dev = 0, sms = 0, per_sm = 0;
+  int err = cudaGetDevice(&dev);
+  if (err == 0)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err != 0) return err;
+  const long long work = N > kk ? N : kk;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  long long want = (work + kScatterPerBlock - 1) / kScatterPerBlock;
+  if (want < sms) want = sms;
+  const int blocks = static_cast<int>(want < resident ? want : resident);
+  auto* p = static_cast<const T*>(prev);
+  auto* v = static_cast<const float*>(vals);
+  auto* ix = static_cast<const int*>(idx);
+  auto* o = static_cast<T*>(out);
+  void* args[] = {&p, &v, &ix, &sz, &kp, &cf, &o, &acc, &K, &kk, &N};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(kThreads), args, 0,
+                                    s);
+  return err != 0 ? err : cudaGetLastError();
 }
 
 template <typename T, typename R>
@@ -182,13 +230,13 @@ extern "C" int server_mix_delta(int dtype, int rows, const void* prev,
 }
 
 // dtype: prev and out, 0 = float32, 1 = bfloat16. acc is an f32 (N,)
-// accumulator (out itself when dtype is 0); bw is (K,) f32 scratch.
-// 1 + K launches, plus one cast launch for bf16.
+// accumulator (out itself when dtype is 0). One cooperative launch; a
+// launch the card refuses returns its error.
 extern "C" int server_mix_scatter(int dtype, const void* prev,
                                   const void* vals, const void* idx,
                                   const void* sizes, const void* keep,
                                   const void* coefs, void* out, void* acc,
-                                  void* bw, int K, long long kk, long long N,
+                                  int K, long long kk, long long N,
                                   void* stream) {
   if (K < 1 || K > kMaxK || N < 1 || kk < 0 || dtype < 0 || dtype > 1)
     return cudaErrorInvalidValue;
@@ -197,26 +245,9 @@ extern "C" int server_mix_scatter(int dtype, const void* prev,
   const auto* kp = static_cast<const float*>(keep);
   const auto* cf = static_cast<const float*>(coefs);
   auto* a = static_cast<float*>(acc);
-  auto* b = static_cast<float*>(bw);
   if (dtype == 0)
-    scatter_dense_kernel<float><<<grid_for(N), kThreads, 0, s>>>(
-        static_cast<const float*>(prev), sz, kp, cf, a, b, K, N);
-  else
-    scatter_dense_kernel<__nv_bfloat16><<<grid_for(N), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(prev), sz, kp, cf, a, b, K, N);
-  int err = cudaGetLastError();
-  if (err != 0) return err;
-  if (kk > 0) {
-    for (int k = 0; k < K; ++k) {
-      scatter_row_kernel<<<grid_for(kk), kThreads, 0, s>>>(
-          static_cast<const float*>(vals), static_cast<const int*>(idx), b,
-          a, k, kk, N);
-      err = cudaGetLastError();
-      if (err != 0) return err;
-    }
-  }
-  if (dtype == 1)
-    cast_bf16_kernel<<<grid_for(N), kThreads, 0, s>>>(
-        a, static_cast<__nv_bfloat16*>(out), N);
-  return cudaGetLastError();
+    return launch_scatter<float>(prev, vals, idx, sz, kp, cf, out, a, K, kk,
+                                 N, s);
+  return launch_scatter<__nv_bfloat16>(prev, vals, idx, sz, kp, cf, out, a,
+                                       K, kk, N, s);
 }

@@ -10,10 +10,11 @@ kernels are CUDA C++ for ``sm_90a`` (``csrc/rwkv6_scan.cu``):
   * ``rwkv6_fwd`` — y and s_final; also the state entering every
                     ``RWKV6_CKPT``-th step, which the backward restarts
                     from;
-  * ``rwkv6_bwd`` — dr, dk, dv, dw, du and ds0 by the adjoint recurrence,
-                    recomputing each segment's states (row blocks) beside
-                    a pass over the columns of the adjoint (dv), in one
-                    launch, without atomics.
+  * ``rwkv6_bwd`` — dr, dk, dv, dw, du and ds0 by the adjoint recurrence
+                    in chunk-parallel form: a scan of the adjoint over
+                    segment boundaries only, then every segment's outputs
+                    from its saved state in matrix form (two launches a
+                    call, counted as one), without atomics.
 
 Dispatch is by device: a CPU tensor takes the plain version in
 ``kernels/ref.py`` (``rwkv6_scan_ref``, ``rwkv6_scan_bwd_ref``, the same
@@ -32,8 +33,9 @@ sums du over them. They are built from two ``torch.autograd.Function``s,
 plane runs ``vmap(grad_and_value(loss))`` over the cohorts, where r, k,
 v, w and the per-cohort parameter u carry the cohort dim and s0 (made
 inside the loss) does not. The rule folds the cohort dim into B, launches
-once and unfolds. One vmapped call is one launch of each kernel, whatever
-the cohort count.
+once and unfolds. One vmapped call is one call of each kernel wrapper,
+whatever the cohort count: one launch of the forward, two of the
+backward (one a pass), and each wrapper counts its calls.
 """
 from __future__ import annotations
 
@@ -76,10 +78,16 @@ def _states_shape(B, S, H, hd):
     return (B, H, -(-S // ref.RWKV6_CKPT), hd, hd)
 
 
-def _launch_checks(hd):
+def _launch_checks(hd, *aligned):
+    """Refuse an hd the kernels are not built for, and operands in
+    ``aligned`` that do not start on a 16-byte boundary (the backward's
+    boundary scan copies them 16 bytes at a time)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the rwkv6 kernels take head dims {HEAD_DIMS}, "
                          f"got {hd}")
+    if any(x.data_ptr() % 16 for x in aligned):
+        raise ValueError("rwkv6_bwd takes r, k, v, w and dy starting on a "
+                         "16-byte boundary")
 
 
 def rwkv6_fwd(r, k, v, w, u, s0):
@@ -115,12 +123,13 @@ def rwkv6_bwd(dy, ds, r, k, v, w, u, states):
     _check("states", states, _states_shape(B, S, H, hd), _F32, dev)
     if not _kernel_device(r):
         return ref.rwkv6_scan_bwd_ref(dy, ds, r, k, v, w, u, states)
-    _launch_checks(hd)
+    _launch_checks(hd, r, k, v, w, dy)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     ds0 = torch.empty_like(ds)
-    scratch = torch.empty((B * H, ref.RWKV6_CKPT, hd, hd),
-                          dtype=torch.float32, device=dev)
+    # the adjoint leaving every segment, the boundary scan's output
+    scratch = torch.empty(_states_shape(B, S, H, hd), dtype=torch.float32,
+                          device=dev)
     err = build.load().rwkv6_bwd(
         hd, ref.RWKV6_CKPT, _ptr(dy), _ptr(ds), _ptr(r), _ptr(k), _ptr(v),
         _ptr(w), _ptr(u), _ptr(states), _ptr(dr), _ptr(dk), _ptr(dv),

@@ -17,9 +17,10 @@ wrapper call per dtype group:
         (int8 / bf16 rows, de-quantized in-kernel): streams the
         compressed bytes, not a dense f32 copy.
   * ``server_mix_scatter_flat`` — the sync mix over top-k (value,
-        position) pairs: a dense pass, then one conflict-free scatter
-        launch per client in stream order (1 + K launches a call, one
-        more for bf16 prev), deterministic and atomic-free.
+        position) pairs: one cooperative launch whose grid runs a dense
+        phase, then one conflict-free scatter phase per client, in
+        client order behind grid barriers; deterministic and
+        atomic-free.
 
 All are bound by HBM bytes on the H100: per element the mix reads K+1
 values and writes one, ``(K+2)·N·s`` bytes for element size s; the
@@ -223,8 +224,9 @@ def server_mix_delta_flat(prev, dstacked, rowscale, sizes, keep, coefs):
 def server_mix_scatter_flat(prev, vals, idx, sizes, keep, coefs):
     """prev: (N,) f32/bf16; vals: (K, kk) f32; idx: (K, kk) int32 flat
     positions, distinct within a row; sizes/keep: (K,) f32; coefs: (4,)
-    f32. Returns out (N,) in prev's dtype. One call is 1 + K kernel
-    launches (one more for bf16 prev) and counts once."""
+    f32. Returns out (N,) in prev's dtype. One call is one cooperative
+    kernel launch (its K + 1 phases, K + 2 for bf16 prev, separated by
+    grid barriers) and counts once."""
     (N,) = prev.shape
     K, kk = vals.shape
     dev = prev.device
@@ -242,11 +244,10 @@ def server_mix_scatter_flat(prev, vals, idx, sizes, keep, coefs):
     out = torch.empty_like(prev)
     acc = out if prev.dtype == torch.float32 else torch.empty(
         N, dtype=torch.float32, device=dev)
-    bw = torch.empty(K, dtype=torch.float32, device=dev)
     err = lib.server_mix_scatter(
         _DTYPE_CODE[prev.dtype], _ptr(prev), _ptr(vals), _ptr(idx),
-        _ptr(sizes), _ptr(keep), _ptr(coefs), _ptr(out), _ptr(acc), _ptr(bw),
-        K, kk, N, _stream(dev))
+        _ptr(sizes), _ptr(keep), _ptr(coefs), _ptr(out), _ptr(acc), K, kk,
+        N, _stream(dev))
     _raise_on(err, "server_mix_scatter")
     server_mix_scatter_flat.launches += 1
     return out

@@ -74,9 +74,10 @@ def test_kernels_refuse_shapes_beyond_their_tables():
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_fedopt_and_compressed_kernels_equal_plain_on_card(dt):
     """server_adam, server_mix_delta (int8 and bf16 rows) and
-    server_mix_scatter (positions colliding across clients) against
-    their plain versions on the card: the same op order with every
-    operation rounded on its own, so bit for bit."""
+    server_mix_scatter (positions colliding across clients, K-fold, and
+    K at its limit) against their plain versions on the card: the same
+    op order with every operation rounded on its own, so bit for bit;
+    one scatter call is one (cooperative) launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -106,18 +107,40 @@ def test_fedopt_and_compressed_kernels_equal_plain_on_card(dt):
             args = (prev, rows, rs, sizes, keep, coefs)
             assert torch.equal(tsp.server_mix_delta_flat(*args),
                                tref.server_mix_delta_math(*args))
-        # rows are windows of one permutation shifted by kk/2: distinct
-        # within a row, half of each row collides with the row before
-        perm = torch.randperm(N, device=dev, generator=g)
-        idx = torch.stack([perm[k * kk // 2:k * kk // 2 + kk]
-                           for k in range(K)]).to(torch.int32)
-        vals = torch.randn(K, kk, device=dev, generator=g)
-        args = (prev, vals, idx, sizes, keep, coefs)
-        assert torch.equal(tsp.server_mix_scatter_flat(*args),
-                           tref.server_mix_scatter_math(*args))
+        for layout in _SCATTER_LAYOUTS:
+            args = _scatter_args(dev, g, prev, sizes, keep, coefs, kk,
+                                 layout)
+            assert torch.equal(tsp.server_mix_scatter_flat(*args),
+                               tref.server_mix_scatter_math(*args)), layout
         assert (tsp.server_adam_flat.launches,
                 tsp.server_mix_delta_flat.launches,
-                tsp.server_mix_scatter_flat.launches) == (2, 2, 1)
+                tsp.server_mix_scatter_flat.launches) == (
+                    2, 2, len(_SCATTER_LAYOUTS))
+
+
+#: top-k position layouts of the scatter test: rows that are windows of
+#: one permutation shifted by kk/2 (distinct within a row, half of each
+#: row colliding with the row before); every row the same positions in
+#: another order (K-fold collisions); K at the kernel's limit
+_SCATTER_LAYOUTS = ("windows", "K-fold", "K = MAX_K")
+
+
+def _scatter_args(dev, g, prev, sizes, keep, coefs, kk, layout):
+    N, K = prev.shape[0], sizes.shape[0]
+    if layout == "K = MAX_K":
+        K = tsp.MAX_K
+        sizes = torch.rand(K, device=dev, generator=g) + 0.5
+        keep = keep.repeat(-(-K // keep.shape[0]))[:K].contiguous()
+    perm = torch.randperm(N, device=dev, generator=g)
+    if layout == "K-fold":
+        idx = torch.stack([perm[:kk][torch.randperm(kk, device=dev,
+                                                    generator=g)]
+                           for _ in range(K)])
+    else:
+        idx = torch.stack([perm[(k * kk // 2 + torch.arange(kk, device=dev))
+                                % N] for k in range(K)])
+    vals = torch.randn(K, kk, device=dev, generator=g)
+    return prev, vals, idx.to(torch.int32), sizes, keep, coefs
 
 
 def _ama_mix_cases(dev, g):
@@ -271,20 +294,23 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 #: (B, S, H, hd, decay range, u scale): the phase-3 cases of
-#: chip_smoke.py at test size; S = 100 leaves a ragged last segment
+#: chip_smoke.py at test size; S = 100 and 2047 leave a ragged last
+#: segment, S = 16 is exactly one
 RWKV6_CASES = [(2, 256, 4, 64, (0.4, 0.9), 0.1),
                (1, 64, 1, 16, (0.4, 0.9), 0.1),
                (1, 100, 2, 32, (0.4, 0.9), 0.5),
                (2, 96, 2, 64, (2e-24, 1e-23), 0.1),
-               (2, 96, 2, 64, (0.99966, 0.99966), 0.1)]
+               (2, 96, 2, 64, (0.99966, 0.99966), 0.1),
+               (2, 16, 4, 64, (0.4, 0.9), 0.1),
+               (1, 2047, 2, 64, (0.4, 0.9), 0.1)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,hd,decay,us", RWKV6_CASES)
 def test_rwkv6_kernels_match_plain_on_card(B, S, H, hd, decay, us):
     """rwkv6_fwd and rwkv6_bwd against their plain versions on the same
-    inputs, s0 and d(s_final) non-zero, one launch each: every output
-    within 1e-5 x (1 + max |plain|) (f32 sums in another order)."""
+    inputs, s0 and d(s_final) non-zero, one wrapper call each: every
+    output within 1e-5 x (1 + max |plain|) (f32 sums in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import rwkv6_scan as trs
@@ -323,3 +349,11 @@ def test_rwkv6_wrappers_refuse_what_the_kernels_do_not_take():
             trs.rwkv6_fwd(x, x, x, x,
                           torch.zeros(1, 2, hd, device=dev, dtype=dt),
                           torch.zeros(1, 2, hd, hd, device=dev, dtype=dt))
+    # the backward stages r, k, v, w, dy 16 bytes at a time
+    x = torch.zeros(1, 32, 2, 64, device=dev)
+    u, s0 = torch.zeros(1, 2, 64, device=dev), torch.zeros(1, 2, 64, 64,
+                                                           device=dev)
+    _, _, states = trs.rwkv6_fwd(x, x, x, x, u, s0)
+    off = torch.zeros(x.numel() + 1, device=dev)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        trs.rwkv6_bwd(off, s0, x, x, x, x, u, states)
