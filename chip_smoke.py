@@ -12,7 +12,10 @@ Phases (any error or out-of-tolerance result exits non-zero):
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
      ragged tails, top-k positions colliding across clients, K-fold and
      at K = 256, with server_mix_scatter's one device kernel a call
-     counted in a profiler trace; server_mix
+     counted in a profiler trace; server_mix bitwise in every case, each
+     naming the kernel it took (16-byte vectors where N is a multiple of
+     the vector and the operands are aligned, one element a thread
+     otherwise, a base pointer offset by one element among them), and
      at the LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
      the flash-attention forward and both backward passes at the LLM
      path's (B 2, S 2048, H 32, hd 128) bf16 causal, kv head-repeated
@@ -24,9 +27,10 @@ Phases (any error or out-of-tolerance result exits non-zero):
      backward at the rwkv6 path's (B 2, S 2048, H 40, hd 64) f32 and at
      B*H = 1, S 64 / 96, hd 16 / 32, ragged segments (S 100, S 2047),
      one segment (S 16) and decays near 0 and 1, within 1e-5 x (1 + max
-     |plain|)), with device times
-     (CUDA-graph replay) beside the least time the card could take (its
-     bound), the plain version's and a library call's;
+     |plain|), each call two device kernels (its two passes)), with
+     device times (CUDA-graph replay) beside the least time the card
+     could take (its bound; for rwkv6 also its design's bound), the
+     plain version's and a library call's;
   4. the main paths: ``repro_torch.launch.train`` in this process at the
      paper CNN's full width: ama_fes, fedavg, async_ama (slice 1);
      fedprox, fedopt; the comm planes q8, bf16 and topk; fedopt and
@@ -36,28 +40,34 @@ Phases (any error or out-of-tolerance result exits non-zero):
      --use-kernel``: ama_fes, fedavg, fedprox, fedopt, async_ama; slice
      3). Each run asserts the exact launches of every kernel (ama_mix:
      rounds x 8 leaves) and that no plain version ran on the card. The
-     LLM paths: ``--pod`` federated training at full width of
-     minitron-8b (2 of its 32 layers, 2,583,711,744 bf16 parameters;
-     slice 4) and of rwkv6-3b (8 of its 32 layers, 1,018,698,240 bf16
-     parameters; slice 5), 2 cohorts x 2 local steps x 1 x 2048 tokens, 3
-     rounds, ama_fes and fedavg each, with the exact launches of the
-     path's kernels (flash attention, all on the tensor cores, or the
-     rwkv6 recurrence) and of server_mix, falling losses, rounds/s,
-     tokens/s and the peak device memory (under 75 GB);
+     LLM paths: ``--pod`` federated training at full width, with the
+     configs' own remat on (each block keeps only its input and runs
+     forward again in the backward), of minitron-8b (2 of its 32 layers,
+     2,583,711,744 bf16 parameters; slice 4) and of rwkv6-3b (8 of its 32
+     layers, 1,018,698,240 bf16 parameters; slice 5), 2 cohorts x 2 local
+     steps x 1 x 2048 tokens, 3 rounds, ama_fes and fedavg each, with the
+     exact launches of the path's kernels (flash attention, all on the
+     tensor cores, or the rwkv6 recurrence; the forward kernels twice a
+     layer a step under remat) and of server_mix, falling losses,
+     rounds/s, tokens/s and the peak device memory (under 75 GB); ama_fes
+     again with remat off, bitwise equal to the remat run, with both
+     peaks; then rwkv6-3b for one round at the deepest depth (up to all
+     32 layers) whose peak a probe run at 16 layers predicts within 70 GB;
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
      fedopt, 10 rounds each); the reduced LLM paths (minitron-8b,
-     rwkv6-3b) in f32 on the card (kernels) against the CPU (plain
-     versions);
+     rwkv6-3b, remat on) in f32 on the card (kernels) against the CPU
+     (plain versions);
   6. the port's contract: chunked == per-round, bitwise (async_ama,
      fedopt, ama_fes + q8, and both reduced LLM paths); chunked ==
      per-round == save -> restore -> continue over 20 rounds (ama_fes,
      async_ama, fedopt); prefetch depths 0, 1, 2 bitwise equal;
      --metrics-out on == off bitwise, and its JSONL valid;
   7. torch.profiler breakdowns of 10 ama_fes rounds and of 2 full-width
-     rounds of each LLM (through the launcher's --profile), with each of
-     the LLM's kernel wrappers' device time and share.
+     rounds of each LLM under remat (through the launcher's --profile),
+     with each of the LLM's kernel wrappers' device time and share, split
+     into its kernels (the rwkv6 passes).
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -177,20 +187,48 @@ def compare(torch, name, got, want, mag, dtype) -> float:
 
 # ------------------------------------------------------------ phase 3 -----
 
+MIX_VEC_N = 33_554_432           # a multiple of the 16-byte vector
+
+
+def mix_design(sp, fn):
+    """(fn(), the server_mix kernel that one fn() call launched: "vector"
+    or "per_element", from the C entry's counts)."""
+    before = sp.server_mix_designs()
+    out = fn()
+    after = sp.server_mix_designs()
+    moved = [d for d in after if after[d] != before[d]]
+    check(len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1,
+          f"server_mix: one call launched {after} - {before}")
+    return out, moved[0]
+
+
 def check_server_mix(torch, sp, ref, record):
+    """server_mix against its plain version, bitwise in every case, each
+    case naming the kernel it took (the 16-byte vector kernel where N is a
+    multiple of the vector, 4 f32 or 8 bf16, and every operand is 16-byte
+    aligned; the per-element kernel otherwise): N = 54,784 (the CNN's,
+    vector), 1,000,003 and 33,554,437 (per element), 33,554,432
+    (vector), and 54,784 with prev, stacked and out offset by one element
+    (per element)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    print("server_mix: K, N, dtype, case | kernel device ms, GB/s (share "
-          "of 3.35 TB/s), bound ms | plain device ms | library device ms "
-          "(addmv) | eager call ms (wrapper host time included)")
+    print("server_mix: K, N, dtype, case, kernel | kernel device ms, GB/s "
+          "(share of 3.35 TB/s), bound ms | plain device ms | library "
+          "device ms (addmv) | eager call ms (wrapper host time included)")
     cases = [(K, N, dt, "t=7") for N in (MAIN_N, 1_000_003, 33_554_437)
              for K in (1, 5, 10) for dt in (torch.float32, torch.bfloat16)]
     cases += [(5, MAIN_N, torch.float32, "nobody kept"),
               (5, MAIN_N, torch.bfloat16, "alpha at cap"),
               (10, 1_000_003, torch.float32, "alpha at cap")]
+    cases += [(K, MIX_VEC_N, dt, "t=7") for K in (5, 10)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(5, MAIN_N, dt, "offset 1") for dt in (torch.float32,
+                                                     torch.bfloat16)]
     for K, N, dt, case in cases:
-        prev = torch.randn(N, device=dev, generator=g).to(dt)
-        stacked = torch.randn(K, N, device=dev, generator=g).to(dt)
+        off = 1 if case == "offset 1" else 0
+        prev = torch.randn(N + off, device=dev, generator=g).to(dt)[off:]
+        stacked = torch.randn(K * N + off, device=dev,
+                              generator=g).to(dt)[off:].view(K, N)
         sizes = torch.rand(K, device=dev, generator=g) + 0.5
         keep = (torch.rand(K, device=dev, generator=g) < 0.7).float()
         keep[0] = 1.0
@@ -198,7 +236,12 @@ def check_server_mix(torch, sp, ref, record):
             keep.zero_()
         t = 400.0 if case == "alpha at cap" else 7.0  # 0.1 + 2.5e-3 t > 0.95
         coefs = torch.tensor([0.1, 2.5e-3, 0.95, t], device=dev)
-        got = sp.server_mix_flat(prev, stacked, sizes, keep, coefs)
+        got, design = mix_design(sp, lambda: sp.server_mix_flat(
+            prev, stacked, sizes, keep, coefs))
+        want_design = ("vector" if N % (16 // prev.element_size()) == 0
+                       and not off else "per_element")
+        check(design == want_design, f"server_mix K={K} N={N} {dt} {case}: "
+              f"took the {design} kernel, expected {want_design}")
         want = ref.server_mix_math(prev, stacked, sizes, keep, coefs)
         mag = ref.server_mix_math(prev.float().abs(), stacked.float().abs(),
                                   sizes, keep, coefs)
@@ -206,11 +249,14 @@ def check_server_mix(torch, sp, ref, record):
         err = compare(torch, f"server_mix K={K} N={N} {dt} {case}", got,
                       want, mag, dt)
         exact = torch.equal(got, want)
+        check(exact, f"server_mix K={K} N={N} {dt} {case}: not bitwise "
+              "equal to the plain version")
         s = prev.element_size()
         nbytes = (K + 2) * N * s + 2 * K * 4 + 16
-        def kernel():
+
+        def timed():
             return sp.server_mix_flat(prev, stacked, sizes, keep, coefs)
-        ms, eager = device_ms(torch, kernel), call_ms(torch, kernel)
+        ms, eager = device_ms(torch, timed), call_ms(torch, timed)
         plain = device_ms(torch, lambda: ref.server_mix_math(
             prev, stacked, sizes, keep, coefs))
         lib = None
@@ -224,14 +270,14 @@ def check_server_mix(torch, sp, ref, record):
                                                        beta=a_eff))
         gbs = nbytes / (ms * 1e-3) / 1e9
         bnd, _ = bound_ms(nbytes, (2 * K + 1) * N)
-        print(f"  K={K:2d} N={N:>10,} {str(dt)[6:]:8s} {case:11s} | "
-              f"{ms:8.4f} ms {gbs:7.1f} GB/s ({gbs / 3350:5.1%}) bound "
-              f"{bnd:.4f} | "
+        print(f"  K={K:2d} N={N:>10,} {str(dt)[6:]:8s} {case:11s} "
+              f"{design:11s} | {ms:8.4f} ms {gbs:7.1f} GB/s "
+              f"({gbs / 3350:5.1%}) bound {bnd:.4f} | "
               f"plain {plain:8.4f} | lib "
               f"{'-' if lib is None else f'{lib:.4f}'} | eager call "
               f"{eager:.4f} | err {err:.2e}")
         record.append(dict(K=K, N=N, dtype=str(dt), case=case, ms=ms,
-                           call_ms=eager, exact=exact,
+                           design=design, call_ms=eager, exact=exact,
                            plain_ms=plain, library_ms=lib, err=err,
                            nbytes=nbytes, flops=(2 * K + 1) * N))
         del prev, stacked
@@ -625,8 +671,8 @@ def addmv_ms(torch, prev, stacked, sizes, keep, coefs) -> float:
 
 def check_server_mix_llm(torch, sp, ref, record, N, label):
     """server_mix at an LLM path's size: N bf16 (past 2**31 for
-    minitron-8b, so every index is 64-bit), K = 2, bitwise against the
-    plain version; the plain version's time is an eager call (its f32
+    minitron-8b, so every index is 64-bit), K = 2, on the 16-byte vector
+    kernel, bitwise against the plain version; the plain version's time is an eager call (its f32
     temporaries do not fit a graph of several calls); the library
     yardstick is addmv in bf16 (``addmv_ms``)."""
     dev = torch.device("cuda")
@@ -638,7 +684,9 @@ def check_server_mix_llm(torch, sp, ref, record, N, label):
     keep = torch.tensor([1.0, 0.0], device=dev)
     coefs = torch.tensor([0.1, 2.5e-3, 0.95, 7.0], device=dev)
     args = (prev, stacked, sizes, keep, coefs)
-    got = sp.server_mix_flat(*args)
+    got, design = mix_design(sp, lambda: sp.server_mix_flat(*args))
+    check(design == "vector", f"server_mix at N = {N:,} bf16 took the "
+          f"{design} kernel")
     want = ref.server_mix_math(*args)
     torch.cuda.synchronize()
     exact = torch.equal(got, want)
@@ -652,9 +700,9 @@ def check_server_mix_llm(torch, sp, ref, record, N, label):
     torch.cuda.empty_cache()
     lib = addmv_ms(torch, *args)
     nbytes = (K + 2) * N * 2 + 2 * K * 4 + 16
-    _report(f"K={K} N={N:,} bfloat16 {label:9s}", ms, eager, plain, lib,
-            nbytes, (2 * K + 1) * N, 0.0, exact, record, K=K, N=N,
-            dtype="torch.bfloat16", case=label)
+    _report(f"K={K} N={N:,} bfloat16 {label:9s} {design}", ms, eager, plain,
+            lib, nbytes, (2 * K + 1) * N, 0.0, exact, record, K=K, N=N,
+            dtype="torch.bfloat16", case=label, design=design)
     del prev, stacked, args
     torch.cuda.empty_cache()
 
@@ -961,14 +1009,25 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
     u, s0 -> dr, dk, dv, dw, du, ds0. Flops a step per (b, h) at the f32
     rate: forward 5 hd^2 + 5 hd (r . S, w * S + k^T v, and the bonus as
     (sum_i r_i u_i k_i) v); backward 11 hd^2 + 16 hd (dr, dk, dv, dw by
-    matrix-vector products, the adjoint's update, the bonus terms)."""
+    matrix-vector products, the adjoint's update, the bonus terms).
+    Beside it, each design's own bound, by the bytes its two passes move
+    (csrc/rwkv6_scan.cu): forward, pass 1 k, v, w, s0 -> states, s_final
+    and pass 2 r, k, v, w, u, states -> y; backward, pass 1 r, k, v, w,
+    dy, d(s_final) -> the adjoint at every boundary, du, ds0 and pass 2
+    r, k, v, w, dy, u, states, the adjoints -> dr, dk, dv, dw. Each call
+    runs exactly two device kernels (a profiler trace of one call)."""
     B, S, H, hd = case[:4]
     E, BH, nu = B * S * H * hd, B * H, u.numel()
     mat, steps = BH * hd * hd, BH * S
+    ns = states.numel()               # B H ceil(S / RWKV6_CKPT) hd^2
     work = {"rwkv6_fwd": (4 * (5 * E + nu + 2 * mat),
                           steps * (5 * hd * hd + 5 * hd)),
             "rwkv6_bwd": (4 * (9 * E + 2 * nu + 3 * mat),
                           steps * (11 * hd * hd + 16 * hd))}
+    design_bytes = {"rwkv6_fwd": 4 * (3 * E + 2 * mat + ns
+                                      + 4 * E + nu + ns + E),
+                    "rwkv6_bwd": 4 * (5 * E + mat + ns + nu + mat
+                                      + 5 * E + nu + 2 * ns + 4 * E)}
     kernels = {"rwkv6_fwd": lambda: rs.rwkv6_fwd(r, k, v, w, u, s0),
                "rwkv6_bwd": lambda: rs.rwkv6_bwd(dy, ds, r, k, v, w, u,
                                                  states)}
@@ -976,20 +1035,29 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
               "rwkv6_bwd": lambda: ref.rwkv6_scan_bwd_ref(dy, ds, r, k, v,
                                                           w, u, states)}
     print(f"rwkv6 at B={B} S={S} H={H} hd={hd} f32: kernel device ms | "
-          "bound ms (by) | plain device ms | library: none (no single call "
-          "computes the recurrence)")
+          "bound ms (by) of the function | the design's bound (its bytes) "
+          "| plain device ms | library: none (no single call computes the "
+          "recurrence)")
     out = {}
     for name, fn in kernels.items():
+        launched = device_kernels(torch, fn)
+        passes = sorted(m.group(0) for n in launched
+                        if (m := re.search(r"\w+_kernel", n)))
+        check(len(launched) == 2 and passes == [f"{name}_scan_kernel",
+                                                f"{name}_seg_kernel"],
+              f"{name}: one call ran {launched}, expected its two passes")
         ms = device_ms(torch, fn, reps=5, replays=10)
         plain = device_ms(torch, plains[name], reps=1, replays=3)
         nbytes, flops = work[name]
         bnd, by = bound_ms(nbytes, flops)
+        dbnd = design_bytes[name] / HBM_BYTES_PER_S * 1e3
         print(f"  {name:10s} | {ms:9.4f} ms | {bnd:.4f} ({by}; "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | plain "
-              f"{plain:9.4f}")
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | "
+              f"{dbnd:.4f} ({design_bytes[name] / 1e6:.1f} MB) | plain "
+              f"{plain:9.4f} | passes {passes}")
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
                          nbytes=nbytes, flops=flops, bound_ms=bnd,
-                         bound_by=by)
+                         bound_by=by, design_bound_ms=dbnd)
         torch.cuda.empty_cache()
     return out
 
@@ -1336,20 +1404,33 @@ def port_contract(torch, train, tree_mod):
 POD_ROUNDS, POD_STEPS, POD_C, POD_B, POD_S = 3, 2, 2, 1, 2048
 
 #: arch -> its full-width depth cut (layers, FES tail layers), parameter
-#: count there, the plain versions of its kernels, and the name its
-#: kernels carry in a trace. minitron-8b: 2 of 32 layers (one body, one
-#: tail block); rwkv6-3b: 8 of 32 (6 body, the config's own 2 tail
-#: blocks). Both keep 2 cohorts of the un-rematerialised stack on one
-#: card.
+#: count there, the plain versions of its kernels, the name its kernels
+#: carry in a trace, and its forward kernels (with the config's remat on,
+#: each block runs forward twice, in the forward and in the backward's
+#: recompute: these launch twice a layer a local step, the backward
+#: kernels once). minitron-8b: 2 of 32 layers (one body, one tail block);
+#: rwkv6-3b: 8 of 32 (6 body, the config's own 2 tail blocks), then once
+#: at the deepest depth whose peak memory is predicted within 70 GB
+#: (rwkv6_deep).
 LLMS = {
     "minitron-8b": dict(layers=2, tail=1, params=LLM_N,
                         plain=("flash_attention_ref", "flash_bwd_dq_ref",
                                "flash_bwd_dkdv_ref"), trace="flash_",
-                        parts=("flash_fwd", "flash_bwd")),
+                        parts=("flash_fwd", "flash_bwd"),
+                        fwd=("flash_fwd",)),
     "rwkv6-3b": dict(layers=8, tail=2, params=RWKV_N,
                      plain=("rwkv6_scan_ref", "rwkv6_scan_bwd_ref"),
-                     trace="rwkv6_", parts=("rwkv6_fwd", "rwkv6_bwd")),
+                     trace="rwkv6_", parts=("rwkv6_fwd", "rwkv6_bwd"),
+                     fwd=("rwkv6_fwd",)),
 }
+
+
+def expected_launches(arch, cfg, km, calls):
+    """{kernel: launches} of the arch's kernels over ``calls`` block
+    applications (rounds x local steps x layers): the forward kernels
+    twice under remat."""
+    return {name: calls * (2 if cfg.remat and name in LLMS[arch]["fwd"]
+                           else 1) for name in km.KERNELS}
 
 
 def pod_argv(arch):
@@ -1409,18 +1490,23 @@ class CountPlain:
 
 def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
                   main_record):
-    """An LLM main path: ``arch`` at full width, ama_fes and fedavg, 3
-    rounds each through ``launch.train.pod_scale``. Each run's counts are
-    set to 0 just before it and read just after: each of the arch's
-    kernels (``km``) launched rounds x local steps x layers times (one
-    vmapped call covers both cohorts), server_mix rounds x dtype groups,
-    no other kernel of ``kmods`` (the kernel modules, the server plane's
-    first) and no plain version on the card."""
+    """An LLM main path: ``arch`` at full width, with the config's own
+    remat on, ama_fes and fedavg, 3 rounds each through
+    ``launch.train.pod_scale``. Each run's counts are set to 0 just
+    before it and read just after: each of the arch's kernels (``km``)
+    launched rounds x local steps x layers times (one vmapped call covers
+    both cohorts; the forward kernels twice that, for the recompute), the
+    flash kernels all on their tensor-core design, server_mix rounds x
+    dtype groups, no other kernel of ``kmods`` (the kernel modules, the
+    server plane's first) and no plain version on the card. Then ama_fes
+    again with remat off (``remat_off_vs_on``). Returns the counts summed
+    over the runs and the ama_fes run's peak memory."""
     spec = LLMS[arch]
     cfg = llm_full_width(arch)
+    check(cfg.remat, f"{arch}: the config's remat is off")
     sp = kmods[0]
     ln_vocab = math.log(cfg.vocab_size)   # the loss of a uniform guess
-    totals = {}
+    totals, kept = {}, None
     for algo in ("ama_fes", "fedavg"):
         argv = [*pod_argv(arch), "--algorithm", algo, "--rounds",
                 str(POD_ROUNDS)]
@@ -1444,8 +1530,8 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
         loss = metrics["loss"]
         tokens = POD_ROUNDS * POD_C * POD_STEPS * POD_B * POD_S
         print(f"LLM main path {arch} {algo}: full width, {cfg.num_layers} "
-              f"layers, {n_params:,} params; {POD_ROUNDS} rounds in "
-              f"{dt:.3f} s = {POD_ROUNDS / dt:.3f} rounds/s, "
+              f"layers, remat on, {n_params:,} params; {POD_ROUNDS} rounds "
+              f"in {dt:.3f} s = {POD_ROUNDS / dt:.3f} rounds/s, "
               f"{tokens / dt:,.0f} tokens/s (first-call set-up included; "
               f"{wall:.1f} s with init); losses "
               f"{[round(float(x), 4) for x in loss]}; peak device memory "
@@ -1461,20 +1547,23 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
               f"ln({cfg.vocab_size})")
         check(float(loss[-1]) < float(loss[0]),
               f"{arch} {algo}: the loss did not fall: {loss}")
-        per_run = POD_ROUNDS * POD_STEPS * cfg.num_layers
-        for name in km.KERNELS:
-            check(counts[name] == per_run,
+        want = expected_launches(arch, cfg, km,
+                                 POD_ROUNDS * POD_STEPS * cfg.num_layers)
+        for name, n in want.items():
+            check(counts[name] == n,
                   f"{arch} {algo}: {name} launched {counts[name]} times, "
-                  f"expected {POD_ROUNDS} rounds x {POD_STEPS} steps x "
-                  f"{cfg.num_layers} layers")
+                  f"expected {n} ({POD_ROUNDS} rounds x {POD_STEPS} steps "
+                  f"x {cfg.num_layers} layers, forward kernels twice under "
+                  "remat)")
         if designs:   # the bf16 model never reaches the CUDA-core kernels
             after = designs()
             moved = {k: {d: after[k][d] - before[k][d] for d in after[k]}
                      for k in after}
-            check(all(m == {"cuda_cores": 0, "wgmma": per_run}
-                      for m in moved.values()),
+            print(f"  launches by design under remat: {moved}")
+            check(all(moved[k] == {"cuda_cores": 0, "wgmma": want[k]}
+                      for k in moved),
                   f"{arch} {algo}: launches by design {moved}, expected "
-                  f"{per_run} each on wgmma")
+                  f"{want} on wgmma")
         check(counts["server_mix"] == POD_ROUNDS * groups,
               f"{arch} {algo}: server_mix launched {counts['server_mix']} "
               f"times, expected {POD_ROUNDS} x {groups} dtype group(s)")
@@ -1494,27 +1583,148 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
             totals[k] = totals.get(k, 0) + counts[k]
         main_record.append(dict(run=f"llm {arch} {algo}", rounds=POD_ROUNDS,
                                 seconds=dt, rounds_per_s=POD_ROUNDS / dt,
-                                tokens_per_s=tokens / dt,
+                                tokens_per_s=tokens / dt, remat=True,
+                                layers=cfg.num_layers,
                                 losses=[float(x) for x in loss],
                                 peak_bytes=peak, params=n_params))
+        if algo == "ama_fes":
+            kept = ([x.cpu() for x in params], list(loss), peak)
         del state, params
         torch.cuda.empty_cache()
-    return totals
+    remat_off_vs_on(torch, train, arch, tree_mod, *kept, main_record)
+    return totals, kept[2]
+
+
+def remat_off_vs_on(torch, train, arch, tree_mod, params_on, loss_on,
+                    peak_on, main_record):
+    """The ama_fes run of ``pod_main_path`` again with
+    ``cfg.with_(remat=False)``: every block's activations kept for the
+    backward instead of only its input. Remat changes memory, not
+    values: params and losses after the same rounds are bitwise those of
+    the remat run (deterministic kernels, TF32 off, deterministic
+    cuDNN). Prints the peak memory both ways."""
+    cfg = llm_full_width(arch).with_(remat=False)
+    argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds",
+            str(POD_ROUNDS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, dt = run_pod(torch, train, argv, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    params = tree_mod.leaves(state["params"])
+    same = all(torch.equal(x.cpu(), y)
+               for x, y in zip(params, params_on, strict=True))
+    tokens = POD_ROUNDS * POD_C * POD_STEPS * POD_B * POD_S
+    print(f"remat {arch}, ama_fes, {POD_ROUNDS} rounds, {cfg.num_layers} "
+          f"layers: remat off {tokens / dt:,.0f} tokens/s, peak "
+          f"{peak / 1e9:.2f} GB; remat on peak {peak_on / 1e9:.2f} GB; "
+          f"params and losses bitwise equal: {same and list(metrics['loss']) == loss_on}")
+    check(same, f"{arch}: params after {POD_ROUNDS} rounds differ with "
+          "remat off and on")
+    check(list(metrics["loss"]) == loss_on, f"{arch}: losses differ with "
+          f"remat off {list(metrics['loss'])} and on {loss_on}")
+    check(peak < 75e9, f"{arch} remat off: peak device memory "
+          f"{peak / 1e9:.2f} GB beyond 75 GB")
+    main_record.append(dict(run=f"llm {arch} ama_fes remat off",
+                            rounds=POD_ROUNDS, seconds=dt,
+                            tokens_per_s=tokens / dt, remat=False,
+                            layers=cfg.num_layers, peak_bytes=peak,
+                            losses=[float(x) for x in metrics["loss"]]))
+    del state, params
+    torch.cuda.empty_cache()
+
+
+#: rwkv6_deep: the depth of its probe run and the peak memory its chosen
+#: depth is predicted to stay within (the limit is 75 GB; the rest of the
+#: 80 GB card is room for the caching allocator's unused blocks)
+DEEP_PROBE_LAYERS, DEEP_TARGET = 16, 70e9
+
+
+def rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_record):
+    """rwkv6-3b at full width as deep as one card holds with remat on,
+    one round of ama_fes. The depth comes from a measurement: the peak of
+    the 8-layer ama_fes run (``peak_at_8``) and of one round at
+    DEEP_PROBE_LAYERS layers give the peak's growth a layer; the depth is
+    the deepest of at most 32 layers whose straight-line prediction stays
+    within DEEP_TARGET. The run at that depth checks the launches, a
+    finite round-0 loss near ln(vocab), finite params and a peak under
+    75 GB; it reports the depth, parameters, peak and tokens/s."""
+    arch = "rwkv6-3b"
+    base = llm_full_width(arch)
+    argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds", "1"]
+    tokens = POD_C * POD_STEPS * POD_B * POD_S
+
+    def one_round(layers):
+        cfg = base.with_(num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for m in kmods:
+            m.reset_counts()
+        state, metrics, dt = run_pod(torch, train, argv, cfg)
+        return cfg, state, metrics, dt, torch.cuda.max_memory_allocated()
+
+    probe = one_round(DEEP_PROBE_LAYERS)
+    peak_probe = probe[-1]
+    del probe
+    slope = (peak_probe - peak_at_8) / (DEEP_PROBE_LAYERS - 8)
+    fits = [n for n in range(9, 33)
+            if peak_probe + (n - DEEP_PROBE_LAYERS) * slope <= DEEP_TARGET]
+    check(bool(fits), f"rwkv6-3b: no depth past 8 is predicted within "
+          f"{DEEP_TARGET / 1e9:.0f} GB (8 layers {peak_at_8 / 1e9:.2f} GB, "
+          f"{DEEP_PROBE_LAYERS} layers {peak_probe / 1e9:.2f} GB)")
+    depth = max(fits)
+    predicted = peak_probe + (depth - DEEP_PROBE_LAYERS) * slope
+    cfg, state, metrics, dt, peak = one_round(depth)
+    params = tree_mod.leaves(state["params"])
+    n_params = sum(x.numel() for x in params)
+    groups = len(tree_mod.dtype_groups(params))
+    loss = metrics["loss"]
+    counts = {k: fn.launches for m in kmods for k, fn in m.KERNELS.items()}
+    print(f"rwkv6-3b deep: peak {peak_at_8 / 1e9:.2f} GB at 8 layers, "
+          f"{peak_probe / 1e9:.2f} GB at {DEEP_PROBE_LAYERS} (one round): "
+          f"{slope / 1e9:.3f} GB a layer, so {depth} layers (the deepest "
+          f"<= 32 predicted within {DEEP_TARGET / 1e9:.0f} GB: "
+          f"{predicted / 1e9:.2f} GB); full width, remat on, {n_params:,} "
+          f"params; 1 round in {dt:.3f} s = {tokens / dt:,.0f} tokens/s "
+          f"(first-call set-up included); loss {float(loss[0]):.4f}; peak "
+          f"device memory {peak / 1e9:.2f} GB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    check(depth > 8, f"rwkv6-3b deep: {depth} layers")
+    check(peak < 75e9, f"rwkv6-3b at {depth} layers: peak device memory "
+          f"{peak / 1e9:.2f} GB beyond 75 GB")
+    check(all(math.isfinite(float(x)) for x in loss)
+          and abs(float(loss[0]) - math.log(cfg.vocab_size)) < 1.0,
+          f"rwkv6-3b at {depth} layers: round 0 loss {loss}")
+    check(all(x.is_cuda and bool(torch.isfinite(x).all()) for x in params),
+          f"rwkv6-3b at {depth} layers: non-finite or off-card params")
+    want = expected_launches(arch, cfg, rs, POD_STEPS * depth)
+    want["server_mix"] = groups
+    check({k: v for k, v in counts.items() if v} == want,
+          f"rwkv6-3b at {depth} layers: launches {counts}, expected {want}")
+    main_record.append(dict(run=f"llm {arch} ama_fes deep", rounds=1,
+                            seconds=dt, tokens_per_s=tokens / dt,
+                            remat=True, layers=depth, params=n_params,
+                            peak_bytes=peak, predicted_peak_bytes=predicted,
+                            probe_peak_bytes=peak_probe,
+                            losses=[float(x) for x in loss]))
+    del state, params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def llm_card_vs_cpu(torch, train, arch, km, tree_mod):
-    """The reduced LLM path in f32 (TF32 off), the same params (drawn on
-    the CPU from the seed) and tokens: on the card through the kernels,
+    """The reduced LLM path in f32 (TF32 off), with the config's remat
+    on, the same params (drawn on the CPU from the seed) and tokens: on the card through the kernels,
     on the CPU through the plain versions; params and losses within rtol
     1e-4, atol 1e-5 after 2 rounds."""
     argv = [*reduced_pod(arch), "--rounds", "2"]
     km.reset_counts()
     cfg = llm_reduced(arch)
     a, ma, _ = run_pod(torch, train, argv, cfg, "cuda")
+    want = expected_launches(arch, cfg, km, 2 * POD_STEPS * cfg.num_layers)
     for name, fn in km.KERNELS.items():
-        check(fn.launches == 2 * POD_STEPS * cfg.num_layers,
+        check(fn.launches == want[name],
               f"reduced {arch} on the card: {name} launched {fn.launches} "
-              "times")
+              f"times, expected {want[name]}")
     b, mb, _ = run_pod(torch, train, argv, cfg, "cpu")
     worst = 0.0
     for x, y in zip(tree_mod.leaves(a["params"]), tree_mod.leaves(b["params"]),
@@ -1548,10 +1758,10 @@ def llm_contract(torch, train, arch, tree_mod):
 
 
 def llm_where_time_goes(torch, train, arch, tmp):
-    """2 full-width rounds of ``arch`` under the launcher's --profile:
-    device time by kernel from the Chrome trace, the arch's kernels'
-    share of it, and the device's idle share of the training wall
-    time."""
+    """2 full-width rounds of ``arch`` (the config's remat on) under the
+    launcher's --profile: device time by kernel from the Chrome trace,
+    the arch's kernels' share of it, each kernel's passes, and the
+    device's idle share of the training wall time."""
     trace_dir = str(Path(tmp) / f"profile_{arch}")
     argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds", "2",
             "--profile", trace_dir]
@@ -1577,6 +1787,12 @@ def llm_where_time_goes(torch, train, arch, tmp):
         ms = sum(us for k, (_, us) in by_name.items() if part in k) / 1e3
         print(f"  {part}: {ms:.1f} ms in {n} launches = {ms / busy:.1%} of "
               "device time")
+        for k, (c, us) in sorted(by_name.items()):   # its passes
+            m = re.search(r"\w+_kernel(<[^>]*>)?", k)
+            if part in k and m:
+                print(f"    {m.group(0)}: {us / 1e3:.1f} ms in {c} launches "
+                      f"({us / 1e3 / c:.4f} ms each) = "
+                      f"{us / 1e3 / busy:.1%}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 
@@ -1690,11 +1906,13 @@ def main() -> None:
                          main_rec)
     legacy = main_path(torch, train, sp, ref, tree_mod, LEGACY_RUNS,
                        main_rec)
-    llm = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
-                        tree_mod, main_rec)
-    rwkv = pod_main_path(torch, train, "rwkv6-3b", rs, kmods, ref, tree_mod,
-                         main_rec)
-    launches = {k: sum(run.get(k, 0) for run in (launches, legacy, llm, rwkv))
+    llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
+                           tree_mod, main_rec)
+    rwkv, peak_at_8 = pod_main_path(torch, train, "rwkv6-3b", rs, kmods, ref,
+                                    tree_mod, main_rec)
+    deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_rec)
+    launches = {k: sum(run.get(k, 0) for run in (launches, legacy, llm, rwkv,
+                                                 deep))
                 for k in recs}
     fused_vs_plain(torch, train, tree_mod)
     legacy_kernel_vs_plain(torch, train, tree_mod)

@@ -16,7 +16,8 @@ ends with one JSON line of its records; the script collects them into
 one JSON list (``--out``) and prints the card's name and power limit.
 The check ``rwkv6_pod`` is phase 4's rwkv6-3b run (full width, 8 layers,
 ama_fes and fedavg, 3 rounds each): its records hold the losses, which
-are deterministic, so one turn a checkout is enough there. Needs a CUDA
+are deterministic, so one turn a checkout is enough there;
+``server_mix_llm`` is server_mix at the two LLM paths' N. Needs a CUDA
 device.
 """
 from __future__ import annotations
@@ -31,6 +32,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 #: check name -> the chip_smoke call that runs it and fills ``rec``
 CHECKS = {
+    "server_mix": "cs.check_server_mix(torch, sp, ref, rec)",
+    "server_mix_llm": "(cs.check_server_mix_llm(torch, sp, ref, rec, "
+                      "cs.LLM_N, 'LLM'), cs.check_server_mix_llm(torch, sp, "
+                      "ref, rec, cs.RWKV_N, 'rwkv6 LLM'))",
     "server_mix_scatter": "cs.check_server_mix_scatter(torch, sp, ref, rec)",
     "rwkv6": "cs.check_rwkv6(torch, rs, ref, rec)",
     "rwkv6_pod": "cs.pod_main_path(torch, train, 'rwkv6-3b', rs, "

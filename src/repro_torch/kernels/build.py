@@ -78,6 +78,8 @@ SIGNATURES = {
 VOID_SIGNATURES = {
     # counts: 6 int64, launches per flash kernel and design
     "flash_design_counts": (_P,),
+    # counts: 2 int64, server_mix launches per kernel (per element, vector)
+    "server_mix_design_counts": (_P,),
 }
 
 

@@ -18,18 +18,34 @@
 //   G   <- diag(w_t) G + r_t^T dy_t,   and ds0 = G at the end.
 // (kernels/ref.py: rwkv6_scan_ref, rwkv6_scan_bwd_ref.)
 //
-// Design. The (b, h) recurrences are independent and each is serial in
-// time, so one block runs one (b, h) and walks its S steps. In the
-// forward, column j of S depends only on v_t[j] (S[i][j] <- w_i S[i][j]
-// + k_i v_j) and y_t[j] sums over i only, so thread j keeps column j in
-// registers: no reduction across threads ("one thread per channel", the
-// CUDA wkv6 design the Pallas kernel's docstring names). Each segment of
-// kCk steps of r, k, w, v is staged in shared memory by one coalesced
-// load a step, so a step costs no barrier.
+// Design. Both directions are chunk-parallel over segments of L = kCk
+// steps: segment c covers t0 = c L .. t0 + L - 1.
 //
-// The backward is chunk-parallel. Its only serial dependence is the
-// adjoint G at segment boundaries: with L = kCk, segment c covering steps
-// t0 = c L .. t0 + L - 1, and G_e(c) the adjoint of the state leaving it,
+// The forward's only serial dependence is the state at segment
+// boundaries: with S_c the state entering segment c,
+//   S_{c+1} = diag(W_c) S_c + sum_t diag(Q_t) k_t^T v_t,
+//   W_c = prod_t w_t,   Q_t = prod_{t<tau<t0+L} w_tau.
+// Two launches:
+//   1. rwkv6_fwd_scan_kernel, one block per (b, h, group of 16 columns
+//      of S): column j of S depends only on v[:, j], so a recurrence's
+//      column groups scan side by side with no exchange (320 blocks at the
+//      main shape, against 80 chains of 2048 steps before). Each thread
+//      keeps 4 rows of one column in registers, writes S_c to states[c]
+//      (the tensor the backward restarts from) and forms the segment's
+//      sum, which does not depend on S_c: the serial part is one
+//      multiply-add an element a segment. cp.async stages k, w and the
+//      block's columns of v three segments ahead;
+//   2. rwkv6_fwd_seg_kernel, one block per (b, h, c): y of the segment
+//      from S_c in matrix form,
+//        y_t = (r_t P_t) S_c + sum_{s<t} A[t][s] v_s + A[t][t] v_t,
+//        P_t = prod_{t0<=tau<t} w_tau,
+//        A[t][s] = sum_i r_t[i] k_s[i] prod_{s<tau<t} w_tau[i],
+//        A[t][t] = sum_i r_t[i] u[i] k_t[i],
+//      an (L x hd)(hd x hd) product, the L x L matrix A and an (L x L)(L
+//      x hd) product. B H ceil(S/L) units: 10,240 at the main shape.
+//
+// The backward's only serial dependence is the adjoint G at segment
+// boundaries: with G_e(c) the adjoint of the state leaving segment c,
 //   G_e(c - 1) = diag(W_c) G_e(c) + Delta_c,   W_c = prod_t w_t,
 //   Delta_c = sum_t diag(prod_{t0<=tau<t} w_tau) r_t^T dy_t.
 // Two launches:
@@ -47,13 +63,13 @@
 //      per-step state is ever formed, so no history of L states (256 KB
 //      a unit at hd 64) is kept anywhere. B H ceil(S/L) units: 10,240 at
 //      the main shape, against 80 serial chains before.
-// Every decay product is a running product (never a division by w, never
-// a difference of log-sums): the decay reaches exp(-exp(4)) ~ 2e-24, a
-// product over a few steps underflows to 0, and that 0 is right. The
-// segment's inputs, its saved state and G_e(c) are staged into shared
-// memory by cp.async; rows are padded to hd + 1 floats (a warp reading a
-// column hits 32 banks). A ragged last segment is padded with steps that
-// change nothing (r = k = v = dy = 0, w = 1). du is written per (b, h)
+// In both directions every decay product is a running product (never a
+// division by w, never a difference of log-sums): the decay reaches
+// exp(-exp(4)) ~ 2e-24, a product over a few steps underflows to 0, and
+// that 0 is right. A segment's inputs and saved states are staged into
+// shared memory by cp.async (the backward's rows padded to hd + 1 floats,
+// so a warp reading a column hits 32 banks). A ragged last segment is
+// padded with steps that change nothing (r = k = v = dy = 0, w = 1). du is written per (b, h)
 // (B, H, hd); where u is shared, autograd sums it over b
 // (kernels/rwkv6_scan.py expands u once). Nothing is accumulated across
 // blocks and no atomics are used; every sum runs in a fixed order, so
@@ -65,20 +81,23 @@
 // TB/s) and needs 5 hd^2 + O(hd) f32 flops a step per (b, h) (3.4 GFLOP,
 // 0.050 ms at 67 TFLOP/s): bound by bytes (chip_smoke.py: time_rwkv6
 // counts both kernels; the saved states are this design's, not the
-// function's, and are not counted). The forward is latency-bound: 80
-// blocks of 64 threads (2 warps on 80 of 132 SMs) each walk a 2048-step
-// chain; the chunked form is the next PR's. The backward's function
-// moves 381.5 MB and needs 7.55 GFLOP (time_rwkv6: 0.114 ms, bytes). Its
-// design moves more: pass 1 reads r, k, v, w, dy (210 MB) and writes
-// G_e (168 MB, B H ceil(S/L) hd^2 f32); pass 2 reads the five inputs, the
-// saved states and G_e (546 MB) and writes dr, dk, dv, dw (168 MB):
-// 1.09 GB, 0.33 ms at 3.35 TB/s, beside about 7 GFLOP (0.10 ms), so the
-// design's bound is its own bytes, 2.9x the function's. Neither pass
-// reaches it: pass 1 runs 80 blocks (one a recurrence) on 80 of 132 SMs
-// and its 128 segments' sums follow one another in each, so it waits on
-// each segment's compute (its staging is hidden); pass 2 issues more
-// shared-memory loads and multiply-adds per unit than its bytes take to
-// stream. Their device times are in PERF.md.
+// function's, and are not counted). The forward's design moves more: pass
+// 1 reads k, v, w (126 MB) and writes the states (168 MB); pass 2 reads
+// r, k, v, w and the states (336 MB) and writes y (42 MB): 0.67 GB, 0.20
+// ms at 3.35 TB/s, beside about 3.5 GFLOP (0.05 ms), so its bound is its
+// own bytes, 3.2x the function's (time_rwkv6 prints both). Pass 1's
+// column groups read k and w once each (from L2 after the first). The
+// backward's function moves 381.5 MB and needs 7.55 GFLOP (time_rwkv6:
+// 0.114 ms, bytes). Its design moves more: pass 1 reads r, k, v, w, dy
+// (210 MB) and writes G_e (168 MB, B H ceil(S/L) hd^2 f32); pass 2 reads
+// the five inputs, the saved states and G_e (546 MB) and writes dr, dk,
+// dv, dw (168 MB): 1.09 GB, 0.33 ms at 3.35 TB/s, beside about 7 GFLOP
+// (0.10 ms), so the design's bound is its own bytes, 2.9x the function's.
+// Neither backward pass reaches it: pass 1 runs 80 blocks (one a
+// recurrence) on 80 of 132 SMs and its 128 segments' sums follow one
+// another in each, so it waits on each segment's compute (its staging is
+// hidden); pass 2 issues more shared-memory loads and multiply-adds per
+// unit than its bytes take to stream. The device times are in PERF.md.
 //
 // Templated on hd in {16, 32, 64} (64 is the model's HEAD_DIM; 16 is the
 // Pallas kernel's test width). The checkpoint interval kCk is owned by
@@ -104,61 +123,8 @@ __device__ __forceinline__ size_t mat(int bh) {  // offset of (bh, 0, 0)
   return static_cast<size_t>(bh) * HD * HD;
 }
 
-// sm[s][c] = x[b, t0 + s, h, c] for s < L: thread c loads element c
-template <int HD>
-__device__ __forceinline__ void stage(float (*sm)[HD], const float* x,
-                                      int b, int t0, int L, int h, int S,
-                                      int H, int c) {
-  for (int s = 0; s < L; ++s) sm[s][c] = x[at<HD>(b, t0 + s, h, S, H) + c];
-}
-
-template <int HD>
-__global__ void __launch_bounds__(HD)
-    rwkv6_fwd_kernel(const float* __restrict__ r,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ w,
-                     const float* __restrict__ u,
-                     const float* __restrict__ s0, float* __restrict__ y,
-                     float* __restrict__ s_final,
-                     float* __restrict__ states, int S, int H) {
-  __shared__ float sr[kCk][HD], sk[kCk][HD], sw[kCk][HD], sv[kCk][HD];
-  __shared__ float su[HD];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, j = threadIdx.x;
-  const int NC = (S + kCk - 1) / kCk;
-  float col[HD];  // column j of S
-#pragma unroll
-  for (int i = 0; i < HD; ++i) col[i] = s0[mat<HD>(bh) + i * HD + j];
-  su[j] = u[static_cast<size_t>(bh) * HD + j];
-  for (int g = 0; g < NC; ++g) {
-    const int t0 = g * kCk, L = min(kCk, S - t0);
-    float* sp = states + (static_cast<size_t>(bh) * NC + g) * HD * HD;
-#pragma unroll
-    for (int i = 0; i < HD; ++i) sp[i * HD + j] = col[i];
-    __syncthreads();  // the previous segment's reads are done
-    stage<HD>(sr, r, b, t0, L, h, S, H, j);
-    stage<HD>(sk, k, b, t0, L, h, S, H, j);
-    stage<HD>(sw, w, b, t0, L, h, S, H, j);
-    stage<HD>(sv, v, b, t0, L, h, S, H, j);
-    __syncthreads();
-    for (int s = 0; s < L; ++s) {
-      const float vj = sv[s][j];
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < HD; ++i) {
-        const float kv = sk[s][i] * vj;
-        acc += sr[s][i] * (col[i] + su[i] * kv);
-        col[i] = sw[s][i] * col[i] + kv;
-      }
-      y[at<HD>(b, t0 + s, h, S, H) + j] = acc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < HD; ++i) s_final[mat<HD>(bh) + i * HD + j] = col[i];
-}
-
 // ---------------------------------------------------------------------------
-// The backward in chunk-parallel form: two launches (see the note).
+// Staging: asynchronous copies global -> shared (cp.async, sm_80+).
 // ---------------------------------------------------------------------------
 
 // one 4-byte asynchronous copy global -> shared (sm_80+)
@@ -228,6 +194,229 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// sm[t * JC + c] = x[b, t0 + t, h, j0 + c] for c < JC, as stage_seg16:
+// columns j0 .. j0 + JC - 1 of each row (j0 and JC multiples of 4)
+template <int HD, int JC>
+__device__ __forceinline__ void stage_cols16(float* sm, const float* x,
+                                             int b, int t0, int Lc, int h,
+                                             int S, int H, int j0) {
+  for (int e = threadIdx.x; e < kCk * JC / 4; e += blockDim.x) {
+    const int t = e / (JC / 4), c = (e % (JC / 4)) * 4;
+    if (t < Lc)
+      cp_async16(sm + t * JC + c, x + at<HD>(b, t0 + t, h, S, H) + j0 + c);
+    else
+      *reinterpret_cast<float4*>(sm + t * JC + c) = make_float4(0.f, 0.f,
+                                                                0.f, 0.f);
+  }
+}
+
+// sm[e] = x[e] for e < HD * HD, an (HD, HD) matrix, rows unpadded
+template <int HD>
+__device__ __forceinline__ void stage_mat16(float* sm, const float* x) {
+  for (int e = threadIdx.x * 4; e < HD * HD; e += blockDim.x * 4)
+    cp_async16(sm + e, x + e);
+}
+
+// ---------------------------------------------------------------------------
+// The forward in chunk-parallel form: two launches (see the note).
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdCols = 16;  // columns of S a pass-1 block owns
+constexpr int kFwdRows = 4;   // rows of S a pass-1 thread owns
+constexpr int kFwdBufs = 4;   // segments pass 1 keeps in flight
+
+template <int HD>
+struct FwdScanSmem {
+  static constexpr int SEG = kCk * HD, BUF = 2 * SEG + kCk * kFwdCols;
+  static constexpr int threads = HD / kFwdRows * kFwdCols;
+};
+
+// Pass 1, one block per (b, h, group of kFwdCols columns of S): the
+// boundary scan. Column j of S depends on v[:, j] only, so the column
+// groups of one recurrence need no exchange. Thread (column j, rows i0 ..
+// i0 + kFwdRows - 1) keeps its elements of S in registers and walks the
+// segments first to last: it writes S (the state entering segment c) to
+// states[c], forms
+//   dS[i][j] = sum_t Q_t[i] k_t[i] v_t[j],  Q_t = prod_{t<tau<L} w_tau,
+//   W[i] = prod_t w_t[i]  (running products from the segment's end)
+// and steps S <- W S + dS. dS does not depend on S, so the serial part is
+// one multiply-add an element a segment; cp.async stages k, w and the
+// block's columns of v kFwdBufs - 1 segments ahead.
+template <int HD>
+__global__ void __launch_bounds__(FwdScanSmem<HD>::threads)
+    rwkv6_fwd_scan_kernel(const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ w,
+                          const float* __restrict__ s0,
+                          float* __restrict__ states,
+                          float* __restrict__ s_final, int S, int H, int NC) {
+  using M = FwdScanSmem<HD>;
+  constexpr int SEG = M::SEG, BUF = M::BUF, NJ = HD / kFwdCols;
+  static_assert(kFwdRows == 4, "rows are read as float4");
+  __shared__ __align__(16) float buf[kFwdBufs * BUF];
+  const int bh = blockIdx.x / NJ, j0 = (blockIdx.x % NJ) * kFwdCols;
+  const int b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int jl = tid % kFwdCols, i0 = (tid / kFwdCols) * kFwdRows;
+  const int j = j0 + jl;
+  const auto stage = [&](int c) {
+    if (c >= NC) return;
+    const int t0 = c * kCk, Lc = min(kCk, S - t0);
+    float* sb = buf + (c % kFwdBufs) * BUF;
+    stage_seg16<HD>(sb, k, b, t0, Lc, h, S, H, 0.f);
+    stage_seg16<HD>(sb + SEG, w, b, t0, Lc, h, S, H, 1.f);
+    stage_cols16<HD, kFwdCols>(sb + 2 * SEG, v, b, t0, Lc, h, S, H, j0);
+  };
+  float st[kFwdRows];
+#pragma unroll
+  for (int q = 0; q < kFwdRows; ++q) st[q] = s0[mat<HD>(bh) + (i0 + q) * HD + j];
+  for (int q = 0; q < kFwdBufs - 1; ++q) {  // one group a segment, even empty
+    stage(q);
+    cp_async_commit();
+  }
+  for (int c = 0; c < NC; ++c) {
+    cp_async_wait<kFwdBufs - 2>();  // segment c's group is complete
+    __syncthreads();  // ... for every thread; segment c - 1's reads done
+    stage(c + kFwdBufs - 1);  // into segment c - 1's buffer
+    cp_async_commit();
+    const float* sb = buf + (c % kFwdBufs) * BUF;
+    const float *sk = sb, *sw = sb + SEG, *sv = sb + 2 * SEG;
+    float* sp = states + (static_cast<size_t>(bh) * NC + c) * HD * HD + j;
+    float acc[kFwdRows], qd[kFwdRows];
+#pragma unroll
+    for (int q = 0; q < kFwdRows; ++q) {
+      sp[(i0 + q) * HD] = st[q];
+      acc[q] = 0.f;
+      qd[q] = 1.f;
+    }
+#pragma unroll
+    for (int t = kCk - 1; t >= 0; --t) {
+      const float vj = sv[t * kFwdCols + jl];
+      const float4 k4 = *reinterpret_cast<const float4*>(sk + t * HD + i0);
+      const float4 w4 = *reinterpret_cast<const float4*>(sw + t * HD + i0);
+      acc[0] += k4.x * qd[0] * vj; qd[0] *= w4.x;
+      acc[1] += k4.y * qd[1] * vj; qd[1] *= w4.y;
+      acc[2] += k4.z * qd[2] * vj; qd[2] *= w4.z;
+      acc[3] += k4.w * qd[3] * vj; qd[3] *= w4.w;
+    }
+#pragma unroll
+    for (int q = 0; q < kFwdRows; ++q) st[q] = qd[q] * st[q] + acc[q];
+  }
+#pragma unroll
+  for (int q = 0; q < kFwdRows; ++q)
+    s_final[mat<HD>(bh) + (i0 + q) * HD + j] = st[q];
+}
+
+// shared memory of pass 2, in floats (float4-read arrays first)
+template <int HD>
+struct FwdSegSmem {
+  static constexpr int NT = 4 * HD, W = HD < 32 ? HD : 32;
+  static constexpr int s0 = 0, rpT = s0 + HD * HD, r = rpT + HD * kCk,
+                       k = r + kCk * HD, v = k + kCk * HD, w = v + kCk * HD,
+                       apart = w + kCk * HD, u = apart + kCk * kCk * (HD / W),
+                       total = u + HD;
+};
+
+// Pass 2, one block per segment (bh, c) of L = kCk steps: y of the
+// segment from its entering state S0 (pass 1), in matrix form. With P_t =
+// prod_{tau<t} w_tau and D(s, t) = prod_{s<tau<t} w_tau (running
+// products, never a division):
+//   y_t = (r_t P_t) S0 + sum_{s<=t} A[t][s] v_s,
+//   A[t][s] = sum_i r_t[i] k_s[i] D(s, t)[i]  (s < t),
+//   A[t][t] = sum_i r_t[i] u[i] k_t[i]  (the bonus)
+// : the (L x hd)(hd x hd) product (r P) S0, the L x L matrix A (lanes over
+// i, reduced by shuffles) and the (L x L)(L x hd) product A v. Thread
+// (column x, steps t4 .. t4 + 3) writes y_t[x].
+template <int HD>
+__global__ void __launch_bounds__(4 * HD)
+    rwkv6_fwd_seg_kernel(const float* __restrict__ r,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ w,
+                         const float* __restrict__ u,
+                         const float* __restrict__ states,
+                         float* __restrict__ y, int S, int H, int NC) {
+  using M = FwdSegSmem<HD>;
+  constexpr int NT = M::NT, W = M::W;
+  __shared__ __align__(16) float smem[M::total];
+  float *s0 = smem + M::s0, *rpT = smem + M::rpT, *sr = smem + M::r,
+        *sk = smem + M::k, *sv = smem + M::v, *sw = smem + M::w,
+        *apart = smem + M::apart, *su = smem + M::u;
+  const int bh = blockIdx.x / NC, c = blockIdx.x % NC;
+  const int b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int t0 = c * kCk, Lc = min(kCk, S - t0);
+  stage_seg16<HD>(sr, r, b, t0, Lc, h, S, H, 0.f);
+  stage_seg16<HD>(sk, k, b, t0, Lc, h, S, H, 0.f);
+  stage_seg16<HD>(sv, v, b, t0, Lc, h, S, H, 0.f);
+  stage_seg16<HD>(sw, w, b, t0, Lc, h, S, H, 1.f);
+  stage_mat16<HD>(s0, states + (static_cast<size_t>(bh) * NC + c) * HD * HD);
+  if (tid < HD) su[tid] = u[static_cast<size_t>(bh) * HD + tid];
+  cp_async_wait_all();
+  __syncthreads();
+
+  // (a) rpT[i][t] = r_t[i] P_t[i], transposed for float4 reads
+  if (tid < HD) {
+    float p = 1.f;
+#pragma unroll
+    for (int t = 0; t < kCk; ++t) {
+      rpT[tid * kCk + t] = sr[t * HD + tid] * p;
+      p *= sw[t * HD + tid];
+    }
+  }
+  // (b) A[t][s], s <= t: lanes over i, one (s, i) a lane, reduced over
+  //     groups of W lanes into HD / W parts
+  {
+    const int lane = tid % 32;
+    for (int f0 = (tid / 32) * 32; f0 < kCk * HD; f0 += NT) {
+      const int s = (f0 + lane) / HD, i = (f0 + lane) % HD;
+      const float ks = sk[s * HD + i];
+      float e = 1.f;
+      // uniform over the warp, from its first lane's step
+      for (int t = f0 / HD; t < kCk; ++t) {
+        float term = 0.f;
+        if (t == s) {
+          term = sr[t * HD + i] * su[i] * ks;
+        } else if (t > s) {
+          term = ks * e * sr[t * HD + i];
+          e *= sw[t * HD + i];
+        }
+#pragma unroll
+        for (int off = W / 2; off > 0; off /= 2)
+          term += __shfl_xor_sync(0xffffffffu, term, off);
+        if (i % W == 0 && t >= s)
+          apart[(t * kCk + s) * (HD / W) + i / W] = term;
+      }
+    }
+  }
+  __syncthreads();
+
+  // (c) y_t[x] = (r_t P_t) S0[:, x] + sum_{s<=t} A[t][s] v_s[x]
+  const int x = tid % HD, t4 = (tid / HD) * 4;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int i = 0; i < HD; ++i) {
+    const float s = s0[i * HD + x];
+    const float4 p4 = *reinterpret_cast<const float4*>(rpT + i * kCk + t4);
+    a[0] += p4.x * s; a[1] += p4.y * s; a[2] += p4.z * s; a[3] += p4.w * s;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int t = t4 + q;
+    if (t >= Lc) break;
+    float acc = a[q];
+    for (int s = 0; s <= t; ++s) {
+      float A = 0.f;
+#pragma unroll
+      for (int g = 0; g < HD / W; ++g) A += apart[(t * kCk + s) * (HD / W) + g];
+      acc += A * sv[s * HD + x];
+    }
+    y[at<HD>(b, t0 + t, h, S, H) + x] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward in chunk-parallel form: two launches (see the note).
+// ---------------------------------------------------------------------------
 
 // segments pass 1 keeps in flight: it stages segment c - (kScanBufs - 1)
 // while it computes segment c
@@ -563,19 +752,28 @@ bool valid(int B, int S, int H, int ckpt) {
 // r, k, v, w: (B, S, H, hd) f32; u: (B, H, hd) f32 (one row per batch
 // row); s0: (B, H, hd, hd) f32; ckpt: the caller's checkpoint interval,
 // which must be kCk. Writes y (B, S, H, hd), s_final (B, H, hd, hd) and
-// states (B, H, ceil(S / ckpt), hd, hd), all f32.
+// states (B, H, ceil(S / ckpt), hd, hd), all f32. Two launches on the
+// stream: the boundary scan, then the segments.
 extern "C" int rwkv6_fwd(int hd, int ckpt, const void* r, const void* k,
                          const void* v, const void* w, const void* u,
                          const void* s0, void* y, void* s_final,
                          void* states, int B, int S, int H, void* stream) {
   if (!valid(B, S, H, ckpt)) return cudaErrorInvalidValue;
-  const dim3 grid(B * H);
   auto st = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto o = [](void* p) { return static_cast<float*>(p); };
+  const int BH = B * H, NC = (S + kCk - 1) / kCk;
+  int err = 0;
 #define REPRO_RWKV6_FWD(HD)                                                  \
-  rwkv6_fwd_kernel<HD><<<grid, HD, 0, st>>>(                                 \
-      f(r), f(k), f(v), f(w), f(u), f(s0), static_cast<float*>(y),           \
-      static_cast<float*>(s_final), static_cast<float*>(states), S, H)
+  {                                                                          \
+    rwkv6_fwd_scan_kernel<HD>                                                \
+        <<<BH * (HD / kFwdCols), FwdScanSmem<HD>::threads, 0, st>>>(         \
+            f(k), f(v), f(w), f(s0), o(states), o(s_final), S, H, NC);       \
+    err = cudaGetLastError();                                                \
+    if (err != 0) return err;                                                \
+    rwkv6_fwd_seg_kernel<HD><<<BH * NC, 4 * HD, 0, st>>>(                    \
+        f(r), f(k), f(v), f(w), f(u), f(states), o(y), S, H, NC);            \
+  }
   switch (hd) {
     case 16: REPRO_RWKV6_FWD(16); break;
     case 32: REPRO_RWKV6_FWD(32); break;

@@ -9,7 +9,11 @@ kernels are CUDA C++ for ``sm_90a`` (``csrc/rwkv6_scan.cu``):
 
   * ``rwkv6_fwd`` — y and s_final; also the state entering every
                     ``RWKV6_CKPT``-th step, which the backward restarts
-                    from;
+                    from; in chunk-parallel form: a scan of the state
+                    over segment boundaries only (its column groups in
+                    parallel), then every segment's y from its saved
+                    state in matrix form (two launches a call, counted
+                    as one), without atomics;
   * ``rwkv6_bwd`` — dr, dk, dv, dw, du and ds0 by the adjoint recurrence
                     in chunk-parallel form: a scan of the adjoint over
                     segment boundaries only, then every segment's outputs
@@ -34,8 +38,8 @@ plane runs ``vmap(grad_and_value(loss))`` over the cohorts, where r, k,
 v, w and the per-cohort parameter u carry the cohort dim and s0 (made
 inside the loss) does not. The rule folds the cohort dim into B, launches
 once and unfolds. One vmapped call is one call of each kernel wrapper,
-whatever the cohort count: one launch of the forward, two of the
-backward (one a pass), and each wrapper counts its calls.
+whatever the cohort count: two launches of each kernel (one a pass), and
+each wrapper counts its calls.
 """
 from __future__ import annotations
 
@@ -78,15 +82,15 @@ def _states_shape(B, S, H, hd):
     return (B, H, -(-S // ref.RWKV6_CKPT), hd, hd)
 
 
-def _launch_checks(hd, *aligned):
+def _launch_checks(what, hd, **aligned):
     """Refuse an hd the kernels are not built for, and operands in
-    ``aligned`` that do not start on a 16-byte boundary (the backward's
-    boundary scan copies them 16 bytes at a time)."""
+    ``aligned`` that do not start on a 16-byte boundary (the kernels stage
+    them into shared memory 16 bytes at a time)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the rwkv6 kernels take head dims {HEAD_DIMS}, "
                          f"got {hd}")
-    if any(x.data_ptr() % 16 for x in aligned):
-        raise ValueError("rwkv6_bwd takes r, k, v, w and dy starting on a "
+    if any(x.data_ptr() % 16 for x in aligned.values()):
+        raise ValueError(f"{what} takes {', '.join(aligned)} starting on a "
                          "16-byte boundary")
 
 
@@ -98,7 +102,7 @@ def rwkv6_fwd(r, k, v, w, u, s0):
     _check("s0", s0, (B, H, hd, hd), _F32, r.device)
     if not _kernel_device(r):
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
-    _launch_checks(hd)
+    _launch_checks("rwkv6_fwd", hd, r=r, k=k, v=v, w=w)
     y = torch.empty_like(r)
     s_final = torch.empty_like(s0)
     states = torch.empty(_states_shape(B, S, H, hd), dtype=torch.float32,
@@ -123,7 +127,7 @@ def rwkv6_bwd(dy, ds, r, k, v, w, u, states):
     _check("states", states, _states_shape(B, S, H, hd), _F32, dev)
     if not _kernel_device(r):
         return ref.rwkv6_scan_bwd_ref(dy, ds, r, k, v, w, u, states)
-    _launch_checks(hd, r, k, v, w, dy)
+    _launch_checks("rwkv6_bwd", hd, r=r, k=k, v=v, w=w, dy=dy)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     ds0 = torch.empty_like(ds)

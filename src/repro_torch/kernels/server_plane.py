@@ -26,10 +26,13 @@ All are bound by HBM bytes on the H100: per element the mix reads K+1
 values and writes one, ``(K+2)·N·s`` bytes for element size s; the
 async plane moves ``(K+2)·N·s + 2·Q·N·4`` bytes (the f32 ring buffer is
 read and written). Their arithmetic is a handful of flops per byte, far
-below the card's ridge point. The design is simple on purpose: one
-thread per element in a grid-stride loop, f32 accumulation, no atomics
-(each output element is written by one thread, so a launch is
-deterministic). The async kernel loops over ring slots outside the
+below the card's ridge point. The design is simple: a grid-stride loop,
+f32 accumulation, no atomics (each output element is written by one
+thread, so a launch is deterministic). ``server_mix`` moves whole
+16-byte vectors where N is a multiple of the vector and every operand
+starts on a 16-byte boundary, and one element a thread otherwise (two
+kernels, one op order; ``server_mix_designs()`` reads the launches of
+each); the others take one element a thread. The async kernel loops over ring slots outside the
 client loop and so re-reads each client row Q+1 times; those re-reads
 hit L1/L2, and removing them is later work.
 
@@ -45,6 +48,8 @@ tree-level functions' runs of the plain version on CUDA tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build, ref
@@ -59,7 +64,7 @@ __all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
            "server_mix_tree", "server_async_tree", "server_adam_tree",
            "server_mix_compressed_tree", "mix_coefs", "device_vector",
            "reset_counts", "plain_runs_on_cuda", "KERNELS", "MAX_K",
-           "MAX_Q"]
+           "MAX_Q", "MIX_DESIGNS", "server_mix_designs"]
 
 #: limit of the async kernel's ring (its shared-memory prologue table)
 MAX_Q = 32
@@ -123,6 +128,19 @@ def server_mix_flat(prev, stacked, sizes, keep, coefs):
     _raise_on(err, "server_mix")
     server_mix_flat.launches += 1
     return out
+
+
+#: server_mix's two kernels, in the order of the C entry's counts
+MIX_DESIGNS = ("per_element", "vector")
+
+
+def server_mix_designs() -> dict:
+    """{"per_element": n, "vector": m}: the launches of each of
+    server_mix's kernels so far in this process. Needs the built library
+    (the card)."""
+    counts = (ctypes.c_longlong * 2)()
+    build.load().server_mix_design_counts(counts)
+    return dict(zip(MIX_DESIGNS, counts))
 
 
 def server_async_flat(prev, stacked, qsum, qgamma, sizes, delayed, delays,

@@ -8,11 +8,15 @@ scheme (feature extractor = embed + body; classifier = tail + final norm
 layer axis under ``body`` and ``tail``, as in the JAX tree, and applied
 by a Python loop over that axis (JAX: ``lax.scan``).
 
-JAX wraps each block in ``jax.checkpoint`` when ``cfg.remat``; that
-changes memory, not values, and the port keeps every block's
-activations for the backward instead (the pod path runs a depth-cut
-stack). The hybrid, moe, vlm and audio families raise
-NotImplementedError: they come with later slices of the port.
+When ``cfg.remat`` is set, each block is applied as JAX's
+``jax.checkpoint(body)`` applies it: ``_BlockRemat`` keeps only the
+block's input (and its parameters, which are alive anyway) between the
+forward and the backward, and the backward runs the block again to take
+its vector-Jacobian product. That changes memory, not values: the loss
+and every gradient are bitwise those of the stack without remat, on the
+CPU and, with the deterministic kernels, on the card. The hybrid, moe,
+vlm and audio families raise NotImplementedError: they come with later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -79,13 +83,65 @@ def block_fwd(p, cfg, x, positions, aux):
     return x + h, aux
 
 
+class _BlockRemat(torch.autograd.Function):
+    """``block_fwd`` under ``jax.checkpoint``: (x, aux, positions, like,
+    cfg, *leaves) -> (x, aux), where ``leaves`` are the block's parameter
+    leaves in ``jax.tree`` order and ``like`` a tree of their shape. The
+    forward runs the block without keeping its intermediates (a
+    Function's forward runs without autograd); only the inputs are
+    saved. The backward recomputes the block through ``torch.func.vjp``,
+    which, unlike ``torch.autograd.grad``, composes with the ``vmap``
+    over cohorts that the client plane runs (``torch.utils.checkpoint``
+    does not: it raises under ``torch.func`` transforms). The vmap rule
+    is generated: the block runs once on the batched tensors, so the
+    kernels inside keep their own vmap rules and launch once a call."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, aux, positions, like, cfg, *flat):
+        x, aux_out = block_fwd(unflatten(like, flat), cfg, x, positions,
+                               aux)
+        # an output may not be an input of the Function
+        return x, aux_out.clone() if aux_out is aux else aux_out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, aux, positions, like, cfg, *flat = inputs
+        ctx.save_for_backward(x, aux, positions, *flat)
+        ctx.block = (like, cfg)
+
+    @staticmethod
+    def backward(ctx, gx, gaux):
+        x, aux, positions, *flat = ctx.saved_tensors
+        like, cfg = ctx.block
+
+        def block(x, aux, *flat):
+            return block_fwd(unflatten(like, flat), cfg, x, positions, aux)
+
+        _, vjp_fn = torch.func.vjp(block, x, aux, *flat)
+        grads = vjp_fn((gx, gaux))
+        # torch.func's grad runs its backward with create_graph=True, so
+        # the recompute is recorded at its level too; returning detached
+        # gradients drops that record with this call, or it would keep
+        # every block's recomputed activations to the end of the backward
+        gx, gaux, *gflat = (g.detach() for g in grads)
+        return (gx, gaux, None, None, None, *gflat)
+
+
 def _run_blocks(stacked, cfg, x, positions, aux):
-    """Apply a stacked group of blocks, layer by layer."""
+    """Apply a stacked group of blocks, layer by layer, each under
+    ``_BlockRemat`` when ``cfg.remat``."""
     if stacked is None:
         return x, aux
     for i in range(leaves(stacked)[0].shape[0]):
-        x, aux = block_fwd(tree_map(lambda a, i=i: a[i], stacked), cfg, x,
-                           positions, aux)
+        p = tree_map(lambda a, i=i: a[i], stacked)
+        if cfg.remat:
+            x, aux = _BlockRemat.apply(x, aux, positions,
+                                       tree_map(lambda _: 0, p), cfg,
+                                       *leaves(p))
+        else:
+            x, aux = block_fwd(p, cfg, x, positions, aux)
     return x, aux
 
 

@@ -1,10 +1,12 @@
-"""The CUDA server-plane kernels against their plain PyTorch versions on
-the card. Marked ``gpu``: they skip on a machine without a CUDA device
+"""The CUDA kernels against their plain PyTorch versions on the card, and
+remat on == off on the card. Marked ``gpu``: they skip on a machine without a CUDA device
 (the kernels have no CPU mode). This file imports no JAX, so it runs on
 the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -349,7 +351,7 @@ def test_rwkv6_wrappers_refuse_what_the_kernels_do_not_take():
             trs.rwkv6_fwd(x, x, x, x,
                           torch.zeros(1, 2, hd, device=dev, dtype=dt),
                           torch.zeros(1, 2, hd, hd, device=dev, dtype=dt))
-    # the backward stages r, k, v, w, dy 16 bytes at a time
+    # both kernels stage r, k, v, w (and dy) 16 bytes at a time
     x = torch.zeros(1, 32, 2, 64, device=dev)
     u, s0 = torch.zeros(1, 2, 64, device=dev), torch.zeros(1, 2, 64, 64,
                                                            device=dev)
@@ -357,3 +359,129 @@ def test_rwkv6_wrappers_refuse_what_the_kernels_do_not_take():
     off = torch.zeros(x.numel() + 1, device=dev)[1:].view(x.shape)
     with pytest.raises(ValueError, match="16-byte"):
         trs.rwkv6_bwd(off, s0, x, x, x, x, u, states)
+    with pytest.raises(ValueError, match="16-byte"):
+        trs.rwkv6_fwd(x, x, off, x, u, s0)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one ``fn()`` call runs (a
+    torch.profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            for _ in range(e.count) if "_kernel" in e.key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [2048, 100])
+def test_rwkv6_fwd_is_two_launches_a_call(S):
+    """One rwkv6_fwd call runs two device kernels, the boundary scan and
+    the segments, once each, and counts one call; two calls on the same
+    inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import rwkv6_scan as trs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, hd = 2, 4, 64
+    r, k, v = (0.5 * torch.randn(B, S, H, hd, device=dev, generator=g)
+               for _ in range(3))
+    w = 0.4 + 0.5 * torch.rand(B, S, H, hd, device=dev, generator=g)
+    u = 0.1 * torch.randn(B, H, hd, device=dev, generator=g)
+    s0 = 0.1 * torch.randn(B, H, hd, hd, device=dev, generator=g)
+    trs.reset_counts()
+    names = _device_kernels(lambda: trs.rwkv6_fwd(r, k, v, w, u, s0))
+    assert trs.rwkv6_fwd.launches == 1
+    assert sorted(re.search(r"\w+_kernel", n).group(0) for n in names) == [
+        "rwkv6_fwd_scan_kernel", "rwkv6_fwd_seg_kernel"], names
+    a, b = trs.rwkv6_fwd(r, k, v, w, u, s0), trs.rwkv6_fwd(r, k, v, w, u, s0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_server_mix_vector_and_per_element_kernels_bitwise(dt):
+    """server_mix takes its 16-byte kernel where N is a multiple of the
+    vector (4 f32, 8 bf16) and every operand starts on a 16-byte
+    boundary, and its per-element kernel otherwise (N off the vector, or
+    a base pointer offset by one element); both equal the plain version
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    # (K, N, element offset of prev / stacked / out, the kernel expected)
+    cases = [(2, 8 * 1000, 0, "vector"), (5, 54_784, 0, "vector"),
+             (7, 8 * 1000 + 3, 0, "per_element"), (1, 5, 0, "per_element"),
+             (2, 8 * 1000, 1, "per_element"), (3, 8 * 999, 1, "per_element")]
+    for K, N, off, design in cases:
+        pb = torch.randn(N + off, device=dev, generator=g).to(dt)
+        sb = torch.randn(K * N + off, device=dev, generator=g).to(dt)
+        prev, stacked = pb[off:], sb[off:].view(K, N)
+        sizes = torch.rand(K, device=dev, generator=g) + 0.5
+        keep = (torch.rand(K, device=dev, generator=g) < 0.7).float()
+        keep[0] = 1.0
+        for t in (7.0, 400.0):      # alpha on its schedule and at its cap
+            coefs = torch.tensor([0.1, 2.5e-3, 0.95, t], device=dev)
+            before = tsp.server_mix_designs()
+            got = tsp.server_mix_flat(prev, stacked, sizes, keep, coefs)
+            after = tsp.server_mix_designs()
+            moved = {d: after[d] - before[d] for d in after}
+            assert moved == {d: int(d == design) for d in moved}, (K, N, off)
+            want = tref.server_mix_math(prev, stacked, sizes, keep, coefs)
+            assert torch.equal(got, want), (K, N, off, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minitron-8b", "rwkv6-3b"])
+def test_remat_pod_round_bitwise_on_card(arch):
+    """One ama_fes pod round of the reduced arch in f32 on the card
+    (flash or rwkv6 kernels, deterministic): params and losses with
+    remat on == off, bit for bit; with remat the forward kernel runs
+    twice a layer a local step, the backward kernels once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch import env as tenv
+    from repro_torch.configs.base import FLConfig, reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.exec.engine import ChunkRunner
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rwkv6_scan as trs
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.api import build_model
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.tree import leaves
+    dev = resolve_device("cuda")
+    km = trs if arch == "rwkv6-3b" else tfa
+    fwd = "rwkv6_fwd" if arch == "rwkv6-3b" else "flash_fwd"
+    fl = FLConfig(num_clients=2, clients_per_round=2, cohorts=2,
+                  local_steps=2, p_limited=0.5, lr=0.1, algorithm="ama_fes",
+                  seed=0)
+    S = 128
+    out = []
+    for remat in (True, False):
+        cfg = reduced(ARCHS[arch], dtype="float32").with_(remat=remat)
+        toks = make_lm_tokens(4, S + 1, cfg.vocab_size, n_topics=2,
+                              seed=0)["tokens"][:, :S].reshape(2, 2, 1, S)
+        params = ttf.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        state = {"params": params, "t": torch.zeros((), dtype=torch.int32,
+                                                     device=dev), "aux": {}}
+        runner = ChunkRunner(build_model(cfg), fl, per_round_batch=False,
+                             device=dev)
+        km.reset_counts()
+        state, m = runner.run_chunk(state, {"tokens": toks},
+                                    tenv.resolve(fl).batch(0, 1))
+        calls = fl.local_steps * cfg.num_layers
+        for name, fn in km.KERNELS.items():
+            assert fn.launches == (2 if remat and name == fwd else 1) * calls
+        out.append((state, m))
+    (a, ma), (b, mb) = out
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a["params"]),
+                                                 leaves(b["params"]),
+                                                 strict=True))
+    assert list(ma["loss"]) == list(mb["loss"])
