@@ -12,11 +12,16 @@ Phases (any error or out-of-tolerance result exits non-zero):
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
      ragged tails, top-k positions colliding across clients, K-fold and
      at K = 256, with server_mix_scatter's one device kernel a call
-     counted in a profiler trace; server_mix bitwise in every case, each
-     naming the kernel it took (16-byte vectors where N is a multiple of
-     the vector and the operands are aligned, one element a thread
-     otherwise, a base pointer offset by one element among them), and
-     at the LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
+     counted in a profiler trace; server_mix and server_async bitwise in
+     every case (server_async in every round of three wraps of its
+     ring), each naming the kernel it took (16-byte vectors where N is a
+     multiple of the vector and the operands are aligned, for
+     server_async also K <= 8; one element a thread otherwise, a base
+     pointer offset by one element among them), server_mix also at the
+     LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
+     ama_mix one leaf a call and many (the CNN's 8 leaves in one launch,
+     100 leaves in two, two dtype pairs in two, an unaligned leaf), its
+     launches counted;
      the flash-attention forward and both backward passes at the LLM
      path's (B 2, S 2048, H 32, hd 128) bf16 causal, kv head-repeated
      and at its 8 kv heads (GQA), and at hd 64 / 96, f32, a window,
@@ -38,8 +43,9 @@ Phases (any error or out-of-tolerance result exits non-zero):
      environment, dense and q8 (with the on-time share of each); the
      legacy chain on the ama_mix kernel (``--server-plane legacy
      --use-kernel``: ama_fes, fedavg, fedprox, fedopt, async_ama; slice
-     3). Each run asserts the exact launches of every kernel (ama_mix:
-     rounds x 8 leaves) and that no plain version ran on the card. The
+     3). Each run asserts the exact launches of every kernel (rounds x
+     dtype groups; ama_mix's 8 leaves are one group) and that no plain
+     version ran on the card. The
      LLM paths: ``--pod`` federated training at full width, with the
      configs' own remat on (each block keeps only its input and runs
      forward again in the backward), of minitron-8b (2 of its 32 layers,
@@ -190,15 +196,17 @@ def compare(torch, name, got, want, mag, dtype) -> float:
 MIX_VEC_N = 33_554_432           # a multiple of the 16-byte vector
 
 
-def mix_design(sp, fn):
-    """(fn(), the server_mix kernel that one fn() call launched: "vector"
-    or "per_element", from the C entry's counts)."""
-    before = sp.server_mix_designs()
+def mix_design(sp, fn, designs="server_mix_designs"):
+    """(fn(), the kernel that one fn() call launched: "vector" or
+    "per_element", from the C entry's counts; ``designs`` names the
+    reader, server_mix's or server_async's)."""
+    read = getattr(sp, designs)
+    before = read()
     out = fn()
-    after = sp.server_mix_designs()
+    after = read()
     moved = [d for d in after if after[d] != before[d]]
     check(len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1,
-          f"server_mix: one call launched {after} - {before}")
+          f"{designs}: one call launched {after} - {before}")
     return out, moved[0]
 
 
@@ -283,22 +291,47 @@ def check_server_mix(torch, sp, ref, record):
         del prev, stacked
 
 
+#: server_async's cases beside the main shape (K, Q, N, dtype, case):
+#: "t" on aligned operands, "offset 1" with prev one element past an
+#: aligned base (the per-element kernel at the vector kernel's shapes)
+ASYNC_CASES = (
+    [(10, Q, N, dt, "t") for N in (MAIN_N, 8_388_617) for Q in (2, 11, 21)
+     for dt in ("float32", "bfloat16")]
+    + [(MAIN_K, MAIN_Q, MAIN_N, "float32", "offset 1"),
+       (MAIN_K, MAIN_Q, 33_554_437, "float32", "t"),
+       (MAIN_K, MAIN_Q, MIX_VEC_N, "float32", "t"),
+       (MAIN_K, MAIN_Q, MIX_VEC_N, "float32", "offset 1"),
+       (2, MAIN_Q, MAIN_N, "bfloat16", "t"),
+       (8, 21, 8_388_608, "bfloat16", "t"),
+       (1, 2, MAIN_N, "float32", "t")])
+
+
 def check_server_async(torch, sp, ref, record):
+    """server_async against its plain version, bitwise in every round of
+    every case (the ring wraps three times; every seventh round nobody is
+    on time), each case naming the kernel it took: the 16-byte vector
+    kernel where K <= 8, N is a multiple of the vector and every operand
+    is aligned (the main shape K 5, Q 11, N 54,784 f32 among them), the
+    per-element kernel otherwise (K 10, a ragged N, prev offset by one
+    element). Both kernels are timed at the main shape and at N =
+    33,554,432 (vector) / 33,554,437 (per element) and 33,554,432 with
+    prev offset."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    print("server_async: K, Q, N, dtype over 3Q rounds | kernel device "
-          "ms, GB/s, bound ms | plain device ms | eager call ms")
-    cases = [(10, Q, N, dt) for N in (MAIN_N, 8_388_617) for Q in (2, 11, 21)
-             for dt in (torch.float32, torch.bfloat16)]
-    cases.insert(0, (MAIN_K, MAIN_Q, MAIN_N, torch.float32))
-    cases.append((MAIN_K, MAIN_Q, 33_554_437, torch.float32))
+    print("server_async: K, Q, N, dtype, case, kernel over 3Q rounds | "
+          "kernel device ms, GB/s, bound ms | plain device ms | eager "
+          "call ms")
+    cases = [(MAIN_K, MAIN_Q, MAIN_N, "float32", "t"), *ASYNC_CASES]
     hyp = torch.tensor([0.1, 2.5e-3, 0.95, 0.6], device=dev)
-    for K, Q, N, dt in cases:
-        prev = torch.randn(N, device=dev, generator=g).to(dt)
+    for K, Q, N, dts, case in cases:
+        dt = getattr(torch, dts)
+        off = 1 if case == "offset 1" else 0
+        base = torch.randn(N + off, device=dev, generator=g).to(dt)
+        prev = base[off:]
         qsum = torch.zeros(Q, N, device=dev)
         qgamma = torch.zeros(Q, device=dev)
         sizes = torch.rand(K, device=dev, generator=g) + 0.5
-        err, exact = 0.0, True
+        err, exact, designs = 0.0, True, set()
         for t in range(3 * Q):          # the ring wraps three times
             stacked = (prev.float()[None] + 0.1 * torch.randn(
                 K, N, device=dev, generator=g)).to(dt)
@@ -311,14 +344,17 @@ def check_server_async(torch, sp, ref, record):
             tq = torch.tensor([t, t % Q], device=dev, dtype=torch.int32)
             args = (prev, stacked, qsum, qgamma, sizes, delayed, delays, tq,
                     hyp)
-            got = sp.server_async_flat(*args)
+            got, design = mix_design(
+                sp, lambda: sp.server_async_flat(*args),
+                "server_async_designs")
+            designs.add(design)
             want = ref.server_async_math(*args)
             mag = ref.server_async_math(prev.float().abs(),
                                         stacked.float().abs(), qsum.abs(),
                                         qgamma, sizes, delayed, delays, tq,
                                         hyp)
             torch.cuda.synchronize()
-            tag = f"server_async K={K} Q={Q} N={N} {dt} t={t}"
+            tag = f"server_async K={K} Q={Q} N={N} {dt} {case} t={t}"
             err = max(err,
                       compare(torch, tag + " out", got[0], want[0], mag[0],
                               dt),
@@ -326,28 +362,39 @@ def check_server_async(torch, sp, ref, record):
                               torch.float32),
                       compare(torch, tag + " qgamma", got[2], want[2],
                               mag[2], torch.float32))
-            exact = exact and all(torch.equal(a, b)
-                                  for a, b in zip(got, want))
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            check(exact, f"{tag}: not bitwise equal to the plain version")
+            del got, mag
             if t == Q:
                 ms = device_ms(torch, lambda: sp.server_async_flat(*args))
                 eager = call_ms(torch, lambda: sp.server_async_flat(*args))
                 plain = device_ms(torch,
                                   lambda: ref.server_async_math(*args),
                                   reps=2, replays=20)
-            prev, qsum, qgamma = want
+            # the next round's operands: prev at the case's offset
+            base = torch.empty(N + off, device=dev, dtype=dt)
+            prev = base[off:]
+            prev.copy_(want[0])
+            qsum, qgamma = want[1], want[2]
+            del want
+        vec = (K <= 8 and N % (16 // prev.element_size()) == 0 and not off)
+        want_design = "vector" if vec else "per_element"
+        check(designs == {want_design}, f"server_async K={K} Q={Q} N={N} "
+              f"{dt} {case}: took {designs}, expected {want_design}")
         s = prev.element_size()
         nbytes = (K + 2) * N * s + 2 * Q * N * 4 + (3 * K + 2 * Q + 6) * 4
         flops = (2 * K + 2 * K * Q + 3 * Q + 3) * N
         gbs = nbytes / (ms * 1e-3) / 1e9
-        print(f"  K={K:2d} Q={Q:2d} N={N:>10,} {str(dt)[6:]:8s} | "
-              f"{ms:8.4f} ms {gbs:7.1f} GB/s ({gbs / 3350:5.1%}) bound "
-              f"{bound_ms(nbytes, flops)[0]:.4f} | "
-              f"plain {plain:8.4f} | eager call {eager:.4f} | err {err:.2e}")
-        record.append(dict(K=K, Q=Q, N=N, dtype=str(dt), ms=ms,
-                           call_ms=eager, exact=exact,
-                           plain_ms=plain, library_ms=None, err=err,
-                           nbytes=nbytes, flops=flops))
-        del prev, stacked, qsum
+        print(f"  K={K:2d} Q={Q:2d} N={N:>10,} {dts:8s} {case:8s} "
+              f"{want_design:11s} | {ms:8.4f} ms {gbs:7.1f} GB/s "
+              f"({gbs / 3350:5.1%}) bound {bound_ms(nbytes, flops)[0]:.4f} | "
+              f"plain {plain:8.4f} | eager call {eager:.4f} | err {err:.2e}"
+              " bitwise")
+        record.append(dict(K=K, Q=Q, N=N, dtype=str(dt), case=case,
+                           design=want_design, ms=ms, call_ms=eager,
+                           exact=exact, plain_ms=plain, library_ms=None,
+                           err=err, nbytes=nbytes, flops=flops))
+        del prev, base, stacked, qsum
 
 
 BIG_N = 33_554_437               # operands well beyond the 50 MB L2
@@ -473,16 +520,23 @@ def check_server_mix_delta(torch, sp, ref, record):
 
 def device_kernels(torch, fn) -> list[str]:
     """Names of the device kernels one ``fn()`` call runs, from a
-    torch.profiler trace (kernels, copies and sets on the card)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    torch.profiler trace (kernels, copies and sets on the card). The
+    session traces one warm-up call first and discards it (the
+    profiler's ``warmup`` step): a trace that starts cold can drop the
+    first kernel of the session."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(
+                         str(path))) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         events = json.loads(path.read_text())["traceEvents"]
     return [e["name"] for e in events
             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
@@ -561,17 +615,19 @@ def check_server_mix_scatter(torch, sp, ref, record):
         del prev, vals, idx, perm
 
 
-#: the paper CNN's 8 leaves in jax.tree order (the legacy chain launches
-#: ama_mix once per leaf per round): conv1/w, conv2/w, fc1 b/w, fc2 b/w,
-#: fc3 b/w
+#: the paper CNN's 8 leaves in jax.tree order (the legacy chain mixes
+#: all of them in one ama_mix launch a round): conv1/w, conv2/w, fc1 b/w,
+#: fc2 b/w, fc3 b/w
 LEAF_SIZES = (250, 5000, 120, 38400, 84, 10080, 10, 840)
 
 
 def check_ama_mix(torch, am, ref, record):
-    """ama_mix against ama_mix_math, bitwise in every case: K = 1 at
-    every leaf size of the paper CNN and at its whole size, K = 2 over
-    the async operand (f32 rows under f32 and bf16 prev), K = 1 with
-    alpha = 1 (fedopt), a ragged N, and N = 33,554,437."""
+    """ama_mix against ama_mix_math, bitwise in every case. One leaf a
+    call (``ama_mix_flat``): K = 1 at every leaf size of the paper CNN
+    and at its whole size, K = 2 over the async operand (f32 rows under
+    f32 and bf16 prev), K = 1 with alpha = 1 (fedopt), a ragged N, N =
+    33,554,437 and 33,554,432. Then many leaves a call
+    (``check_ama_mix_leaves``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     print("ama_mix: K, N, prev/rows dtype, case | kernel device ms, GB/s, "
@@ -585,7 +641,8 @@ def check_ama_mix(torch, am, ref, record):
               (1, 38400, f32, f32, "fedopt"), (2, MAIN_N + 1, f32, f32,
                                                 "ragged"),
               (1, BIG_N, f32, f32, "big"), (1, BIG_N, bf16, bf16, "big"),
-              (2, BIG_N, f32, f32, "big"), (2, BIG_N, bf16, f32, "big")]
+              (2, BIG_N, f32, f32, "big"), (2, BIG_N, bf16, f32, "big"),
+              (2, MIX_VEC_N, f32, f32, "big vec")]
     for K, N, pdt, sdt, case in cases:
         prev = torch.randn(N, device=dev, generator=g).to(pdt)
         stacked = torch.randn(K, N, device=dev, generator=g).to(sdt)
@@ -620,20 +677,111 @@ def check_ama_mix(torch, am, ref, record):
                 exact, record, K=K, N=N, dtype=str(pdt), rows=str(sdt),
                 case=case)
         del prev, stacked
+    check_ama_mix_leaves(torch, am, ref, record)
+
+
+#: ama_mix_leaves' cases: (case, leaf sizes, prev dtypes, rows dtypes, K,
+#: the leaves offset by one element, the launches expected)
+LEAVES_CASES = [
+    ("CNN", LEAF_SIZES, ["float32"] * 8, ["float32"] * 8, 1, (), 1),
+    ("CNN", LEAF_SIZES, ["bfloat16"] * 8, ["bfloat16"] * 8, 1, (), 1),
+    ("CNN async", LEAF_SIZES, ["float32"] * 8, ["float32"] * 8, 2, (), 1),
+    ("CNN async", LEAF_SIZES, ["bfloat16"] * 8, ["float32"] * 8, 2, (), 1),
+    ("split", tuple(5 + 37 * j for j in range(100)), ["float32"] * 100,
+     ["float32"] * 100, 1, (), 2),
+    ("mixed", LEAF_SIZES, ["float32", "bfloat16"] * 4,
+     ["float32", "bfloat16"] * 4, 2, (), 2),
+    ("unaligned", LEAF_SIZES, ["float32"] * 8, ["float32"] * 8, 1, (3,), 1),
+]
+
+
+def check_ama_mix_leaves(torch, am, ref, record):
+    """ama_mix_leaves against ama_mix_leaves_math, bitwise in every case,
+    each call's launches counted: the paper CNN's 8 leaves in one launch
+    (K = 1 in f32 and bf16; K = 2 as the async chain calls it, f32 rows
+    under f32 and bf16 prev), 100 leaves in 2 (a table holds 64), two
+    dtype pairs in 2, and the CNN with its largest leaf offset by one
+    element (that leaf on the per-element path). Timed by graph replay
+    and by an eager call; the library yardstick is one addmv a leaf."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    print("ama_mix_leaves: case, leaves, prev/rows dtypes, K | launches, "
+          "16-byte leaves | kernel device ms, GB/s, bound ms | plain | "
+          "library (addmv a leaf) | eager call ms")
+    for case, sizes, pdts, sdts, K, offset, launches in LEAVES_CASES:
+        prevs, stackeds = [], []
+        for j, (n, pd, sd) in enumerate(zip(sizes, pdts, sdts)):
+            o = int(j in offset)
+            prevs.append(torch.randn(n + o, device=dev, generator=g).to(
+                getattr(torch, pd))[o:])
+            stackeds.append(torch.randn(K * n + o, device=dev, generator=g)
+                            .to(getattr(torch, sd))[o:].view(K, n))
+        a = 0.1 + 0.8 * float(torch.rand(1, generator=g, device=dev))
+        alpha = torch.full((1,), a, device=dev)
+        w = torch.rand(K, device=dev, generator=g)
+        args = (prevs, stackeds, alpha, w)
+        before = am.ama_mix_leaves.launches
+        got = am.ama_mix_leaves(*args)
+        n_launch = am.ama_mix_leaves.launches - before
+        plan = am.leaf_launches(prevs, stackeds, got)
+        want = ref.ama_mix_leaves_math(*args)
+        mag = ref.ama_mix_leaves_math([p.float().abs() for p in prevs],
+                                      [x.float().abs() for x in stackeds],
+                                      alpha, w)
+        torch.cuda.synchronize()
+        short = {"float32": "f32", "bfloat16": "bf16"}
+        pair = f"{short[pdts[0]]}/{short[sdts[0]]}" + (
+            "+" if len(set(pdts)) > 1 else "")
+        tag = f"{case:9s} {len(sizes):3d} leaves {pair:10s} K={K}"
+        check(n_launch == launches and len(plan) == launches,
+              f"ama_mix_leaves {tag}: {n_launch} launches, expected "
+              f"{launches}")
+        err, exact = 0.0, True
+        for x, y, m, p in zip(got, want, mag, prevs, strict=True):
+            err = max(err, compare(torch, f"ama_mix_leaves {tag}", x, y, m,
+                                   p.dtype))
+            exact = exact and x.dtype == y.dtype and torch.equal(x, y)
+        check(exact, f"ama_mix_leaves {tag}: not bitwise equal to "
+              "ama_mix_leaves_math")
+        vec = sum(v for la in plan for v in la.vec)
+        if offset:
+            check(not plan[0].vec[offset[0]],
+                  f"ama_mix_leaves {tag}: the offset leaf took 16-byte loads")
+        del got, want, mag
+        ms = device_ms(torch, lambda: am.ama_mix_leaves(*args))
+        eager = call_ms(torch, lambda: am.ama_mix_leaves(*args))
+        plain = device_ms(torch, lambda: ref.ama_mix_leaves_math(*args))
+        lib = None
+        if set(pdts) == set(sdts) == {"float32"}:
+            def addmv():
+                for p, x in zip(prevs, stackeds):
+                    torch.addmv(p, x.T, w, beta=a)
+            lib = device_ms(torch, addmv)
+        N = sum(sizes)
+        nbytes = sum(2 * p.numel() * p.element_size() + x.numel()
+                     * x.element_size() for p, x in zip(prevs, stackeds))
+        nbytes += (K + 1) * 4
+        _report(f"{tag} | {n_launch} launch(es), {vec}/{len(sizes)} 16-byte",
+                ms, eager, plain, lib, nbytes, (2 * K + 1) * N, err, exact,
+                record, K=K, N=N, leaves=len(sizes), dtype=pdts[0],
+                rows=sdts[0], case=f"leaves {case}", launches=n_launch)
+        del prevs, stackeds
 
 
 def ama_mix_round_row(recs):
-    """The ama_mix row of the kernel record: the 8 K = 1 f32 leaf
-    launches of one legacy round, their times, bounds and library times
-    summed."""
-    rows = [r for r in recs if r["case"] == "leaf"
+    """The ama_mix row of the kernel record: one legacy round of the
+    paper CNN (K = 1, f32), its 8 leaves in one ama_mix_leaves call.
+    Printed beside it: the same round as 8 one-leaf calls, summed."""
+    row = next(r for r in recs if r["case"] == "leaves CNN"
+               and r["dtype"] == "float32")
+    flat = [r for r in recs if r["case"] == "leaf"
             and r["dtype"] == "torch.float32"]
-    assert sorted(r["N"] for r in rows) == sorted(LEAF_SIZES)
-    return dict(ms=sum(r["ms"] for r in rows),
-                plain_ms=sum(r["plain_ms"] for r in rows),
-                library_ms=sum(r["library_ms"] for r in rows),
-                nbytes=sum(r["nbytes"] for r in rows),
-                flops=sum(r["flops"] for r in rows))
+    assert sorted(r["N"] for r in flat) == sorted(LEAF_SIZES)
+    print(f"ama_mix, one legacy round of the CNN (K 1, f32): one call "
+          f"{row['ms']:.5f} ms device, {row['call_ms']:.5f} ms eager; 8 "
+          f"one-leaf calls {sum(r['ms'] for r in flat):.5f} ms device, "
+          f"{sum(r['call_ms'] for r in flat):.5f} ms eager")
+    return row
 
 
 LLM_N = 2_583_711_744            # minitron-8b, 2 layers, full width
@@ -1115,8 +1263,8 @@ MAIN_RUNS = [
 LEGACY = ["--server-plane", "legacy", "--use-kernel"]
 
 #: slice 3: the legacy per-leaf chain on the ama_mix kernel, one launch
-#: per leaf per round, at the paper CNN's full width on the quickstart
-#: config
+#: a round for all 8 leaves (one dtype pair), at the paper CNN's full
+#: width on the quickstart config
 LEGACY_RUNS = [
     ("legacy ama_fes", ["--algorithm", "ama_fes", *LEGACY, "--rounds", "30"],
      "ama_mix"),
@@ -1155,21 +1303,22 @@ class CountCudaCalls:
 def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
     """The main-path runs; returns {kernel: launches}. Each run's counts
     are set to 0 just before it and read just after: its kernel launched
-    exactly rounds x dtype groups times (``ama_mix``: rounds x leaves),
-    every other kernel never, and the plain server version never on the
-    card."""
+    exactly rounds x dtype groups times (``ama_mix``: one group for each
+    (prev, rows) dtype pair, the CNN's one; ``server_async`` every time
+    on its 16-byte kernel), every other kernel never, and the plain
+    server version never on the card."""
     totals = dict.fromkeys(sp.KERNELS, 0)
     for label, argv, kernel in runs:
         argv = [*QUICKSTART, *argv]
         sp.reset_counts()
+        async_before = sp.server_async_designs()
         with CountCudaCalls(ref, "ama_mix_math") as plain_mix:
             sim, hist, dt = run_train(torch, train, argv)
         counts = {k: fn.launches for k, fn in sp.KERNELS.items()}
+        async_vec = sp.server_async_designs()["vector"] - async_before["vector"]
         plain = dict(sp.plain_runs_on_cuda, ama_mix_math=plain_mix.calls)
         rounds = int(argv[argv.index("--rounds") + 1])
-        groups = (len(tree_mod.leaves(sim.params)) if kernel == "ama_mix"
-                  else len(tree_mod.dtype_groups(
-                      tree_mod.leaves(sim.params))))
+        groups = len(tree_mod.dtype_groups(tree_mod.leaves(sim.params)))
         extra = ""
         on_time = None
         if "bandwidth" in label:
@@ -1183,10 +1332,14 @@ def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
               f"{hist.stability_variance():.3f}{extra}; launches "
               f"{ {k: v for k, v in counts.items() if v} }; plain on the "
               f"card {sum(plain.values())}")
-        per_round = "leaves" if kernel == "ama_mix" else "dtype groups"
         check(counts[kernel] == rounds * groups,
               f"{label}: {kernel} launched {counts[kernel]} times, expected "
-              f"{rounds} rounds x {groups} {per_round}")
+              f"{rounds} rounds x {groups} dtype groups")
+        if kernel == "server_async":
+            # the CNN's K 5, N 54,784 f32 operands take the 16-byte kernel
+            check(async_vec == counts[kernel], f"{label}: {async_vec} of "
+                  f"{counts[kernel]} server_async launches on the vector "
+                  "kernel")
         others = {k: v for k, v in counts.items() if k != kernel and v}
         check(not others, f"{label}: other kernels launched: {others}")
         check(all(v == 0 for v in plain.values()),
@@ -1931,7 +2084,8 @@ def main() -> None:
     f32 = "torch.float32"
     main_shape = {  # the row of each kernel at the main path's shape
         "server_mix": dict(K=MAIN_K, N=MAIN_N, dtype=f32, case="t=7"),
-        "server_async": dict(K=MAIN_K, Q=MAIN_Q, N=MAIN_N, dtype=f32),
+        "server_async": dict(K=MAIN_K, Q=MAIN_Q, N=MAIN_N, dtype=f32,
+                             case="t"),
         "server_adam": dict(K=MAIN_K, N=MAIN_N, dtype=f32, case="step 37"),
         "server_mix_delta": dict(K=MAIN_K, N=MAIN_N, dtype=f32,
                                  rows="torch.int8", case="t=7"),
@@ -1981,7 +2135,7 @@ def main() -> None:
             err = max(r[rwkv_err[name]] for r in rwkv_rec)
         else:
             rec = recs[name]
-            # ama_mix: the 8 leaf launches of one legacy round, summed
+            # ama_mix: one legacy round of the CNN, one call
             row = (ama_mix_round_row(rec) if name == "ama_mix" else next(
                 r for r in rec
                 if all(r.get(k) == v for k, v in main_shape[name].items())))
@@ -1999,8 +2153,11 @@ def main() -> None:
         print("main:", json.dumps(r))
     for name, rec in recs.items():
         if name in sp.KERNELS:
+            by = {d: sum(r.get("design") == d for r in rec)
+                  for d in sp.MIX_DESIGNS}
             print(f"{name}: bitwise equal to the plain version in "
-                  f"{sum(r['exact'] for r in rec)} of {len(rec)} cases")
+                  f"{sum(r['exact'] for r in rec)} of {len(rec)} cases"
+                  + (f", by kernel {by}" if any(by.values()) else ""))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s on the card, "
           "build included")
     print(json.dumps({"kernels": kernels}))

@@ -17,8 +17,8 @@ one JSON list (``--out``) and prints the card's name and power limit.
 The check ``rwkv6_pod`` is phase 4's rwkv6-3b run (full width, 8 layers,
 ama_fes and fedavg, 3 rounds each): its records hold the losses, which
 are deterministic, so one turn a checkout is enough there;
-``server_mix_llm`` is server_mix at the two LLM paths' N. Needs a CUDA
-device.
+``server_mix_llm`` is server_mix at the two LLM paths' N; ``ama_mix``
+runs its one-leaf and its many-leaf cases. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -37,6 +37,8 @@ CHECKS = {
                       "cs.LLM_N, 'LLM'), cs.check_server_mix_llm(torch, sp, "
                       "ref, rec, cs.RWKV_N, 'rwkv6 LLM'))",
     "server_mix_scatter": "cs.check_server_mix_scatter(torch, sp, ref, rec)",
+    "server_async": "cs.check_server_async(torch, sp, ref, rec)",
+    "ama_mix": "cs.check_ama_mix(torch, am, ref, rec)",
     "rwkv6": "cs.check_rwkv6(torch, rs, ref, rec)",
     "rwkv6_pod": "cs.pod_main_path(torch, train, 'rwkv6-3b', rs, "
                  "(sp, fa, rs), ref, tree_mod, rec)",
@@ -48,6 +50,7 @@ sys.path.insert(0, "src")
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import ama_mix as am
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rwkv6_scan as rs
 from repro_torch.kernels import server_plane as sp

@@ -10,7 +10,8 @@ participating (on-time) clients, w_i = |d_i| / sum_{j in k_t} |d_j|.
 
 This chain runs under ``fl.server_plane == "legacy"``: a weighted client
 sum, then the mix, leaf by leaf. With ``use_kernel`` the mix is the
-hand-written ``ama_mix`` kernel (``kernels/ops.py``); without it, plain
+hand-written ``ama_mix`` kernel (``kernels/ops.py``: every leaf in one
+launch a round); without it, plain
 PyTorch elementwise math in the same op order, so the two give the same
 bits. Every scalar stays on the device.
 """

@@ -50,10 +50,10 @@ SIGNATURES = {
     "server_mix_scatter": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                            ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_longlong, _P),
-    # prev dtype, stacked dtype, prev, stacked, alpha, weights, out, K, N,
-    # stream
-    "ama_mix": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
-                ctypes.c_int, ctypes.c_longlong, _P),
+    # prev dtype, stacked dtype, leaf table (host), its bytes, alpha,
+    # weights, K, stream
+    "ama_mix_leaves": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong,
+                       _P, _P, ctypes.c_int, _P),
     # dtype, hd, q, k, v, out, lse, B, S, H, Hkv, causal, window, scale,
     # stream
     "flash_fwd": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
@@ -80,6 +80,9 @@ VOID_SIGNATURES = {
     "flash_design_counts": (_P,),
     # counts: 2 int64, server_mix launches per kernel (per element, vector)
     "server_mix_design_counts": (_P,),
+    # counts: 2 int64, server_async launches per kernel (per element,
+    # vector)
+    "server_async_design_counts": (_P,),
 }
 
 

@@ -58,9 +58,85 @@ __device__ __forceinline__ float alpha_schedule(const float* coefs) {
   return fminf(__fadd_rn(coefs[0], __fmul_rn(coefs[1], coefs[3])), coefs[2]);
 }
 
-inline int grid_for(long long N) {
-  const long long blocks = (N + kThreads - 1) / kThreads;
+inline int grid_for(long long N, int threads = kThreads) {
+  const long long blocks = (N + threads - 1) / threads;
   return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+constexpr int kVecRows = 8;  // client rows a thread loads before combining
+
+// 16 bytes of T as f32 elements, and back (bf16 widens exactly; the
+// store rounds each element to nearest even, as __float2bfloat16_rn does)
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int E = 4;
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int E = 8;
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      f[2 * q] = __uint_as_float(w[q] << 16);
+      f[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ unsigned bits(float f) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = bits(f[2 * q]) | (bits(f[2 * q + 1]) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// E elements of T (E a multiple of Vec16<T>::E) as E / Vec16<T>::E
+// 16-byte words: W<T, E> holds them, ld_words loads the words of vector
+// index i (elements i E .. i E + E - 1, 16-byte aligned), unpack_words
+// widens them to f32 and st_words stores f32 values rounded to T.
+template <typename T, int E>
+struct Words {
+  static constexpr int n = E / Vec16<T>::E;
+  uint4 w[n];
+};
+template <typename T, int E>
+__device__ __forceinline__ Words<T, E> ld_words(const T* p, size_t i) {
+  Words<T, E> r;
+  const auto* q = reinterpret_cast<const uint4*>(p) + i * Words<T, E>::n;
+#pragma unroll
+  for (int j = 0; j < Words<T, E>::n; ++j) r.w[j] = __ldg(q + j);
+  return r;
+}
+template <typename T, int E>
+__device__ __forceinline__ void unpack_words(const Words<T, E>& r, float* f) {
+#pragma unroll
+  for (int j = 0; j < Words<T, E>::n; ++j)
+    Vec16<T>::unpack(r.w[j], f + j * Vec16<T>::E);
+}
+template <typename T, int E>
+__device__ __forceinline__ void st_words(T* p, size_t i, const float* f) {
+  auto* q = reinterpret_cast<uint4*>(p) + i * Words<T, E>::n;
+#pragma unroll
+  for (int j = 0; j < Words<T, E>::n; ++j)
+    q[j] = Vec16<T>::pack(f + j * Vec16<T>::E);
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace repro_torch

@@ -3,8 +3,9 @@
 
 The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
 server_mix_math, server_mix_delta_math, server_mix_scatter_math,
-server_async_math, server_adam_math`` (and, for ``ama_mix_math``, of the
-Pallas body of ``kernels/ama_mix.py``), in the same op order: the
+server_async_math, server_adam_math`` (and, for ``ama_mix_math`` and its
+leaf-by-leaf ``ama_mix_leaves_math``, of the Pallas body of
+``kernels/ama_mix.py``), in the same op order: the
 previous model scaled first, then one multiply-add per client row in
 client order (and, for the async plane, one chain per ring slot, then
 the pop sum from slot 0 upward). Every multiply and add rounds on its
@@ -61,6 +62,14 @@ def ama_mix_math(prev, stacked, alpha, weights):
     for k in range(stacked.shape[0]):
         acc = acc + stacked[k].float() * weights[k]
     return acc.to(prev.dtype)
+
+
+def ama_mix_leaves_math(prevs, stackeds, alpha, weights):
+    """``ama_mix_math`` leaf by leaf: prevs a list of (n_j,) f32/bf16,
+    stackeds the matching (K, n_j) f32/bf16; alpha: (1,) f32; weights:
+    (K,) f32. Returns the list of outputs."""
+    return [ama_mix_math(p, s, alpha, weights)
+            for p, s in zip(prevs, stackeds, strict=True)]
 
 
 def _norm_weights(sizes, keep):

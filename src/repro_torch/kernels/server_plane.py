@@ -28,13 +28,16 @@ async plane moves ``(K+2)·N·s + 2·Q·N·4`` bytes (the f32 ring buffer is
 read and written). Their arithmetic is a handful of flops per byte, far
 below the card's ridge point. The design is simple: a grid-stride loop,
 f32 accumulation, no atomics (each output element is written by one
-thread, so a launch is deterministic). ``server_mix`` moves whole
-16-byte vectors where N is a multiple of the vector and every operand
-starts on a 16-byte boundary, and one element a thread otherwise (two
-kernels, one op order; ``server_mix_designs()`` reads the launches of
-each); the others take one element a thread. The async kernel loops over ring slots outside the
-client loop and so re-reads each client row Q+1 times; those re-reads
-hit L1/L2, and removing them is later work.
+thread, so a launch is deterministic). ``server_mix`` and
+``server_async`` move whole 16-byte vectors where N is a multiple of the
+vector and every operand starts on a 16-byte boundary (for the async
+plane also K <= 8), and one element a thread otherwise (two kernels
+each, one op order; ``server_mix_designs()`` and
+``server_async_designs()`` read the launches of each); the others take
+one element a thread. The async vector kernel holds a thread's K client
+values in registers and walks the ring slots over them, so every byte
+of the function moves once; its per-element kernel re-reads each client
+row once a slot (from L1/L2).
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 version (``kernels/ref.py``); CUDA tensors take the kernel, or the
@@ -56,7 +59,7 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels._launch import (MAX_K, _DTYPE_CODE, _check,
                                          _check_k, _kernel_device, _ptr,
                                          _raise_on, _stream)
-from repro_torch.kernels.ama_mix import ama_mix_flat
+from repro_torch.kernels.ama_mix import ama_mix_flat, ama_mix_leaves
 from repro_torch.utils import tree
 
 __all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
@@ -64,7 +67,8 @@ __all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
            "server_mix_tree", "server_async_tree", "server_adam_tree",
            "server_mix_compressed_tree", "mix_coefs", "device_vector",
            "reset_counts", "plain_runs_on_cuda", "KERNELS", "MAX_K",
-           "MAX_Q", "MIX_DESIGNS", "server_mix_designs"]
+           "MAX_Q", "MIX_DESIGNS", "server_mix_designs",
+           "server_async_designs"]
 
 #: limit of the async kernel's ring (its shared-memory prologue table)
 MAX_Q = 32
@@ -81,8 +85,9 @@ plain_runs_on_cuda = {"server_mix": 0, "server_async": 0, "server_adam": 0,
 
 
 def reset_counts() -> None:
-    """Zero every launch and plain-run counter of this module."""
-    for fn in KERNELS.values():
+    """Zero every launch and plain-run counter of this module (and
+    ``ama_mix_flat``'s count of its one-leaf calls)."""
+    for fn in (*KERNELS.values(), ama_mix_flat):
         fn.launches = 0
     for k in plain_runs_on_cuda:
         plain_runs_on_cuda[k] = 0
@@ -130,17 +135,27 @@ def server_mix_flat(prev, stacked, sizes, keep, coefs):
     return out
 
 
-#: server_mix's two kernels, in the order of the C entry's counts
+#: the two kernels of server_mix and of server_async, in the order of
+#: the C entries' counts
 MIX_DESIGNS = ("per_element", "vector")
+
+
+def _designs(entry: str) -> dict:
+    counts = (ctypes.c_longlong * len(MIX_DESIGNS))()
+    getattr(build.load(), entry)(counts)
+    return dict(zip(MIX_DESIGNS, counts))
 
 
 def server_mix_designs() -> dict:
     """{"per_element": n, "vector": m}: the launches of each of
     server_mix's kernels so far in this process. Needs the built library
     (the card)."""
-    counts = (ctypes.c_longlong * 2)()
-    build.load().server_mix_design_counts(counts)
-    return dict(zip(MIX_DESIGNS, counts))
+    return _designs("server_mix_design_counts")
+
+
+def server_async_designs() -> dict:
+    """The same for server_async's two kernels."""
+    return _designs("server_async_design_counts")
 
 
 def server_async_flat(prev, stacked, qsum, qgamma, sizes, delayed, delays,
@@ -276,7 +291,7 @@ KERNELS = {"server_mix": server_mix_flat, "server_async": server_async_flat,
            "server_adam": server_adam_flat,
            "server_mix_delta": server_mix_delta_flat,
            "server_mix_scatter": server_mix_scatter_flat,
-           "ama_mix": ama_mix_flat}
+           "ama_mix": ama_mix_leaves}
 for _fn in KERNELS.values():
     _fn.launches = 0
 

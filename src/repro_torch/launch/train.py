@@ -23,7 +23,8 @@ consumes the compressed payload in-kernel; ``--env bandwidth`` prices the
 
 ``--server-plane legacy`` runs the pre-fusion per-leaf server chain
 instead (``core/ama.py``); with ``--use-kernel`` its mix is the
-hand-written ``ama_mix`` kernel, one launch per leaf per round.
+hand-written ``ama_mix`` kernel, one launch a round for all the leaves
+of a dtype pair.
 ``--checkpoint`` saves and ``--resume`` restores the full round state
 {params, t, aux}, in the JAX package's npz layout, so continuation is
 bitwise. ``--prefetch-depth`` sets how many chunks a host thread stages

@@ -436,6 +436,102 @@ def test_server_mix_vector_and_per_element_kernels_bitwise(dt):
             assert torch.equal(got, want), (K, N, off, t)
 
 
+#: the paper CNN's 8 leaves in tree order
+CNN_LEAVES = (250, 5000, 120, 38400, 84, 10080, 10, 840)
+
+
+def _leaves(dev, g, sizes, pdts, sdts, K, offset=()):
+    """prevs and stackeds of the given sizes and dtypes; the leaves in
+    ``offset`` start one element past an aligned base."""
+    prevs, stackeds = [], []
+    for j, (n, pdt, sdt) in enumerate(zip(sizes, pdts, sdts)):
+        o = int(j in offset)
+        prevs.append(torch.randn(n + o, device=dev, generator=g).to(pdt)[o:])
+        stackeds.append(torch.randn(K * n + o, device=dev,
+                                    generator=g).to(sdt)[o:].view(K, n))
+    return prevs, stackeds
+
+
+@pytest.mark.gpu
+def test_ama_mix_leaves_equals_plain_on_card():
+    """ama_mix_leaves against ama_mix_leaves_math on the card, bit for
+    bit: the CNN's 8 leaves in 1 launch (f32, bf16, and K = 2 f32 rows
+    under bf16 prev), 100 leaves in 2 (the table holds 64), two dtype
+    pairs in 2, a leaf offset by one element on the per-element path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels.ama_mix import ama_mix_leaves, leaf_launches
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(CNN_LEAVES, [f32] * 8, [f32] * 8, 1, (), 1),
+             (CNN_LEAVES, [bf16] * 8, [bf16] * 8, 1, (), 1),
+             (CNN_LEAVES, [bf16] * 8, [f32] * 8, 2, (), 1),
+             ([5 + 37 * j for j in range(100)], [f32] * 100, [f32] * 100, 1,
+              (), 2),
+             (CNN_LEAVES, [f32, bf16] * 4, [f32, bf16] * 4, 2, (), 2),
+             ((5000, 38400, 840), [f32] * 3, [f32] * 3, 2, (1,), 1)]
+    for sizes, pdts, sdts, K, offset, launches in cases:
+        prevs, stackeds = _leaves(dev, g, sizes, pdts, sdts, K, offset)
+        alpha = torch.rand(1, device=dev, generator=g)
+        w = torch.rand(K, device=dev, generator=g)
+        tsp.reset_counts()
+        got = ama_mix_leaves(prevs, stackeds, alpha, w)
+        assert ama_mix_leaves.launches == launches, (len(sizes), K)
+        want = tref.ama_mix_leaves_math(prevs, stackeds, alpha, w)
+        for j, (a, b) in enumerate(zip(got, want, strict=True)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (sizes[j], K)
+        if offset:
+            (plan,) = leaf_launches(prevs, stackeds, got)
+            assert plan.vec == (True, False, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_server_async_vector_and_per_element_kernels_bitwise(dt):
+    """server_async takes its 16-byte kernel where K <= 8, N is a
+    multiple of the vector and every operand is 16-byte aligned, and its
+    per-element kernel otherwise; over two wraps of the ring, with a
+    round where nobody is on time, the two equal each other and the
+    plain version bit for bit (the per-element run reads prev from a
+    base offset by one element), and the design counts show which ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    hyp = torch.tensor([0.1, 2.5e-3, 0.95, 0.6], device=dev)
+    for K, Q, N in ((5, 11, 54_784), (2, 3, 8 * 1000), (8, 5, 8 * 999),
+                    (1, 1, 64)):
+        prev = torch.randn(N, device=dev, generator=g).to(dt)
+        qsum = torch.zeros(Q, N, device=dev)
+        qgamma = torch.zeros(Q, device=dev)
+        sizes = torch.rand(K, device=dev, generator=g) + 0.5
+        for t in range(2 * Q + 1):
+            stacked = (prev.float()[None] + 0.1 * torch.randn(
+                K, N, device=dev, generator=g)).to(dt)
+            delayed = (torch.rand(K, device=dev, generator=g) < 0.4).float()
+            if t == 1:
+                delayed.fill_(1.0)      # nobody on time
+            delays = torch.randint(1, max(Q - 1, 1) + 1, (K,), device=dev,
+                                   generator=g, dtype=torch.int32)
+            tq = torch.tensor([t, t % Q], device=dev, dtype=torch.int32)
+            rest = (qsum, qgamma, sizes, delayed, delays, tq, hyp)
+            shifted = torch.empty(N + 1, device=dev, dtype=dt)[1:]
+            shifted.copy_(prev)
+            outs = {}
+            for design, p in (("vector", prev), ("per_element", shifted)):
+                before = tsp.server_async_designs()
+                outs[design] = tsp.server_async_flat(p, stacked, *rest)
+                after = tsp.server_async_designs()
+                assert {d: after[d] - before[d] for d in after} == {
+                    d: int(d == design) for d in after}, (K, Q, N, t)
+            want = tref.server_async_math(prev, stacked, *rest)
+            for got in outs.values():
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    K, Q, N, t)
+            prev, qsum, qgamma = want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["minitron-8b", "rwkv6-3b"])
 def test_remat_pod_round_bitwise_on_card(arch):

@@ -147,10 +147,11 @@ def test_kernel_entries_keep_their_plain_versions_signatures():
     exactly its plain version's positional parameters."""
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import rwkv6_scan as trs
-    from repro_torch.kernels.ama_mix import ama_mix_flat
+    from repro_torch.kernels.ama_mix import ama_mix_flat, ama_mix_leaves
     for kernel, plain in ((tsp.server_mix_flat, tref.server_mix_math),
                           (tsp.server_async_flat, tref.server_async_math),
                           (ama_mix_flat, tref.ama_mix_math),
+                          (ama_mix_leaves, tref.ama_mix_leaves_math),
                           (tfa.flash_fwd, tref.flash_attention_ref),
                           (tfa.flash_bwd_dq, tref.flash_bwd_dq_ref),
                           (tfa.flash_bwd_dkdv, tref.flash_bwd_dkdv_ref),
