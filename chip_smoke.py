@@ -12,12 +12,14 @@ Phases (any error or out-of-tolerance result exits non-zero):
      main path's shapes, larger ones and edge cases (nobody kept, K = 1,
      ragged tails, top-k positions colliding across clients, K-fold and
      at K = 256, with server_mix_scatter's one device kernel a call
-     counted in a profiler trace; server_mix and server_async bitwise in
-     every case (server_async in every round of three wraps of its
-     ring), each naming the kernel it took (16-byte vectors where N is a
-     multiple of the vector and the operands are aligned, for
-     server_async also K <= 8; one element a thread otherwise, a base
-     pointer offset by one element among them), server_mix also at the
+     counted in a profiler trace; server_mix, server_async, server_adam
+     and server_mix_delta bitwise in every case (server_async in every
+     round of three wraps of its ring), each naming the kernel it took
+     (16-byte vectors where N is a multiple of the vector and the
+     operands are aligned, for server_async also K <= 8; one element a
+     thread otherwise, a base pointer offset by one element among them;
+     server_adam and server_mix_delta also at N = 33,554,432 and
+     33,554,437), server_mix also at the
      LLM paths' N = 2,583,711,744 and 1,018,698,240 bf16, K = 2;
      ama_mix one leaf a call and many (the CNN's 8 leaves in one launch,
      100 leaves in two, two dtype pairs in two, an unaligned leaf), its
@@ -44,8 +46,9 @@ Phases (any error or out-of-tolerance result exits non-zero):
      legacy chain on the ama_mix kernel (``--server-plane legacy
      --use-kernel``: ama_fes, fedavg, fedprox, fedopt, async_ama; slice
      3). Each run asserts the exact launches of every kernel (rounds x
-     dtype groups; ama_mix's 8 leaves are one group) and that no plain
-     version ran on the card. The
+     dtype groups; ama_mix's 8 leaves are one group; server_async,
+     server_adam and server_mix_delta all on their 16-byte kernels) and
+     that no plain version ran on the card. The
      LLM paths: ``--pod`` federated training at full width, with the
      configs' own remat on (each block keeps only its input and runs
      forward again in the backward), of minitron-8b (2 of its 32 layers,
@@ -424,23 +427,41 @@ def _report(tag, ms, eager, plain, lib, nbytes, flops, err, exact, record,
                        flops=flops))
 
 
+def vector_expected(off, N, *tensors) -> str:
+    """The kernel a layout must take: "vector" where N is a multiple of
+    16 bytes of the narrowest operand and no base pointer is offset,
+    "per_element" otherwise."""
+    unit = 16 // min(t.element_size() for t in tensors)
+    return "vector" if N % unit == 0 and not off else "per_element"
+
+
 def check_server_adam(torch, sp, ref, record):
     """FedOpt server-Adam: three outputs, the bias corrections from powf
-    in the kernel's prologue against PyTorch's pow on the card."""
+    in the kernel's prologue against PyTorch's pow on the card; bitwise in
+    every case, each naming the kernel it took (16-byte where N is a
+    multiple of prev's vector and the operands are aligned: the main
+    shape, N = 16, whose one vector a call shows the latency floor, and
+    N = 33,554,432; per element at N + 1, 33,554,437 and with prev
+    offset by one element)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    print("server_adam: K, N, dtype, case | kernel device ms, GB/s, bound "
-          "ms | plain device ms | library: none (no single call) | eager "
-          "call ms")
+    print("server_adam: K, N, dtype, case, kernel | kernel device ms, GB/s, "
+          "bound ms | plain device ms | library: none (no single call) | "
+          "eager call ms")
     cases = [(5, MAIN_N, torch.float32, "step 1"),
              (5, MAIN_N, torch.float32, "step 37"),
              (5, MAIN_N, torch.bfloat16, "step 37"),
              (5, MAIN_N, torch.float32, "nobody kept"),
+             (5, MAIN_N, torch.float32, "offset 1"),
+             (5, 16, torch.float32, "step 37"),
              (1, MAIN_N + 1, torch.float32, "step 3"),
              (10, BIG_N, torch.float32, "step 37"),
-             (10, BIG_N, torch.bfloat16, "step 37")]
+             (10, BIG_N, torch.bfloat16, "step 37"),
+             (10, MIX_VEC_N, torch.float32, "step 37"),
+             (10, MIX_VEC_N, torch.bfloat16, "step 37")]
     for K, N, dt, case in cases:
-        prev = torch.randn(N, device=dev, generator=g).to(dt)
+        off = 1 if case == "offset 1" else 0
+        prev = torch.randn(N + off, device=dev, generator=g).to(dt)[off:]
         stacked = (prev.float()[None] + 0.01 * torch.randn(
             K, N, device=dev, generator=g)).to(dt)
         m = 1e-3 * torch.randn(N, device=dev, generator=g)
@@ -449,10 +470,14 @@ def check_server_adam(torch, sp, ref, record):
         step = float(case.split()[-1]) if case.startswith("step") else 5.0
         sc = torch.tensor([0.9, 0.99, 0.1, 1e-3, step], device=dev)
         args = (prev, stacked, m, v, sizes, keep, sc)
-        got = sp.server_adam_flat(*args)
+        got, design = mix_design(sp, lambda: sp.server_adam_flat(*args),
+                                 "server_adam_designs")
         want = ref.server_adam_math(*args)
         torch.cuda.synchronize()
-        tag = f"K={K:2d} N={N:>10,} {str(dt)[6:]:8s} {case:11s}"
+        tag = f"K={K:2d} N={N:>10,} {str(dt)[6:]:8s} {case:11s} {design:11s}"
+        want_design = vector_expected(off, N, prev)
+        check(design == want_design, f"server_adam {tag}: expected the "
+              f"{want_design} kernel")
         err = max(compare(torch, f"server_adam {tag} out", got[0], want[0],
                           want[0].float().abs() + prev.float().abs(), dt),
                   compare(torch, f"server_adam {tag} m", got[1], want[1],
@@ -460,6 +485,8 @@ def check_server_adam(torch, sp, ref, record):
                   compare(torch, f"server_adam {tag} v", got[2], want[2],
                           want[2].abs(), torch.float32))
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(exact, f"server_adam {tag}: not bitwise equal to the plain "
+              "version")
         del got, want
         ms = device_ms(torch, lambda: sp.server_adam_flat(*args))
         eager = call_ms(torch, lambda: sp.server_adam_flat(*args))
@@ -468,25 +495,34 @@ def check_server_adam(torch, sp, ref, record):
         s = prev.element_size()
         _report(tag, ms, eager, plain, None,
                 (K + 2) * N * s + 16 * N + 2 * K * 4 + 20, (2 * K + 14) * N,
-                err, exact, record, K=K, N=N, dtype=str(dt), case=case)
+                err, exact, record, K=K, N=N, dtype=str(dt), case=case,
+                design=design)
         del prev, stacked, m, v
 
 
 def check_server_mix_delta(torch, sp, ref, record):
-    """The mix over int8 / bf16 delta rows, de-quantized in-kernel."""
+    """The mix over int8 / bf16 delta rows, de-quantized in-kernel; bitwise
+    in every case, each naming the kernel it took (16-byte where N is a
+    multiple of 16 bytes of the narrower of prev and the rows, 16
+    elements under int8 rows, and the operands are aligned: the main
+    shape, N = 16 (the latency floor) and N = 33,554,432; per element at
+    N + 1, 33,554,437 and with prev offset by one element)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    print("server_mix_delta: K, N, prev dtype, rows, case | kernel device "
-          "ms, GB/s, bound ms | plain device ms | library: none (no single "
-          "call takes int8 rows) | eager call ms")
+    print("server_mix_delta: K, N, prev dtype, rows, case, kernel | kernel "
+          "device ms, GB/s, bound ms | plain device ms | library: none (no "
+          "single call takes int8 rows) | eager call ms")
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     cases = [(5, MAIN_N, f32, i8, "t=7"), (5, MAIN_N, f32, bf16, "t=7"),
              (5, MAIN_N, bf16, i8, "t=7"), (5, MAIN_N, f32, i8, "nobody kept"),
+             (5, MAIN_N, f32, i8, "offset 1"), (5, 16, f32, i8, "t=7"),
              (1, MAIN_N + 1, f32, i8, "t=7"), (10, BIG_N, f32, i8, "t=7"),
-             (10, BIG_N, f32, bf16, "t=7")]
+             (10, BIG_N, f32, bf16, "t=7"), (10, MIX_VEC_N, f32, i8, "t=7"),
+             (10, MIX_VEC_N, f32, bf16, "t=7")]
     coefs = torch.tensor([0.1, 2.5e-3, 0.95, 7.0], device=dev)
     for K, N, dt, rt, case in cases:
-        prev = torch.randn(N, device=dev, generator=g).to(dt)
+        off = 1 if case == "offset 1" else 0
+        prev = torch.randn(N + off, device=dev, generator=g).to(dt)[off:]
         if rt == i8:
             rows = torch.randint(-127, 128, (K, N), device=dev, generator=g,
                                  dtype=i8)
@@ -496,15 +532,21 @@ def check_server_mix_delta(torch, sp, ref, record):
             rs = torch.ones(K, device=dev)
         sizes, keep = _weights(torch, g, K, case)
         args = (prev, rows, rs, sizes, keep, coefs)
-        got = sp.server_mix_delta_flat(*args)
+        got, design = mix_design(sp, lambda: sp.server_mix_delta_flat(*args),
+                                 "server_mix_delta_designs")
         want = ref.server_mix_delta_math(*args)
         mag = ref.server_mix_delta_math(prev.float().abs(), rows.float().abs(),
                                         rs, sizes, keep, coefs)
         torch.cuda.synchronize()
         tag = (f"K={K:2d} N={N:>10,} {str(dt)[6:]:8s} {str(rt)[6:]:8s} "
-               f"{case:11s}")
+               f"{case:11s} {design:11s}")
+        want_design = vector_expected(off, N, prev, rows)
+        check(design == want_design, f"server_mix_delta {tag}: expected the "
+              f"{want_design} kernel")
         err = compare(torch, f"server_mix_delta {tag}", got, want, mag, dt)
         exact = torch.equal(got, want)
+        check(exact, f"server_mix_delta {tag}: not bitwise equal to the "
+              "plain version")
         del got, want, mag
         ms = device_ms(torch, lambda: sp.server_mix_delta_flat(*args))
         eager = call_ms(torch, lambda: sp.server_mix_delta_flat(*args))
@@ -514,8 +556,13 @@ def check_server_mix_delta(torch, sp, ref, record):
             + 3 * K * 4 + 16
         _report(tag, ms, eager, plain, None, nbytes, (2 * K + 1) * N, err,
                 exact, record, K=K, N=N, dtype=str(dt), rows=str(rt),
-                case=case)
+                case=case, design=design)
         del prev, rows
+
+
+#: profiler sessions ``device_kernels`` opens before it takes a trace
+#: with no device activity at all as the answer
+TRACE_TRIES = 3
 
 
 def device_kernels(torch, fn) -> list[str]:
@@ -523,23 +570,34 @@ def device_kernels(torch, fn) -> list[str]:
     torch.profiler trace (kernels, copies and sets on the card). The
     session traces one warm-up call first and discards it (the
     profiler's ``warmup`` step): a trace that starts cold can drop the
-    first kernel of the session."""
+    first kernel of the session. A trace that holds no device activity
+    at all is taken again, up to ``TRACE_TRIES`` sessions: the profiler
+    has returned one with the call's only kernel missing, from a call
+    whose output had just matched its plain version. A trace that holds
+    any device event is the answer as it stands, so an extra or a
+    missing kernel beside another still fails the caller's check."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: p.export_chrome_trace(
-                         str(path))) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        events = json.loads(path.read_text())["traceEvents"]
-    return [e["name"] for e in events
-            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for attempt in range(1, TRACE_TRIES + 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(
+                             str(path))) as prof:
+                for _ in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            events = json.loads(path.read_text())["traceEvents"]
+        names = [e["name"] for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if names:
+            break
+        print(f"  device_kernels: profiler session {attempt} of "
+              f"{TRACE_TRIES} traced no device activity")
+    return names
 
 
 def check_server_mix_scatter(torch, sp, ref, record):
@@ -1300,22 +1358,32 @@ class CountCudaCalls:
         setattr(self.module, self.name, self.real)
 
 
+def vector_readers(sp):
+    """(kernel, its design-count reader) of the server kernels whose
+    main-path launches must all take the 16-byte kernel."""
+    return [("server_async", sp.server_async_designs),
+            ("server_adam", sp.server_adam_designs),
+            ("server_mix_delta", sp.server_mix_delta_designs)]
+
+
 def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
     """The main-path runs; returns {kernel: launches}. Each run's counts
     are set to 0 just before it and read just after: its kernel launched
     exactly rounds x dtype groups times (``ama_mix``: one group for each
-    (prev, rows) dtype pair, the CNN's one; ``server_async`` every time
-    on its 16-byte kernel), every other kernel never, and the plain
-    server version never on the card."""
+    (prev, rows) dtype pair, the CNN's one; ``server_async``,
+    ``server_adam`` and ``server_mix_delta`` every time on their 16-byte
+    kernels), every other kernel never, and the plain server version
+    never on the card."""
     totals = dict.fromkeys(sp.KERNELS, 0)
     for label, argv, kernel in runs:
         argv = [*QUICKSTART, *argv]
         sp.reset_counts()
-        async_before = sp.server_async_designs()
+        vec_before = {k: read()["vector"] for k, read in vector_readers(sp)}
         with CountCudaCalls(ref, "ama_mix_math") as plain_mix:
             sim, hist, dt = run_train(torch, train, argv)
         counts = {k: fn.launches for k, fn in sp.KERNELS.items()}
-        async_vec = sp.server_async_designs()["vector"] - async_before["vector"]
+        vec = {k: read()["vector"] - vec_before[k]
+               for k, read in vector_readers(sp)}
         plain = dict(sp.plain_runs_on_cuda, ama_mix_math=plain_mix.calls)
         rounds = int(argv[argv.index("--rounds") + 1])
         groups = len(tree_mod.dtype_groups(tree_mod.leaves(sim.params)))
@@ -1335,11 +1403,11 @@ def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
         check(counts[kernel] == rounds * groups,
               f"{label}: {kernel} launched {counts[kernel]} times, expected "
               f"{rounds} rounds x {groups} dtype groups")
-        if kernel == "server_async":
-            # the CNN's K 5, N 54,784 f32 operands take the 16-byte kernel
-            check(async_vec == counts[kernel], f"{label}: {async_vec} of "
-                  f"{counts[kernel]} server_async launches on the vector "
-                  "kernel")
+        if kernel in vec:
+            # the CNN's K 5, N 54,784 operands (N = 16 x 3,424) take the
+            # 16-byte kernel
+            check(vec[kernel] == counts[kernel], f"{label}: {vec[kernel]} of "
+                  f"{counts[kernel]} {kernel} launches on the vector kernel")
         others = {k: v for k, v in counts.items() if k != kernel and v}
         check(not others, f"{label}: other kernels launched: {others}")
         check(all(v == 0 for v in plain.values()),
@@ -1952,23 +2020,28 @@ def llm_where_time_goes(torch, train, arch, tmp):
 
 # ----------------------------------------------------------------- build --
 
+#: a mangled template argument: float, int8 (signed char), bf16, a
+#: back-reference (only bf16 repeats among the kernels' arguments), an
+#: integer literal
+_TARG = r"f|a|13__nv_bfloat16|S\d*_|Li\d+E"
+
+
 def kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled kernel symbol (the length-prefixed
-    identifier that ends in ``_kernel``, then its float / bf16 / integer
-    template arguments); the symbol itself when there is none."""
+    identifier that ends in ``_kernel``, then its float / int8 / bf16 /
+    integer template arguments); the symbol itself when there is none."""
     for m in re.finditer(r"\d+", mangled):
         digits = m.group(0)
         for i in range(len(digits)):
             n, at = int(digits[i:]), m.end()
             ident = mangled[at:at + n]
             if n and ident.endswith("_kernel") and ident.isidentifier():
-                rest = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E",
-                                mangled[at + n:])
-                args = re.findall(r"f|13__nv_bfloat16|Li(\d+)E",
-                                  rest.group(1)) if rest else []
-                toks = [a or "float" for a in args]
-                if rest and "13__nv_bfloat16" in rest.group(1):
-                    toks[0] = "bf16"
+                rest = re.match(rf"I((?:{_TARG})+)E", mangled[at + n:])
+                names = {"f": "float", "a": "int8"}
+                toks = [names.get(a, a[2:-1] if a.startswith("L") else
+                                  "bf16")
+                        for a in re.findall(_TARG, rest.group(1))] \
+                    if rest else []
                 return ident + (f"<{', '.join(toks)}>" if toks else "")
     return mangled
 

@@ -7,7 +7,7 @@ directory), this script runs the named phase-3 checks of both checkouts'
 own chip_smoke.py in turns, other, this, this, other, each in a process
 of its own (both packages are ``repro_torch``), on the same card:
 
-    python3 scripts/phase3_ab.py --other experiments/parent \\
+    python3 scripts/phase3_ab.py --other build/parent \\
         --checks server_mix_scatter,rwkv6 [--turns other,this,this,other] \\
         [--out ab.json]
 
@@ -15,10 +15,14 @@ Each run builds its checkout's kernels, prints its check's own table and
 ends with one JSON line of its records; the script collects them into
 one JSON list (``--out``) and prints the card's name and power limit.
 The check ``rwkv6_pod`` is phase 4's rwkv6-3b run (full width, 8 layers,
-ama_fes and fedavg, 3 rounds each): its records hold the losses, which
-are deterministic, so one turn a checkout is enough there;
+ama_fes and fedavg, 3 rounds each) and ``main_cnn`` phase 4's paper-CNN
+runs on ``server_adam`` and ``server_mix_delta``: their records hold
+losses or paper metrics, which are deterministic, so one turn a
+checkout is enough there (rounds/s are recorded too);
 ``server_mix_llm`` is server_mix at the two LLM paths' N; ``ama_mix``
-runs its one-leaf and its many-leaf cases. Needs a CUDA device.
+runs its one-leaf and its many-leaf cases; ``server_adam`` and
+``server_mix_delta`` run each checkout's own cases (a checkout's cases at
+the same shapes are read side by side). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,10 +42,15 @@ CHECKS = {
                       "ref, rec, cs.RWKV_N, 'rwkv6 LLM'))",
     "server_mix_scatter": "cs.check_server_mix_scatter(torch, sp, ref, rec)",
     "server_async": "cs.check_server_async(torch, sp, ref, rec)",
+    "server_adam": "cs.check_server_adam(torch, sp, ref, rec)",
+    "server_mix_delta": "cs.check_server_mix_delta(torch, sp, ref, rec)",
     "ama_mix": "cs.check_ama_mix(torch, am, ref, rec)",
     "rwkv6": "cs.check_rwkv6(torch, rs, ref, rec)",
     "rwkv6_pod": "cs.pod_main_path(torch, train, 'rwkv6-3b', rs, "
                  "(sp, fa, rs), ref, tree_mod, rec)",
+    "main_cnn": "cs.main_path(torch, train, sp, ref, tree_mod, [r for r in "
+                "cs.MAIN_RUNS if r[2] in ('server_adam', 'server_mix_delta')"
+                "], rec)",
 }
 
 _RUN = """

@@ -83,6 +83,12 @@ VOID_SIGNATURES = {
     # counts: 2 int64, server_async launches per kernel (per element,
     # vector)
     "server_async_design_counts": (_P,),
+    # counts: 2 int64, server_adam launches per kernel (per element,
+    # vector)
+    "server_adam_design_counts": (_P,),
+    # counts: 2 int64, server_mix_delta launches per kernel (per element,
+    # vector)
+    "server_mix_delta_design_counts": (_P,),
 }
 
 

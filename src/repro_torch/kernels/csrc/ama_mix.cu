@@ -62,7 +62,6 @@ using namespace repro_torch;
 
 constexpr int kMaxLeaves = 64;  // ama_mix.py: MAX_LEAVES
 constexpr int kMixRows = 4;     // client rows a vector thread loads at once
-constexpr int kUnroll = 4;      // elements a per-element thread loads at once
 
 // ama_mix.py: _LeafTable, field for field
 struct LeafTable {
@@ -76,12 +75,6 @@ struct LeafTable {
 };
 // with alpha, weights and K, the kernel's parameters stay under 4 KB
 static_assert(sizeof(LeafTable) + 32 <= 4096, "leaf table over 4 KB");
-
-// elements a vector unit: 16 bytes of the narrower operand
-template <typename TP, typename TS>
-__host__ __device__ constexpr int unit_elems() {
-  return Vec16<TP>::E > Vec16<TS>::E ? Vec16<TP>::E : Vec16<TS>::E;
-}
 
 template <typename TP, typename TS>
 __global__ void __launch_bounds__(kThreads)

@@ -64,6 +64,11 @@ inline int grid_for(long long N, int threads = kThreads) {
 }
 
 constexpr int kVecRows = 8;  // client rows a thread loads before combining
+// a block of server_adam's and server_mix_delta's 16-byte kernels: one
+// warp, so that a small N spreads over many SMs and the grid (at most
+// kMaxBlocks) is resident in one wave at large N
+constexpr int kVecThreads = 32;
+constexpr int kUnroll = 4;  // elements a per-element thread loads at once
 
 // 16 bytes of T as f32 elements, and back (bf16 widens exactly; the
 // store rounds each element to nearest even, as __float2bfloat16_rn does)
@@ -104,6 +109,28 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// 16 int8 lanes as f32 (load only): each byte sign-extended, then
+// converted, exactly (|q| <= 128), as ld() widens one
+template <>
+struct Vec16<int8_t> {
+  static constexpr int E = 16;
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        f[4 * q + b] =
+            static_cast<float>(static_cast<int>(w[q] << (24 - 8 * b)) >> 24);
+  }
+};
+
+// elements a 16-byte unit of two operands: 16 bytes of the narrower one
+template <typename A, typename B>
+__host__ __device__ constexpr int unit_elems() {
+  return Vec16<A>::E > Vec16<B>::E ? Vec16<A>::E : Vec16<B>::E;
+}
+
 // E elements of T (E a multiple of Vec16<T>::E) as E / Vec16<T>::E
 // 16-byte words: W<T, E> holds them, ld_words loads the words of vector
 // index i (elements i E .. i E + E - 1, 16-byte aligned), unpack_words
@@ -133,6 +160,18 @@ __device__ __forceinline__ void st_words(T* p, size_t i, const float* f) {
 #pragma unroll
   for (int j = 0; j < Words<T, E>::n; ++j)
     q[j] = Vec16<T>::pack(f + j * Vec16<T>::E);
+}
+
+// the words of vector i of rows k0 .. k0 + kVecRows - 1 (those below K)
+// of a (K, n) array: row k starts at element k n
+template <typename R, int E>
+__device__ __forceinline__ void ld_row_batch(const R* __restrict__ rows,
+                                             size_t n, size_t i, int k0,
+                                             int K,
+                                             Words<R, E> (&x)[kVecRows]) {
+#pragma unroll
+  for (int q = 0; q < kVecRows; ++q)
+    if (k0 + q < K) x[q] = ld_words<R, E>(rows + (k0 + q) * n, i);
 }
 
 inline bool aligned16(const void* p) {

@@ -28,16 +28,22 @@ async plane moves ``(K+2)·N·s + 2·Q·N·4`` bytes (the f32 ring buffer is
 read and written). Their arithmetic is a handful of flops per byte, far
 below the card's ridge point. The design is simple: a grid-stride loop,
 f32 accumulation, no atomics (each output element is written by one
-thread, so a launch is deterministic). ``server_mix`` and
-``server_async`` move whole 16-byte vectors where N is a multiple of the
-vector and every operand starts on a 16-byte boundary (for the async
-plane also K <= 8), and one element a thread otherwise (two kernels
-each, one op order; ``server_mix_designs()`` and
-``server_async_designs()`` read the launches of each); the others take
-one element a thread. The async vector kernel holds a thread's K client
-values in registers and walks the ring slots over them, so every byte
-of the function moves once; its per-element kernel re-reads each client
-row once a slot (from L1/L2).
+thread, so a launch is deterministic). ``server_mix``,
+``server_async``, ``server_adam`` and ``server_mix_delta`` each have two
+kernels with one op order, picked by the operands' layout: whole 16-byte
+words where N is a multiple of the vector and every operand starts on a
+16-byte boundary (for the async plane also K <= 8; for
+``server_mix_delta`` the vector is 16 bytes of the narrower of prev and
+the rows, 16 elements under int8 rows), a thread's first words loaded
+before the block's prologue; one element a thread otherwise (several of
+its grid-stride elements at once in ``server_adam`` and
+``server_mix_delta``). ``server_mix_designs()``,
+``server_async_designs()``, ``server_adam_designs()`` and
+``server_mix_delta_designs()`` read the launches of each. The async
+vector kernel holds a thread's K client values in registers and walks
+the ring slots over them, so every byte of the function moves once; its
+per-element kernel re-reads each client row once a slot (from L1/L2).
+``server_mix_scatter`` is one cooperative launch.
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 version (``kernels/ref.py``); CUDA tensors take the kernel, or the
@@ -68,7 +74,8 @@ __all__ = ["server_mix_flat", "server_async_flat", "server_adam_flat",
            "server_mix_compressed_tree", "mix_coefs", "device_vector",
            "reset_counts", "plain_runs_on_cuda", "KERNELS", "MAX_K",
            "MAX_Q", "MIX_DESIGNS", "server_mix_designs",
-           "server_async_designs"]
+           "server_async_designs", "server_adam_designs",
+           "server_mix_delta_designs"]
 
 #: limit of the async kernel's ring (its shared-memory prologue table)
 MAX_Q = 32
@@ -135,8 +142,8 @@ def server_mix_flat(prev, stacked, sizes, keep, coefs):
     return out
 
 
-#: the two kernels of server_mix and of server_async, in the order of
-#: the C entries' counts
+#: the two kernels of server_mix, server_async, server_adam and
+#: server_mix_delta, in the order of the C entries' counts
 MIX_DESIGNS = ("per_element", "vector")
 
 
@@ -156,6 +163,16 @@ def server_mix_designs() -> dict:
 def server_async_designs() -> dict:
     """The same for server_async's two kernels."""
     return _designs("server_async_design_counts")
+
+
+def server_adam_designs() -> dict:
+    """The same for server_adam's two kernels."""
+    return _designs("server_adam_design_counts")
+
+
+def server_mix_delta_designs() -> dict:
+    """The same for server_mix_delta's two kernels."""
+    return _designs("server_mix_delta_design_counts")
 
 
 def server_async_flat(prev, stacked, qsum, qgamma, sizes, delayed, delays,

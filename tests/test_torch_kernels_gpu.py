@@ -533,6 +533,80 @@ def test_server_async_vector_and_per_element_kernels_bitwise(dt):
 
 
 @pytest.mark.gpu
+def test_server_adam_and_delta_vector_and_per_element_kernels_bitwise():
+    """server_adam and server_mix_delta take their 16-byte kernels where N
+    is a multiple of the 16-byte unit (prev's vector for server_adam; 16
+    bytes of the narrower of prev and the rows for server_mix_delta: 16
+    elements under int8 rows) and every operand is 16-byte aligned, and
+    their per-element kernels otherwise (N + 1, prev offset by one
+    element); the design counts show which ran, and every call equals
+    the plain version bit for bit: K 1, 5 and 10 (two row batches), f32
+    and bf16 prev, int8 / bf16 / f32 rows, nobody kept, steps 1 and 37."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+
+    def layouts(N):
+        # (N, element offset of prev, the kernel expected)
+        return ((N, 0, "vector"), (N + 1, 0, "per_element"),
+                (N, 1, "per_element"))
+
+    def taken(read, fn):
+        before = read()
+        out = fn()
+        after = read()
+        return out, [d for d in after if after[d] != before[d]]
+
+    coefs = torch.tensor([0.1, 2.5e-3, 0.95, 7.0], device=dev)
+    for K in (1, 5, 10):
+        for kept in (True, False):
+            sizes = torch.rand(K, device=dev, generator=g) + 0.5
+            keep = (torch.rand(K, device=dev, generator=g) < 0.7).float()
+            keep[0] = 1.0
+            keep *= float(kept)
+            for dt in (f32, bf16):
+                for N0, off, design in layouts(16 * 1000):
+                    pb = torch.randn(N0 + off, device=dev, generator=g)
+                    prev = pb.to(dt)[off:]
+                    N = prev.shape[0]
+                    m = 1e-3 * torch.randn(N, device=dev, generator=g)
+                    v = 1e-6 * torch.rand(N, device=dev, generator=g)
+                    stacked = (prev.float()[None] + 0.01 * torch.randn(
+                        K, N, device=dev, generator=g)).to(dt)
+                    for step in (1.0, 37.0):
+                        sc = torch.tensor([0.9, 0.99, 0.1, 1e-3, step],
+                                          device=dev)
+                        args = (prev, stacked, m, v, sizes, keep, sc)
+                        got, moved = taken(tsp.server_adam_designs,
+                                           lambda: tsp.server_adam_flat(*args))
+                        assert moved == [design], (K, N, off, dt)
+                        want = tref.server_adam_math(*args)
+                        assert all(torch.equal(a, b)
+                                   for a, b in zip(got, want)), (K, N, off,
+                                                                 dt, step)
+                    for rt in (i8, bf16, f32):
+                        if rt == i8:
+                            rows = torch.randint(-127, 128, (K, N), device=dev,
+                                                 generator=g, dtype=i8)
+                            rows[0, :2] = torch.tensor([-127, 127])
+                            rs = torch.rand(K, device=dev, generator=g) * 1e-3
+                        else:
+                            rows = (0.01 * torch.randn(
+                                K, N, device=dev, generator=g)).to(rt)
+                            rs = torch.ones(K, device=dev)
+                        args = (prev, rows, rs, sizes, keep, coefs)
+                        got, moved = taken(
+                            tsp.server_mix_delta_designs,
+                            lambda: tsp.server_mix_delta_flat(*args))
+                        assert moved == [design], (K, N, off, dt, rt)
+                        assert torch.equal(
+                            got, tref.server_mix_delta_math(*args)), (
+                                K, N, off, dt, rt, kept)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["minitron-8b", "rwkv6-3b"])
 def test_remat_pod_round_bitwise_on_card(arch):
     """One ama_fes pod round of the reduced arch in f32 on the card
