@@ -61,22 +61,38 @@ Phases (any error or out-of-tolerance result exits non-zero):
      rounds/s, tokens/s and the peak device memory (under 75 GB); ama_fes
      again with remat off, bitwise equal to the remat run, with both
      peaks; then rwkv6-3b for one round at the deepest depth (up to all
-     32 layers) whose peak a probe run at 16 layers predicts within 70 GB;
+     32 layers) whose peak a probe run at 16 layers predicts within 70 GB.
+     The client planes (slice 11): ``--client-plane partitioned`` runs of
+     ama_fes, fedprox, async_ama and fedopt on the CNN (server-kernel
+     launches exact, the limited cohort-rounds on the limited program
+     and those overflowed to the masked one, rounds/s beside the masked
+     run), an ``FLConfig(fes_static=True)`` ama_fes run (body leaves
+     within the mix's rounding of their start, the classifier moved);
+     on each LLM path (--no-scan) a partitioned ama_fes run at
+     p_limited 0.5 and masked against partitioned at p_limited 1.0, the
+     kernels' launches derived from the staged schedule (a limited
+     cohort's body blocks run their forward kernels once and no
+     backward), falling losses, tokens/s and peak memory;
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
      fedopt, 10 rounds each); the reduced LLM paths (minitron-8b,
      rwkv6-3b, remat on) in f32 on the card (kernels) against the CPU
-     (plain versions);
+     (plain versions), on the masked and the partitioned client plane;
+     one round of the CNN's client planes, partitioned against masked per
+     cohort (whether the unlimited cohorts come out bitwise reported);
   6. the port's contract: chunked == per-round, bitwise (async_ama,
-     fedopt, ama_fes + q8, and both reduced LLM paths); chunked ==
+     fedopt, ama_fes + q8, async_ama partitioned, both reduced LLM
+     paths and reduced minitron-8b partitioned); chunked ==
      per-round == save -> restore -> continue over 20 rounds (ama_fes,
      async_ama, fedopt); prefetch depths 0, 1, 2 bitwise equal;
      --metrics-out on == off bitwise, and its JSONL valid;
   7. torch.profiler breakdowns of 10 ama_fes rounds and of 2 full-width
      rounds of each LLM under remat (through the launcher's --profile),
      with each of the LLM's kernel wrappers' device time and share, split
-     into its kernels (the rwkv6 passes).
+     into its kernels (the rwkv6 passes), and of 2 minitron-8b rounds
+     with every cohort limited on the partitioned plane; a line counting
+     the profiler sessions that traced no device activity.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -564,8 +580,13 @@ def check_server_mix_delta(torch, sp, ref, record):
 #: with no device activity at all as the answer
 TRACE_TRIES = 3
 
+#: every ``device_kernels`` call: (its caller's label, the profiler
+#: sessions it opened, how many of them traced no device activity),
+#: summed up in one line at the end of the run
+TRACE_LOG: list = []
 
-def device_kernels(torch, fn) -> list[str]:
+
+def device_kernels(torch, fn, label: str) -> list[str]:
     """Names of the device kernels one ``fn()`` call runs, from a
     torch.profiler trace (kernels, copies and sets on the card). The
     session traces one warm-up call first and discards it (the
@@ -575,8 +596,10 @@ def device_kernels(torch, fn) -> list[str]:
     has returned one with the call's only kernel missing, from a call
     whose output had just matched its plain version. A trace that holds
     any device event is the answer as it stands, so an extra or a
-    missing kernel beside another still fails the caller's check."""
+    missing kernel beside another still fails the caller's check.
+    ``label`` names the call in ``TRACE_LOG``."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    empty = 0
     for attempt in range(1, TRACE_TRIES + 1):
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "trace.json"
@@ -595,9 +618,21 @@ def device_kernels(torch, fn) -> list[str]:
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         if names:
             break
+        empty += 1
         print(f"  device_kernels: profiler session {attempt} of "
-              f"{TRACE_TRIES} traced no device activity")
+              f"{TRACE_TRIES} ({label}) traced no device activity")
+    TRACE_LOG.append((label, attempt, empty))
     return names
+
+
+def trace_summary() -> str:
+    """The one line on the profiler sessions ``device_kernels`` opened:
+    how many met no device activity, and which call each came from."""
+    met = [(label, n) for label, _, n in TRACE_LOG if n]
+    return (f"device_kernels: {len(TRACE_LOG)} calls, "
+            f"{sum(s for _, s, _ in TRACE_LOG)} profiler sessions, "
+            f"{sum(n for _, n in met)} of them with no device activity"
+            + (f": {met}" if met else ""))
 
 
 def check_server_mix_scatter(torch, sp, ref, record):
@@ -646,7 +681,8 @@ def check_server_mix_scatter(torch, sp, ref, record):
               "plain version")
         del got, want, mag
         names = device_kernels(torch,
-                               lambda: sp.server_mix_scatter_flat(*args))
+                               lambda: sp.server_mix_scatter_flat(*args),
+                               f"server_mix_scatter {case}")
         check(len(names) == 1 and "server_mix_scatter" in names[0],
               f"server_mix_scatter {tag}: one call ran {len(names)} device "
               f"kernels {names}, expected exactly one")
@@ -1246,7 +1282,7 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
           "recurrence)")
     out = {}
     for name, fn in kernels.items():
-        launched = device_kernels(torch, fn)
+        launched = device_kernels(torch, fn, name)
         passes = sorted(m.group(0) for n in launched
                         if (m := re.search(r"\w+_kernel", n)))
         check(len(launched) == 2 and passes == [f"{name}_scan_kernel",
@@ -1315,6 +1351,23 @@ MAIN_RUNS = [
                           "--rounds", "30"], "server_mix"),
     ("fedavg bandwidth+q8", ["--algorithm", "fedavg", *BANDWIDTH, *Q8,
                              "--rounds", "30"], "server_mix_delta"),
+]
+
+
+PARTITIONED = ["--client-plane", "partitioned"]
+
+#: slice 11: the partitioned client plane on the quickstart config, each
+#: run the argv of the masked MAIN_RUNS run of its name plus the plane
+PARTITIONED_RUNS = [
+    ("ama_fes partitioned", ["--algorithm", "ama_fes", *PARTITIONED,
+                             "--rounds", "60"], "server_mix"),
+    ("fedprox partitioned", ["--algorithm", "fedprox", *PARTITIONED,
+                             "--rounds", "60"], "server_mix"),
+    ("async_ama partitioned", ["--algorithm", "async_ama", *MODERATE_30,
+                               *PARTITIONED, "--rounds", "30"],
+     "server_async"),
+    ("fedopt partitioned", ["--algorithm", "fedopt", *PARTITIONED,
+                            "--rounds", "60"], "server_adam"),
 ]
 
 
@@ -1393,6 +1446,14 @@ def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
             delayed = sim.env.batch(0, rounds)["delayed"]
             on_time = float(1.0 - delayed.mean())
             extra = f"; on-time share {on_time:.4f} of {delayed.size} uploads"
+        split = sim.runner.limited_split
+        if split is not None:
+            n_lim = int(sim.env.batch(0, rounds)["limited"].sum())
+            extra += (f"; limited cohort-rounds: {split['limited_program']} "
+                      f"on the limited program, {split['overflow']} "
+                      "overflowed to the masked one")
+            check(sum(split.values()) == n_lim, f"{label}: limited split "
+                  f"{split} does not cover the {n_lim} limited cohort-rounds")
         print(f"main path {label}: {rounds} rounds in {dt:.3f} s = "
               f"{rounds / dt:.2f} rounds/s (staging, training, server "
               f"kernel and evaluation every 5 rounds); final_accuracy="
@@ -1428,8 +1489,79 @@ def main_path(torch, train, sp, ref, tree_mod, runs, main_record):
         main_record.append(dict(run=label, rounds=rounds, seconds=dt,
                                 rounds_per_s=rounds / dt,
                                 final_accuracy=acc, on_time=on_time,
-                                stability_variance=hist.stability_variance()))
+                                stability_variance=hist.stability_variance(),
+                                limited_split=split))
     return totals
+
+
+def planes_side_by_side(main_record):
+    """Each partitioned CNN run beside the masked run of the same
+    algorithm and argv, from this process's main-path records."""
+    by = {r["run"]: r for r in main_record}
+    for label, _, _ in PARTITIONED_RUNS:
+        p, m = by[label], by[label.replace(" partitioned", "")]
+        print(f"client planes, CNN {m['run']}: masked {m['rounds_per_s']:.2f}"
+              f" rounds/s (final_accuracy {m['final_accuracy']:.4f}), "
+              f"partitioned {p['rounds_per_s']:.2f} rounds/s "
+              f"(final_accuracy {p['final_accuracy']:.4f}; limited "
+              f"cohort-rounds {p['limited_split']})")
+
+
+def fes_static_cnn(torch, train, sp, tree_mod, main_record):
+    """ama_fes under ``FLConfig(fes_static=True)`` through the launcher's
+    ``paper_scale``: every cohort differentiates only the classifier.
+    The server_mix kernel launched once a round and no plain version on
+    the card; the classifier leaves moved; the body leaves (conv*) were
+    not trained: each within rounds x (K + 2) f32 ulp of its start, the
+    rounding the mix a_eff * p + sum_k c_k * p of identical bodies may
+    add a round (K products and adds; bitwise equality is reported)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import build_model
+    rounds = 30
+    args = train.parser().parse_args([*QUICKSTART, "--algorithm", "ama_fes",
+                                      "--rounds", str(rounds)])
+    fl = train.fl_config(args).with_(fes_static=True)
+    dev = torch.device("cuda")
+    p0 = dict(tree_mod.flatten(build_model(get_arch(args.arch)).init(
+        torch.Generator().manual_seed(fl.seed), dev)))
+    sp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim, hist = train.paper_scale(args, fl, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in sp.KERNELS.items() if fn.launches}
+    check(counts == {"server_mix": rounds}, f"fes_static: launches {counts}, "
+          f"expected server_mix {rounds}")
+    check(sum(sp.plain_runs_on_cuda.values()) == 0,
+          f"fes_static: the plain server version ran on the card: "
+          f"{sp.plain_runs_on_cuda}")
+    K, worst, exact = fl.clients_per_round, 0.0, True
+    for path, x in tree_mod.flatten(sim.params):
+        x0 = p0[path]
+        check(x.is_cuda and bool(torch.isfinite(x).all()),
+              f"fes_static: {path} non-finite or off the card")
+        if path.startswith("body/"):
+            drift = float(((x - x0).abs() / ulp(torch, x0,
+                                                 torch.float32)).max())
+            worst, exact = max(worst, drift), exact and torch.equal(x, x0)
+            check(drift <= rounds * (K + 2), f"fes_static: body leaf {path} "
+                  f"moved {drift:.0f} ulp in {rounds} rounds")
+        else:
+            check(not torch.equal(x, x0), f"fes_static: classifier leaf "
+                  f"{path} did not move")
+    acc = hist.final_accuracy()
+    body = ("bitwise unchanged" if exact
+            else f"within {worst:.0f} ulp of their start")
+    print(f"main path ama_fes fes_static: {rounds} rounds in {dt:.3f} s = "
+          f"{rounds / dt:.2f} rounds/s; final_accuracy={acc:.4f}; launches "
+          f"{counts}; body leaves {body} (bound {rounds * (K + 2)} ulp), "
+          "classifier moved")
+    main_record.append(dict(run="ama_fes fes_static", rounds=rounds,
+                            seconds=dt, rounds_per_s=rounds / dt,
+                            final_accuracy=acc, body_max_ulp=worst,
+                            body_bitwise=exact))
+    return counts
 
 
 def fused_vs_plain(torch, train, tree_mod):
@@ -1458,6 +1590,55 @@ def fused_vs_plain(torch, train, tree_mod):
         print(f"fused vs plain server plane, {label}, 10 rounds: max |diff| "
               f"{worst:.3e} (tolerance rtol 1e-5, atol 1e-6)"
               f"{', bitwise equal' if exact else ''}")
+
+
+def client_planes_per_cohort(torch, tree_mod):
+    """One round's local training of the paper CNN on the card, 5 cohorts
+    (2 limited) x 3 steps x 8 images from a seed, for each of ama_fes,
+    fedprox and fedopt: the partitioned plane against the masked plane
+    per cohort within rtol 1e-6, atol 1e-7 (the CPU tests' gate for
+    limited cohorts); whether the unlimited cohorts, which run the masked
+    program over 3 cohorts instead of 5, come out bitwise is reported."""
+    import numpy as np
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.client import (make_local_train,
+                                         make_partitioned_local_train)
+    from repro_torch.core.round import as_scan_scheds
+    from repro_torch.data.pipeline import partition_plan
+    from repro_torch.models.api import build_model
+    dev = torch.device("cuda")
+    model = build_model(get_arch("paper-cnn"))
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.as_tensor(rng.randn(5, 3, 8, 28, 28, 1).astype(
+                 np.float32), device=dev),
+             "label": torch.as_tensor(rng.randint(0, 10, (5, 3, 8)).astype(
+                 np.int32), device=dev)}
+    limited = np.array([[True, False, True, False, False]])
+    sb = {"limited": limited, "delayed": np.zeros((1, 5), bool),
+          "delays": np.ones((1, 5), np.int32),
+          "data_sizes": np.ones((1, 5), np.float32),
+          **partition_plan(limited)}
+    sched = {k: v[0] for k, v in as_scan_scheds(sb, dev).items()}
+    for algo in ("ama_fes", "fedprox", "fedopt"):
+        fl = FLConfig(algorithm=algo, lr=0.05, fedprox_rho=0.01)
+        m, ml = make_local_train(model, fl)(params, batch, sched["limited"])
+        p, pl = make_partitioned_local_train(model, fl)(params, batch, sched)
+        worst, exact = 0.0, True
+        for x, y in zip(tree_mod.leaves(m), tree_mod.leaves(p), strict=True):
+            worst = max(worst, float((x - y).abs().max()))
+            check(torch.allclose(x, y, rtol=1e-6, atol=1e-7),
+                  f"client planes {algo}: partitioned and masked cohorts "
+                  f"differ by {worst:.3e}")
+            exact = exact and all(torch.equal(x[c], y[c])
+                                  for c in (1, 3, 4))
+        check(torch.allclose(ml, pl, rtol=1e-6), f"client planes {algo}: "
+              f"losses {ml.tolist()} against {pl.tolist()}")
+        print(f"client planes on the card, CNN {algo}, one round of 5 "
+              f"cohorts (2 limited): partitioned vs masked max |diff| "
+              f"{worst:.3e} (tolerance rtol 1e-6, atol 1e-7); unlimited "
+              f"cohorts bitwise: {exact}")
 
 
 def legacy_kernel_vs_plain(torch, train, tree_mod):
@@ -1604,7 +1785,10 @@ def port_contract(torch, train, tree_mod):
     for label, extra in (("async_ama", ["--algorithm", "async_ama",
                                         *MODERATE_30]),
                          ("fedopt", ["--algorithm", "fedopt"]),
-                         ("ama_fes+q8", Q8)):
+                         ("ama_fes+q8", Q8),
+                         ("async_ama partitioned",
+                          ["--algorithm", "async_ama", *MODERATE_30,
+                           *PARTITIONED])):
         argv = ["--algorithm", "ama_fes", *QUICKSTART, *extra,
                 "--rounds", "10"]
         a, ha, _ = run_train(torch, train, argv)
@@ -1646,12 +1830,76 @@ LLMS = {
 }
 
 
-def expected_launches(arch, cfg, km, calls):
-    """{kernel: launches} of the arch's kernels over ``calls`` block
-    applications (rounds x local steps x layers): the forward kernels
-    twice under remat."""
-    return {name: calls * (2 if cfg.remat and name in LLMS[arch]["fwd"]
-                           else 1) for name in km.KERNELS}
+def plan_launches(arch, cfg, km, chunks, partitioned: bool):
+    """{kernel: launches} of the arch's kernels over a pod run's
+    dispatches, ``chunks`` each dispatch's (rounds, C) limited flags.
+    Every round of a dispatch runs the masked program over U = C - L
+    cohorts when U > 0 (each block's forward kernels once a layer a
+    step, twice under remat, and its backward kernels once) and, under
+    the partitioned plane with L > 0, the classifier program over L
+    cohorts (a body block's forward kernels once and no backward; a tail
+    block as in the masked program); L is the dispatch's least limited
+    count (0 on the masked plane); one vmapped call covers a program's
+    cohorts."""
+    tail = min(cfg.fes_tail_layers, cfg.num_layers)
+    body = cfg.num_layers - tail
+    per = 2 if cfg.remat else 1
+    out = dict.fromkeys(km.KERNELS, 0)
+    for lim in chunks:
+        n, C = lim.shape
+        L = int(lim.sum(axis=1).min()) if partitioned else 0
+        for name in out:
+            fwd = name in LLMS[arch]["fwd"]
+            full = cfg.num_layers * (per if fwd else 1)
+            limited = tail * (per if fwd else 1) + (body if fwd else 0)
+            out[name] += n * POD_STEPS * ((full if C - L else 0)
+                                          + (limited if L else 0))
+    return out
+
+
+def pod_chunks(train, argv):
+    """Each dispatch's (rounds, C) limited flags of ``pod_scale`` run
+    with ``argv`` from round 0: the launcher's own environment, one
+    chunk of every round, or one a round under --no-scan."""
+    from repro_torch import env as env_mod
+    args = train.parser().parse_args(argv)
+    fl = train.fl_config(args)
+    C = fl.cohorts
+    env = env_mod.resolve(fl.with_(num_clients=C, clients_per_round=C))
+    if args.no_scan:
+        return [env.batch(r, 1)["limited"] for r in range(args.rounds)]
+    return [env.batch(0, args.rounds)["limited"]]
+
+
+def limited_split_of(chunks) -> dict:
+    """The ChunkRunner's ``limited_split`` under the partitioned plane
+    for these dispatches."""
+    on = sum(lim.shape[0] * int(lim.sum(axis=1).min()) for lim in chunks)
+    return {"limited_program": on,
+            "overflow": sum(int(lim.sum()) for lim in chunks) - on}
+
+
+class KeepRunner:
+    """Keeps each ``ChunkRunner`` that ``launch.train`` makes while
+    installed: its phase times (the steady rounds' seconds) and its
+    ``limited_split``."""
+
+    def __init__(self, train):
+        self.train, self.runners = train, []
+
+    def __enter__(self):
+        self.real = real = self.train.ChunkRunner
+        runners = self.runners
+
+        class Kept(real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                runners.append(self)
+        self.train.ChunkRunner = Kept
+        return self
+
+    def __exit__(self, *exc):
+        self.train.ChunkRunner = self.real
 
 
 def pod_argv(arch):
@@ -1768,8 +2016,7 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
               f"ln({cfg.vocab_size})")
         check(float(loss[-1]) < float(loss[0]),
               f"{arch} {algo}: the loss did not fall: {loss}")
-        want = expected_launches(arch, cfg, km,
-                                 POD_ROUNDS * POD_STEPS * cfg.num_layers)
+        want = plan_launches(arch, cfg, km, pod_chunks(train, argv), False)
         for name, n in want.items():
             check(counts[name] == n,
                   f"{arch} {algo}: {name} launched {counts[name]} times, "
@@ -1854,6 +2101,124 @@ def remat_off_vs_on(torch, train, arch, tree_mod, params_on, loss_on,
     torch.cuda.empty_cache()
 
 
+#: slice 11: the pod runs of the client planes (label, plane, p_limited),
+#: ama_fes, --no-scan (each round its own dispatch, so the partitioned
+#: plane takes each round's exact split): a mixed round, then all
+#: cohorts limited on the masked and on the partitioned plane
+POD_PLANE_RUNS = [("partitioned p_limited 0.5", "partitioned", 0.5),
+                  ("masked p_limited 1.0", "masked", 1.0),
+                  ("partitioned p_limited 1.0", "partitioned", 1.0)]
+
+
+def pod_client_planes(torch, train, arch, km, kmods, ref, tree_mod,
+                      main_record, runs=POD_PLANE_RUNS):
+    """The client planes on an LLM main path: ``arch`` at full width,
+    remat on, ama_fes, POD_ROUNDS rounds of each of ``runs`` through
+    ``launch.train.pod_scale`` with --no-scan. Each run's counts are set
+    to 0 just before it and read just after: the arch's kernels launched
+    exactly as ``plan_launches`` derives from the staged schedule (on the
+    tensor-core design for flash), server_mix once a round a dtype
+    group, no other kernel and no plain version on the card; the
+    runner's limited split as the schedule gives it; finite losses that
+    start near ln(vocab) and fall; peak memory under 75 GB. Prints
+    tokens/s over the whole run and over the rounds after the first (the
+    runner's "round_dispatch" seconds, each closed by a CUDA sync) and
+    the peak, then the all-limited pair side by side. Returns the counts
+    summed over the runs."""
+    spec = LLMS[arch]
+    cfg = llm_full_width(arch)
+    sp = kmods[0]
+    per_round = POD_C * POD_STEPS * POD_B * POD_S
+    totals, rows = {}, {}
+    for label, plane, p_lim in runs:
+        argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds",
+                str(POD_ROUNDS), "--no-scan", "--client-plane", plane,
+                "--p-limited", str(p_lim)]
+        chunks = pod_chunks(train, argv)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for m in kmods:
+            m.reset_counts()
+        designs = getattr(km, "design_launches", None)
+        before = designs() if designs else None
+        with CountPlain(ref, spec["plain"]) as plain_calls, \
+                KeepRunner(train) as kept:
+            state, metrics, dt = run_pod(torch, train, argv, cfg)
+        peak = torch.cuda.max_memory_allocated()
+        runner = kept.runners[-1]
+        steady = runner.timer.summary()["round_dispatch"]
+        counts = {k: fn.launches for m in kmods
+                  for k, fn in m.KERNELS.items()}
+        plain = dict(sp.plain_runs_on_cuda, **plain_calls.calls)
+        params = tree_mod.leaves(state["params"])
+        groups = len(tree_mod.dtype_groups(params))
+        loss = metrics["loss"]
+        want = plan_launches(arch, cfg, km, chunks, plane == "partitioned")
+        want["server_mix"] = POD_ROUNDS * groups
+        tok_s = POD_ROUNDS * per_round / dt
+        steady_tok_s = steady["calls"] * per_round / steady["seconds"]
+        n_lim = [int(x.sum()) for x in chunks]
+        print(f"LLM client planes {arch} {label}: full width, "
+              f"{cfg.num_layers} layers, remat on, --no-scan, limited "
+              f"cohorts a round {n_lim}; {POD_ROUNDS} rounds in {dt:.3f} s "
+              f"= {tok_s:,.0f} tokens/s (first-call set-up included), "
+              f"{steady_tok_s:,.0f} tokens/s over rounds 2-{POD_ROUNDS}; "
+              f"losses {[round(float(x), 4) for x in loss]}; peak device "
+              f"memory {peak / 1e9:.2f} GB; limited split "
+              f"{runner.limited_split}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; plain on the "
+              f"card {sum(plain.values())}")
+        got = {k: v for k, v in counts.items() if v}
+        check(got == {k: v for k, v in want.items() if v},
+              f"{arch} {label}: launches {got}, expected {want} from the "
+              f"staged schedule {n_lim}")
+        if designs:
+            after = designs()
+            moved = {k: {d: after[k][d] - before[k][d] for d in after[k]}
+                     for k in after}
+            check(all(moved[k] == {"cuda_cores": 0, "wgmma": want[k]}
+                      for k in moved),
+                  f"{arch} {label}: launches by design {moved}")
+        if plane == "partitioned":
+            check(runner.limited_split == limited_split_of(chunks),
+                  f"{arch} {label}: limited split {runner.limited_split}, "
+                  f"expected {limited_split_of(chunks)}")
+        check(all(v == 0 for v in plain.values()),
+              f"{arch} {label}: a plain version ran on the card: {plain}")
+        check(all(math.isfinite(float(x)) for x in loss)
+              and abs(float(loss[0]) - math.log(cfg.vocab_size)) < 1.0
+              and float(loss[-1]) < float(loss[0]),
+              f"{arch} {label}: losses {loss}")
+        check(all(x.is_cuda and bool(torch.isfinite(x).all())
+                  for x in params), f"{arch} {label}: non-finite or "
+              "off-card params")
+        check(peak < 75e9, f"{arch} {label}: peak device memory "
+              f"{peak / 1e9:.2f} GB beyond 75 GB")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        rows[label] = dict(run=f"llm {arch} ama_fes {label}",
+                           rounds=POD_ROUNDS, seconds=dt, tokens_per_s=tok_s,
+                           steady_tokens_per_s=steady_tok_s, peak_bytes=peak,
+                           losses=[float(x) for x in loss],
+                           limited_per_round=n_lim,
+                           limited_split=runner.limited_split,
+                           launches={k: v for k, v in counts.items() if v})
+        main_record.append(rows[label])
+        del state, params
+        torch.cuda.empty_cache()
+    m, p = rows.get("masked p_limited 1.0"), rows.get(
+        "partitioned p_limited 1.0")
+    if m and p:
+        print(f"client planes {arch}, every cohort limited: masked "
+              f"{m['steady_tokens_per_s']:,.0f} tokens/s, peak "
+              f"{m['peak_bytes'] / 1e9:.2f} GB; partitioned "
+              f"{p['steady_tokens_per_s']:,.0f} tokens/s, peak "
+              f"{p['peak_bytes'] / 1e9:.2f} GB (rounds 2-{POD_ROUNDS}; "
+              f"{p['steady_tokens_per_s'] / m['steady_tokens_per_s']:.3f}x "
+              "the tokens/s)")
+    return totals
+
+
 #: rwkv6_deep: the depth of its probe run and the peak memory its chosen
 #: depth is predicted to stay within (the limit is 75 GB; the rest of the
 #: 80 GB card is room for the caching allocator's unused blocks)
@@ -1917,7 +2282,7 @@ def rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_record):
           f"rwkv6-3b at {depth} layers: round 0 loss {loss}")
     check(all(x.is_cuda and bool(torch.isfinite(x).all()) for x in params),
           f"rwkv6-3b at {depth} layers: non-finite or off-card params")
-    want = expected_launches(arch, cfg, rs, POD_STEPS * depth)
+    want = plan_launches(arch, cfg, rs, pod_chunks(train, argv), False)
     want["server_mix"] = groups
     check({k: v for k, v in counts.items() if v} == want,
           f"rwkv6-3b at {depth} layers: launches {counts}, expected {want}")
@@ -1932,20 +2297,23 @@ def rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_record):
     return counts
 
 
-def llm_card_vs_cpu(torch, train, arch, km, tree_mod):
+def llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane="masked"):
     """The reduced LLM path in f32 (TF32 off), with the config's remat
-    on, the same params (drawn on the CPU from the seed) and tokens: on the card through the kernels,
-    on the CPU through the plain versions; params and losses within rtol
-    1e-4, atol 1e-5 after 2 rounds."""
-    argv = [*reduced_pod(arch), "--rounds", "2"]
+    on, the same params (drawn on the CPU from the seed) and tokens: on
+    the card through the kernels, on the CPU through the plain versions;
+    params and losses within rtol 1e-4, atol 1e-5 after 2 rounds (one
+    chunk) on the client ``plane``, the kernels' launches as
+    ``plan_launches`` derives them from the staged schedule."""
+    argv = [*reduced_pod(arch), "--rounds", "2", "--client-plane", plane]
     km.reset_counts()
     cfg = llm_reduced(arch)
     a, ma, _ = run_pod(torch, train, argv, cfg, "cuda")
-    want = expected_launches(arch, cfg, km, 2 * POD_STEPS * cfg.num_layers)
+    want = plan_launches(arch, cfg, km, pod_chunks(train, argv),
+                         plane == "partitioned")
     for name, fn in km.KERNELS.items():
         check(fn.launches == want[name],
-              f"reduced {arch} on the card: {name} launched {fn.launches} "
-              f"times, expected {want[name]}")
+              f"reduced {arch} {plane} on the card: {name} launched "
+              f"{fn.launches} times, expected {want[name]}")
     b, mb, _ = run_pod(torch, train, argv, cfg, "cpu")
     worst = 0.0
     for x, y in zip(tree_mod.leaves(a["params"]), tree_mod.leaves(b["params"]),
@@ -1957,10 +2325,50 @@ def llm_card_vs_cpu(torch, train, arch, km, tree_mod):
               for p, q in zip(ma["loss"], mb["loss"])),
           f"reduced {arch}: losses {ma['loss']} (card) vs {mb['loss']} "
           "(CPU)")
-    print(f"reduced {arch} f32, 2 rounds: card ({LLMS[arch]['trace']}* + "
+    print(f"reduced {arch} f32, {plane} client plane, 2 rounds: card "
+          f"({LLMS[arch]['trace']}* launches {want} + "
           f"server kernels) vs CPU (plain versions) max |diff| {worst:.3e} "
           f"(tolerance rtol 1e-4, atol 1e-5); losses {list(ma['loss'])} vs "
           f"{list(mb['loss'])}")
+
+
+def llm_partitioned_contract(torch, train, arch, tree_mod):
+    """chunked == per-round, bitwise, on the reduced LLM path on the
+    card under the partitioned client plane: ama_fes, 3 rounds at
+    p_limited 0.5 through one ``ChunkRunner`` chunk and through its
+    per-round fallback, which replays the chunk's dispatch round by
+    round (the launcher's --no-scan stages every round on its own, an
+    exact split that is another program, so it is not the comparison).
+    """
+    from repro_torch import env as env_mod
+    from repro_torch.core import strategies
+    from repro_torch.core.round import init_state
+    from repro_torch.models.api import build_model
+    argv = [*reduced_pod(arch), "--rounds", "3", *PARTITIONED]
+    args = train.parser().parse_args(argv)
+    cfg = llm_reduced(arch)
+    fl = train.fl_config(args).with_(clients_per_round=POD_C)
+    model = build_model(cfg)
+    sb = env_mod.resolve(fl.with_(num_clients=POD_C)).batch(0, 3)
+    batch = train._pod_batch(cfg, fl, args)
+    dev, out = torch.device("cuda"), []
+    for use_scan in (True, False):
+        state = init_state(model, fl, torch.Generator().manual_seed(fl.seed),
+                           dev, strategies.resolve(fl))
+        runner = train.ChunkRunner(model, fl, per_round_batch=False,
+                                   use_scan=use_scan, device=dev)
+        out.append((*runner.run_chunk(state, batch, dict(sb)),
+                    runner.limited_split))
+    (a, ma, split), (b, mb, _) = out
+    check(all(torch.equal(x, y) for x, y in zip(
+        tree_mod.leaves(a), tree_mod.leaves(b), strict=True)),
+          f"reduced {arch} partitioned: chunked and per-round runs differ")
+    check(list(ma["loss"]) == list(mb["loss"]),
+          f"reduced {arch} partitioned: chunked and per-round losses differ")
+    print(f"port contract: 3 rounds of the reduced {arch} path (ama_fes, "
+          f"partitioned client plane, limited a round "
+          f"{sb['limited'].sum(axis=1).tolist()}, split {split}) chunked == "
+          "per round, bitwise, params and losses")
 
 
 def llm_contract(torch, train, arch, tree_mod):
@@ -1978,14 +2386,15 @@ def llm_contract(torch, train, arch, tree_mod):
           "chunked == per round (--no-scan), bitwise, params and losses")
 
 
-def llm_where_time_goes(torch, train, arch, tmp):
-    """2 full-width rounds of ``arch`` (the config's remat on) under the
-    launcher's --profile: device time by kernel from the Chrome trace,
-    the arch's kernels' share of it, each kernel's passes, and the
-    device's idle share of the training wall time."""
-    trace_dir = str(Path(tmp) / f"profile_{arch}")
+def llm_where_time_goes(torch, train, arch, tmp, extra=()):
+    """2 full-width rounds of ``arch`` (the config's remat on; ``extra``
+    launcher arguments) under the launcher's --profile: device time by
+    kernel from the Chrome trace, the arch's kernels' share of it, each
+    kernel's passes, and the device's idle share of the training wall
+    time."""
+    trace_dir = str(Path(tmp) / f"profile_{arch}{len(extra)}")
     argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds", "2",
-            "--profile", trace_dir]
+            "--profile", trace_dir, *extra]
     _, _, dt = run_pod(torch, train, argv, llm_full_width(arch))
     with open(Path(trace_dir) / "trace.json") as f:
         events = json.load(f)["traceEvents"]
@@ -1998,7 +2407,8 @@ def llm_where_time_goes(torch, train, arch, tmp):
     check(busy > 0, f"{arch} profile: the trace holds no device time")
     tag = LLMS[arch]["trace"]
     own = sum(us for k, (_, us) in by_name.items() if tag in k) / 1e3
-    print(f"where the time goes, {arch} full width, 2 rounds: "
+    print(f"where the time goes, {arch} full width, 2 rounds"
+          f"{' ' + ' '.join(extra) if extra else ''}: "
           f"{dt * 1e3:.1f} ms training wall under the profiler, device busy "
           f"{busy:.1f} ms = {busy / (dt * 1e3):.1%} (idle "
           f"{1 - busy / (dt * 1e3):.1%}); {tag}* kernels {own:.1f} ms = "
@@ -2132,27 +2542,40 @@ def main() -> None:
                          main_rec)
     legacy = main_path(torch, train, sp, ref, tree_mod, LEGACY_RUNS,
                        main_rec)
+    part = main_path(torch, train, sp, ref, tree_mod, PARTITIONED_RUNS,
+                     main_rec)
+    planes_side_by_side(main_rec)
+    static = fes_static_cnn(torch, train, sp, tree_mod, main_rec)
     llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
                            tree_mod, main_rec)
+    llm_planes = pod_client_planes(torch, train, "minitron-8b", fa, kmods,
+                                   ref, tree_mod, main_rec)
     rwkv, peak_at_8 = pod_main_path(torch, train, "rwkv6-3b", rs, kmods, ref,
                                     tree_mod, main_rec)
+    rwkv_planes = pod_client_planes(torch, train, "rwkv6-3b", rs, kmods, ref,
+                                    tree_mod, main_rec)
     deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_rec)
-    launches = {k: sum(run.get(k, 0) for run in (launches, legacy, llm, rwkv,
-                                                 deep))
-                for k in recs}
+    launches = {k: sum(run.get(k, 0) for run in (
+        launches, legacy, part, static, llm, llm_planes, rwkv, rwkv_planes,
+        deep)) for k in recs}
     fused_vs_plain(torch, train, tree_mod)
     legacy_kernel_vs_plain(torch, train, tree_mod)
-    llm_card_vs_cpu(torch, train, "minitron-8b", fa, tree_mod)
-    llm_card_vs_cpu(torch, train, "rwkv6-3b", rs, tree_mod)
+    client_planes_per_cohort(torch, tree_mod)
+    for arch, km in (("minitron-8b", fa), ("rwkv6-3b", rs)):
+        for plane in ("masked", "partitioned"):
+            llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane)
     port_contract(torch, train, tree_mod)
     llm_contract(torch, train, "minitron-8b", tree_mod)
     llm_contract(torch, train, "rwkv6-3b", tree_mod)
+    llm_partitioned_contract(torch, train, "minitron-8b", tree_mod)
     with tempfile.TemporaryDirectory() as tmp:
         restart_contract(torch, train, tree_mod, tmp)
         prefetch_and_metrics(torch, train, tree_mod, tmp)
         where_time_goes(torch, train)
         llm_where_time_goes(torch, train, "minitron-8b", tmp)
         llm_where_time_goes(torch, train, "rwkv6-3b", tmp)
+        llm_where_time_goes(torch, train, "minitron-8b", tmp,
+                            (*PARTITIONED, "--p-limited", "1.0"))
 
     f32 = "torch.float32"
     main_shape = {  # the row of each kernel at the main path's shape
@@ -2231,6 +2654,7 @@ def main() -> None:
             print(f"{name}: bitwise equal to the plain version in "
                   f"{sum(r['exact'] for r in rec)} of {len(rec)} cases"
                   + (f", by kernel {by}" if any(by.values()) else ""))
+    print(trace_summary())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s on the card, "
           "build included")
     print(json.dumps({"kernels": kernels}))

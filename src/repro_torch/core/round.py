@@ -1,9 +1,14 @@
 """The federated round and the multi-round train loop.
 
 ``make_round_step`` is the paper's Algorithm 1 as one function: the C
-selected clients train in parallel (the masked client plane), then ONE
-fused server-plane kernel launch per dtype group
-(``strategy.fused_server_update``) makes the new global model.
+selected clients train in parallel, then ONE fused server-plane kernel
+launch per dtype group (``strategy.fused_server_update``) makes the new
+global model. The client plane is the masked one (``fl.client_plane ==
+"masked"``: one program, limited cohorts' body gradients zeroed), the
+partitioned one ("partitioned": limited cohorts gathered into a
+classifier-only or shorter program by the ``PARTITION_KEYS`` arrays of
+the schedule, the paper's Eq. 3 computation reduction) or, with
+``fl.fes_static``, the classifier-only program for every cohort.
 ``make_train_loop`` runs a chunk of rounds as a Python loop over the
 stacked per-round schedules and batches, or one batch fed to every
 round (the JAX package's ``lax.scan``). Nothing inside a round reads a
@@ -34,38 +39,42 @@ import torch
 from repro_torch import comm
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
-from repro_torch.core.client import make_local_train
+from repro_torch.core.client import (make_fes_local_train, make_local_train,
+                                     make_partitioned_local_train)
 from repro_torch.obs.metrics import payload_bytes, round_metrics
 
 CLIENT_REDUCE = ("auto", "off", "force")
 
+#: the partitioned client plane's dispatch arrays
+#: (``data.pipeline.partition_plan``), carried by the schedule dict when
+#: ``fl.client_plane == "partitioned"``
+PARTITION_KEYS = ("part_full_idx", "part_lim_idx", "part_src_row",
+                  "part_from_lim")
+
 
 def check_supported(fl: FLConfig) -> None:
-    """Refuse config values whose code paths the port does not have yet
-    (they wait for later slices), rather than ignoring them."""
+    """Refuse config values the port has no code path for, rather than
+    ignoring them."""
     if fl.client_reduce not in CLIENT_REDUCE:
         raise ValueError(f"unknown client_reduce {fl.client_reduce!r}; "
                          f"expected one of {CLIENT_REDUCE}")
-    unsupported = {"client_plane": (fl.client_plane, ("masked",)),
-                   "fes_static": (fl.fes_static, (False,))}
-    for field, (value, ok) in unsupported.items():
-        if value not in ok:
-            raise NotImplementedError(
-                f"FLConfig.{field}={value!r} is not ported yet "
-                f"(the port takes {ok})")
 
 
 def as_scan_scheds(sb: dict, device) -> dict:
     """Device tensors of the schedule leaves the round consumes, from a
     stacked ``Environment.batch`` dict (``selected`` stays on the host:
-    it addresses client datasets, not cohort slots)."""
-    return {"limited": torch.as_tensor(sb["limited"], device=device),
-            "delayed": torch.as_tensor(sb["delayed"], device=device),
-            "delays": torch.as_tensor(sb["delays"], dtype=torch.int32,
-                                      device=device),
-            "data_sizes": torch.as_tensor(sb["data_sizes"],
-                                          dtype=torch.float32,
-                                          device=device)}
+    it addresses client datasets, not cohort slots). The partition-plan
+    arrays, when staged, pass through."""
+    out = {"limited": torch.as_tensor(sb["limited"], device=device),
+           "delayed": torch.as_tensor(sb["delayed"], device=device),
+           "delays": torch.as_tensor(sb["delays"], dtype=torch.int32,
+                                     device=device),
+           "data_sizes": torch.as_tensor(sb["data_sizes"],
+                                         dtype=torch.float32, device=device)}
+    for k in PARTITION_KEYS:
+        if k in sb:
+            out[k] = torch.as_tensor(sb[k], device=device)
+    return out
 
 
 def init_state(model, fl: FLConfig, gen: torch.Generator, device,
@@ -91,11 +100,31 @@ def make_round_step(model, fl: FLConfig, strategy=None):
     """Returns round_step(state, batch, sched) -> (state, metrics).
 
     batch: {field: (C, steps, b, ...)}; sched: {"limited", "delayed",
-    "delays", "data_sizes"}, each (C,).
+    "delays", "data_sizes"}, each (C,); under the partitioned client
+    plane also the ``PARTITION_KEYS`` arrays (``ChunkRunner`` merges
+    them in when it stages a chunk).
     """
     check_supported(fl)
     strategy = strategy or strategies.resolve(fl)
-    local_train = make_local_train(model, fl, strategy)
+    if fl.fes_static:
+        plane = make_fes_local_train(model, fl)
+        local_train = lambda g, b, sched: plane(g, b, sched["limited"])
+    elif fl.client_plane == "partitioned":
+        plane = make_partitioned_local_train(model, fl, strategy)
+
+        def local_train(g, b, sched):
+            if "part_src_row" not in sched:
+                raise KeyError(
+                    "client_plane='partitioned' needs the partition-plan "
+                    "arrays in sched: stage through ChunkRunner or merge "
+                    "data.pipeline.partition_plan(limited) yourself")
+            return plane(g, b, sched)
+    elif fl.client_plane == "masked":
+        plane = make_local_train(model, fl, strategy)
+        local_train = lambda g, b, sched: plane(g, b, sched["limited"])
+    else:
+        raise ValueError(f"unknown client_plane {fl.client_plane!r}; "
+                         "expected 'masked' or 'partitioned'")
     comm_plane = comm.resolve(fl)
 
     extended = fl.extended_metrics
@@ -103,8 +132,7 @@ def make_round_step(model, fl: FLConfig, strategy=None):
 
     def round_step(state, batch, sched):
         t, prev_global = state["t"], state["params"]
-        client_params, losses = local_train(prev_global, batch,
-                                            sched["limited"])
+        client_params, losses = local_train(prev_global, batch, sched)
         srv_aux, new_res, out = state["aux"], None, NotImplemented
         groups = None
         if comm_plane is not None:

@@ -2,7 +2,8 @@
 
 Client side this is the paper's AMA-FES pairing: when FES is enabled the
 gradient of computing-limited devices is masked to the classifier split
-(Eq. 2) via ``masked_update``.
+(Eq. 2) via ``masked_update`` on the masked client plane, and only the
+classifier is differentiated on the partitioned one (Eq. 3).
 """
 from __future__ import annotations
 
@@ -26,6 +27,13 @@ class AMAStrategy(ServerStrategy):
         if self.fl.fes_enabled:
             return masked_update(grads, fes_mask, limited)
         return grads
+
+    @property
+    def limited_mode(self) -> str:
+        """Partitioned plane: limited cohorts differentiate only the
+        classifier when FES is on, the executed counterpart of the
+        masked plane's zeroed body gradients."""
+        return "classifier" if self.fl.fes_enabled else "full"
 
     def mix_coefficient(self, t, sched, aux_state):
         """Eq. 5: alpha_t = min(alpha0 + eta * t, cap), the schedule the

@@ -9,6 +9,9 @@ The paper's contribution is the server aggregation rule; everything else
     round loop as a tree;
   * ``local_grad_transform`` / ``local_steps`` — client-side hooks (the
     FES gradient mask, FedProx's proximal pull and partial work);
+  * ``limited_mode`` / ``static_local_steps`` — how a computing-limited
+    cohort runs under the partitioned client plane (classifier-only
+    differentiation, or a shorter step loop);
   * ``aggregate(t, prev_global, client_params, sched, aux)`` — the
     legacy per-leaf server chain (``core/ama.py``, ``core/async_ama.py``),
     whose mix runs on the ``ama_mix`` kernel when ``fl.use_kernel``;
@@ -133,6 +136,24 @@ class ServerStrategy:
         """(C,) int32 active local steps per client."""
         return torch.full(limited.shape, n_steps, dtype=torch.int32,
                           device=limited.device)
+
+    # -------------------------------------- partitioned client plane ----
+    @property
+    def limited_mode(self) -> str:
+        """How a computing-limited cohort runs under the partitioned
+        client plane (``fl.client_plane == "partitioned"``): "full" takes
+        the gradients an unlimited cohort takes (this default: no FES
+        mask, so the masked plane trains limited cohorts fully too);
+        "classifier" differentiates the classifier only, so the body's
+        backward is never built (AMA-FES, paper Eq. 3)."""
+        return "full"
+
+    def static_local_steps(self, n_steps: int) -> int:
+        """Python-int local-step budget of a limited cohort: the length
+        of the partitioned plane's limited step loop. Must agree with
+        ``local_steps(n_steps, limited=True)`` for the two planes to
+        train the same model."""
+        return n_steps
 
 
 def reduced_mix_update(prev_global, client_params, sched, keep, alpha):

@@ -31,9 +31,15 @@ class FedProxStrategy(ServerStrategy):
 
     def local_steps(self, n_steps: int, limited):
         """Partial work: limited clients update for only
-        ``max(1, int(fedprox_partial * n_steps))`` of the steps."""
-        n_partial = max(1, int(self.fl.fedprox_partial * n_steps))
+        ``static_local_steps(n_steps)`` of the steps."""
+        n_partial = self.static_local_steps(n_steps)
         return torch.where(limited, n_partial, n_steps).to(torch.int32)
+
+    def static_local_steps(self, n_steps: int) -> int:
+        """``max(1, int(fedprox_partial * n_steps))``: the partitioned
+        plane's limited cohorts run only this many steps, where the
+        masked plane runs them all and freezes the params after."""
+        return max(1, int(self.fl.fedprox_partial * n_steps))
 
     def aggregate(self, t, prev_global, client_params, sched, aux_state):
         del t

@@ -1,5 +1,5 @@
-"""Client data pipeline: per-round sampling, the vectorized chunk stager
-and the chunk prefetcher.
+"""Client data pipeline: per-round sampling, the vectorized chunk stager,
+the partitioned client plane's dispatch plan and the chunk prefetcher.
 
 The port's copy of the host half of ``repro.data.pipeline`` (numpy). The
 engine consumes data in CHUNKS of rounds: one fancy-gather produces the
@@ -84,6 +84,52 @@ def stage_chunk(data: dict, clients, selected: np.ndarray, seed: int,
                                         steps, batch_size)
                     for i in range(selected.shape[0])])
     return {k: v[idx] for k, v in data.items()}
+
+
+def partition_plan(limited: np.ndarray) -> dict:
+    """Host-side dispatch plan of the PARTITIONED client plane.
+
+    ``limited``: (n_rounds, C) bool, the chunk's stacked FES flags from
+    ``Environment.batch``. Each round's cohorts are grouped by
+    limited-ness into two programs whose widths are the same for every
+    round of the chunk:
+
+      * the limited (classifier-only / truncated) program takes
+        ``L = min`` over the chunk's rounds of the limited count;
+      * the full (masked) program takes the other ``U = C - L`` slots:
+        the unlimited cohorts and any round's OVERFLOW limited cohorts,
+        which stay correct there (masked, just not reduced).
+
+    A 1-round chunk (the pod path's ``--no-scan`` loop) gets the exact
+    per-round split. The arrays (consumed by
+    ``core.client.make_partitioned_local_train`` through the schedule
+    dict), bitwise the JAX package's:
+
+      part_full_idx (n, U) — cohort slot feeding full-program row u
+      part_lim_idx  (n, L) — cohort slot feeding limited-program row l
+      part_src_row  (n, C) — slot c's row in its program's output
+      part_from_lim (n, C) — True where that program is the limited one
+    """
+    limited = np.asarray(limited, bool)
+    if limited.ndim != 2:
+        raise ValueError(f"limited must be (n_rounds, C), got "
+                         f"{limited.shape}")
+    n, C = limited.shape
+    L = int(limited.sum(axis=1).min())
+    U = C - L
+    full_idx = np.zeros((n, U), np.int32)
+    lim_idx = np.zeros((n, L), np.int32)
+    src_row = np.zeros((n, C), np.int32)
+    from_lim = np.zeros((n, C), bool)
+    for i in range(n):
+        lim = np.flatnonzero(limited[i])[:L].astype(np.int32)
+        full = np.setdiff1d(np.arange(C, dtype=np.int32), lim)
+        lim_idx[i], full_idx[i] = lim, full
+        from_lim[i, lim] = True
+        src_row[i, lim] = np.arange(L, dtype=np.int32)
+        src_row[i, full] = np.arange(U, dtype=np.int32)
+    return {"part_full_idx": full_idx, "part_lim_idx": lim_idx,
+            "part_src_row": src_row, "part_from_lim": from_lim}
 
 
 class ChunkPrefetcher:

@@ -7,7 +7,9 @@
     ``use_scan=False`` replays the identical rounds one at a time (the
     ``--no-scan`` configuration), bit-identical to the chunked run.
     ``per_round_batch=False`` feeds one batch to every round (the pod
-    path).
+    path). Under the partitioned client plane it stages the chunk's
+    ``data.pipeline.partition_plan`` into the schedule first, so the
+    chunked loop and the per-round fallback replay the same dispatch.
   * ``SimulationEngine`` adds the data plane (``data.pipeline
     .stage_chunk``: one gather per chunk of rounds, the next chunk staged
     on a host thread by ``ChunkPrefetcher`` while the card runs the
@@ -33,7 +35,8 @@ from repro_torch.checkpoint.io import restore_state, save_state
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
 from repro_torch.core.round import as_scan_scheds, init_state, make_train_loop
-from repro_torch.data.pipeline import ChunkPrefetcher, stage_chunk
+from repro_torch.data.pipeline import (ChunkPrefetcher, partition_plan,
+                                      stage_chunk)
 from repro_torch.exec.evals import Evaluator
 from repro_torch.obs.metrics import payload_bytes, stability_stats
 from repro_torch.obs.timing import PhaseTimes, annotate
@@ -74,7 +77,12 @@ class ChunkRunner:
     ``timer``: the first dispatch of a chunk length under "compile" (in
     the port: the kernel library's build and load, cuDNN's set-up and
     the first execution), later ones under "scan_dispatch" (a chunk) or
-    "round_dispatch" (one round)."""
+    "round_dispatch" (one round).
+
+    ``limited_split`` (None off the partitioned plane) counts, over the
+    chunks run, the limited cohort-rounds that ran the limited program
+    and those that overflowed to the masked one (the chunk's limited
+    width is its least limited count; a 1-round chunk has none)."""
 
     def __init__(self, model, fl: FLConfig, strategy=None, *,
                  per_round_batch: bool = True, use_scan: bool = True,
@@ -88,6 +96,9 @@ class ChunkRunner:
                                      per_round_batch=per_round_batch)
         self.timer = timer if timer is not None else PhaseTimes()
         self._seen: set = set()
+        self.limited_split = ({"limited_program": 0, "overflow": 0}
+                              if fl.client_plane == "partitioned"
+                              and not fl.fes_static else None)
 
     def _dispatch(self, state, batch, scheds, n: int):
         phase = ("compile" if n not in self._seen
@@ -105,6 +116,16 @@ class ChunkRunner:
         ``per_round_batch``, else (C, steps, b, ...); metrics come back as
         numpy arrays with a leading (n,) axis. ``scan_ok=False`` runs the
         chunk one round at a time."""
+        if (self.limited_split is not None
+                and "part_src_row" not in sched_batch):
+            # the plan is chunk-level, so the chunked loop and the
+            # per-round fallback replay the identical dispatch
+            plan = partition_plan(sched_batch["limited"])
+            sched_batch = {**sched_batch, **plan}
+            n_lim = plan["part_lim_idx"].size
+            self.limited_split["limited_program"] += n_lim
+            self.limited_split["overflow"] += (
+                int(np.sum(sched_batch["limited"])) - n_lim)
         scheds = as_scan_scheds(sched_batch, self.device)
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}

@@ -35,11 +35,22 @@ repro_torch.obs.report run.jsonl``); ``--profile DIR`` writes a
 ``torch.profiler`` trace of the run into DIR. ``--client-reduce force``
 pre-reduces the client axis before the server update.
 
+``--client-plane partitioned`` groups each round's cohorts by FES
+limited-ness into two programs (both scales): the limited ones never
+build the body backward (paper Eq. 3), where the default masked plane
+computes it and zeroes it. Under chunks of several rounds the limited
+program's width is the chunk's least limited count and the rest
+overflow to the masked program; the run ends with a line counting
+both (``--no-scan`` on the pod path gives the exact per-round split).
+``FLConfig(fes_static=True)`` (through ``paper_scale`` / ``pod_scale``)
+trains every cohort classifier-only.
+
 Examples:
   python -m repro_torch.launch.train --rounds 60 --p-limited 0.5 --eval-every 5
   python -m repro_torch.launch.train --algorithm fedavg --rounds 60
   python -m repro_torch.launch.train --algorithm fedopt --rounds 60
   python -m repro_torch.launch.train --comm-plane q8 --rounds 60
+  python -m repro_torch.launch.train --client-plane partitioned --p-limited 0.5 --eval-every 1
   python -m repro_torch.launch.train --p-delay 0.3 --max-delay 10 --rounds 30
   python -m repro_torch.launch.train --env bandwidth --max-delay 5 --comm-plane q8
   python -m repro_torch.launch.train --server-plane legacy --use-kernel
@@ -49,6 +60,7 @@ Examples:
   python -m repro_torch.launch.train --device cpu --rounds 2
   python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 3
   python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 2 --device cpu
+  python -m repro_torch.launch.train --arch rwkv6-3b --pod --reduced --client-plane partitioned --no-scan
 """
 from __future__ import annotations
 
@@ -84,6 +96,20 @@ def _print_phases(timer) -> None:
             for k, v in summary.items()))
 
 
+def _client_plane(fl: FLConfig) -> str:
+    return "fes_static" if fl.fes_static else fl.client_plane
+
+
+def _print_limited_split(runner) -> None:
+    """The partitioned plane's limited cohort-rounds: on the limited
+    program, and overflowed to the masked one."""
+    split = runner.limited_split
+    if split is not None:
+        print(f"client plane partitioned: {split['limited_program']} limited "
+              f"cohort-rounds on the limited program, {split['overflow']} "
+              "overflowed to the masked program")
+
+
 def paper_scale(args, fl: FLConfig, device):
     """Run the §V experiment; returns (simulation, History)."""
     model = build_model(get_arch(args.arch))
@@ -100,7 +126,8 @@ def paper_scale(args, fl: FLConfig, device):
           f"classifier); {fl.algorithm} -> "
           f"{type(sim.strategy).__name__}, server plane {fl.server_plane}"
           f"{' (ama_mix kernel)' if fl.use_kernel else ''}, "
-          f"comm plane {fl.comm_plane}, env {fl.env}")
+          f"client plane {_client_plane(fl)}, comm plane {fl.comm_plane}, "
+          f"env {fl.env}")
     if args.resume:
         sim.resume(args.resume)
         print(f"resumed {args.resume} at round {sim.t}")
@@ -113,6 +140,7 @@ def paper_scale(args, fl: FLConfig, device):
             logger.close()
     print(f"final: acc={hist.final_accuracy():.4f} "
           f"stability_var={hist.stability_variance():.3f}")
+    _print_limited_split(sim.runner)
     _print_phases(sim.timer)
     if args.checkpoint:
         sim.save(args.checkpoint)
@@ -171,8 +199,9 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
     S = batch["tokens"].shape[-1]
     print(f"{cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on "
           f"{device}: {n_all} params ({n_clf} in the FES classifier); "
-          f"{fl.algorithm} -> {type(strategy).__name__}, {C} cohorts x "
-          f"{fl.local_steps} local steps x batch {args.batch} x seq {S}")
+          f"{fl.algorithm} -> {type(strategy).__name__}, client plane "
+          f"{_client_plane(fl)}, {C} cohorts x {fl.local_steps} local steps "
+          f"x batch {args.batch} x seq {S}")
     logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
     if logger is not None:
         logger.header(fl, payload=payload_bytes(state["params"]),
@@ -213,6 +242,7 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
     print(f"{args.rounds} rounds ({engine}): {dt:.2f}s total "
           f"({dt / args.rounds * 1e3:.1f} ms/round, first-call set-up "
           "included)")
+    _print_limited_split(runner)
     _print_phases(runner.timer)
     if args.checkpoint:
         save_state(args.checkpoint, state)
@@ -257,6 +287,14 @@ def parser() -> argparse.ArgumentParser:
                     choices=("auto", "off", "force"),
                     help="pre-reduce the stacked client axis before the "
                          "server update ('auto' is off on one GPU)")
+    ap.add_argument("--client-plane", default="masked",
+                    choices=("masked", "partitioned"),
+                    help="mixed-cohort client execution: one masked "
+                         "program for every cohort (default; limited "
+                         "cohorts compute the body backward and zero it) "
+                         "or two programs grouped by FES limited-ness "
+                         "(limited cohorts never build the body backward: "
+                         "paper Eq. 3)")
     ap.add_argument("--comm-plane", default="none",
                     choices=("none", "bf16", "q8", "topk"),
                     help="compressed client->server uplink: dense f32 "
@@ -316,6 +354,7 @@ def fl_config(args) -> FLConfig:
                     server_plane=args.server_plane,
                     use_kernel=args.use_kernel,
                     client_reduce=args.client_reduce,
+                    client_plane=args.client_plane,
                     prefetch_depth=args.prefetch_depth,
                     extended_metrics=bool(args.metrics_out),
                     comm_plane=args.comm_plane,

@@ -158,18 +158,23 @@ def test_chunked_equals_per_round_bitwise(world, algo, md):
 
 
 def test_unported_options_are_refused():
-    """Options of later slices raise NotImplementedError; values that
-    are not options at all, and the JAX-only Pallas interpreter plane,
-    raise ValueError (client_reduce="force", use_kernel and
+    """The partitioned and fes_static client planes build a round step
+    (tests/test_torch_client_plane.py holds what they compute); an
+    unknown client plane raises ValueError, as in the JAX package. The
+    refusals that remain still raise: an unknown client_reduce, the
+    JAX-only Pallas interpreter plane, an unknown algorithm and a model
+    family of a later slice (client_reduce="force", use_kernel and
     extended_metrics are ported: tests/test_torch_legacy.py)."""
     model = tbuild(TARCHS["paper-cnn"])
+    assert callable(make_round_step(model, TFL(client_plane="partitioned")))
+    assert callable(make_round_step(model, TFL(fes_static=True)))
+    with pytest.raises(ValueError, match="client_plane"):
+        make_round_step(model, TFL(client_plane="bogus"))
     with pytest.raises(ValueError, match="client_reduce"):
         make_round_step(model, TFL(client_reduce="bogus"))
-    with pytest.raises(NotImplementedError):
-        make_round_step(model, TFL(client_plane="partitioned"))
-    with pytest.raises(NotImplementedError):
-        make_round_step(model, TFL(fes_static=True))
     with pytest.raises(ValueError, match="interpret"):
         tstrategies.resolve(TFL(server_plane="interpret"))
     with pytest.raises(KeyError):
         tstrategies.resolve(TFL(algorithm="scaffold"))
+    with pytest.raises(NotImplementedError, match="moe"):
+        tbuild(TARCHS["minitron-8b"].with_(num_experts=8))
