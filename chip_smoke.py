@@ -72,7 +72,24 @@ Phases (any error or out-of-tolerance result exits non-zero):
      p_limited 0.5 and masked against partitioned at p_limited 1.0, the
      kernels' launches derived from the staged schedule (a limited
      cohort's body blocks run their forward kernels once and no
-     backward), falling losses, tokens/s and peak memory;
+     backward), falling losses, tokens/s and peak memory.
+     The host plane's worlds (slice 12): async_ama for 30 rounds under
+     each named scenario (clear, moderate-30, severe-70, bursty,
+     bursty-severe, bandwidth-limited, mobility-trace) and ama_fes under
+     bursty-severe, through --scenario: server_async's launches exact,
+     every one on its 16-byte kernel (bursty-severe's ring of Q = 16
+     among them), the delayed share, mean and largest delay, final
+     accuracy and stability variance; bursty-severe and mobility-trace
+     fused == --server-plane ref and bursty-severe chunked == per round,
+     bitwise. The federation scale: FederatedSimulation over
+     VirtualClientShards at K 1,000 (dense schedule) and 1,000,000
+     (virtual) x C 5, 32, 128 as the JAX package's
+     benchmarks/federation_scale.py defines a cell, and async_ama at
+     K 1,000,000, C 32: rounds/s (best and spread of 3 runs), the
+     engine's schedule + staging ms a round, the K ratio per C,
+     server_async's kernel per C (16-byte at C 5, per element above);
+     K 1,000 virtual over the shards == over a dense client list of
+     them, bitwise;
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
@@ -322,7 +339,11 @@ ASYNC_CASES = (
        (MAIN_K, MAIN_Q, MIX_VEC_N, "float32", "offset 1"),
        (2, MAIN_Q, MAIN_N, "bfloat16", "t"),
        (8, 21, 8_388_608, "bfloat16", "t"),
-       (1, 2, MAIN_N, "float32", "t")])
+       (1, 2, MAIN_N, "float32", "t")]
+    # slice 12's main paths: the scenarios' rings (clear Q 2,
+    # bursty-severe Q 16) and the federation-scale cohorts at Q 7
+    + [(MAIN_K, Q, MAIN_N, "float32", "t") for Q in (2, 16)]
+    + [(K, 7, MAIN_N, "float32", "t") for K in (5, 32, 128)])
 
 
 def check_server_async(torch, sp, ref, record):
@@ -332,7 +353,9 @@ def check_server_async(torch, sp, ref, record):
     kernel where K <= 8, N is a multiple of the vector and every operand
     is aligned (the main shape K 5, Q 11, N 54,784 f32 among them), the
     per-element kernel otherwise (K 10, a ragged N, prev offset by one
-    element). Both kernels are timed at the main shape and at N =
+    element; slice 12's rings Q 2 and 16 at K 5, and the federation
+    cohorts K 5, 32, 128 at Q 7). Both kernels are timed at the main
+    shape and at N =
     33,554,432 (vector) / 33,554,437 (per element) and 33,554,432 with
     prev offset."""
     dev = torch.device("cuda")
@@ -1803,6 +1826,294 @@ def port_contract(torch, train, tree_mod):
               "== per round (--no-scan), bitwise, params and all aux")
 
 
+# ------------------------------------- slice 12: the host plane's worlds ---
+
+#: the paper's delay settings and the beyond-paper channels by scenario
+#: name (``repro_torch.env.scenarios``), async_ama on the quickstart
+#: config; ama_fes under bursty-severe too (max_delay > 0 makes it the
+#: asynchronous strategy, as in the JAX package)
+SCENARIOS = ("clear", "moderate-30", "severe-70", "bursty", "bursty-severe",
+             "bandwidth-limited", "mobility-trace")
+SCENARIO_RUNS = ([(sc, "async_ama") for sc in SCENARIOS]
+                 + [("bursty-severe", "ama_fes")])
+SCENARIO_ROUNDS = 30
+
+
+def _designs_of(sp):
+    return {"server_async": sp.server_async_designs(),
+            "server_mix": sp.server_mix_designs()}
+
+
+def _design_delta(before, after, kernel) -> dict:
+    return {d: n - before[kernel][d] for d, n in after[kernel].items()}
+
+
+def _server_kernel(sim) -> str:
+    return ("server_async" if type(sim.strategy).__name__
+            == "AsyncAMAStrategy" else "server_mix")
+
+
+def _same_run(torch, tree_mod, a, ha, b, hb) -> bool:
+    return (_states_equal(torch, tree_mod, a, b)
+            and ha.train_loss == hb.train_loss and ha.test_acc == hb.test_acc)
+
+
+def scenario_runs(torch, train, sp, ref, tree_mod, main_record):
+    """Phase (a) of slice 12: each of SCENARIO_RUNS for 30 rounds through
+    the launcher's --scenario, at the CNN's full width. Counts set to 0
+    just before each run and read just after: its server kernel launched
+    exactly once a round (one dtype group), every launch on the 16-byte
+    kernel (K 5, Q = max_delay + 1: 16 under bursty-severe), no other
+    kernel and no plain version on the card. Reported: the share of
+    uploads delayed, their mean and largest delay, the final accuracy
+    and the stability variance. bursty-severe and mobility-trace again
+    with --server-plane ref (bitwise equal), bursty-severe again with
+    --no-scan (bitwise equal), and ama_fes == async_ama under
+    bursty-severe (one strategy). Returns {kernel: launches}."""
+    totals = dict.fromkeys(sp.KERNELS, 0)
+    runs = {}
+    for scenario, algo in SCENARIO_RUNS:
+        label = f"{algo} {scenario}"
+        argv = [*QUICKSTART, "--algorithm", algo, "--scenario", scenario,
+                "--rounds", str(SCENARIO_ROUNDS)]
+        sp.reset_counts()
+        before = _designs_of(sp)
+        with CountCudaCalls(ref, "ama_mix_math") as plain_mix:
+            sim, hist, dt = run_train(torch, train, argv)
+        counts = {k: fn.launches for k, fn in sp.KERNELS.items()}
+        kernel = _server_kernel(sim)
+        design = _design_delta(before, _designs_of(sp), kernel)
+        plain = dict(sp.plain_runs_on_cuda, ama_mix_math=plain_mix.calls)
+        fl, rounds = sim.fl, SCENARIO_ROUNDS
+        groups = len(tree_mod.dtype_groups(tree_mod.leaves(sim.params)))
+        check(counts[kernel] == rounds * groups,
+              f"{label}: {kernel} launched {counts[kernel]} times, expected "
+              f"{rounds} rounds x {groups} dtype groups")
+        check(design["vector"] == counts[kernel], f"{label}: {design} of "
+              f"{counts[kernel]} {kernel} launches on the vector kernel")
+        others = {k: v for k, v in counts.items() if k != kernel and v}
+        check(not others, f"{label}: other kernels launched: {others}")
+        check(all(v == 0 for v in plain.values()),
+              f"{label}: the plain server version ran on the card: {plain}")
+        check(sim.t == rounds, f"{label}: ended at round {sim.t}")
+        for x in leaves_of(tree_mod, sim.state):
+            check(x.is_cuda and bool(torch.isfinite(x).all()),
+                  f"{label}: non-finite or off-card state")
+        Q = (int(sim.aux["queue"]["gamma"].shape[0])
+             if kernel == "server_async" else None)
+        if scenario == "bursty-severe":
+            check(fl.max_delay == 15 and Q == 16,
+                  f"{label}: max_delay {fl.max_delay}, ring of {Q} slots")
+        sb = sim.env.batch(0, rounds)
+        delayed, delays = sb["delayed"], sb["delays"]
+        check(int(delays.max()) <= max(fl.max_delay, 1)
+              and bool((delays[~delayed] == 1).all()),
+              f"{label}: delays outside 1..{fl.max_delay}")
+        share = float(delayed.mean())
+        mean_delay = float(delays[delayed].mean()) if delayed.any() else 0.0
+        acc = hist.final_accuracy()
+        check(0.0 <= acc <= 1.0 and all(x == x for x in hist.train_loss),
+              f"{label}: final accuracy {acc} or a NaN loss")
+        print(f"scenario {label}: env {fl.env}, max_delay {fl.max_delay}, "
+              f"ring Q={Q}; {rounds} rounds in {dt:.3f} s = "
+              f"{rounds / dt:.2f} rounds/s; delayed {share:.4f} of "
+              f"{delayed.size} uploads, mean delay {mean_delay:.3f}, "
+              f"largest {int(delays.max())}; final_accuracy={acc:.4f} "
+              f"stability_variance={hist.stability_variance():.3f}; "
+              f"{kernel} launches {counts[kernel]} {design}")
+        totals[kernel] += counts[kernel]
+        runs[(scenario, algo)] = (sim, hist)
+        main_record.append(dict(
+            run=f"scenario {label}", rounds=rounds, seconds=dt,
+            rounds_per_s=rounds / dt, env=fl.env, max_delay=fl.max_delay,
+            ring_q=Q, delayed_share=share, mean_delay=mean_delay,
+            max_delay_drawn=int(delays.max()), final_accuracy=acc,
+            stability_variance=hist.stability_variance(),
+            kernel=kernel, launches=counts[kernel], designs=design))
+    acc = {sc: runs[(sc, "async_ama")][1].final_accuracy()
+           for sc in SCENARIOS}
+    print(f"scenario accuracies (async_ama): {acc}; bursty-severe (15 "
+          f"rounds of staleness) - moderate-30: "
+          f"{acc['bursty-severe'] - acc['moderate-30']:+.4f}")
+    a, ha = runs[("bursty-severe", "async_ama")]
+    b, hb = runs[("bursty-severe", "ama_fes")]
+    check(_same_run(torch, tree_mod, a, ha, b, hb),
+          "bursty-severe: ama_fes and async_ama (one strategy) differ")
+    for scenario in ("bursty-severe", "mobility-trace"):
+        a, ha = runs[(scenario, "async_ama")]
+        argv = [*QUICKSTART, "--algorithm", "async_ama", "--scenario",
+                scenario, "--rounds", str(SCENARIO_ROUNDS)]
+        sp.reset_counts()
+        b, hb, _ = run_train(torch, train, argv + ["--server-plane", "ref"])
+        check(sum(fn.launches for fn in sp.KERNELS.values()) == 0,
+              f"{scenario}: a kernel launched under --server-plane ref")
+        check(_same_run(torch, tree_mod, a, ha, b, hb),
+              f"{scenario}: fused and plain server planes differ")
+        print(f"scenario {scenario}: 30 rounds of async_ama fused == "
+              "--server-plane ref, bitwise, params, ring and histories")
+    a, ha = runs[("bursty-severe", "async_ama")]
+    b, hb, _ = run_train(torch, train, [
+        *QUICKSTART, "--algorithm", "async_ama", "--scenario",
+        "bursty-severe", "--rounds", str(SCENARIO_ROUNDS), "--no-scan"])
+    check(_same_run(torch, tree_mod, a, ha, b, hb),
+          "bursty-severe: chunked and per-round runs differ")
+    print("scenario bursty-severe: 30 rounds of async_ama chunked "
+          "(eval_every 5) == per round (--no-scan), bitwise; ama_fes == "
+          "async_ama, bitwise")
+    return totals
+
+
+#: slice 12 phase (b), as the JAX package's benchmarks/federation_scale.py
+#: (_fl) defines a cell: ama_fes (asynchronous under max_delay 6: a ring
+#: of Q = 7), Bernoulli p_delay 0.3, one local epoch of batch 16 over a
+#: shard of 32 (2 steps), over a 2,048-sample store
+FED_POPULATIONS = (1_000, 1_000_000)
+FED_COHORTS = (5, 32, 128)
+FED_SHARD = 32
+FED_ROUNDS = 10
+FED_REPEATS = 3
+
+
+def fed_config(FLConfig, K: int, C: int, algorithm: str = "ama_fes"):
+    return FLConfig(num_clients=K, clients_per_round=C, local_epochs=1,
+                    local_batch_size=16, lr=0.1, algorithm=algorithm,
+                    env="bernoulli", p_delay=0.3, max_delay=6,
+                    population="auto", seed=0)
+
+
+def federation_scale(torch, sp, tree_mod, main_record):
+    """Phase (b) of slice 12: the engine (FederatedSimulation) over
+    VirtualClientShards at K 1,000 (dense schedule) and 1,000,000
+    (virtual) x C 5, 32, 128, plus async_ama at K 1,000,000, C 32. Each
+    cell: one warm-up run, then FED_REPEATS timed runs of FED_ROUNDS
+    rounds (one chunk, one eval each), rounds/s best and spread, the
+    engine's "stage" span (schedule + staging) per round over the timed
+    runs, server_async launched exactly once a round on the kernel its
+    cohort takes (16-byte for C <= 8, per element above), and the
+    K 10^6 / K 10^3 ratio per C; the schedule alone at K 10^6, C 128,
+    Bernoulli against Gilbert-Elliott. Then K 1,000 with population
+    "virtual" over the shards == over a dense ClientDataset list of
+    their shard views, bitwise. Returns {kernel: launches}."""
+    from repro_torch import env as env_mod
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.simulation import FederatedSimulation
+    from repro_torch.data.pipeline import ClientDataset, VirtualClientShards
+    from repro_torch.data.synth import make_image_classification
+    from repro_torch.env.virtual import VIRTUAL_K_MIN
+    from repro_torch.models.api import build_model
+    dev = torch.device("cuda")
+    model = build_model(get_arch("paper-cnn"))
+    data, test = make_image_classification(n_train=2048, n_test=256, seed=0)
+    totals = dict.fromkeys(sp.KERNELS, 0)
+    best = {}
+    cells = [(K, C, "ama_fes") for C in FED_COHORTS for K in FED_POPULATIONS]
+    cells.append((1_000_000, 32, "async_ama"))
+    for K, C, algo in cells:
+        fl = fed_config(FLConfig, K, C, algo)
+        shards = VirtualClientShards(data, K, shard_size=FED_SHARD,
+                                     seed=fl.seed)
+        sim = FederatedSimulation(model, fl, shards, test, device=dev)
+        check(sim.env.virtual == (K > VIRTUAL_K_MIN),
+              f"K={K}: population virtual is {sim.env.virtual}")
+        sp.reset_counts()
+        before = _designs_of(sp)
+        sim.run(rounds=FED_ROUNDS, eval_every=FED_ROUNDS)   # warm-up
+        stage0 = sim.timer.summary().get("stage", {"seconds": 0.0})
+        times = []
+        for _ in range(FED_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(rounds=FED_ROUNDS, eval_every=FED_ROUNDS)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        stage = sim.timer.summary()["stage"]
+        timed = FED_REPEATS * FED_ROUNDS
+        stage_ms = (stage["seconds"] - stage0["seconds"]) / timed * 1e3
+        kernel = _server_kernel(sim)
+        counts = {k: fn.launches for k, fn in sp.KERNELS.items()}
+        design = _design_delta(before, _designs_of(sp), kernel)
+        rounds = (FED_REPEATS + 1) * FED_ROUNDS
+        want = "vector" if C <= 8 else "per_element"
+        label = f"federation K={K} C={C} {algo}"
+        check(kernel == "server_async" and counts[kernel] == rounds,
+              f"{label}: {kernel} launched {counts[kernel]} times, "
+              f"expected {rounds}")
+        check(design[want] == rounds, f"{label}: designs {design}, "
+              f"expected every launch on {want}")
+        others = {k: v for k, v in counts.items() if k != kernel and v}
+        check(not others, f"{label}: other kernels launched: {others}")
+        check(sum(sp.plain_runs_on_cuda.values()) == 0,
+              f"{label}: the plain server version ran on the card")
+        check(sim.t == rounds, f"{label}: ended at round {sim.t}")
+        for x in leaves_of(tree_mod, sim.state):
+            check(x.is_cuda and bool(torch.isfinite(x).all()),
+                  f"{label}: non-finite or off-card state")
+        rps = [FED_ROUNDS / t for t in times]
+        best[(K, C, algo)] = max(rps)
+        print(f"{label}: population "
+              f"{'virtual' if sim.env.virtual else 'dense'}, shards of "
+              f"{FED_SHARD} over {shards.n} samples (K x shard = "
+              f"{K * FED_SHARD:,}), ring Q={fl.max_delay + 1}; rounds/s "
+              f"best {max(rps):.2f} of {FED_REPEATS} x {FED_ROUNDS} rounds "
+              f"(spread {max(rps) - min(rps):.2f}: "
+              f"{', '.join(f'{r:.2f}' for r in rps)}); stage (schedule + "
+              f"staging, host) {stage_ms:.3f} ms/round; {kernel} launches "
+              f"{counts[kernel]} {design}")
+        totals[kernel] += counts[kernel]
+        main_record.append(dict(
+            run=label, population="virtual" if sim.env.virtual else "dense",
+            rounds_per_s=max(rps), rounds_per_s_all=rps,
+            stage_ms_per_round=stage_ms, kernel=kernel, designs=design,
+            launches=counts[kernel]))
+        del sim
+    lo, hi = FED_POPULATIONS
+    for C in FED_COHORTS:
+        r = best[(hi, C, "ama_fes")] / best[(lo, C, "ama_fes")]
+        print(f"federation C={C}: rounds/s at K={hi:,} over K={lo:,} = "
+              f"{r:.3f}")
+        main_record.append(dict(run=f"federation ratio C={C}", ratio=r))
+    # the host's schedule alone at K 10^6, C 128: Bernoulli's vectorised
+    # hashed draws against Gilbert-Elliott's per-client chains (a Python
+    # loop over the block's clients, memoized per client)
+    for env_name in ("bernoulli", "gilbert_elliott"):
+        environment = env_mod.resolve(
+            fed_config(FLConfig, 1_000_000, 128).with_(env=env_name),
+            data_sizes=shards.client_sizes)
+        t0 = time.perf_counter()
+        for t in range(0, 3 * FED_ROUNDS, FED_ROUNDS):
+            environment.batch(t, FED_ROUNDS)
+        ms = (time.perf_counter() - t0) / (3 * FED_ROUNDS) * 1e3
+        print(f"federation K=1,000,000 C=128 {env_name} schedule alone "
+              f"(host, virtual): {ms:.3f} ms/round over 3 chunks of "
+              f"{FED_ROUNDS}")
+        main_record.append(dict(run=f"federation schedule {env_name}",
+                                schedule_ms_per_round=ms))
+    # a virtual population over the shards == a dense list of them
+    fl = fed_config(FLConfig, 1_000, 5).with_(population="virtual")
+    shards = VirtualClientShards(data, 1_000, shard_size=FED_SHARD,
+                                 seed=fl.seed)
+    dense = [ClientDataset(data, shards.shard_indices(i))
+             for i in range(1_000)]
+    sims = [FederatedSimulation(model, fl, c, test, device=dev)
+            for c in (shards, dense)]
+    sp.reset_counts()
+    hists = [s.run(rounds=FED_ROUNDS, eval_every=5) for s in sims]
+    totals["server_async"] += sp.KERNELS["server_async"].launches
+    check(sp.KERNELS["server_async"].launches == 2 * FED_ROUNDS,
+          "federation: streamed vs dense, server_async launches "
+          f"{sp.KERNELS['server_async'].launches}")
+    check(sims[0].env.virtual and sims[1].env.virtual
+          and _same_run(torch, tree_mod, sims[0], hists[0], sims[1],
+                        hists[1]),
+          "federation: K=1,000 virtual over shards and over a dense list "
+          "differ")
+    print(f"federation K=1,000 population virtual: {FED_ROUNDS} rounds "
+          "over VirtualClientShards == over a dense ClientDataset list of "
+          "its shard views, bitwise")
+    return totals
+
+
 # ------------------------------------------------------- the LLM paths ---
 
 #: the pod path at full width: 2 cohorts x 2 local steps x 1 x 2048 tokens
@@ -2546,6 +2857,8 @@ def main() -> None:
                      main_rec)
     planes_side_by_side(main_rec)
     static = fes_static_cnn(torch, train, sp, tree_mod, main_rec)
+    scen = scenario_runs(torch, train, sp, ref, tree_mod, main_rec)
+    fed = federation_scale(torch, sp, tree_mod, main_rec)
     llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
                            tree_mod, main_rec)
     llm_planes = pod_client_planes(torch, train, "minitron-8b", fa, kmods,
@@ -2556,8 +2869,8 @@ def main() -> None:
                                     tree_mod, main_rec)
     deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_rec)
     launches = {k: sum(run.get(k, 0) for run in (
-        launches, legacy, part, static, llm, llm_planes, rwkv, rwkv_planes,
-        deep)) for k in recs}
+        launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
+        rwkv_planes, deep)) for k in recs}
     fused_vs_plain(torch, train, tree_mod)
     legacy_kernel_vs_plain(torch, train, tree_mod)
     client_planes_per_cohort(torch, tree_mod)

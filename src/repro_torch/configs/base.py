@@ -2,16 +2,16 @@
 
 The port's own copy of the JAX package's ``configs/base.py``: the same
 fields with the same defaults, so a config written for one package
-describes the same run in the other. Fields of features the port does
-not have yet (the gilbert_elliott and trace environments) are carried
-unchanged; ``core.round`` refuses a ``client_reduce`` or
-``client_plane`` value it has no path for, and ``launch.train`` only
-sets the fields this package honours. The comm plane (``comm_*``),
-fedprox and fedopt (``fedprox_*``, ``server_*``), the bandwidth
-environment (``bw_*``), pod scale (``cohorts``, ``local_steps``),
-``client_reduce``, telemetry (``extended_metrics``) and the masked,
-partitioned and ``fes_static`` client planes are honoured. ``reduced`` is the JAX package's
-CPU-sized same-family variant of a model config.
+describes the same run in the other. ``core.round`` refuses a
+``client_reduce`` or ``client_plane`` value it has no path for. The
+comm plane (``comm_*``), fedprox and fedopt (``fedprox_*``,
+``server_*``), every environment (the bandwidth ``bw_*``, the
+Gilbert–Elliott ``ge_*`` and the trace's ``trace_path`` knobs), the
+``population`` realisation (dense or virtual), pod scale (``cohorts``,
+``local_steps``), ``client_reduce``, telemetry (``extended_metrics``)
+and the masked, partitioned and ``fes_static`` client planes are
+honoured. ``reduced`` is the JAX package's CPU-sized same-family
+variant of a model config.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@
 sort by label, cut into 2*K shards, give each client 2 shards -> each
 client holds samples from at most two classes.
 
-The port's copy of ``repro.data.partition`` (numpy); the dirichlet and
-iid partitioners wait until a caller needs them.
+``dirichlet_partition`` is the standard milder alternative (ablations).
+The port's copy of the JAX package's ``data/partition.py`` (numpy):
+every partition is bitwise the JAX package's.
 """
 from __future__ import annotations
 
@@ -70,3 +71,29 @@ def shard_partition(labels: np.ndarray, num_clients: int,
         rng.shuffle(idx)
         out.append(idx.astype(np.int64))
     return out
+
+
+def dirichlet_partition(labels: np.ndarray, num_clients: int,
+                        alpha: float = 0.5, seed: int = 0):
+    rng = np.random.RandomState(seed)
+    n_classes = int(labels.max()) + 1
+    idx_by_class = [np.where(labels == c)[0] for c in range(n_classes)]
+    client_idx = [[] for _ in range(num_clients)]
+    for idx in idx_by_class:
+        rng.shuffle(idx)
+        props = rng.dirichlet(np.full(num_clients, alpha))
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for c, part in enumerate(np.split(idx, cuts)):
+            client_idx[c].append(part)
+    out = []
+    for c in range(num_clients):
+        idx = np.concatenate(client_idx[c]) if client_idx[c] else np.array([], int)
+        rng.shuffle(idx)
+        out.append(idx.astype(np.int64))
+    return out
+
+
+def iid_partition(n: int, num_clients: int, seed: int = 0):
+    rng = np.random.RandomState(seed)
+    idx = rng.permutation(n)
+    return [a.astype(np.int64) for a in np.array_split(idx, num_clients)]

@@ -1,5 +1,6 @@
-"""Client data pipeline: per-round sampling, the vectorized chunk stager,
-the partitioned client plane's dispatch plan and the chunk prefetcher.
+"""Client data pipeline: per-round sampling, the streamed K-free client
+shards, the vectorized chunk stager, the partitioned client plane's
+dispatch plan and the chunk prefetcher.
 
 The port's copy of the host half of ``repro.data.pipeline`` (numpy). The
 engine consumes data in CHUNKS of rounds: one fancy-gather produces the
@@ -25,7 +26,9 @@ import numpy as np
 def sample_shard_steps(indices: np.ndarray, rng: np.random.RandomState,
                        steps: int, batch_size: int) -> np.ndarray:
     """(steps, batch) global indices from one shard, reshuffled-epoch
-    order — THE sampling algorithm."""
+    order — THE sampling algorithm, shared by the dense ``ClientDataset``
+    list and the K-free ``VirtualClientShards`` so both draw
+    bit-identical streams from identical shard index arrays."""
     n = len(indices)
     need = steps * batch_size
     reps = int(np.ceil(need / max(n, 1)))
@@ -48,9 +51,67 @@ class ClientDataset:
         """(steps, batch) GLOBAL sample indices, reshuffled-epoch order."""
         return sample_shard_steps(self.indices, rng, steps, batch_size)
 
+    def sample_steps(self, rng: np.random.RandomState, steps: int,
+                     batch_size: int):
+        """(steps, batch, ...) arrays, sampling with reshuffled epochs."""
+        idx = self.sample_step_indices(rng, steps, batch_size)
+        return {k: v[idx] for k, v in self.data.items()}
+
 
 def build_clients(data: dict, partition: list[np.ndarray]) -> list[ClientDataset]:
     return [ClientDataset(data, idx) for idx in partition]
+
+
+class VirtualClientShards:
+    """K clients over ONE base store with no per-client objects: the
+    staging half of a virtual population (``env.virtual``).
+
+    A single base permutation (drawn once from the staging seed, off the
+    round axis) defines every shard arithmetically: client i owns
+    ``order[(i * shard_size + j) % n]`` for j < shard_size. Client i's
+    shard is therefore a pure function of (i, seed); nothing is
+    materialised per client, so K = 10^6 costs the same as K = 20. Once
+    K * shard_size exceeds the base store the shards overlap by wrapping
+    around the permutation (distinct clients still hold distinct,
+    deterministic index sets).
+
+    Duck-type contract with ``list[ClientDataset]`` where the engine and
+    stager need it: ``len``, ``.data`` and per-client index sampling;
+    dispatch is on the ``shard_indices`` attribute.
+    """
+
+    def __init__(self, data: dict, num_clients: int,
+                 shard_size: int | None = None, seed: int = 0):
+        self.data = data
+        self.num_clients = int(num_clients)
+        self.n = len(next(iter(data.values())))
+        if shard_size is None:
+            shard_size = max(1, self.n // self.num_clients)
+        self.shard_size = int(shard_size)
+        assert 0 < self.shard_size <= self.n, (self.shard_size, self.n)
+        self.order = np.random.RandomState(
+            (seed + 0xA5F152) % 2**32).permutation(self.n)
+
+    def __len__(self):
+        return self.num_clients
+
+    @property
+    def min_size(self) -> int:
+        return self.shard_size
+
+    def shard_indices(self, i: int) -> np.ndarray:
+        start = (int(i) * self.shard_size) % self.n
+        return self.order[(start + np.arange(self.shard_size)) % self.n]
+
+    def sample_step_indices(self, i: int, rng: np.random.RandomState,
+                            steps: int, batch_size: int) -> np.ndarray:
+        return sample_shard_steps(self.shard_indices(i), rng, steps,
+                                  batch_size)
+
+    def client_sizes(self, selected: np.ndarray) -> np.ndarray:
+        """|D_i| aggregation weights: the ``data_sizes`` callable the
+        environment layer consumes (``env.resolve(fl, data_sizes=...)``)."""
+        return np.full(np.shape(selected), self.shard_size, np.float32)
 
 
 def stage_rng(seed: int, t: int) -> np.random.RandomState:
@@ -63,9 +124,18 @@ def stage_rng(seed: int, t: int) -> np.random.RandomState:
 
 def stage_round_indices(clients, selected: np.ndarray, seed: int, t: int,
                         steps: int, batch_size: int) -> np.ndarray:
-    """(C, steps, batch) global indices for round t's selected clients,
-    drawn from the shared per-round stream in selected order."""
+    """(C, steps, batch) global indices for round t's selected clients.
+
+    ``clients`` is either the dense ``list[ClientDataset]`` or a
+    ``VirtualClientShards``; both draw from the shared per-round stream
+    in selected order, so a dense list built from ``shards
+    .shard_indices`` stages bit-identical batches. Cost is O(C x steps x
+    batch) either way, never O(K)."""
     rng = stage_rng(seed, t)
+    if hasattr(clients, "shard_indices"):
+        return np.stack([clients.sample_step_indices(int(i), rng, steps,
+                                                     batch_size)
+                         for i in selected])
     return np.stack([clients[int(i)].sample_step_indices(rng, steps,
                                                          batch_size)
                      for i in selected])
@@ -197,3 +267,14 @@ class ChunkPrefetcher:
                 yield out
         finally:
             self.close()
+
+
+def batch_iterator(data: dict, batch_size: int, seed: int = 0):
+    """Endless centralised batches: one reshuffled epoch after another."""
+    n = len(next(iter(data.values())))
+    rng = np.random.RandomState(seed)
+    while True:
+        order = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            sl = order[i:i + batch_size]
+            yield {k: v[sl] for k, v in data.items()}

@@ -11,7 +11,9 @@ THE CONTRACT: ``batch(t0, n)`` row ``i`` is BIT-IDENTICAL to
 ``round(t0 + i)``, and both are bit-identical to the JAX package's
 environment for the same config. Round t's schedule is a pure function
 of (config, t): per-round RNG streams are keyed on the absolute round
-index, so chunked and per-round execution see the same schedule.
+index, and stateful channels (Markov chains) memoize a state trajectory
+that is itself a pure function of (seed, t), so chunked and per-round
+execution see the same schedule.
 """
 from __future__ import annotations
 
@@ -40,6 +42,13 @@ def round_rng(fl: FLConfig, t: int) -> np.random.RandomState:
     """The per-round schedule RNG stream (seed algorithm, unchanged):
     each round owns an independent stream keyed on its absolute index."""
     return np.random.RandomState((fl.seed * 1_000_003 + t) % 2**32)
+
+
+def side_rng(fl: FLConfig, t: int) -> np.random.RandomState:
+    """A second per-round stream (channel-state chains, trace synthesis)
+    that cannot collide with ``round_rng`` draws for the same round."""
+    return np.random.RandomState(
+        (fl.seed * 1_000_003 + t + 0x9E3779B9) % 2**32)
 
 
 # ---------------------------------------------------------------------------
@@ -74,18 +83,38 @@ class UniformParticipation(Participation):
 
 
 class DeviceProfile:
-    """Per-client static device facts: FES limited-ness and dataset size
-    (aggregation weight; a dense (K,) array, or 1 for every client)."""
+    """Per-client static device facts: compute tier, FES limited-ness,
+    local-step budget, dataset size (aggregation weight)."""
 
     def __init__(self, fl: FLConfig, data_sizes=None):
         self.fl = fl
-        self._sizes = (None if data_sizes is None
+        self.has_sizes = data_sizes is not None
+        # data_sizes is a dense (K,) array OR a callable mapping a
+        # client-id array to sizes (a virtual population never holds K
+        # floats; VirtualClientShards.client_sizes is the usual source)
+        self._sizes_fn = data_sizes if callable(data_sizes) else None
+        self._sizes = (None if data_sizes is None or callable(data_sizes)
                        else np.asarray(data_sizes, np.float32))
 
     def limited(self, selected: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
+    def tier(self, selected: np.ndarray) -> np.ndarray:
+        """Compute tier per selected client (0 = limited, 1 = full)."""
+        return np.where(self.limited(selected), 0, 1).astype(np.int32)
+
+    def step_budget(self, n_steps: int, selected: np.ndarray) -> np.ndarray:
+        """Local-step budget per selected client: limited devices afford
+        only a ``fedprox_partial`` fraction of the full step count
+        (shape-generic: a whole (n_rounds, m) block at once)."""
+        full = np.full(np.shape(selected), n_steps, np.int32)
+        part = np.maximum(1, (n_steps * self.fl.fedprox_partial)).astype(
+            np.int32)
+        return np.where(self.limited(selected), part, full)
+
     def sizes(self, selected: np.ndarray) -> np.ndarray:
+        if self._sizes_fn is not None:
+            return np.asarray(self._sizes_fn(selected), np.float32)
         if self._sizes is None:
             return np.ones(np.shape(selected), np.float32)
         return self._sizes[selected].astype(np.float32)
@@ -119,10 +148,12 @@ class VirtualTierProfile(DeviceProfile):
         return hash_u01(self.fl.seed, TAG_LIMITED,
                         np.asarray(selected)) < self.fl.p_limited
 
+
 class ChannelModel:
     """Per-client upload delay for round t. ``draw`` consumes the
     round's shared RNG stream AFTER participation, preserving the seed's
-    draw order."""
+    draw order; stateful channels key any extra streams on the absolute
+    round index (``side_rng``) so purity in t survives."""
 
     def __init__(self, fl: FLConfig):
         self.fl = fl
@@ -137,9 +168,17 @@ class ChannelModel:
 
     def draw_batch(self, t0: int, selected: np.ndarray
                    ) -> tuple[np.ndarray, np.ndarray]:
-        """Virtual-path draw for a stacked (n_rounds, m) cohort block,
-        hashed on (t, client) so it stays pure in t."""
-        raise NotImplementedError
+        """Virtual-path draw for a stacked (n_rounds, m) cohort block.
+
+        Default: one ``draw`` per row against a FRESH per-round stream.
+        Hashed selection consumes no RNG, so the stream starts at
+        position 0 (a different stream universe from the dense path,
+        which is the point of the ``is_virtual`` guard); still pure in t
+        per row. Channels with vectorised hashed draws override this."""
+        rows = [self.draw(t0 + i, selected[i], round_rng(self.fl, t0 + i))
+                for i in range(len(selected))]
+        return (np.stack([r[0] for r in rows]),
+                np.stack([r[1] for r in rows]))
 
 
 # ---------------------------------------------------------------------------
@@ -148,15 +187,18 @@ class ChannelModel:
 class Environment:
     """Base environment: composes the three components with the shared
     per-round RNG stream. Subclasses usually only override
-    ``_make_channel``."""
+    ``_make_channel``; trace replay overrides ``round`` wholesale."""
 
     #: registry key; aliases are extra names resolving to the same class
     name: str = ""
     aliases: tuple[str, ...] = ()
+    #: environments that inherently materialise the population (trace
+    #: replay) opt out of the virtual path and stay dense at any K
+    supports_virtual: bool = True
 
     def __init__(self, fl: FLConfig, data_sizes=None):
         self.fl = fl
-        self.virtual = is_virtual(fl)
+        self.virtual = is_virtual(fl) and self.supports_virtual
         self.participation = self._make_participation(fl)
         self.devices = (VirtualTierProfile(fl, data_sizes) if self.virtual
                         else self._make_devices(fl, data_sizes))

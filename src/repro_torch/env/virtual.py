@@ -2,11 +2,13 @@
 
 The port's copy of the JAX package's ``env/virtual.py`` (numpy only):
 splitmix64 over (seed, tag, counters...), the O(m) Floyd draw that
-replaces ``rng.choice`` above ``DENSE_SELECT_MAX`` clients, and the
-vectorised hashed cohort sampler. ``is_virtual(fl)`` is True when
-``fl.population == "virtual"`` or, under ``"auto"``, when K exceeds
-``VIRTUAL_K_MIN``; below that every draw stays the dense RandomState
-algorithm, so schedules equal the JAX package's bit for bit.
+replaces ``rng.choice`` above ``DENSE_SELECT_MAX`` clients, the
+vectorised hashed cohort sampler and ``VirtualPopulation`` (K clients
+that exist only as hash and arithmetic functions of (client_id, seed)).
+``is_virtual(fl)`` is True when ``fl.population == "virtual"`` or, under
+``"auto"``, when K exceeds ``VIRTUAL_K_MIN``; below that every draw
+stays the dense RandomState algorithm. Either way schedules equal the
+JAX package's bit for bit.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ TAG_SELECT = 0x53454C  # participation rejection sampler
 TAG_LIMITED = 0x4C494D  # per-client limited-ness coin
 TAG_DELAY = 0x44454C  # bernoulli channel: delayed coin
 TAG_DELAY_LEN = 0x444C4E  # bernoulli channel: delay length
+TAG_GE = 0x47455354  # gilbert-elliott per-client state chain
 
 
 def is_virtual(fl: FLConfig) -> bool:
@@ -134,3 +137,41 @@ def select_batch_hashed(fl: FLConfig, t0: int, n: int) -> np.ndarray:
         for i in np.flatnonzero(_row_dup_mask(sel).any(axis=1)):
             sel[i] = floyd_sample(round_rng(fl, int(t0 + i)), K, m)
     return sel.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the population as a pure function of (client_id, seed)
+# ---------------------------------------------------------------------------
+class VirtualPopulation:
+    """K clients that exist only as hash/arithmetic functions.
+
+    ``sizes_fn`` (optional) maps a client-id array to per-client data
+    sizes (|D_i| aggregation weights); ``data.pipeline
+    .VirtualClientShards.client_sizes`` is the arithmetic counterpart on
+    the staging side; the default is weight 1. Every method takes
+    client-id arrays of ANY shape and evaluates elementwise, so a whole
+    (n_rounds, m) schedule block hashes in one vectorised call.
+    """
+
+    def __init__(self, fl: FLConfig, sizes_fn=None):
+        self.fl = fl
+        self.sizes_fn = sizes_fn
+
+    def select_batch(self, t0: int, n: int) -> np.ndarray:
+        return select_batch_hashed(self.fl, t0, n)
+
+    def limited(self, selected: np.ndarray) -> np.ndarray:
+        """Hashed Bernoulli(p_limited) coin per client: the virtual
+        counterpart of ``FixedTierProfile``'s fixed membership set."""
+        selected = np.asarray(selected)
+        return (hash_u01(self.fl.seed, TAG_LIMITED, selected)
+                < self.fl.p_limited)
+
+    def tier(self, selected: np.ndarray) -> np.ndarray:
+        return np.where(self.limited(selected), 0, 1).astype(np.int32)
+
+    def sizes(self, selected: np.ndarray) -> np.ndarray:
+        selected = np.asarray(selected)
+        if self.sizes_fn is None:
+            return np.ones(selected.shape, np.float32)
+        return np.asarray(self.sizes_fn(selected), np.float32)

@@ -149,19 +149,29 @@ class SimulationEngine:
     from ``Environment.batch``, client batches staged in one gather per
     chunk (the next chunk on a host thread while the card runs the
     current one, ``fl.prefetch_depth`` chunks ahead; 0 stages inline),
-    evaluation through the batched ``Evaluator``. ``logger`` (an
-    ``obs.log.MetricsLogger``) receives the header, the per-round rows,
-    the eval points and the phase summary."""
+    evaluation through the batched ``Evaluator``. ``clients`` is a dense
+    ``list[ClientDataset]`` or a ``data.pipeline.VirtualClientShards``
+    (a million-client population, nothing O(K) on the host). ``logger``
+    (an ``obs.log.MetricsLogger``) receives the header, the per-round
+    rows, the eval points and the phase summary."""
 
     def __init__(self, model, fl: FLConfig, clients, test_data,
                  use_scan: bool = True, device=None, logger=None):
         self.model = model
         self.fl = fl
         self.device = resolve_device(device)
+        # clients: a dense list[ClientDataset] OR a VirtualClientShards
+        # (streamed K-free staging: client shards are arithmetic views of
+        # one base store, nothing materialised per client)
         self.clients = clients
+        self._streamed = hasattr(clients, "shard_indices")
         self.test_data = test_data
+        # the |D_i| aggregation weights: a dense (K,) vector for a client
+        # list, a callable for virtual shards (no K-long array)
         self.env = env_mod.resolve(
-            fl, data_sizes=np.array([len(c) for c in clients], np.float32))
+            fl, data_sizes=(clients.client_sizes if self._streamed else
+                            np.array([len(c) for c in clients],
+                                     np.float32)))
         self.strategy = strategies.resolve(fl)
         # one PhaseTimes spans the runner, the data plane, evaluation and
         # checkpoints
@@ -171,8 +181,9 @@ class SimulationEngine:
                                   use_scan=use_scan, device=self.device,
                                   timer=self.timer)
         self._evaluator = Evaluator(model, test_data, device=self.device)
-        self.data = clients[0].data
-        if any(c.data is not self.data for c in clients):
+        self.data = clients.data if self._streamed else clients[0].data
+        if not self._streamed and any(c.data is not self.data
+                                      for c in clients):
             raise ValueError(
                 "the chunked data plane stages every client from ONE "
                 "shared sample store (build clients with "
@@ -206,7 +217,8 @@ class SimulationEngine:
         self.state = restore_state(path, self.state)
 
     def _steps_per_round(self) -> int:
-        n_min = min(len(c) for c in self.clients)
+        n_min = (self.clients.min_size if self._streamed
+                 else min(len(c) for c in self.clients))
         per_epoch = max(1, n_min // self.fl.local_batch_size)
         return self.fl.local_epochs * per_epoch
 

@@ -45,6 +45,16 @@ both (``--no-scan`` on the pod path gives the exact per-round split).
 ``FLConfig(fes_static=True)`` (through ``paper_scale`` / ``pod_scale``)
 trains every cohort classifier-only.
 
+``--env`` takes any registered environment (bernoulli, gilbert_elliott,
+bandwidth, trace and their aliases); ``--scenario`` applies a named
+environment + knob binding after the other flags (an explicit
+``--trace-path`` still wins over the scenario's own). ``--population``
+picks the population's realisation: ``auto`` keeps the dense path up
+to 65,536 clients and the K-free virtual population above, where the
+clients are arithmetic shard views of one store (``VirtualClientShards``)
+and nothing on the host is K long; pass ``--clients-per-round`` there
+(the default K/4 is no cohort the card's server kernels take).
+
 Examples:
   python -m repro_torch.launch.train --rounds 60 --p-limited 0.5 --eval-every 5
   python -m repro_torch.launch.train --algorithm fedavg --rounds 60
@@ -53,6 +63,9 @@ Examples:
   python -m repro_torch.launch.train --client-plane partitioned --p-limited 0.5 --eval-every 1
   python -m repro_torch.launch.train --p-delay 0.3 --max-delay 10 --rounds 30
   python -m repro_torch.launch.train --env bandwidth --max-delay 5 --comm-plane q8
+  python -m repro_torch.launch.train --algorithm async_ama --scenario bursty-severe --rounds 30
+  python -m repro_torch.launch.train --scenario mobility-trace --trace-path trace.npz
+  python -m repro_torch.launch.train --clients 1000000 --clients-per-round 32 --population auto
   python -m repro_torch.launch.train --server-plane legacy --use-kernel
   python -m repro_torch.launch.train --rounds 10 --checkpoint ck.npz
   python -m repro_torch.launch.train --rounds 10 --resume ck.npz
@@ -72,14 +85,17 @@ import torch
 from repro_torch import env as env_mod
 from repro_torch.checkpoint.io import restore_state, save_state
 from repro_torch.configs.base import FLConfig, ModelConfig, reduced
-from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.configs.registry import (ARCHS, environment_names,
+                                         get_arch, get_scenario,
+                                         scenario_names)
 from repro_torch.core import strategies
 from repro_torch.core.fes import count_trainable
 from repro_torch.core.round import init_state
 from repro_torch.core.simulation import FederatedSimulation
 from repro_torch.data.partition import shard_partition
-from repro_torch.data.pipeline import build_clients
+from repro_torch.data.pipeline import VirtualClientShards, build_clients
 from repro_torch.data.synth import make_image_classification, make_lm_tokens
+from repro_torch.env.virtual import is_virtual
 from repro_torch.exec.engine import ChunkRunner
 from repro_torch.models.api import build_model
 from repro_torch.obs.log import MetricsLogger
@@ -110,13 +126,30 @@ def _print_limited_split(runner) -> None:
               "overflowed to the masked program")
 
 
+def _shards(clients) -> str:
+    if isinstance(clients, VirtualClientShards):
+        return (f" (streamed shards of {clients.shard_size} over a store "
+                f"of {clients.n})")
+    return ""
+
+
 def paper_scale(args, fl: FLConfig, device):
     """Run the §V experiment; returns (simulation, History)."""
     model = build_model(get_arch(args.arch))
     train, test = make_image_classification(
         n_train=args.n_train, n_test=400, seed=fl.seed)
-    clients = build_clients(
-        train, shard_partition(train["label"], fl.num_clients, seed=fl.seed))
+    if is_virtual(fl):
+        # virtual population: clients are arithmetic shard views of the
+        # base store; nothing materialised per client, any K
+        clients = VirtualClientShards(
+            train, fl.num_clients,
+            shard_size=max(fl.local_batch_size,
+                           args.n_train // min(fl.num_clients, 64)),
+            seed=fl.seed)
+    else:
+        clients = build_clients(
+            train,
+            shard_partition(train["label"], fl.num_clients, seed=fl.seed))
     logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
     sim = FederatedSimulation(model, fl, clients, test,
                               use_scan=not args.no_scan, device=device,
@@ -127,7 +160,9 @@ def paper_scale(args, fl: FLConfig, device):
           f"{type(sim.strategy).__name__}, server plane {fl.server_plane}"
           f"{' (ama_mix kernel)' if fl.use_kernel else ''}, "
           f"client plane {_client_plane(fl)}, comm plane {fl.comm_plane}, "
-          f"env {fl.env}")
+          f"env {fl.env}, population "
+          f"{'virtual' if sim.env.virtual else 'dense'} of {fl.num_clients}"
+          f"{_shards(clients)}")
     if args.resume:
         sim.resume(args.resume)
         print(f"resumed {args.resume} at round {sim.t}")
@@ -258,12 +293,27 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="paper-cnn", choices=sorted(ARCHS))
     ap.add_argument("--algorithm", default="ama_fes",
                     choices=strategies.names())
-    ap.add_argument("--env", default="bernoulli", choices=env_mod.names(),
+    ap.add_argument("--env", default="bernoulli",
+                    choices=environment_names(),
                     help="environment (channel/device/participation model)")
+    ap.add_argument("--scenario", default=None, choices=scenario_names(),
+                    help="named environment + config binding; overrides "
+                         "--env and the delay knobs (an explicit "
+                         "--trace-path still wins)")
+    ap.add_argument("--trace-path", default="",
+                    help="trace env: .npz schedule to replay "
+                         "('' = synthetic mobility trace)")
+    ap.add_argument("--population", default="auto",
+                    choices=("auto", "dense", "virtual"),
+                    help="population realisation: 'auto' keeps the dense "
+                         "path up to 65536 clients and the K-free hashed "
+                         "virtual population above; 'dense'/'virtual' "
+                         "force either at any K")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--clients-per-round", type=int, default=0,
-                    help="cohort size m (0 = clients/4, the paper ratio)")
+                    help="cohort size m (0 = clients/4, the paper ratio; "
+                         "set it explicitly for large virtual populations)")
     ap.add_argument("--n-train", type=int, default=1500)
     ap.add_argument("--p-limited", type=float, default=0.25)
     ap.add_argument("--p-delay", type=float, default=0.0)
@@ -343,24 +393,32 @@ def parser() -> argparse.ArgumentParser:
 
 
 def fl_config(args) -> FLConfig:
-    """The run's FLConfig from the parsed command line."""
-    return FLConfig(num_clients=args.clients,
-                    clients_per_round=(args.clients_per_round
-                                       or max(2, args.clients // 4)),
-                    local_epochs=2, local_batch_size=25, lr=args.lr,
-                    algorithm=args.algorithm, env=args.env,
-                    p_limited=args.p_limited,
-                    p_delay=args.p_delay, max_delay=args.max_delay,
-                    server_plane=args.server_plane,
-                    use_kernel=args.use_kernel,
-                    client_reduce=args.client_reduce,
-                    client_plane=args.client_plane,
-                    prefetch_depth=args.prefetch_depth,
-                    extended_metrics=bool(args.metrics_out),
-                    comm_plane=args.comm_plane,
-                    comm_topk_frac=args.comm_topk_frac,
-                    cohorts=args.cohorts, local_steps=args.local_steps,
-                    seed=args.seed)
+    """The run's FLConfig from the parsed command line; ``--scenario``
+    is applied after the other flags, and an explicit ``--trace-path``
+    wins over the scenario's own."""
+    fl = FLConfig(num_clients=args.clients,
+                  clients_per_round=(args.clients_per_round
+                                     or max(2, args.clients // 4)),
+                  local_epochs=2, local_batch_size=25, lr=args.lr,
+                  algorithm=args.algorithm, env=args.env,
+                  p_limited=args.p_limited,
+                  p_delay=args.p_delay, max_delay=args.max_delay,
+                  trace_path=args.trace_path, population=args.population,
+                  server_plane=args.server_plane,
+                  use_kernel=args.use_kernel,
+                  client_reduce=args.client_reduce,
+                  client_plane=args.client_plane,
+                  prefetch_depth=args.prefetch_depth,
+                  extended_metrics=bool(args.metrics_out),
+                  comm_plane=args.comm_plane,
+                  comm_topk_frac=args.comm_topk_frac,
+                  cohorts=args.cohorts, local_steps=args.local_steps,
+                  seed=args.seed)
+    if args.scenario:
+        fl = get_scenario(args.scenario).apply(fl)
+        if args.trace_path:        # an explicit recording beats the
+            fl = fl.with_(trace_path=args.trace_path)  # scenario default
+    return fl
 
 
 def main(argv=None):

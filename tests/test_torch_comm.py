@@ -259,4 +259,6 @@ def test_bandwidth_on_time_share_rises_with_compression():
                               comm_plane=plane)).batch(0, 400)
         on_time[plane] = float(np.mean(~sb["delayed"]))
     assert 0.1 < on_time["none"] < 0.3 and 0.7 < on_time["q8"] < 0.9
-    assert tenv.names() == ["bandwidth", "bernoulli", "iid_delay", "snr"]
+    assert tenv.names() == ["bandwidth", "bernoulli", "bursty", "ge",
+                            "gilbert_elliott", "iid_delay", "mobility",
+                            "snr", "trace"]
