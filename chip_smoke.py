@@ -33,8 +33,15 @@ Phases (any error or out-of-tolerance result exits non-zero):
      recurrence forward and
      backward at the rwkv6 path's (B 2, S 2048, H 40, hd 64) f32 and at
      B*H = 1, S 64 / 96, hd 16 / 32, ragged segments (S 100, S 2047),
-     one segment (S 16) and decays near 0 and 1, within 1e-5 x (1 + max
-     |plain|), each call two device kernels (its two passes)), with
+     one segment (S 16), the serving path's decode step (S 1) and decays
+     near 0 and 1, within 1e-5 x (1 + max |plain|), each call two device
+     kernels (its two passes)); serve_attention at minitron-8b's serving
+     shape (32 heads over 8 kv heads of 128, a ring of 4096): decode and
+     prefill chunks of 8 and 64, a window of 4096 over a wrapped ring and
+     a linear cache (its last block the null block when paged), pad rows,
+     B 1 and 4, bf16 and f32, under FlashAttention's rule, the paged pool
+     bitwise the dense cache, chunk rows bitwise the row at c = 1 (SDPA
+     the dense decode's yardstick), with
      device times (CUDA-graph replay) beside the least time the card
      could take (its bound; for rwkv6 also its design's bound), the
      plain version's and a library call's;
@@ -90,6 +97,21 @@ Phases (any error or out-of-tolerance result exits non-zero):
      server_async's kernel per C (16-byte at C 5, per element above);
      K 1,000 virtual over the shards == over a dense client list of
      them, bitwise;
+     Serving (slice 13): a probe of cuBLAS's row invariance at minitron's
+     projections (bf16, M = 4 against M = 256); minitron-8b CONFIG_SWA
+     (window 4096) at its published widths and all 32 layers through
+     ``launch.serve.serve``: PagedEngine (4 slots, blocks of 16, prefill
+     chunk 64) over two prompts of 4,000 tokens (the ring wraps), four of
+     512 and four of 128, 128 new tokens each; LoopEngine per token,
+     chunked 64 and PagedEngine over 4 requests of 64-300 tokens; rwkv6-3b
+     at 8 layers per token (the paged engine refused): tokens/s,
+     p50/p95/p99, prefill and decode seconds, peak memory (under 75 GB),
+     the decode step's weight bound, exact launches of serve_attention
+     (layers x serving steps) and rwkv6_fwd (layers x decode steps), no
+     plain version on the card; then at reduced size paged == dense
+     bitwise, reduced f32 card == CPU, and, if the probe found cuBLAS
+     row-invariant, chunked == per token bitwise and the engines' tokens
+     equal;
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
@@ -1179,6 +1201,7 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
 #: at hd 32, decays all near 0 and all near 1, a ragged last segment
 #: after 127 whole ones at the main width, exactly one segment at B*H 80
 RWKV_MAIN = (2, 2048, 40, 64, "model", "main")
+RWKV_DECODE = (4, 1, 40, 64, "model", "decode, S = 1")  # the serving path
 RWKV_CASES = [RWKV_MAIN,
               (1, 2048, 1, 64, "model", "B*H = 1"),
               (2, 64, 2, 16, "model", "S 64, chunk 32, hd 16"),
@@ -1187,7 +1210,8 @@ RWKV_CASES = [RWKV_MAIN,
               (2, 256, 4, 64, "near 0", "decay ~2e-24"),
               (2, 2048, 4, 64, "near 1", "decay 0.99966"),
               (2, 2047, 40, 64, "model", "S 2047, ragged"),
-              (2, 16, 40, 64, "model", "one segment")]
+              (2, 16, 40, 64, "model", "one segment"),
+              RWKV_DECODE]
 
 
 def rwkv6_inputs(torch, g, B, S, H, hd, decay):
@@ -1246,7 +1270,7 @@ def check_rwkv6(torch, rs, ref, record):
               f"{max(errs[:3]):.2e} / {max(errs[3:]):.2e} | "
               f"{max(abss[:3]):.2e} / {max(abss[3:]):.2e}")
         rec = dict(case=case, err_fwd=max(abss[:3]), err_bwd=max(abss[3:]))
-        if case == RWKV_MAIN:
+        if case in (RWKV_MAIN, RWKV_DECODE):
             rec.update(time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0,
                                   dy, ds, want[2]))
         record.append(rec)
@@ -1325,6 +1349,219 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
                          bound_by=by, design_bound_ms=dbnd)
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------- serving attention -----
+
+#: minitron-8b's serving shape (CONFIG_SWA): 32 query heads over 8 kv
+#: heads of 128, a ring of 4096 slots, paged in blocks of 16
+SERVE_H, SERVE_KH, SERVE_HD, SERVE_L, SERVE_BS = 32, 8, 128, 4096, 16
+#: (dtype, B, c, window, pad rows of the last batch row, label): decode
+#: (c 1) and prefill (c 8, 64), the window of 4096 over a ring that has
+#: wrapped (first positions 5000 + 315 b) and window 0 over a linear
+#: cache (1024 + 315 b, its last block unmapped when paged), B 1 and 4,
+#: bf16 and f32. Every case runs the dense cache and the paged pool.
+SERVE_MAIN = ("bfloat16", 4, 1, 4096, 0, "decode")
+SERVE_PREFILL = ("bfloat16", 4, 64, 4096, 0, "prefill c 64")
+SERVE_CASES = [SERVE_MAIN,
+               ("bfloat16", 1, 1, 4096, 0, "decode, B 1"),
+               ("bfloat16", 4, 1, 0, 0, "decode, linear"),
+               ("bfloat16", 4, 8, 4096, 3, "prefill c 8, pads"),
+               SERVE_PREFILL,
+               ("bfloat16", 4, 64, 4096, 17, "prefill c 64, pads"),
+               ("bfloat16", 1, 64, 0, 5, "prefill c 64, linear, B 1"),
+               ("float32", 4, 1, 4096, 0, "decode f32"),
+               ("float32", 2, 64, 4096, 9, "prefill c 64 f32, pads"),
+               ("float32", 2, 8, 0, 0, "prefill c 8 f32, linear")]
+SERVE_TIMED = (SERVE_MAIN, SERVE_PREFILL,
+               ("bfloat16", 4, 8, 4096, 3, "prefill c 8, pads"))
+
+
+def serve_state(torch, g, ref, dtype, B, c, window, pads):
+    """One serving-attention input at minitron's shape: the cache of a
+    ring of SERVE_L slots before a chunk of c rows (every slot holding the
+    latest position below the chunk's first, of that slot's residue), the
+    chunk's q (pre-scaled), k, v and positions (the last batch row's last
+    ``pads`` rows PAD_POS); the same logical cache as a dense cache and as
+    a paged pool under a shuffled table (blocks of SERVE_BS; under window
+    0 each row's last block, empty, unmapped: the null block)."""
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    L, KH, hd, bs = SERVE_L, SERVE_KH, SERVE_HD, SERVE_BS
+    p0 = torch.tensor([(L + 904 if window else L // 4) + L // 13 * b
+                       for b in range(B)], device=dev)
+    s = torch.arange(L, device=dev)
+    cpos = p0[:, None] - 1 - torch.remainder(p0[:, None] - 1 - s, L)
+    cpos = torch.where(cpos >= 0, cpos, -1).to(torch.int32)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(
+        *shape, device=dev, generator=g)).to(dt)
+    ck, cv = rnd(B, L, KH, hd), rnd(B, L, KH, hd)
+    q = rnd(B, c, SERVE_H, hd, scale=hd ** -0.5)
+    kn, vn = rnd(B, c, KH, hd), rnd(B, c, KH, hd)
+    pos = (p0[:, None] + torch.arange(c, device=dev)).to(torch.int32)
+    if pads:
+        pos[-1, c - pads:] = ref.PAD_POS
+    mb = L // bs
+    perm = torch.randperm(B * mb, device=dev, generator=g) + 1
+    table = perm.reshape(B, mb).to(torch.int32)
+    if not window:
+        table[:, -1] = 0
+    NB = 1 + B * mb
+    pk = rnd(NB, bs, KH, hd)            # block 0 holds garbage
+    pv = rnd(NB, bs, KH, hd)
+    ppos = torch.full((NB, bs), -1, dtype=torch.int32, device=dev)
+    flat = table.long().flatten()
+    pk[flat] = ck.reshape(B * mb, bs, KH, hd)
+    pv[flat] = cv.reshape(B * mb, bs, KH, hd)
+    ppos[flat] = cpos.reshape(B * mb, bs)
+    pk[0], pv[0], ppos[0] = rnd(bs, KH, hd), rnd(bs, KH, hd), 7
+    ring = torch.full((B,), L, dtype=torch.int32, device=dev)
+    return dict(q=q, k=kn, v=vn, pos=pos, dense=(ck, cv, cpos),
+                paged=(pk, pv, ppos, table, ring))
+
+
+def serve_visible(torch, ref, pos, cpos, window) -> int:
+    """Query-slot pairs the mask lets through (the work this input needs):
+    each row's effective slots (its chunk's writes up to it over the old
+    contents) within (position - window, position]."""
+    B, c = pos.shape
+    L = cpos.shape[1]
+    ring = torch.full((B,), L, dtype=torch.int32, device=pos.device)
+    src = ref.serve_chunk_sources(pos, ring, None, L, L)
+    newp = torch.gather(pos.long(), 1, src.clamp(max=c - 1))
+    total = 0
+    for i in range(c):
+        eff = torch.where(src <= i, newp, cpos.long())
+        p = pos[:, i:i + 1].long()
+        m = (eff >= 0) & (eff <= p)
+        if window:
+            m &= eff > p - window
+        total += int(m.sum())
+    return total
+
+
+def serve_row_at_c1(torch, sa, st, i, window):
+    """Row i of the chunk computed alone (c = 1) against the dense cache
+    holding the chunk's real rows before it, as the per-token loop
+    holds them."""
+    ck, cv, cpos = (x.clone() for x in st["dense"])
+    pos = st["pos"]
+    B, L = cpos.shape
+    for j in range(i):
+        real = pos[:, j] < (1 << 29)
+        b = torch.nonzero(real)[:, 0]
+        slot = (pos[b, 0].long() + j) % L
+        ck[b, slot], cv[b, slot] = st["k"][b, j], st["v"][b, j]
+        cpos[b, slot] = pos[b, j]
+    row = lambda x: x[:, i:i + 1].contiguous()
+    return sa.serve_attention(row(st["q"]), row(st["k"]), row(st["v"]),
+                              row(pos), ck, cv, cpos, window=window)[:, 0]
+
+
+def check_serve_attention(torch, sa, ref, record):
+    """serve_attention against its plain version on the same inputs in
+    every SERVE_CASES case (FlashAttention's rule: bf16 within twice the
+    plain bf16 version's error against the plain version in f32, floor
+    1e-3 x max|want|; f32 within atol 1e-5 + rtol 1e-5); the paged pool
+    bitwise equal to the dense cache it maps; in the prefill cases rows
+    0, 1, c/2 and c-1 (pad rows among them) bitwise equal to that row
+    computed at c = 1 against the per-token loop's cache. Device times at
+    SERVE_TIMED beside the bound, the plain version and, for the dense
+    decode, SDPA over the written cache."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(23)
+    print("serve_attention: dtype B c window pads case | max err vs plain "
+          "(rule) | paged == dense | rows == c=1 rows")
+    for case in SERVE_CASES:
+        dtype, B, c, window, pads, label = case
+        st = serve_state(torch, g, ref, dtype, B, c, window, pads)
+        args = (st["q"], st["k"], st["v"], st["pos"])
+        got = sa.serve_attention(*args, *st["dense"], window=window)
+        paged = sa.serve_attention(*args, *st["paged"], window=window)
+        want = ref.serve_attention_ref(*args, *st["dense"], window=window)
+        f32 = [x.float() if x.is_floating_point() else x
+               for x in (*args, *st["dense"])]
+        want32 = ref.serve_attention_ref(*f32, window=window)
+        torch.cuda.synchronize()
+        err = flash_rule(torch, f"serve_attention {label}", got, want32,
+                         want)
+        check(torch.equal(got, paged),
+              f"serve_attention {label}: the paged pool differs from the "
+              f"dense cache (max {float((got - paged).abs().max()):.3e})")
+        rows = sorted({0, min(1, c - 1), c // 2, c - 1}) if c > 1 else []
+        for i in rows:
+            one = serve_row_at_c1(torch, sa, st, i, window)
+            check(torch.equal(got[:, i], one),
+                  f"serve_attention {label}: row {i} of the chunk differs "
+                  f"from the row at c = 1 (max "
+                  f"{float((got[:, i] - one).abs().max()):.3e})")
+        print(f"  {dtype:8s} B={B} c={c:2d} window={window:4d} pads={pads:2d}"
+              f" {label:26s} | {err:.3e} | bitwise | "
+              f"{'bitwise ' + str(rows) if rows else '-'}")
+        rec = dict(case=case, err=err)
+        if case in SERVE_TIMED:
+            rec.update(time_serve_attention(torch, sa, ref, F, case, st))
+        record.append(rec)
+        del st, got, paged, want, want32
+        torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    z = torch.zeros(1, 9, 4, 64, device=dev)
+    zk = torch.zeros(1, 9, 2, 64, device=dev)
+    pos = torch.zeros(1, 9, dtype=torch.int32, device=dev)
+    try:
+        sa.serve_attention(z, zk, zk, pos, torch.zeros(1, 8, 2, 64,
+                                                       device=dev),
+                           torch.zeros(1, 8, 2, 64, device=dev),
+                           torch.zeros(1, 8, dtype=torch.int32, device=dev))
+    except ValueError:
+        print("serve_attention: a chunk of 9 rows over a ring of 8 refused")
+    else:
+        fail("serve_attention took a chunk longer than its ring")
+
+
+def time_serve_attention(torch, sa, ref, F, case, st):
+    """Device times of the kernel (dense and paged), its plain version and,
+    for decode over the dense cache, SDPA over the cache with the chunk
+    written (``enable_gqa``, a boolean mask), with the bound: the
+    function's bytes (q, the chunk's k, v and positions, every cache slot
+    and position once, out; the table and rings when paged) against its
+    f32 flops (4 hd a visible query-slot pair and head)."""
+    dtype, B, c, window, pads, label = case
+    q, k, v, pos = st["q"], st["k"], st["v"], st["pos"]
+    ck, cv, cpos = st["dense"]
+    s = q.element_size()
+    nbytes = ((2 * q.numel() + k.numel() + v.numel() + ck.numel()
+               + cv.numel()) * s + (pos.numel() + cpos.numel()) * 4)
+    flops = 4 * SERVE_HD * SERVE_H * serve_visible(torch, ref, pos, cpos,
+                                                   window)
+    bnd, by = bound_ms(nbytes, flops)
+    ms = device_ms(torch, lambda: sa.serve_attention(
+        q, k, v, pos, ck, cv, cpos, window=window), reps=10, replays=10)
+    ms_paged = device_ms(torch, lambda: sa.serve_attention(
+        q, k, v, pos, *st["paged"], window=window), reps=10, replays=10)
+    plain = device_ms(torch, lambda: ref.serve_attention_ref(
+        q, k, v, pos, ck, cv, cpos, window=window), reps=1, replays=3)
+    lib = None
+    if c == 1:
+        bidx = torch.arange(B, device=q.device)
+        slot = pos[:, 0].long() % SERVE_L
+        kk, vv, pp = ck.clone(), cv.clone(), cpos.clone()
+        kk[bidx, slot], vv[bidx, slot], pp[bidx, slot] = k[:, 0], v[:, 0], \
+            pos[:, 0]
+        m = (pp >= 0) & (pp <= pos)
+        if window:
+            m &= pp > pos - window
+        qt, kt, vt = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+        mask = m[:, None, None, :]
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=1.0, enable_gqa=True),
+            reps=10, replays=10)
+    print(f"  {label}: kernel {ms:.4f} ms dense, {ms_paged:.4f} paged | "
+          f"bound {bnd:.4f} ({by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP) | plain {plain:.4f} | SDPA "
+          f"{'-' if lib is None else f'{lib:.4f}'}")
+    return dict(ms=ms, ms_paged=ms_paged, plain_ms=plain, library_ms=lib,
+                nbytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by)
 
 
 # ------------------------------------------------------------ phase 4/5 ---
@@ -2739,6 +2976,440 @@ def llm_where_time_goes(torch, train, arch, tmp, extra=()):
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 
 
+# ------------------------------------------------------- serving (A5) -----
+
+#: the serving runs at full width: minitron-8b's CONFIG_SWA (window 4096)
+#: at all 32 layers, paged over more requests than slots (two prompts of
+#: 4,000 tokens that carry the ring past 4,096, four of 512, four of 128,
+#: 128 new tokens each) and the loop engine per token and chunked over 4
+#: requests of 64-300 tokens; rwkv6-3b at 8 layers per token
+SERVE_DEPTH = {"minitron-8b": 32, "rwkv6-3b": 8}
+SERVE_PAGED_RUN = ["--engine", "paged", "--prompt-mix",
+                   "4000x2,512x4,128x4", "--tokens", "128", "--max-slots",
+                   "4", "--block-size", "16", "--prefill-chunk", "64"]
+SERVE_LOOP_MIX = ["--prompt-mix", "64x1,128x1,200x1,300x1", "--tokens", "32"]
+SERVE_LOOP_RUNS = [("loop per token", ["--engine", "loop",
+                                       "--prefill-chunk", "0"]),
+                   ("loop chunked 64", ["--engine", "loop",
+                                        "--prefill-chunk", "64"]),
+                   ("paged", ["--engine", "paged", "--block-size", "16",
+                              "--prefill-chunk", "64"])]
+SERVE_RWKV_RUN = ["--engine", "loop", "--prompt-mix",
+                  "64x1,128x1,192x1,256x1", "--tokens", "64",
+                  "--prefill-chunk", "0"]
+SERVE_STEPS = ("decode_step", "prefill", "decode_step_paged",
+               "prefill_paged")
+
+
+class CountSteps:
+    """Counts the calls of the transformer's serving steps while
+    installed (the model API looks them up at call time)."""
+
+    def __init__(self, tf):
+        self.tf, self.calls = tf, dict.fromkeys(SERVE_STEPS, 0)
+        self.real = {n: getattr(tf, n) for n in SERVE_STEPS}
+
+    def __enter__(self):
+        for n, real in self.real.items():
+            def counted(*a, _n=n, _real=real, **kw):
+                self.calls[_n] += 1
+                return _real(*a, **kw)
+            setattr(self.tf, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(self.tf, n, real)
+
+
+def serve_config(arch, layers=None):
+    """The arch's serving config at its published widths, depth cut to
+    ``layers`` (SERVE_DEPTH by default)."""
+    from repro_torch.configs.registry import serving_config
+    n = layers or SERVE_DEPTH[arch]
+    return serving_config(arch).with_(num_layers=n,
+                                      fes_tail_layers=min(2, n))
+
+
+def serve_params(torch, cfg, seed=0):
+    from repro_torch.models.api import build_model
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def decode_bound_ms(cfg, params, tree_mod, slots: int) -> float:
+    """The least time of one decode step at ``slots`` requests: every
+    weight read once (the embedding table only at the slots' rows)."""
+    leaves = tree_mod.leaves(params)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    emb = params["embed"]["table"]
+    nbytes -= emb.numel() * emb.element_size()
+    nbytes += slots * cfg.d_model * emb.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
+              main_record, tree_mod):
+    """One serving run through ``launch.serve.serve`` on the card, the
+    counts set to 0 just before it and read just after: serve_attention
+    launched layers x serving steps (dense family), rwkv6_fwd layers x
+    decode steps (ssm), no other kernel, no plain version on the card;
+    every request served its tokens. Prints tokens/s, latency percentiles,
+    the mean prefill and decode seconds a request and the peak device
+    memory. Returns (results, engine, counts)."""
+    args = serve_mod.parser().parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for m in kmods:
+        m.reset_counts()
+    with CountPlain(ref, ("serve_attention_ref", "rwkv6_scan_ref")) as \
+            plain, CountSteps(tf) as steps:
+        results, summary, dt, engine = serve_mod.serve(
+            args, cfg, torch.device("cuda"), params)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: fn.launches for m in kmods for k, fn in m.KERNELS.items()}
+    calls = sum(steps.calls.values())
+    kern = "rwkv6_fwd" if cfg.family == "ssm" else "serve_attention"
+    want = cfg.num_layers * (steps.calls["decode_step"] if kern ==
+                             "rwkv6_fwd" else calls)
+    new = sum(r["new_tokens"] for r in results)
+    mean = lambda k: statistics.mean(r[k] for r in results)
+    bound = decode_bound_ms(cfg, params, tree_mod, len(results)
+                            if args.engine == "loop" else args.max_slots)
+    print(f"serving {cfg.name} {label}: {cfg.num_layers} layers, "
+          f"{len(results)} requests, {new} new tokens in {dt:.3f} s = "
+          f"{summary['tokens_per_s']} tokens/s; p50/p95/p99 "
+          f"{summary['p50_ms']}/{summary['p95_ms']}/{summary['p99_ms']} ms; "
+          f"a request's prefill {mean('prefill_s'):.3f} s, decode "
+          f"{mean('decode_s'):.3f} s; steps {steps.calls}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
+          f"{peak / 1e9:.2f} GB; decode bound {bound:.3f} ms a step (the "
+          f"weights once)")
+    check(counts[kern] == want, f"serving {label}: {kern} launched "
+          f"{counts[kern]} times, expected {want} ({cfg.num_layers} layers "
+          f"x {steps.calls})")
+    check(want > 0, f"serving {label}: no serving step ran")
+    others = {k: v for k, v in counts.items() if k != kern and v}
+    check(not others, f"serving {label}: other kernels launched: {others}")
+    check(sum(plain.calls.values()) == 0,
+          f"serving {label}: a plain version ran on the card: {plain.calls}")
+    reqs = serve_mod.requests_of(args, cfg.vocab_size)
+    for r, q in zip(results, reqs, strict=True):
+        check(r["new_tokens"] == q.max_new and all(
+            0 <= t < cfg.vocab_size for t in r["tokens"]),
+            f"serving {label}: request {r['id']} served "
+            f"{r['new_tokens']} of {q.max_new} tokens, or an id off the "
+            "vocabulary")
+    check(peak < 75e9, f"serving {label}: peak device memory "
+          f"{peak / 1e9:.2f} GB beyond 75 GB")
+    main_record.append(dict(run=f"serve {cfg.name} {label}",
+                            layers=cfg.num_layers, seconds=dt,
+                            tokens_per_s=summary["tokens_per_s"],
+                            p50_ms=summary["p50_ms"],
+                            p95_ms=summary["p95_ms"],
+                            p99_ms=summary["p99_ms"],
+                            prefill_s=mean("prefill_s"),
+                            decode_s=mean("decode_s"), steps=steps.calls,
+                            peak_bytes=peak, decode_bound_ms=bound))
+    return results, engine, counts
+
+
+def serve_where_time_goes(torch, serve_mod, cfg, params):
+    """The paged engine over 4 prompts of 128 tokens, 17 new (two prefill
+    chunks of 4 x 64 rows, then one burst of 16 decode steps) under the
+    launcher's --profile: device time by kernel from the Chrome trace,
+    serve_attention's share, the device's idle share of the wall."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--engine", "paged", "--prompt-mix", "128x4", "--tokens",
+                "17", "--block-size", "16", "--prefill-chunk", "64",
+                "--profile", tmp]
+        _, _, dt, _ = serve_mod.serve(serve_mod.parser().parse_args(argv),
+                                      cfg, torch.device("cuda"), params)
+        with open(Path(tmp) / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            n, us = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    check(busy > 0, "serving profile: the trace holds no device time")
+    own = [(n, us) for k, (n, us) in by_name.items() if "serve_attention" in k]
+    ms = sum(us for _, us in own) / 1e3
+    print(f"where the time goes, serving {cfg.name} ({cfg.num_layers} "
+          f"layers) paged, 2 prefill chunks + 16 decode steps: {dt * 1e3:.1f} "
+          f"ms wall under the profiler, device busy {busy:.1f} ms = "
+          f"{busy / (dt * 1e3):.1%} (idle {1 - busy / (dt * 1e3):.1%}); "
+          f"serve_attention {ms:.1f} ms in {sum(n for n, _ in own)} launches "
+          f"= {ms / busy:.1%} of device time")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
+
+
+def cublas_probe(torch, cfg, B=4, c=64) -> dict:
+    """Whether ``torch.matmul`` on the card is row-invariant at the
+    serving shapes: bf16 x (B, c, d_in) @ W against each row's (B, 1,
+    d_in) @ W (the decode step's M = B against the prefill chunk's M =
+    B c) for minitron's wq, wk, wv, wo, the MLP and lm_head. Returns
+    {projection: max |difference|} (0.0 where every row is bitwise
+    equal)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    shapes = {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
+              "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d),
+              "w_in": (d, cfg.d_ff), "w_gate": (d, cfg.d_ff),
+              "w_out": (cfg.d_ff, d), "lm_head": (d, cfg.vocab_size)}
+    out = {}
+    for name, (din, dout) in shapes.items():
+        w = (torch.randn(din, dout, device=dev, generator=g)
+             * din ** -0.5).to(torch.bfloat16)
+        x = torch.randn(B, c, din, device=dev, generator=g).to(torch.bfloat16)
+        full = x @ w
+        rows = torch.cat([x[:, i:i + 1] @ w for i in range(c)], 1)
+        out[name] = float((full.float() - rows.float()).abs().max())
+        del w, x, full, rows
+    torch.cuda.empty_cache()
+    first = next((k for k, v in out.items() if v), None)
+    print(f"cuBLAS row invariance (bf16, M = {B} against M = {B * c}): "
+          + ("every projection bitwise" if first is None else
+             f"NOT row-invariant: {first} first differs (max "
+             f"{out[first]:.3e}); all: {out}"))
+    return out
+
+
+def serve_contract(torch, serve_mod, ref, invariant: bool):
+    """The serving contracts at reduced size on the card. Always: the
+    paged pool == the dense cache bitwise at the same chunk width (bf16,
+    the window of 8 wrapping the ring: chunked prefill c 5 and per-token
+    decode, logits and the cache through the block table); reduced f32
+    on the card against the CPU (per-token decode and chunked prefill
+    logits within rtol 1e-4, atol 1e-5: f32 products summed in other
+    orders). When the probe found cuBLAS row-invariant, also chunked
+    prefill == per-token decode bitwise (logits and cache) at (linear, c
+    4) and (window 8, c 5), and the three engines serve identical tokens
+    (more requests than slots)."""
+    import numpy as np
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.api import build_model
+    from repro_torch.models.attention import paged_view
+    from repro_torch.serve import LoopEngine, PagedEngine, Request
+    from repro_torch.utils.tree import tree_map
+    dev = torch.device("cuda")
+
+    def build(window, dtype, device):
+        cfg = reduced(ARCHS["minitron-8b"], dtype=dtype)
+        if window:
+            cfg = cfg.with_(sliding_window=window)
+        model = build_model(cfg)
+        return model, model.init(torch.Generator().manual_seed(0), device)
+
+    def prompts(vocab, B, P, seed=0):
+        rng = np.random.RandomState(seed)
+        return rng.randint(1, vocab, (B, P)).astype(np.int32)
+
+    def ids(a, device):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    def per_token(model, params, pr, max_len, device):
+        B, P = pr.shape
+        cache = model.init_decode_cache(params, B, max_len)
+        out = [model.decode_step(params, ids(pr[:, t], device),
+                                 ids(np.full(B, t), device), cache)[0]
+               for t in range(P)]
+        return torch.stack(out, 1), cache
+
+    def chunked(model, params, pr, max_len, c, device, pool=None):
+        B, P = pr.shape
+        if pool is None:
+            cache = model.init_decode_cache(params, B, max_len)
+        else:
+            nb, bs, table, lw = pool
+            cache = model.init_paged_pool(nb, bs, device)
+        lgs = []
+        for t0 in range(0, P, c):
+            n = min(c, P - t0)
+            toks = np.zeros((B, c), np.int32)
+            poss = np.full((B, c), ref.PAD_POS, np.int32)
+            toks[:, :n] = pr[:, t0:t0 + n]
+            poss[:, :n] = np.arange(t0, t0 + n)
+            if pool is None:
+                lg, cache = model.prefill(params, ids(toks, device),
+                                          ids(poss, device), cache)
+            else:
+                lg, cache = model.prefill_paged(
+                    params, ids(toks, device), ids(poss, device), cache,
+                    table, lw)
+            lgs.append(lg[:, :n])
+        return torch.cat(lgs, 1), cache
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+    with torch.no_grad():
+        # paged == dense, bitwise, at the same chunk width
+        model, params = build(8, "bfloat16", dev)
+        B, P, max_len, bs, c = 2, 12, 24, 4, 5
+        pr = prompts(model.cfg.vocab_size, B, P)
+        L = min(max_len, 8)
+        mb = L // bs
+        nb = 1 + B * mb
+        table = ids(np.arange(1, nb).reshape(B, mb), dev)
+        lw = ids(np.full(B, L), dev)
+        dense_lg, dense_c = chunked(model, params, pr, max_len, c, dev)
+        paged_lg, pool = chunked(model, params, pr, max_len, c, dev,
+                                 (nb, bs, table, lw))
+        views = [x for g in ("body", "tail") for i in
+                 range(pool[g]["k"].shape[0]) for x in paged_view(
+                     {k: a[i] for k, a in pool[g].items()}, table)]
+        dense_views = [x for g in ("body", "tail") for i in
+                       range(dense_c[g]["k"].shape[0])
+                       for x in (dense_c[g]["k"][i], dense_c[g]["v"][i],
+                                 dense_c[g]["pos"][i])]
+        check(torch.equal(dense_lg, paged_lg) and same(views, dense_views),
+              "serving: paged chunked prefill differs from the dense cache's")
+        tok_lg, _ = per_token(model, params, pr, max_len, dev)
+        pool2 = model.init_paged_pool(nb, bs, dev)
+        plg = torch.stack([model.decode_step_paged(
+            params, ids(pr[:, t], dev), ids(np.full(B, t), dev), pool2,
+            table, lw)[0] for t in range(P)], 1)
+        check(torch.equal(tok_lg, plg),
+              "serving: paged decode differs from the dense cache's")
+        print("serving contract: paged == dense bitwise (bf16, window 8, "
+              "chunked prefill c 5 and per-token decode, logits and cache)")
+        print(f"  chunked c 5 == per token (bf16, window 8): logits "
+              f"{'bitwise' if torch.equal(dense_lg, tok_lg) else 'differ'}")
+
+        # reduced f32, the card against the CPU
+        worst = 0.0
+        for window in (0, 8):
+            model, p_cpu = build(window, "float32", torch.device("cpu"))
+            p_dev = tree_map(lambda x: x.to(dev), p_cpu)
+            pr = prompts(model.cfg.vocab_size, B, 11, seed=3)
+            for fn in (lambda p, d: per_token(model, p, pr, 20, d),
+                       lambda p, d: chunked(model, p, pr, 20, 4, d)):
+                a, _ = fn(p_dev, dev)
+                b, _ = fn(p_cpu, torch.device("cpu"))
+                err = float((a.cpu() - b).abs().max())
+                worst = max(worst, err)
+                check(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5),
+                      f"serving: reduced f32 (window {window}) logits on "
+                      f"the card differ from the CPU's by {err:.3e}")
+        print(f"serving contract: reduced f32 card == CPU within rtol "
+              f"1e-4, atol 1e-5 (max |difference| {worst:.3e})")
+
+        if not invariant:
+            print("serving contract: chunked == per token and the engines' "
+                  "tokens are NOT gated (cuBLAS is not row-invariant)")
+            return
+        for window, c in ((0, 4), (8, 5)):
+            model, params = build(window, "bfloat16", dev)
+            pr = prompts(model.cfg.vocab_size, 2, 11)
+            a, ca = per_token(model, params, pr, 20, dev)
+            b, cb = chunked(model, params, pr, 20, c, dev)
+            flat = lambda t: [x for g in ("body", "tail")
+                              for x in t[g].values()]
+            check(torch.equal(a, b) and same(flat(ca), flat(cb)),
+                  f"serving: chunked prefill c {c} (window {window}) differs "
+                  "from the per-token loop")
+        model, params = build(0, "bfloat16", dev)
+
+        def mk():
+            rng = np.random.RandomState(1)
+            return [Request(rid=i, max_new=6, prompt=rng.randint(
+                1, model.cfg.vocab_size, (ln,)).tolist())
+                for i, ln in enumerate([5, 11, 8, 14])]
+        outs = [[r["tokens"] for r in eng.run(mk())] for eng in (
+            LoopEngine(model, params),
+            LoopEngine(model, params, prefill_chunk=4),
+            PagedEngine(model, params, max_slots=2, block_size=4,
+                        max_batch_tokens=64, prefill_chunk=4))]
+        check(outs[0] == outs[1] == outs[2],
+              "serving: the three engines served different tokens")
+        print("serving contract: chunked == per token bitwise (logits and "
+              "cache, (linear, c 4) and (window 8, c 5)); the three engines "
+              "serve identical tokens")
+
+
+def serving(torch, serve_mod, tf, sa, rs, kmods, ref, tree_mod,
+            main_record):
+    """Phase 4's serving runs (module docstring) and the contracts the
+    cuBLAS probe allows. Returns the kernels' launches summed over the
+    runs."""
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    cfg = serve_config("minitron-8b")
+    probe = cublas_probe(torch, cfg)
+    invariant = not any(probe.values())
+    params, init_s = serve_params(torch, cfg)
+    n = sum(x.numel() for x in tree_mod.leaves(params))
+    print(f"serving minitron-8b CONFIG_SWA: {cfg.num_layers} layers, window "
+          f"{cfg.sliding_window}, {n:,} bf16 params made on the card in "
+          f"{init_s:.1f} s")
+    argv = [*SERVE_PAGED_RUN, "--device", "cuda"]
+    _, engine, counts = serve_run(torch, serve_mod, tf, kmods, ref, cfg,
+                                  params, argv, "paged (4 slots, blocks of "
+                                  "16, prefill chunk 64)", main_record,
+                                  tree_mod)
+    add(counts)
+    sched, kv = engine.scheduler, engine.kv
+    check(sched.admitted_order == sched.submitted_order
+          and kv.free_blocks == kv.num_blocks - 1
+          and max(len(v) for v in sched.slot_history.values()) >= 3,
+          "serving paged: FIFO admission, slot reuse or block conservation "
+          "broken")
+    tokens = {}
+    for label, run in SERVE_LOOP_RUNS:
+        res, _, counts = serve_run(torch, serve_mod, tf, kmods, ref, cfg,
+                                   params, [*run, *SERVE_LOOP_MIX,
+                                            "--device", "cuda"],
+                                   label, main_record, tree_mod)
+        add(counts)
+        tokens[label] = [r["tokens"] for r in res]
+    serve_where_time_goes(torch, serve_mod, cfg, params)
+    agree = [tokens[k] == tokens["loop per token"] for k in tokens]
+    print(f"serving full width: loop chunked / paged serve the per-token "
+          f"loop's tokens: {agree[1:]}")
+    if invariant:
+        check(all(agree), "serving full width: the engines served "
+              "different tokens though cuBLAS is row-invariant")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = serve_config("rwkv6-3b")
+    params, init_s = serve_params(torch, cfg)
+    print(f"serving rwkv6-3b: {cfg.num_layers} layers, params made on the "
+          f"card in {init_s:.1f} s")
+    _, _, counts = serve_run(torch, serve_mod, tf, kmods, ref, cfg, params,
+                             [*SERVE_RWKV_RUN, "--device", "cuda"],
+                             "loop per token", main_record, tree_mod)
+    add(counts)
+    try:
+        serve_mod.build_engine(serve_mod.build_model(cfg), params,
+                               serve_mod.parser().parse_args(
+                                   ["--engine", "paged"]))
+    except ValueError as e:
+        check("no paged serving path" in str(e), f"rwkv6 paged: {e}")
+        print(f"serving rwkv6-3b paged: refused ({e})")
+    else:
+        fail("serving: the paged engine took the ssm family")
+    del params
+    torch.cuda.empty_cache()
+    serve_contract(torch, serve_mod, ref, invariant)
+    return totals, probe
+
+
 # ----------------------------------------------------------------- build --
 
 #: a mangled template argument: float, int8 (signed char), bf16, a
@@ -2824,14 +3495,18 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.kernels import serve_attention as sa
     from repro_torch.kernels import server_plane as sp
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
     from repro_torch.utils import tree as tree_mod
     from repro_torch.utils.device import resolve_device
     resolve_device("cuda")
 
-    recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS, **rs.KERNELS}}
-    flash_rec, rwkv_rec = [], []
+    recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS, **rs.KERNELS,
+                            **sa.KERNELS}}
+    flash_rec, rwkv_rec, serve_rec = [], [], []
     main_rec = []
     kmods = (sp, fa, rs)
     check_server_mix(torch, sp, ref, recs["server_mix"])
@@ -2845,6 +3520,7 @@ def main() -> None:
     check_ama_mix(torch, am, ref, recs["ama_mix"])
     check_flash(torch, fa, ref, flash_rec)
     check_rwkv6(torch, rs, ref, rwkv_rec)
+    check_serve_attention(torch, sa, ref, serve_rec)
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
     # against the first main-path run
     run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,
@@ -2868,9 +3544,11 @@ def main() -> None:
     rwkv_planes = pod_client_planes(torch, train, "rwkv6-3b", rs, kmods, ref,
                                     tree_mod, main_rec)
     deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_rec)
+    served, _ = serving(torch, serve_mod, tf, sa, rs, (*kmods, sa), ref,
+                        tree_mod, main_rec)
     launches = {k: sum(run.get(k, 0) for run in (
         launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
-        rwkv_planes, deep)) for k in recs}
+        rwkv_planes, deep, served)) for k in recs}
     fused_vs_plain(torch, train, tree_mod)
     legacy_kernel_vs_plain(torch, train, tree_mod)
     client_planes_per_cohort(torch, tree_mod)
@@ -2912,6 +3590,9 @@ def main() -> None:
                 "flash_bwd_dq": "models/attention.py:44",
                 "flash_bwd_dkdv": "models/attention.py:44",
                 "rwkv6_fwd": "kernels/rwkv6_scan.py:49",
+                # no TPU kernel: XLA einsums of the serving attention
+                # (also :238, :354, :389)
+                "serve_attention": "models/attention.py:166",
                 # the TPU path has no backward kernel: XLA differentiates
                 # the scan of time_mix
                 "rwkv6_bwd": "models/rwkv6.py:119"}
@@ -2924,7 +3605,8 @@ def main() -> None:
               "flash_fwd": "flash_attention_sm90.cu",
               "flash_bwd_dq": "flash_attention_sm90.cu",
               "flash_bwd_dkdv": "flash_attention_sm90.cu",
-              "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu"}
+              "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu",
+              "serve_attention": "serve_attention.cu"}
     # the flash rows at minitron's shape as the main path calls it (GQA)
     flash_main = next(r for r in flash_rec if r["case"] == FLASH_GQA)
     flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
@@ -2942,6 +3624,10 @@ def main() -> None:
             row = rwkv_main[name]
             b, by = row["bound_ms"], row["bound_by"]
             err = max(r[rwkv_err[name]] for r in rwkv_rec)
+        elif name in sa.KERNELS:   # minitron's decode over its ring
+            row = next(r for r in serve_rec if r["case"] == SERVE_MAIN)
+            b, by = row["bound_ms"], row["bound_by"]
+            err = max(r["err"] for r in serve_rec)
         else:
             rec = recs[name]
             # ama_mix: one legacy round of the CNN, one call

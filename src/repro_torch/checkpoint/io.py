@@ -93,6 +93,19 @@ def restore(path: str, like, prefix: str = ""):
         return rebuild(like, prefix)
 
 
+def restore_params(path: str, like_params):
+    """Restore a params tree from either a bare params checkpoint or a
+    full round-state file written by ``save_state`` (``params/``-prefixed
+    keys plus ``t`` and ``aux``), slicing out the params subtree: the
+    serving launcher's ``--checkpoint`` takes both, so a model trained by
+    either package's ``--checkpoint`` serves as it is."""
+    with np.load(_with_npz(path)) as zf:
+        keys = set(zf.files)
+    if "t" in keys and any(k.startswith("params/") for k in keys):
+        return restore(path, like_params, prefix="params/")
+    return restore(path, like_params)
+
+
 def save_state(path: str, state: dict) -> None:
     """Checkpoint a full round state ``{params, t, aux}``."""
     missing = {"params", "t"} - set(state)

@@ -2,8 +2,9 @@
 
 32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000.
 Dense full attention. The port trains it federatedly on the pod path
-(``launch.train --pod``); the sliding-window serving variant waits for
-the serving slice.
+(``launch.train --pod``) and serves its beyond-paper long-context
+variant, ``CONFIG_SWA`` (a sliding window of 4096 over a ring cache),
+through ``launch.serve``.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -20,3 +21,6 @@ CONFIG = ModelConfig(
     train_fsdp=True,
     source="arXiv:2407.14679",
 )
+
+# beyond-paper long-context serving variant (sliding window)
+CONFIG_SWA = CONFIG.with_(sliding_window=4096)

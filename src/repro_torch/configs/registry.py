@@ -27,6 +27,15 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+def serving_config(name: str) -> ModelConfig:
+    """Config used for decode shapes (long-context variants where
+    needed): minitron-8b serves its sliding-window variant."""
+    cfg = get_arch(name)
+    if name == "minitron-8b":
+        return minitron_8b.CONFIG_SWA
+    return cfg
+
+
 def get_scenario(name: str):
     """Named scenario -> Scenario (see repro_torch.env.scenarios)."""
     from repro_torch.env import scenarios

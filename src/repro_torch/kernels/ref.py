@@ -21,6 +21,13 @@ in f32), returning the log-sum-exp rows as well; ``flash_attention_bwd_ref``
 is its gradient by the explicit formula the backward kernels compute
 (``D = rowsum(dO * O)``, ``dS = P * (dP - D)``).
 
+``serve_attention_ref`` is the serving attention of the JAX package's
+``models/attention.py`` (decode and chunked prefill, over a dense ring
+cache or a paged pool, with the ring selection of a prefill chunk that
+wraps the window): one query row at a time, every sum a sequential scan
+(``cumsum``) in slot order, so no result depends on the chunk width,
+the batch or the cache's length.
+
 ``rwkv6_scan_ref`` is the RWKV-6 recurrence of the JAX package's
 ``kernels/ref.py: rwkv6_scan_ref``, a loop over time, returning the
 states it saves every ``RWKV6_CKPT`` steps as well;
@@ -29,7 +36,8 @@ recurrence the backward kernel computes, recomputing each segment's
 states from the saved ones.
 
 The wrappers in ``server_plane.py``, ``ama_mix.py``,
-``flash_attention.py`` and ``rwkv6_scan.py`` run these for CPU
+``flash_attention.py``, ``serve_attention.py`` and ``rwkv6_scan.py``
+run these for CPU
 tensors; on the card the server-plane ones run only when
 ``fl.server_plane == "ref"``.
 """
@@ -328,6 +336,108 @@ def flash_attention_bwd_ref(dout, q, k, v, out, lse, *, causal=True,
     dq, delta = flash_bwd_dq_ref(dout, q, k, v, out, lse, **kw)
     dk, dv = flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, **kw)
     return dq, dk, dv
+
+
+# --------------------------------------------------------------------------
+# serving attention
+# --------------------------------------------------------------------------
+
+#: pad sentinel on the position axis of a prefill chunk: rows at or above
+#: PAD_FLOOR are padding (they never enter the cache; their outputs are
+#: garbage the caller drops). The JAX package's ``models/attention.py``.
+PAD_FLOOR = 2 ** 29
+PAD_POS = 2 ** 30
+
+
+def _last_of_scan(x, dim):
+    """The sum of ``x`` along ``dim`` as a sequential scan in index order
+    (the last element of ``cumsum``): its rounding depends only on the
+    summed values and their order, never on the other axes' sizes or on
+    how many zeros follow, which ``torch.sum``'s vectorised reduction does
+    not promise."""
+    return torch.cumsum(x, dim).select(dim, -1)
+
+
+def serve_chunk_sources(positions, ring_len, table, n_slots: int, bs: int):
+    """For each logical cache slot (B, n_slots): the chunk row j that
+    writes it, or c when none does. Chunk row j writes logical slot
+    (positions[:, 0] + j) % ring_len (``_chunk_slots``: consecutive from
+    the chunk's first position) when it is real (position < PAD_FLOOR);
+    a slot at or past the ring, or whose block is unmapped (table entry 0
+    of a paged pool, ``table`` not None), is never written."""
+    B, c = positions.shape
+    dev = positions.device
+    s = torch.arange(n_slots, device=dev)[None, :]
+    R = ring_len.long()[:, None]
+    j = torch.remainder(s - positions[:, :1].long(), R)
+    real = torch.gather(positions < PAD_FLOOR, 1, j.clamp(max=c - 1))
+    written = (s < R) & (j < c) & real
+    if table is not None:
+        written &= (table > 0).repeat_interleave(bs, dim=1)
+    return torch.where(written, j, c)
+
+
+def serve_attention_ref(q, k, v, positions, cache_k, cache_v, cache_pos,
+                        table=None, ring_len=None, *, window=0):
+    """The plain version of the ``serve_attention`` kernel.
+
+    q: (B, c, H, hd), pre-scaled by hd**-0.5, and the chunk's new k, v:
+    (B, c, KH, hd), H a multiple of KH (query head h reads kv head
+    h // (H // KH)); positions: (B, c) int32, absolute, consecutive from
+    the first (which is real), pad rows >= PAD_FLOOR. The cache BEFORE the
+    chunk's write: cache_k/cache_v (NB, bs, KH, hd), cache_pos (NB, bs)
+    int32 (-1 = empty), read through ``table`` (B, mb) int32 block ids of
+    a paged pool (0 = the null block: its slots read as empty) with
+    ``ring_len`` (B,) the logical ring modulus of each row; with ``table``
+    None the cache is dense, row b the one block b of bs = L slots and
+    the ring L (``init_kv_cache``'s linear or ring cache).
+
+    Query row i sees logical slot s as chunk row j's k, v and position
+    when j <= i writes s, else as the slot's old contents: exactly the
+    ring state the per-token decode loop sees at position_i (JAX's
+    ``written`` / ``pos_eff`` selection; for a linear cache the same as
+    writing the whole chunk first). Scores q.k in f32, masked to NEG_INF
+    where pos < 0, pos > position_i or (window > 0) pos <= position_i -
+    window; softmax over the slots; sum of a.v in f32, cast to q's dtype.
+    Returns (B, c, H, hd)."""
+    B, c, H, hd = q.shape
+    KH = k.shape[2]
+    nb, bs = cache_pos.shape
+    if table is None:
+        table_ = torch.arange(B, device=q.device)[:, None]
+        ring_len = torch.full((B,), bs, dtype=torch.int32, device=q.device)
+    else:
+        table_ = table.long().clamp(0, nb - 1)
+    n_slots = table_.shape[1] * bs
+    old_k = cache_k[table_].reshape(B, n_slots, KH, hd)
+    old_v = cache_v[table_].reshape(B, n_slots, KH, hd)
+    old_pos = cache_pos[table_].reshape(B, n_slots).long()
+    if table is not None:
+        mapped = (table > 0).repeat_interleave(bs, dim=1)
+        old_pos = torch.where(mapped, old_pos, -1)
+    src = serve_chunk_sources(positions, ring_len, table, n_slots, bs)
+    j = src.clamp(max=c - 1)
+    bidx = torch.arange(B, device=q.device)[:, None]
+    new_k, new_v = k[bidx, j], v[bidx, j]                # (B, n_slots, KH, hd)
+    new_pos = torch.gather(positions.long(), 1, j)
+    out = []
+    for i in range(c):
+        w = src <= i                                     # (B, n_slots)
+        pos = torch.where(w, new_pos, old_pos)
+        ki = torch.where(w[..., None, None], new_k, old_k).float()
+        vi = torch.where(w[..., None, None], new_v, old_v).float()
+        qi = q[:, i].float().reshape(B, 1, KH, H // KH, hd)
+        s = _last_of_scan(qi * ki[:, :, :, None, :], -1)  # (B, n, KH, rep)
+        p_i = positions[:, i:i + 1].long()
+        mask = (pos >= 0) & (pos <= p_i)
+        if window:
+            mask &= pos > p_i - window
+        s = torch.where(mask[..., None, None], s, NEG_INF)
+        p = torch.exp(s - s.amax(1, keepdim=True))
+        l = _last_of_scan(p, 1)                          # (B, KH, rep)
+        acc = _last_of_scan(p[..., None] * vi[:, :, :, None, :], 1)
+        out.append((acc / l[..., None]).reshape(B, H, hd))
+    return torch.stack(out, 1).to(q.dtype)
 
 
 # --------------------------------------------------------------------------

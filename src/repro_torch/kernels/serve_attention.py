@@ -1,0 +1,150 @@
+"""Serving attention: decode and chunked prefill over a dense ring cache
+or a paged block pool, on one hand-written CUDA kernel.
+
+Replaces no Pallas kernel: the JAX package computes this with XLA
+einsums in ``models/attention.py`` (``attention_decode`` :166,
+``attention_prefill`` :238, ``attention_decode_paged`` :354,
+``attention_prefill_paged`` :389), repeating kv to the query heads in
+f32 and, for a prefill chunk over a ring, building a (B, c, L, H, hd)
+copy of V. The kernel (CUDA C++ for ``sm_90a``,
+``csrc/serve_attention.cu``) reads the cache once in the model dtype
+through the block table, reads kv head h // n_rep for query head h, and
+selects each query row's ring state in registers. Every output is
+reduced in an order fixed by the slot index and hd alone, so a row of a
+c-row chunk equals that row computed at c = 1 bit for bit, and a paged
+pool equals the dense cache it maps.
+
+``serve_attention(q, k, v, positions, cache_k, cache_v, cache_pos,
+table=None, ring_len=None, *, window=0)``: see
+``ref.serve_attention_ref`` for the semantics. The cache is read as it
+was before the chunk: the caller writes the chunk's k, v and positions
+afterwards (``models/attention.py``).
+
+Dispatch is by device: a CPU tensor takes the plain version
+(``ref.serve_attention_ref``, the same signature); a CUDA tensor
+launches the kernel, or the wrapper raises. The wrapper counts its
+launches (``serve_attention.launches``).
+"""
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels._launch import (_DTYPE_CODE, _check,
+                                         _kernel_device, _ptr, _raise_on,
+                                         _stream)
+
+__all__ = ["serve_attention", "KERNELS", "reset_counts", "HEAD_DIMS"]
+
+#: head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (32, 64, 96, 128)
+
+_I32 = (torch.int32,)
+
+#: id(ring_len) -> (a weak reference to it, its version, its min and
+#: max): the engines hand every layer of a step the same ring tensor, so
+#: its device-to-host read happens once a step, not once a layer
+_RING_RANGE: dict[int, tuple] = {}
+
+
+def _ring_range(ring_len) -> tuple[int, int]:
+    key = id(ring_len)
+    hit = _RING_RANGE.get(key)
+    if hit is not None and hit[0]() is ring_len and \
+            hit[1] == ring_len._version:
+        return hit[2]
+    lo_hi = tuple(int(x) for x in torch.aminmax(ring_len))
+    _RING_RANGE[key] = (weakref.ref(ring_len, lambda _, k=key:
+                                    _RING_RANGE.pop(k, None)),
+                        ring_len._version, lo_hi)
+    return lo_hi
+
+
+def _geometry(q, k, v, positions, cache_k, cache_v, cache_pos, table,
+              ring_len):
+    """(B, c, H, KH, hd, NB, bs, mb) of checked operands."""
+    B, c, H, hd = q.shape
+    KH = k.shape[2] if k.dim() == 4 else H     # else _check refuses k
+    dev = q.device
+    _check("q", q, (B, c, H, hd), tuple(_DTYPE_CODE), dev)
+    if KH < 1 or H % KH:
+        raise ValueError(f"k has {KH} heads, which must divide q's {H} "
+                         f"(shape {tuple(k.shape)})")
+    _check("k", k, (B, c, KH, hd), (q.dtype,), dev)
+    _check("v", v, (B, c, KH, hd), (q.dtype,), dev)
+    _check("positions", positions, (B, c), _I32, dev)
+    NB, bs = cache_pos.shape if cache_pos.dim() == 2 else (0, 0)
+    _check("cache_pos", cache_pos, (NB, bs), _I32, dev)
+    _check("cache_k", cache_k, (NB, bs, KH, hd), (q.dtype,), dev)
+    _check("cache_v", cache_v, (NB, bs, KH, hd), (q.dtype,), dev)
+    if (table is None) != (ring_len is None):
+        raise ValueError("a paged pool takes both table and ring_len; a "
+                         "dense cache neither")
+    if table is None:
+        if NB != B:
+            raise ValueError(f"a dense cache holds one row per batch row: "
+                             f"{NB} rows for B={B}")
+        mb, low = 1, bs
+    else:
+        mb = table.shape[1] if table.dim() == 2 else 0
+        _check("table", table, (B, mb), _I32, dev)
+        _check("ring_len", ring_len, (B,), _I32, dev)
+        if mb < 1:
+            raise ValueError("table must map at least one block a row")
+        low, high = _ring_range(ring_len)
+        if high > mb * bs:
+            raise ValueError(f"a ring of {high} slots exceeds the table's "
+                             f"{mb * bs}")
+    if c > low:
+        raise ValueError(f"a chunk of {c} rows exceeds the ring of {low} "
+                         "slots (the engines keep c <= ring_len)")
+    return B, c, H, KH, hd, NB, bs, mb
+
+
+def serve_attention(q, k, v, positions, cache_k, cache_v, cache_pos,
+                    table=None, ring_len=None, *, window=0):
+    """q: (B, c, H, hd) pre-scaled; k/v: (B, c, KH, hd); positions (B, c)
+    int32; cache_k/cache_v (NB, bs, KH, hd), cache_pos (NB, bs) int32,
+    before the chunk's write; table (B, mb) and ring_len (B,) int32 for a
+    paged pool, None for a dense cache (NB == B, one block of L slots a
+    row). Returns (B, c, H, hd) in q's dtype."""
+    B, c, H, KH, hd, NB, bs, mb = _geometry(q, k, v, positions, cache_k,
+                                            cache_v, cache_pos, table,
+                                            ring_len)
+    if int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not _kernel_device(q):
+        return ref.serve_attention_ref(q, k, v, positions, cache_k, cache_v,
+                                       cache_pos, table, ring_len,
+                                       window=int(window))
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the serve_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
+        raise ValueError("serve_attention reads the cache 16 bytes at a "
+                         "time: cache_k and cache_v must start on a 16-byte "
+                         "boundary")
+    out = torch.empty_like(q)
+    null = ctypes.c_void_p(None)
+    err = build.load().serve_attention(
+        _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(k), _ptr(v), _ptr(positions),
+        _ptr(cache_k), _ptr(cache_v), _ptr(cache_pos),
+        null if table is None else _ptr(table),
+        null if ring_len is None else _ptr(ring_len), _ptr(out), B, c, H, KH,
+        NB, bs, mb, int(window), _stream(q.device))
+    _raise_on(err, "serve_attention")
+    serve_attention.launches += 1
+    return out
+
+
+#: kernel name -> its wrapper (each carries a ``launches`` count)
+KERNELS = {"serve_attention": serve_attention}
+serve_attention.launches = 0
+
+
+def reset_counts() -> None:
+    """Zero the launch count of the serving-attention kernel."""
+    serve_attention.launches = 0

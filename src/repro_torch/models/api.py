@@ -7,9 +7,17 @@ transformer families):
     loss   = model.loss(params, batch)
     logits, aux = model.forward(params, batch)
     mask   = model.fes_mask(params)        # paper Eq.(2): True = classifier
+    logits, cache = model.decode_step(params, token, position, cache)
 
-The serving surface (``decode_step``, ``init_decode_cache``, ``prefill``
-and the paged entries) stays ``None`` until the serving slice.
+The serving surface of the transformer families: ``decode_step`` and
+``init_decode_cache`` (dense and ssm), ``prefill_logits``, and, for the
+attention family only (as in JAX: the ssm family decodes through
+recurrent state, not a KV ring), ``prefill`` and the paged entries
+``init_paged_pool``, ``decode_step_paged``, ``prefill_paged``; ``None``
+elsewhere. Caches and pools are allocated on the params' device
+(``init_decode_cache(params, batch, max_len)``) or on the device given
+(``init_paged_pool(num_blocks, block_size, device)``), and updated in
+place by the steps.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn, transformer
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import leaves, tree_map
 
 # Top-level param keys that constitute the paper's "classifier" (omega^c).
 CLASSIFIER_KEYS = ("tail", "final_norm", "lm_head", "fc1", "fc2", "fc3")
@@ -32,6 +40,10 @@ class Model:
     forward: Callable[[Any, Any], Any]
     decode_step: Callable[..., Any] | None = None
     init_decode_cache: Callable[..., Any] | None = None
+    #: last-position logits of a full batch (the flash forward)
+    prefill_logits: Callable[[Any, Any], Any] | None = None
+    #: chunked prefill(params, tokens, positions, cache) -> (logits, cache),
+    #: bit-identical to looping decode_step (None: per-token only family)
     prefill: Callable[..., Any] | None = None
     init_paged_pool: Callable[..., Any] | None = None
     decode_step_paged: Callable[..., Any] | None = None
@@ -52,10 +64,32 @@ def build_model(cfg: ModelConfig) -> Model:
             forward=lambda p, b: cnn.forward(p, cfg, b),
         )
     transformer.check_family(cfg)
+    attn_family = cfg.family == "dense"
+    tf = transformer
     return Model(
         cfg=cfg,
-        init=lambda gen, device=None: transformer.init_params(cfg, gen,
-                                                              device),
-        loss=lambda p, b: transformer.loss_fn(p, cfg, b),
-        forward=lambda p, b: transformer.forward(p, cfg, b),
+        init=lambda gen, device=None: tf.init_params(cfg, gen, device),
+        loss=lambda p, b: tf.loss_fn(p, cfg, b),
+        forward=lambda p, b: tf.forward(p, cfg, b),
+        decode_step=lambda p, tok, pos, cache: tf.decode_step(
+            p, cfg, tok, pos, cache),
+        init_decode_cache=lambda p, batch, max_len: tf.init_decode_cache(
+            cfg, batch, max_len, device=_device_of(p)),
+        prefill_logits=lambda p, b: tf.prefill_logits(p, cfg, b),
+        prefill=(lambda p, toks, pos, cache: tf.prefill(
+            p, cfg, toks, pos, cache)) if attn_family else None,
+        init_paged_pool=(lambda nb, bs, device=None: tf.init_paged_pool(
+            cfg, nb, bs, device=device)) if attn_family else None,
+        decode_step_paged=(lambda p, tok, pos, pool, table, lw:
+                           tf.decode_step_paged(p, cfg, tok, pos, pool,
+                                                table, lw))
+        if attn_family else None,
+        prefill_paged=(lambda p, toks, pos, pool, table, lw:
+                       tf.prefill_paged(p, cfg, toks, pos, pool, table, lw))
+        if attn_family else None,
     )
+
+
+def _device_of(params):
+    """The device of a params tree (its first leaf's)."""
+    return leaves(params)[0].device

@@ -6,7 +6,10 @@ The f32 casts sit exactly where the JAX package has them: RMSNorm,
 LayerNorm, RoPE and the losses compute in f32 and return in the input's
 dtype (the losses in f32). Initializers draw from a ``torch.Generator``
 on the CPU; the JAX package's ``jax.random`` streams cannot be
-reproduced, so the tests carry JAX's params across instead.
+reproduced, so the tests carry JAX's params across instead. The draws
+land on the generator's device: a CUDA generator initialises a
+full-width model on the card (the serving launcher), a CPU one gives the
+same params on every device.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import torch.nn.functional as F
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
-    """U(-scale, scale) drawn in f32 from ``gen``, cast to ``dtype``."""
-    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    """U(-scale, scale) drawn in f32 from ``gen`` (on its device), cast
+    to ``dtype``."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=gen.device)
     return ((2.0 * u - 1.0) * scale).to(dtype)
 
 
@@ -41,7 +46,8 @@ def dense(p: dict, x):
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
     """N(0, 1) drawn in f32, cast to ``dtype``, then scaled by 0.02 in
     ``dtype`` (the JAX order)."""
-    table = torch.randn((vocab, d), generator=gen, dtype=torch.float32)
+    table = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                        device=gen.device)
     return {"table": table.to(dtype) * 0.02}
 
 

@@ -20,7 +20,11 @@ JAX pads the sequence to a multiple of its 64-step chunk with w = 1; the
 kernels take any length, so the port pads nothing and takes every S that
 JAX takes (the TPU kernel's contract, S a multiple of min(chunk, S),
 binds only its public ``rwkv6_scan`` entry).
-Single-token decode (``time_mix_step``) waits for the serving slice.
+Single-token decode (``time_mix_step``, ``channel_mix(single=True)``)
+runs the one-step recurrence through the same
+``rwkv6_recurrence`` at S = 1, so the serving path runs the ``rwkv6_fwd``
+kernel on the card; the wkv state stays f32, the shift states x_tm and
+x_cm in the model dtype.
 """
 from __future__ import annotations
 
@@ -103,11 +107,31 @@ def time_mix(p, cfg, x, state):
     return out, dict(state, wkv=s_new, x_tm=x[:, -1, :])
 
 
-def channel_mix(p, x, state):
-    """Full-sequence squared-ReLU channel mix. Returns (out, new_state)."""
-    xs = _token_shift(x, state["x_cm"])
+def time_mix_step(p, cfg, x, state):
+    """Single-token decode. x: (B, d). Returns (y (B, d), new_state)."""
+    B, d = x.shape
+    H = d // HEAD_DIM
+    xs = state["x_tm"]
+    xr, xk, xv, xw, xg = (x + p["mix"][i] * (xs - x) for i in range(5))
+    r = dense(p["wr"], xr).reshape(B, 1, H, HEAD_DIM).float()
+    k = dense(p["wk"], xk).reshape(B, 1, H, HEAD_DIM).float()
+    v = dense(p["wv"], xv).reshape(B, 1, H, HEAD_DIM).float()
+    g = dense(p["wg"], xg)
+    w = _decay(p, xw).reshape(B, 1, H, HEAD_DIM)
+    y, s_new = rwkv6_recurrence(r, k, v, w, p["u"].float(), state["wkv"])
+    y = layernorm(p["ln_x"], y.reshape(B, d).to(x.dtype)) * F.silu(g)
+    return dense(p["wo"], y), dict(state, wkv=s_new, x_tm=x)
+
+
+def channel_mix(p, x, state, single: bool = False):
+    """Squared-ReLU channel mix over a sequence x (B, S, d), or over one
+    token x (B, d) when ``single``. Returns (out, new_state)."""
+    if single:
+        xs, new_last = state["x_cm"], x
+    else:
+        xs, new_last = _token_shift(x, state["x_cm"]), x[:, -1, :]
     xk = x + p["cmix"][0] * (xs - x)
     xr = x + p["cmix"][1] * (xs - x)
     k = torch.square(F.relu(dense(p["ck"], xk)))
     out = torch.sigmoid(dense(p["cr"], xr)) * dense(p["cv"], k)
-    return out, dict(state, x_cm=x[:, -1, :])
+    return out, dict(state, x_cm=new_last)

@@ -17,6 +17,14 @@ and every gradient are bitwise those of the stack without remat, on the
 CPU and, with the deterministic kernels, on the card. The hybrid, moe,
 vlm and audio families raise NotImplementedError: they come with later
 slices of the port.
+
+Serving: ``init_decode_cache``, ``decode_step`` (dense and ssm),
+``prefill`` (chunked prefill of the dense family: one call a prompt
+CHUNK, bit-identical to looping ``decode_step``), ``init_paged_pool``,
+``decode_step_paged``, ``prefill_paged`` and ``prefill_logits``. Caches
+and pools are stacked on the layer axis like the parameters, allocated on
+the caller's device, and written IN PLACE: each call returns the same
+tensors it was given (JAX returns new ones, which its engines donate).
 """
 from __future__ import annotations
 
@@ -204,3 +212,185 @@ def loss_fn(params, cfg, batch):
                       torch.zeros_like(tokens[:, :1])], dim=1)
     loss = chunked_cross_entropy(x, params["lm_head"], labels, mask)
     return loss + 0.01 * aux
+
+
+def prefill_logits(params, cfg, batch):
+    """Full-sequence prefill, last-position logits only (the flash
+    forward; full (B, S, V) logits are never formed). The cache-writing
+    chunked prefill for serving is ``prefill`` below."""
+    x, _ = hidden_states(params, cfg, batch)
+    return dense(params["lm_head"], x[:, -1, :])
+
+
+# ------------------------------------------------------------- decode ------
+
+def _groups(cfg):
+    n_tail = min(cfg.fes_tail_layers, cfg.num_layers)
+    return {"body": cfg.num_layers - n_tail, "tail": n_tail}
+
+
+def init_decode_cache(cfg, batch: int, max_len: int, dtype=None,
+                      device=None) -> dict:
+    """Per-layer decode state stacked on the layer axis, per group: the
+    KV cache (``attention.init_kv_cache``) of the dense family, the
+    recurrent state (``rwkv6.init_rwkv_state``) of the ssm family."""
+    check_family(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+
+    def group(n):
+        if n == 0:
+            return None
+        if cfg.family == "ssm":
+            one = rwkv6.init_rwkv_state(cfg, batch, dtype, device)
+        else:
+            one = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+        return {k: torch.stack([a] * n) for k, a in one.items()}
+
+    return {g: group(n) for g, n in _groups(cfg).items()}
+
+
+def _layer(tree, i):
+    return {k: a[i] for k, a in tree.items()}
+
+
+def block_decode(p, cfg, x, cache, position):
+    """One-token block application. x: (B, 1, d). Returns (x, cache)."""
+    if cfg.family == "ssm":
+        h, cache = rwkv6.time_mix_step(p["rwkv"], cfg,
+                                       rmsnorm(p["ln1"], x)[:, 0], cache)
+        x = x + h[:, None]
+        h, cache = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x)[:, 0],
+                                     cache, single=True)
+        return x + h[:, None], cache
+    h, cache = attn.attention_decode(p["attn"], cfg, rmsnorm(p["ln1"], x),
+                                     cache, position)
+    x = x + h
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), cache
+
+
+def _scan_blocks_decode(stacked, cfg, x, cache, position):
+    """Apply a stacked group of blocks to one token, layer by layer (JAX:
+    ``lax.scan``), each layer's state written back into the stack."""
+    if stacked is None:
+        return x, cache
+    for i in range(leaves(stacked)[0].shape[0]):
+        layer_c = _layer(cache, i)
+        x, new_c = block_decode(tree_map(lambda a, i=i: a[i], stacked), cfg,
+                                x, layer_c, position)
+        for k, a in new_c.items():
+            if a is not layer_c[k]:          # the ssm state is new tensors
+                cache[k][i].copy_(a)
+    return x, cache
+
+
+def decode_step(params, cfg, token, position, cache):
+    """token: (B,) int; position: (B,) int32. Returns (logits (B, V),
+    cache), the cache updated in place."""
+    x = embedding(params["embed"], token[:, None])
+    x, _ = _scan_blocks_decode(params["body"], cfg, x, cache["body"],
+                               position)
+    x, _ = _scan_blocks_decode(params["tail"], cfg, x, cache["tail"],
+                               position)
+    x = rmsnorm(params["final_norm"], x)
+    return dense(params["lm_head"], x)[:, 0], cache
+
+
+# ---------------------------------------------------- chunked prefill ------
+
+def block_prefill(p, cfg, x, cache, positions):
+    """One prompt chunk through one block. x: (B, c, d). Attention-family
+    blocks only (the ssm family keeps the per-token path); the MLP half is
+    the decode path's, so the residual stream matches ``block_decode``
+    row for row."""
+    h, cache = attn.attention_prefill(p["attn"], cfg, rmsnorm(p["ln1"], x),
+                                      cache, positions)
+    x = x + h
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), cache
+
+
+def _scan_blocks_prefill(stacked, cfg, x, cache, positions):
+    if stacked is None:
+        return x, cache
+    for i in range(leaves(stacked)[0].shape[0]):
+        x, _ = block_prefill(tree_map(lambda a, i=i: a[i], stacked), cfg, x,
+                             _layer(cache, i), positions)
+    return x, cache
+
+
+def prefill(params, cfg, tokens, positions, cache):
+    """Chunked prefill: one call a prompt CHUNK instead of one a token.
+    tokens/positions: (B, c); pad rows carry positions >=
+    ``attention.PAD_FLOOR`` and never enter the cache. Returns (logits
+    (B, c, V), cache), bit-identical to looping ``decode_step`` over the
+    chunk where the projections are row-invariant."""
+    x = embedding(params["embed"], tokens)
+    x, _ = _scan_blocks_prefill(params["body"], cfg, x, cache["body"],
+                                positions)
+    x, _ = _scan_blocks_prefill(params["tail"], cfg, x, cache["tail"],
+                                positions)
+    x = rmsnorm(params["final_norm"], x)
+    return dense(params["lm_head"], x), cache
+
+
+# --------------------------------------------------------- paged cache -----
+
+def init_paged_pool(cfg, num_blocks: int, block_size: int, dtype=None,
+                    device=None) -> dict:
+    """Block pool shared by all in-flight requests: per layer group
+    leaves (n_layers, num_blocks, block_size, KH, hd) and pos (n_layers,
+    nb, bs). Block 0 is reserved as the null/trash block (block-table
+    entry 0 = unmapped)."""
+    check_family(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    hd = cfg.resolved_head_dim
+
+    def group(n):
+        if n == 0:
+            return None
+        kv = (n, num_blocks, block_size, cfg.num_kv_heads, hd)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device),
+                "pos": torch.full((n, num_blocks, block_size), -1,
+                                  dtype=torch.int32, device=device)}
+
+    return {g: group(n) for g, n in _groups(cfg).items()}
+
+
+def _scan_blocks_paged(stacked, cfg, x, pool, table, ring_len, positions,
+                       prefill_chunk: bool):
+    if stacked is None:
+        return x, pool
+    fn = attn.attention_prefill_paged if prefill_chunk \
+        else attn.attention_decode_paged
+    for i in range(leaves(stacked)[0].shape[0]):
+        p = tree_map(lambda a, i=i: a[i], stacked)
+        h, _ = fn(p["attn"], cfg, rmsnorm(p["ln1"], x), _layer(pool, i),
+                  table, ring_len, positions)
+        x = x + h
+        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+    return x, pool
+
+
+def decode_step_paged(params, cfg, token, position, pool, table, ring_len):
+    """One decode step against the shared block pool. token/position:
+    (B,); table: (B, mb) int32 block ids (0 = unmapped); ring_len: (B,)
+    int32 logical ring modulus per request. Returns (logits (B, V),
+    pool), the pool updated in place."""
+    x = embedding(params["embed"], token[:, None])
+    for g in ("body", "tail"):
+        x, _ = _scan_blocks_paged(params[g], cfg, x, pool[g], table,
+                                  ring_len, position, False)
+    x = rmsnorm(params["final_norm"], x)
+    return dense(params["lm_head"], x)[:, 0], pool
+
+
+def prefill_paged(params, cfg, tokens, positions, pool, table, ring_len):
+    """Chunked prefill against the shared block pool. tokens/positions:
+    (B, c). Returns (logits (B, c, V), pool), the pool updated in
+    place."""
+    x = embedding(params["embed"], tokens)
+    for g in ("body", "tail"):
+        x, _ = _scan_blocks_paged(params[g], cfg, x, pool[g], table,
+                                  ring_len, positions, True)
+    x = rmsnorm(params["final_norm"], x)
+    return dense(params["lm_head"], x), pool

@@ -17,8 +17,9 @@ One run = one JSONL file (``--metrics-out``):
   {"kind": "phases", "phases": {"stage": {"seconds": ..., "calls": ...},
    "compile": ..., "scan_dispatch": ..., "eval": ..., "checkpoint": ...}}
 
-The schema's serving rows ("serve", "serve_summary") are validated as in
-the JAX package; the port writes none yet (it has no serving plane).
+The serving rows ("serve" per request, "serve_summary" per run) are
+written by ``launch.serve --metrics-out`` and validated as in the JAX
+package.
 
 Round rows are pure functions of the round they describe (absolute
 ``t``, device-computed values), so a resumed run's file is bit-identical
@@ -128,6 +129,22 @@ class MetricsLogger:
         """Serialize a ``PhaseTimes`` summary (or a plain dict)."""
         summary = times.summary() if hasattr(times, "summary") else times
         self._emit({"kind": "phases", "phases": summary})
+
+    def serve(self, result: dict) -> None:
+        """One per-request serving row (an engine result: id,
+        new_tokens, queue_s/prefill_s/decode_s/total_s). The token ids
+        are NOT logged: telemetry, not transcripts."""
+        row = {"kind": "serve", "id": int(result["id"]),
+               "new_tokens": int(result["new_tokens"])}
+        for k in SERVE_LATENCY_KEYS:
+            if k in result:
+                row[k] = round(float(result[k]), 6)
+        self._emit(row)
+
+    def serve_summary(self, summary: dict) -> None:
+        """The one-per-run aggregate: tokens/s and latency percentiles
+        (an engine's ``last_summary``)."""
+        self._emit({"kind": "serve_summary", **summary})
 
     def close(self) -> None:
         if self._f is not None:

@@ -297,14 +297,15 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
 
 #: (B, S, H, hd, decay range, u scale): the phase-3 cases of
 #: chip_smoke.py at test size; S = 100 and 2047 leave a ragged last
-#: segment, S = 16 is exactly one
+#: segment, S = 16 is exactly one, S = 1 is the serving path's decode
 RWKV6_CASES = [(2, 256, 4, 64, (0.4, 0.9), 0.1),
                (1, 64, 1, 16, (0.4, 0.9), 0.1),
                (1, 100, 2, 32, (0.4, 0.9), 0.5),
                (2, 96, 2, 64, (2e-24, 1e-23), 0.1),
                (2, 96, 2, 64, (0.99966, 0.99966), 0.1),
                (2, 16, 4, 64, (0.4, 0.9), 0.1),
-               (1, 2047, 2, 64, (0.4, 0.9), 0.1)]
+               (1, 2047, 2, 64, (0.4, 0.9), 0.1),
+               (4, 1, 40, 64, (0.4, 0.9), 0.1)]      # a decode step
 
 
 @pytest.mark.gpu
@@ -655,3 +656,116 @@ def test_remat_pod_round_bitwise_on_card(arch):
                                                  leaves(b["params"]),
                                                  strict=True))
     assert list(ma["loss"]) == list(mb["loss"])
+
+
+#: (dtype, B, c, window, H, KH, hd, ring, block size): decode and
+#: prefill over a ring that has wrapped (window > 0) or a linear cache
+#: (window 0, the last block unmapped when paged), GQA, pad rows
+SERVE_CASES = [("bfloat16", 2, 1, 64, 8, 2, 128, 64, 16),
+               ("bfloat16", 2, 8, 64, 8, 2, 128, 64, 16),
+               ("bfloat16", 1, 16, 0, 4, 4, 64, 96, 8),
+               ("float32", 3, 5, 32, 4, 2, 64, 32, 4),
+               ("float32", 2, 1, 0, 6, 2, 96, 48, 16)]
+
+
+def _serve_state(dev, g, dt, B, c, window, H, KH, hd, L, bs):
+    """The cache before a chunk (each slot the latest position below the
+    chunk's first, of its residue), the chunk (the last row's last two
+    rows pad when c > 2) and the same cache as a pool under a shuffled
+    table."""
+    from repro_torch.kernels.ref import PAD_POS
+    p0 = torch.tensor([(L + 9 if window else 3) + 5 * b for b in range(B)],
+                      device=dev)
+    s = torch.arange(L, device=dev)
+    cpos = p0[:, None] - 1 - torch.remainder(p0[:, None] - 1 - s, L)
+    cpos = torch.where(cpos >= 0, cpos, -1).to(torch.int32)
+    rnd = lambda *sh: torch.randn(*sh, device=dev, generator=g).to(dt)
+    ck, cv = rnd(B, L, KH, hd), rnd(B, L, KH, hd)
+    q = rnd(B, c, H, hd) * hd ** -0.5
+    k, v = rnd(B, c, KH, hd), rnd(B, c, KH, hd)
+    pos = (p0[:, None] + torch.arange(c, device=dev)).to(torch.int32)
+    if c > 2:
+        pos[-1, -2:] = PAD_POS
+    mb = L // bs
+    table = (torch.randperm(B * mb, device=dev, generator=g) + 1).reshape(
+        B, mb).to(torch.int32)
+    if not window:
+        table[:, -1] = 0
+    nb = 1 + B * mb
+    pk, pv = rnd(nb, bs, KH, hd), rnd(nb, bs, KH, hd)
+    ppos = torch.full((nb, bs), 3, dtype=torch.int32, device=dev)
+    keep = table.flatten() > 0
+    idx = table.flatten()[keep].long()
+    pk[idx] = ck.reshape(B * mb, bs, KH, hd)[keep]
+    pv[idx] = cv.reshape(B * mb, bs, KH, hd)[keep]
+    ppos[idx] = cpos.reshape(B * mb, bs)[keep]
+    ring = torch.full((B,), L, dtype=torch.int32, device=dev)
+    return (q, k, v, pos), (ck, cv, cpos), (pk, pv, ppos, table, ring)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,B,c,window,H,KH,hd,L,bs", SERVE_CASES)
+def test_serve_attention_matches_plain_on_card(dt, B, c, window, H, KH, hd,
+                                               L, bs):
+    """serve_attention against its plain version under FlashAttention's
+    rule (bf16: within twice the plain bf16 version's error against the
+    plain version in f32, floor 1e-3 x max|want|; f32: atol 1e-5 + rtol
+    1e-5); the paged pool bitwise equal to the dense cache; every row of
+    the chunk bitwise equal to that row at c = 1 against the per-token
+    loop's cache; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import serve_attention as tsa
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(5)
+    chunk, dense, paged = _serve_state(dev, g, dtype, B, c, window, H, KH,
+                                       hd, L, bs)
+    tsa.reset_counts()
+    got = tsa.serve_attention(*chunk, *dense, window=window)
+    assert tsa.serve_attention.launches == 1
+    assert torch.equal(got, tsa.serve_attention(*chunk, *paged,
+                                                window=window))
+    want = tref.serve_attention_ref(*chunk, *dense, window=window)
+    f32 = [x.float() if x.is_floating_point() else x
+           for x in (*chunk, *dense)]
+    want32 = tref.serve_attention_ref(*f32, window=window)
+    err = float((got.float() - want32).abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want32, rtol=1e-5, atol=1e-5)
+    else:
+        own = float((want.float() - want32).abs().max())
+        assert err <= max(2 * own, 1e-3 * float(want32.abs().max()))
+    q, k, v, pos = chunk
+    for i in range(c):
+        ck, cv, cpos = (x.clone() for x in dense)
+        for j in range(i):
+            for b in range(B):
+                if pos[b, j] < (1 << 29):
+                    slot = int(pos[b, 0] + j) % L
+                    ck[b, slot], cv[b, slot] = k[b, j], v[b, j]
+                    cpos[b, slot] = pos[b, j]
+        row = lambda x: x[:, i:i + 1].contiguous()
+        one = tsa.serve_attention(row(q), row(k), row(v), row(pos), ck, cv,
+                                  cpos, window=window)
+        assert torch.equal(got[:, i], one[:, 0]), i
+
+
+@pytest.mark.gpu
+def test_serve_attention_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import serve_attention as tsa
+    dev = torch.device("cuda")
+    f = dict(device=dev)
+    pos = torch.zeros(1, 1, dtype=torch.int32, **f)
+    cpos = torch.zeros(1, 8, dtype=torch.int32, **f)
+    for hd in (80, 16):            # not a head dim the kernel is built for
+        x = torch.zeros(1, 1, 2, hd, **f)
+        c = torch.zeros(1, 8, 2, hd, **f)
+        with pytest.raises(ValueError, match="head dims"):
+            tsa.serve_attention(x, x, x, pos, c, c, cpos)
+    x = torch.zeros(1, 1, 2, 64, **f)
+    c = torch.zeros(1, 8 * 64 * 2 + 1, **f)[:, 1:].reshape(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tsa.serve_attention(x, x, x, pos, c, c, cpos)

@@ -32,6 +32,17 @@ from repro_torch.utils.tree import leaves, tree_map
 
 C, B, S = 2, 1, 48
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's ops on one intra-op thread: the reduced LLMs'
+    many small ops slow down by orders of magnitude when several test
+    workers' thread pools spin on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 #: arch -> the plain versions of its forward and backward kernels
 KERNEL_PLAINS = {"minitron-8b": ("flash_attention_ref",
                                  ("flash_bwd_dq_ref", "flash_bwd_dkdv_ref")),
