@@ -41,7 +41,12 @@ Phases (any error or out-of-tolerance result exits non-zero):
      a linear cache (its last block the null block when paged), pad rows,
      B 1 and 4, bf16 and f32, under FlashAttention's rule, the paged pool
      bitwise the dense cache, chunk rows bitwise the row at c = 1 (SDPA
-     the dense decode's yardstick), with
+     the dense decode's yardstick); invariant_dense at every minitron-8b
+     serving projection in bf16 (rows bitwise at M 1, 4, 5, 64, 256 and
+     260; within twice cuBLAS's error against the f32 product, floor one
+     bf16 ulp) and at a reduced f32 shape, with its times at M 4 and 256
+     (weights cold) beside torch.matmul; invariant_rmsnorm at d 4096 bf16
+     and d 256 f32 (rows bitwise, within N_ULP of the plain version), with
      device times (CUDA-graph replay) beside the least time the card
      could take (its bound; for rwkv6 also its design's bound), the
      plain version's and a library call's;
@@ -97,8 +102,10 @@ Phases (any error or out-of-tolerance result exits non-zero):
      server_async's kernel per C (16-byte at C 5, per element above);
      K 1,000 virtual over the shards == over a dense client list of
      them, bitwise;
-     Serving (slice 13): a probe of cuBLAS's row invariance at minitron's
-     projections (bf16, M = 4 against M = 256); minitron-8b CONFIG_SWA
+     Serving (slices 13-14): a row-invariance probe at minitron's full
+     width (bf16, M = 4 against M = 256: the serving path's
+     invariant_dense, invariant_rmsnorm and argmax, each a check, and
+     torch.matmul and layers.rmsnorm as a yardstick); minitron-8b CONFIG_SWA
      (window 4096) at its published widths and all 32 layers through
      ``launch.serve.serve``: PagedEngine (4 slots, blocks of 16, prefill
      chunk 64) over two prompts of 4,000 tokens (the ring wraps), four of
@@ -107,11 +114,12 @@ Phases (any error or out-of-tolerance result exits non-zero):
      at 8 layers per token (the paged engine refused): tokens/s,
      p50/p95/p99, prefill and decode seconds, peak memory (under 75 GB),
      the decode step's weight bound, exact launches of serve_attention
-     (layers x serving steps) and rwkv6_fwd (layers x decode steps), no
-     plain version on the card; then at reduced size paged == dense
-     bitwise, reduced f32 card == CPU, and, if the probe found cuBLAS
-     row-invariant, chunked == per token bitwise and the engines' tokens
-     equal;
+     (layers x serving steps), invariant_dense ((7 layers + 1) x steps),
+     invariant_rmsnorm ((2 layers + 1) x steps) and rwkv6_fwd (layers x
+     decode steps), no plain version on the card, loop chunked 64 and
+     paged serving the per-token loop's tokens at full width; then at
+     reduced size paged == dense bitwise, reduced f32 card == CPU,
+     chunked == per token bitwise and the engines' tokens equal;
   5. fused against plain server planes on the card (ama_fes, async_ama,
      fedopt, ama_fes + q8, ama_fes + topk, 10 rounds each); the legacy
      chain with --use-kernel against it without (ama_fes, async_ama,
@@ -215,6 +223,19 @@ def call_ms(torch, fn, iters: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+class PhaseClock:
+    """Prints each phase's wall seconds as the script passes its end (the
+    run's own breakdown against its time limit)."""
+
+    def __init__(self, t0: float):
+        self.t = t0
+
+    def mark(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase time: {phase} {now - self.t:.1f} s", flush=True)
+        self.t = now
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -1525,7 +1546,9 @@ def time_serve_attention(torch, sa, ref, F, case, st):
     written (``enable_gqa``, a boolean mask), with the bound: the
     function's bytes (q, the chunk's k, v and positions, every cache slot
     and position once, out; the table and rings when paged) against its
-    f32 flops (4 hd a visible query-slot pair and head)."""
+    flops (4 hd a visible query-slot pair and head) at the tensor-core
+    rate for bf16 (f32: the CUDA cores' rate), and the design's bound
+    (P.V, half the flops, at the f32 rate)."""
     dtype, B, c, window, pads, label = case
     q, k, v, pos = st["q"], st["k"], st["v"], st["pos"]
     ck, cv, cpos = st["dense"]
@@ -1534,7 +1557,13 @@ def time_serve_attention(torch, sa, ref, F, case, st):
                + cv.numel()) * s + (pos.numel() + cpos.numel()) * 4)
     flops = 4 * SERVE_HD * SERVE_H * serve_visible(torch, ref, pos, cpos,
                                                    window)
-    bnd, by = bound_ms(nbytes, flops)
+    # bf16: the card's bound at the tensor-core rate; the design's keeps
+    # P.V (half the flops) on the CUDA cores at the f32 rate
+    bf16 = dtype == "bfloat16"
+    bnd, by = bound_ms(nbytes, flops,
+                       BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+    design = max(nbytes / HBM_BYTES_PER_S, flops / 2 / BF16_FLOPS_PER_S
+                 + flops / 2 / F32_FLOPS_PER_S) * 1e3 if bf16 else bnd
     ms = device_ms(torch, lambda: sa.serve_attention(
         q, k, v, pos, ck, cv, cpos, window=window), reps=10, replays=10)
     ms_paged = device_ms(torch, lambda: sa.serve_attention(
@@ -1558,10 +1587,166 @@ def time_serve_attention(torch, sa, ref, F, case, st):
             reps=10, replays=10)
     print(f"  {label}: kernel {ms:.4f} ms dense, {ms_paged:.4f} paged | "
           f"bound {bnd:.4f} ({by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP) | plain {plain:.4f} | SDPA "
-          f"{'-' if lib is None else f'{lib:.4f}'}")
+          f"{flops / 1e9:.2f} GFLOP), the design's {design:.4f} | plain "
+          f"{plain:.4f} | SDPA {'-' if lib is None else f'{lib:.4f}'}"
+          + ("" if lib is None else
+             f" (decode {'no slower than' if ms <= lib else 'slower than'}"
+             f" SDPA: {ms / lib:.2f}x)"))
     return dict(ms=ms, ms_paged=ms_paged, plain_ms=plain, library_ms=lib,
-                nbytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by)
+                nbytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by,
+                design_bound_ms=design)
+
+
+#: minitron-8b's serving projections (d_in, d_out) at its published widths
+#: (d 4096, 32 heads and 8 kv heads of 128, d_ff 16384, vocabulary 256000)
+DENSE_PROJ = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+              "wo": (4096, 4096), "w_in": (4096, 16384),
+              "w_gate": (4096, 16384), "w_out": (16384, 4096),
+              "lm_head": (4096, 256000)}
+#: rows of the bitwise check: a decode step at 1, 4 and 5 requests, a
+#: chunk of 64, four of 64 (the paged engine's prefill), a ragged tail
+DENSE_ROWS = (1, 4, 5, 64, 256, 260)
+#: the timed rows: the decode step (4 slots) and the paged prefill chunk
+DENSE_TIMED = (4, 256)
+#: a reduced f32 shape (reduced minitron's w_in: d 256, d_ff 512)
+DENSE_F32 = (256, 512)
+L2_BYTES = 50e6                  # H100 L2: cold reads need more than this
+
+
+def cold_ms(torch, fn, operands) -> float:
+    """device_ms of ``fn(w)`` with w cycling through copies of ``operands``
+    summing past twice the L2, so each call reads its weights from device
+    memory, as a serving step (16 GB of weights) does."""
+    it = iter(range(1 << 30))
+    return device_ms(torch, lambda: fn(operands[next(it) % len(operands)]),
+                     reps=10, replays=10)
+
+
+def check_invariant_dense(torch, idn, ref, record):
+    """invariant_dense at every minitron-8b serving projection (bf16): every
+    row bitwise the same at M in DENSE_ROWS (the rows of M = 260 against
+    each smaller call); the max error against the f32 product of the same
+    bf16 operands within max(2 x cuBLAS's on the same draws, one bf16 ulp
+    of max|ref|); and at a reduced f32 shape rows bitwise and within 1e-5
+    of the f64 product. Times at M = 4 and 256 (weights cold: copies past
+    the L2) beside the bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s),
+    the plain version (``x @ w``, which is ``torch.matmul``) and
+    torch.matmul as the library call."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    print("invariant_dense: projection (K, N) split | rows bitwise at M "
+          f"{DENSE_ROWS} | err vs f32 product (cuBLAS's) | M: kernel ms "
+          "(% HBM peak) bound plain torch.matmul")
+    for name, (K, N) in DENSE_PROJ.items():
+        w = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
+            torch.bfloat16)
+        x = torch.randn(max(DENSE_ROWS), K, device=dev, generator=g).to(
+            torch.bfloat16)
+        full = idn.invariant_dense(x, w)
+        for M in DENSE_ROWS[:-1]:
+            part = idn.invariant_dense(x[:M].contiguous(), w)
+            check(torch.equal(part, full[:M]),
+                  f"invariant_dense {name}: rows at M = {M} differ from the "
+                  f"same rows at M = {max(DENSE_ROWS)} (max "
+                  f"{float((part.float() - full[:M].float()).abs().max()):.3e})")
+        ref32 = x.float() @ w.float()
+        err = float((full.float() - ref32).abs().max())
+        lib_err = float(((x @ w).float() - ref32).abs().max())
+        floor = float(ulp(torch, ref32.abs().max(), torch.bfloat16))
+        check(err <= max(2 * lib_err, floor),
+              f"invariant_dense {name}: max error {err:.3e} beyond twice "
+              f"cuBLAS's {lib_err:.3e} (floor {floor:.3e})")
+        del ref32
+        copies = [w] + [w.clone() for _ in range(
+            max(0, math.ceil(2 * L2_BYTES / (K * N * 2)) - 1))]
+        times = {}
+        for M in DENSE_TIMED:
+            xm = x[:M].contiguous()
+            nbytes = (M * K + K * N + M * N) * 2
+            bnd, by = bound_ms(nbytes, 2 * M * K * N, BF16_FLOPS_PER_S)
+            ms = cold_ms(torch, lambda ww: idn.invariant_dense(xm, ww),
+                         copies)
+            plain = cold_ms(torch, lambda ww: ref.invariant_dense_ref(xm, ww),
+                            copies)
+            lib = cold_ms(torch, lambda ww: torch.matmul(xm, ww), copies)
+            times[M] = (ms, bnd, by, plain, lib)
+            record.append(dict(case=(name, M), dtype="bfloat16", K=K, N=N,
+                               M=M, split=idn.split_k(K, N), ms=ms,
+                               plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                               bound_by=by, nbytes=nbytes, err=err,
+                               lib_err=lib_err))
+        print(f"  {name:8s} ({K}, {N}) S {idn.split_k(K, N)} | bitwise | "
+              f"{err:.3e} ({lib_err:.3e}) | " + "; ".join(
+                  f"{M}: {ms:.4f} ({(K * N * 2) / (ms * 1e-3) / 3.35e12:.1%})"
+                  f" bound {bnd:.4f} plain {plain:.4f} matmul {lib:.4f}"
+                  for M, (ms, bnd, by, plain, lib) in times.items()))
+        del w, x, full, copies
+        torch.cuda.empty_cache()
+    step = sum(r["ms"] for r in record if r["M"] == 4 and r["dtype"] ==
+               "bfloat16" and r["case"][0] in DENSE_PROJ)
+    layer = step - next(r["ms"] for r in record if r["case"] == ("lm_head",
+                                                                 4))
+    print(f"invariant_dense: minitron-8b's 32-layer decode step (M 4) of "
+          f"projections: 32 x {layer:.4f} + lm_head = "
+          f"{32 * layer + step - layer:.3f} ms")
+    K, N = DENSE_F32
+    x = torch.randn(max(DENSE_ROWS), K, device=dev, generator=g)
+    w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+    full = idn.invariant_dense(x, w)
+    for M in DENSE_ROWS[:-1]:
+        check(torch.equal(idn.invariant_dense(x[:M].contiguous(), w),
+                          full[:M]),
+              f"invariant_dense f32 ({K}, {N}): rows at M = {M} differ")
+    want = (x.double() @ w.double()).float()
+    err = float((full - want).abs().max())
+    check(bool(torch.allclose(full, want, rtol=1e-5, atol=1e-5)),
+          f"invariant_dense f32 ({K}, {N}): {err:.3e} from the f64 product")
+    record.append(dict(case=("reduced f32", max(DENSE_ROWS)), dtype="float32",
+                       K=K, N=N, M=max(DENSE_ROWS), err=err))
+    print(f"  f32 ({K}, {N}) | bitwise | {err:.3e} vs the f64 product")
+
+
+RMS_CASES = (("bfloat16", 4096), ("float32", 256))
+
+
+def check_invariant_rmsnorm(torch, irn, ref, record):
+    """invariant_rmsnorm at minitron's width (bf16, d 4096) and reduced
+    (f32, d 256): rows bitwise at M in DENSE_ROWS, within N_ULP of the
+    output dtype of the plain version (``layers.rmsnorm``); times at M 4
+    and 256 beside the bound (bytes), the plain version and
+    ``F.rms_norm``."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    for dtype, d in RMS_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(max(DENSE_ROWS), d, device=dev, generator=g).to(dt)
+        gain = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        full = irn.invariant_rmsnorm(x, gain)
+        for M in DENSE_ROWS[:-1]:
+            check(torch.equal(irn.invariant_rmsnorm(x[:M].contiguous(), gain),
+                              full[:M]),
+                  f"invariant_rmsnorm {dtype} d {d}: rows at M = {M} differ")
+        want = ref.invariant_rmsnorm_ref(x, gain)
+        err = compare(torch, f"invariant_rmsnorm {dtype} d {d}", full, want,
+                      want.float().abs(), dt)
+        line = []
+        for M in DENSE_TIMED:
+            xm = x[:M].contiguous()
+            nbytes = (2 * M * d + d) * x.element_size()
+            bnd, by = bound_ms(nbytes, 4 * M * d)
+            ms = device_ms(torch, lambda: irn.invariant_rmsnorm(xm, gain))
+            plain = device_ms(torch, lambda: ref.invariant_rmsnorm_ref(
+                xm, gain))
+            lib = device_ms(torch, lambda: F.rms_norm(xm, (d,), gain, 1e-6))
+            record.append(dict(case=(dtype, d, M), M=M, ms=ms, plain_ms=plain,
+                               library_ms=lib, bound_ms=bnd, bound_by=by,
+                               nbytes=nbytes, err=err))
+            line.append(f"M {M}: {ms:.4f} ms bound {bnd:.4f} plain "
+                        f"{plain:.4f} F.rms_norm {lib:.4f}")
+        print(f"invariant_rmsnorm {dtype} d {d}: rows bitwise at M "
+              f"{DENSE_ROWS}, max err vs plain {err:.3e} (within "
+              f"{N_ULP[dtype]} ulp); " + "; ".join(line))
 
 
 # ------------------------------------------------------------ phase 4/5 ---
@@ -3055,9 +3240,11 @@ def decode_bound_ms(cfg, params, tree_mod, slots: int) -> float:
 def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
               main_record, tree_mod):
     """One serving run through ``launch.serve.serve`` on the card, the
-    counts set to 0 just before it and read just after: serve_attention
-    launched layers x serving steps (dense family), rwkv6_fwd layers x
-    decode steps (ssm), no other kernel, no plain version on the card;
+    counts set to 0 just before it and read just after: for the dense
+    family serve_attention launched layers x serving steps,
+    invariant_dense (7 layers + 1) x steps and invariant_rmsnorm (2 layers
+    + 1) x steps; for the ssm family rwkv6_fwd layers x decode steps; no
+    other kernel, no plain version on the card;
     every request served its tokens. Prints tokens/s, latency percentiles,
     the mean prefill and decode seconds a request and the peak device
     memory. Returns (results, engine, counts)."""
@@ -3066,16 +3253,20 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     torch.cuda.reset_peak_memory_stats()
     for m in kmods:
         m.reset_counts()
-    with CountPlain(ref, ("serve_attention_ref", "rwkv6_scan_ref")) as \
-            plain, CountSteps(tf) as steps:
+    with CountPlain(ref, ("serve_attention_ref", "rwkv6_scan_ref",
+                          "invariant_dense_ref", "invariant_rmsnorm_ref")) \
+            as plain, CountSteps(tf) as steps:
         results, summary, dt, engine = serve_mod.serve(
             args, cfg, torch.device("cuda"), params)
     peak = torch.cuda.max_memory_allocated()
     counts = {k: fn.launches for m in kmods for k, fn in m.KERNELS.items()}
     calls = sum(steps.calls.values())
-    kern = "rwkv6_fwd" if cfg.family == "ssm" else "serve_attention"
-    want = cfg.num_layers * (steps.calls["decode_step"] if kern ==
-                             "rwkv6_fwd" else calls)
+    L = cfg.num_layers
+    want = ({"rwkv6_fwd": L * steps.calls["decode_step"]}
+            if cfg.family == "ssm" else
+            {"serve_attention": L * calls,
+             "invariant_dense": (7 * L + 1) * calls,
+             "invariant_rmsnorm": (2 * L + 1) * calls})
     new = sum(r["new_tokens"] for r in results)
     mean = lambda k: statistics.mean(r[k] for r in results)
     bound = decode_bound_ms(cfg, params, tree_mod, len(results)
@@ -3089,11 +3280,12 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
           f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
           f"{peak / 1e9:.2f} GB; decode bound {bound:.3f} ms a step (the "
           f"weights once)")
-    check(counts[kern] == want, f"serving {label}: {kern} launched "
-          f"{counts[kern]} times, expected {want} ({cfg.num_layers} layers "
-          f"x {steps.calls})")
-    check(want > 0, f"serving {label}: no serving step ran")
-    others = {k: v for k, v in counts.items() if k != kern and v}
+    for kern, n in want.items():
+        check(counts[kern] == n, f"serving {label}: {kern} launched "
+              f"{counts[kern]} times, expected {n} ({L} layers x "
+              f"{steps.calls})")
+    check(calls > 0, f"serving {label}: no serving step ran")
+    others = {k: v for k, v in counts.items() if k not in want and v}
     check(not others, f"serving {label}: other kernels launched: {others}")
     check(sum(plain.calls.values()) == 0,
           f"serving {label}: a plain version ran on the card: {plain.calls}")
@@ -3122,7 +3314,8 @@ def serve_where_time_goes(torch, serve_mod, cfg, params):
     """The paged engine over 4 prompts of 128 tokens, 17 new (two prefill
     chunks of 4 x 64 rows, then one burst of 16 decode steps) under the
     launcher's --profile: device time by kernel from the Chrome trace,
-    serve_attention's share, the device's idle share of the wall."""
+    the shares of serve_attention and the row-invariant GEMM and norm, the
+    device's idle share of the wall."""
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--engine", "paged", "--prompt-mix", "128x4", "--tokens",
                 "17", "--block-size", "16", "--prefill-chunk", "64",
@@ -3138,26 +3331,32 @@ def serve_where_time_goes(torch, serve_mod, cfg, params):
             by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
     busy = sum(us for _, us in by_name.values()) / 1e3
     check(busy > 0, "serving profile: the trace holds no device time")
-    own = [(n, us) for k, (n, us) in by_name.items() if "serve_attention" in k]
-    ms = sum(us for _, us in own) / 1e3
+    shares = []
+    for kern in ("serve_attention", "invariant_dense", "invariant_rmsnorm"):
+        own = [(n, us) for k, (n, us) in by_name.items() if kern in k]
+        ms = sum(us for _, us in own) / 1e3
+        shares.append(f"{kern} {ms:.1f} ms in {sum(n for n, _ in own)} "
+                      f"launches = {ms / busy:.1%}")
     print(f"where the time goes, serving {cfg.name} ({cfg.num_layers} "
           f"layers) paged, 2 prefill chunks + 16 decode steps: {dt * 1e3:.1f} "
           f"ms wall under the profiler, device busy {busy:.1f} ms = "
           f"{busy / (dt * 1e3):.1%} (idle {1 - busy / (dt * 1e3):.1%}); "
-          f"serve_attention {ms:.1f} ms in {sum(n for n, _ in own)} launches "
-          f"= {ms / busy:.1%} of device time")
+          + ", ".join(shares) + " of device time")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:10]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 
 
-def cublas_probe(torch, cfg, B=4, c=64) -> dict:
-    """Whether ``torch.matmul`` on the card is row-invariant at the
-    serving shapes: bf16 x (B, c, d_in) @ W against each row's (B, 1,
-    d_in) @ W (the decode step's M = B against the prefill chunk's M =
-    B c) for minitron's wq, wk, wv, wo, the MLP and lm_head. Returns
-    {projection: max |difference|} (0.0 where every row is bitwise
-    equal)."""
+def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
+    """Whether each row-wise reduction of a full-width serving step gives a
+    row the same bits at M = B (a decode step) as at M = B c (a prefill
+    chunk), on the card: the serving path's own ops (``invariant_dense``
+    at minitron's wq, wk, wv, wo, the MLP and lm_head; ``invariant_rmsnorm``
+    at d_model; the logits' ``argmax``), each a check, and beside them the
+    ops the path no longer calls (``torch.matmul`` at every projection,
+    ``layers.rmsnorm``), reported as a yardstick. Returns {op: max
+    |difference|} (0.0 where every row is bitwise equal)."""
+    from repro_torch.models.layers import rmsnorm
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(31)
     d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -3165,35 +3364,57 @@ def cublas_probe(torch, cfg, B=4, c=64) -> dict:
               "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d),
               "w_in": (d, cfg.d_ff), "w_gate": (d, cfg.d_ff),
               "w_out": (cfg.d_ff, d), "lm_head": (d, cfg.vocab_size)}
-    out = {}
+
+    def gap(fn, x):
+        full = fn(x)
+        rows = torch.cat([fn(x[:, i:i + 1].contiguous()) for i in range(c)],
+                         1)
+        return float((full.float() - rows.float()).abs().max())
+    path, yard = {}, {}
     for name, (din, dout) in shapes.items():
         w = (torch.randn(din, dout, device=dev, generator=g)
              * din ** -0.5).to(torch.bfloat16)
         x = torch.randn(B, c, din, device=dev, generator=g).to(torch.bfloat16)
-        full = x @ w
-        rows = torch.cat([x[:, i:i + 1] @ w for i in range(c)], 1)
-        out[name] = float((full.float() - rows.float()).abs().max())
-        del w, x, full, rows
+        path[f"invariant_dense {name}"] = gap(
+            lambda t: idn.invariant_dense(t, w), x)
+        yard[f"torch.matmul {name}"] = gap(lambda t: t @ w, x)
+        if name == "lm_head":       # the same logits, B c rows or B
+            lg = idn.invariant_dense(x, w)
+            path["argmax"] = float(lg.argmax(-1).ne(torch.cat(
+                [lg[:, i:i + 1].contiguous().argmax(-1) for i in range(c)],
+                1)).sum())
+            del lg
+        del w, x
+    x = torch.randn(B, c, d, device=dev, generator=g).to(torch.bfloat16)
+    gain = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(
+        torch.bfloat16)
+    path["invariant_rmsnorm"] = gap(lambda t: irn.invariant_rmsnorm(t, gain),
+                                    x)
+    yard["layers.rmsnorm"] = gap(lambda t: rmsnorm({"g": gain}, t), x)
     torch.cuda.empty_cache()
-    first = next((k for k, v in out.items() if v), None)
-    print(f"cuBLAS row invariance (bf16, M = {B} against M = {B * c}): "
-          + ("every projection bitwise" if first is None else
-             f"NOT row-invariant: {first} first differs (max "
-             f"{out[first]:.3e}); all: {out}"))
-    return out
+    bad = {k: v for k, v in path.items() if v}
+    off = {k: v for k, v in yard.items() if v}
+    print(f"row invariance (bf16, M = {B} against M = {B * c}): the serving "
+          f"path's ops " + ("every one bitwise" if not bad else
+                            f"NOT row-invariant: {bad}") +
+          "; the ops it no longer calls: " +
+          ("every one bitwise" if not off else
+           f"NOT row-invariant: {off}"))
+    check(not bad, f"row invariance: the serving path's {sorted(bad)} give a "
+          f"row other bits at M = {B} than at M = {B * c}: {bad}")
+    return {**path, **yard}
 
 
-def serve_contract(torch, serve_mod, ref, invariant: bool):
+def serve_contract(torch, serve_mod, ref):
     """The serving contracts at reduced size on the card. Always: the
     paged pool == the dense cache bitwise at the same chunk width (bf16,
     the window of 8 wrapping the ring: chunked prefill c 5 and per-token
     decode, logits and the cache through the block table); reduced f32
     on the card against the CPU (per-token decode and chunked prefill
     logits within rtol 1e-4, atol 1e-5: f32 products summed in other
-    orders). When the probe found cuBLAS row-invariant, also chunked
-    prefill == per-token decode bitwise (logits and cache) at (linear, c
-    4) and (window 8, c 5), and the three engines serve identical tokens
-    (more requests than slots)."""
+    orders); chunked prefill == per-token decode bitwise (logits and
+    cache) at (linear, c 4) and (window 8, c 5); and the three engines
+    serve identical tokens (more requests than slots)."""
     import numpy as np
 
     from repro_torch.configs.base import reduced
@@ -3284,8 +3505,6 @@ def serve_contract(torch, serve_mod, ref, invariant: bool):
               "serving: paged decode differs from the dense cache's")
         print("serving contract: paged == dense bitwise (bf16, window 8, "
               "chunked prefill c 5 and per-token decode, logits and cache)")
-        print(f"  chunked c 5 == per token (bf16, window 8): logits "
-              f"{'bitwise' if torch.equal(dense_lg, tok_lg) else 'differ'}")
 
         # reduced f32, the card against the CPU
         worst = 0.0
@@ -3305,10 +3524,6 @@ def serve_contract(torch, serve_mod, ref, invariant: bool):
         print(f"serving contract: reduced f32 card == CPU within rtol "
               f"1e-4, atol 1e-5 (max |difference| {worst:.3e})")
 
-        if not invariant:
-            print("serving contract: chunked == per token and the engines' "
-                  "tokens are NOT gated (cuBLAS is not row-invariant)")
-            return
         for window, c in ((0, 4), (8, 5)):
             model, params = build(window, "bfloat16", dev)
             pr = prompts(model.cfg.vocab_size, 2, 11)
@@ -3338,11 +3553,12 @@ def serve_contract(torch, serve_mod, ref, invariant: bool):
               "serve identical tokens")
 
 
-def serving(torch, serve_mod, tf, sa, rs, kmods, ref, tree_mod,
+def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
             main_record):
-    """Phase 4's serving runs (module docstring) and the contracts the
-    cuBLAS probe allows. Returns the kernels' launches summed over the
-    runs."""
+    """Phase 4's serving runs (module docstring): the row-invariance probe,
+    the full-width runs (loop chunked 64 and paged serve the per-token
+    loop's tokens: a check) and the reduced contracts. Returns the
+    kernels' launches summed over the runs, and the probe's readings."""
     totals = {}
 
     def add(counts):
@@ -3350,8 +3566,7 @@ def serving(torch, serve_mod, tf, sa, rs, kmods, ref, tree_mod,
             totals[k] = totals.get(k, 0) + v
 
     cfg = serve_config("minitron-8b")
-    probe = cublas_probe(torch, cfg)
-    invariant = not any(probe.values())
+    probe = row_invariance_probe(torch, idn, irn, cfg)
     params, init_s = serve_params(torch, cfg)
     n = sum(x.numel() for x in tree_mod.leaves(params))
     print(f"serving minitron-8b CONFIG_SWA: {cfg.num_layers} layers, window "
@@ -3378,12 +3593,11 @@ def serving(torch, serve_mod, tf, sa, rs, kmods, ref, tree_mod,
         add(counts)
         tokens[label] = [r["tokens"] for r in res]
     serve_where_time_goes(torch, serve_mod, cfg, params)
-    agree = [tokens[k] == tokens["loop per token"] for k in tokens]
-    print(f"serving full width: loop chunked / paged serve the per-token "
-          f"loop's tokens: {agree[1:]}")
-    if invariant:
-        check(all(agree), "serving full width: the engines served "
-              "different tokens though cuBLAS is row-invariant")
+    agree = {k: v == tokens["loop per token"] for k, v in tokens.items()}
+    check(all(agree.values()), f"serving full width: loop chunked 64 / "
+          f"paged served other tokens than the per-token loop: {agree}")
+    print("serving full width: loop chunked 64 and paged serve the "
+          "per-token loop's tokens")
     del params
     torch.cuda.empty_cache()
 
@@ -3406,7 +3620,7 @@ def serving(torch, serve_mod, tf, sa, rs, kmods, ref, tree_mod,
         fail("serving: the paged engine took the ssm family")
     del params
     torch.cuda.empty_cache()
-    serve_contract(torch, serve_mod, ref, invariant)
+    serve_contract(torch, serve_mod, ref)
     return totals, probe
 
 
@@ -3488,11 +3702,14 @@ def main() -> None:
     build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{path.relative_to(ROOT)}")
+    clock = PhaseClock(t_start)
     for line in ptxas_summary(log):
         print("  " + line)
 
     from repro_torch.kernels import ama_mix as am
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import invariant_dense as idn
+    from repro_torch.kernels import invariant_rmsnorm as irn
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import serve_attention as sa
@@ -3505,7 +3722,7 @@ def main() -> None:
     resolve_device("cuda")
 
     recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS, **rs.KERNELS,
-                            **sa.KERNELS}}
+                            **sa.KERNELS, **idn.KERNELS, **irn.KERNELS}}
     flash_rec, rwkv_rec, serve_rec = [], [], []
     main_rec = []
     kmods = (sp, fa, rs)
@@ -3521,6 +3738,10 @@ def main() -> None:
     check_flash(torch, fa, ref, flash_rec)
     check_rwkv6(torch, rs, ref, rwkv_rec)
     check_serve_attention(torch, sa, ref, serve_rec)
+    check_invariant_dense(torch, idn, ref, recs["invariant_dense"])
+    check_invariant_rmsnorm(torch, irn, ref, recs["invariant_rmsnorm"])
+    clock.mark("1-3, the header, the build and every kernel against its "
+               "plain version")
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
     # against the first main-path run
     run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,
@@ -3533,8 +3754,10 @@ def main() -> None:
                      main_rec)
     planes_side_by_side(main_rec)
     static = fes_static_cnn(torch, train, sp, tree_mod, main_rec)
+    clock.mark("4, the CNN's main paths and client planes")
     scen = scenario_runs(torch, train, sp, ref, tree_mod, main_rec)
     fed = federation_scale(torch, sp, tree_mod, main_rec)
+    clock.mark("4, scenarios and the federation scale")
     llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
                            tree_mod, main_rec)
     llm_planes = pod_client_planes(torch, train, "minitron-8b", fa, kmods,
@@ -3544,8 +3767,10 @@ def main() -> None:
     rwkv_planes = pod_client_planes(torch, train, "rwkv6-3b", rs, kmods, ref,
                                     tree_mod, main_rec)
     deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_rec)
-    served, _ = serving(torch, serve_mod, tf, sa, rs, (*kmods, sa), ref,
-                        tree_mod, main_rec)
+    clock.mark("4, the LLM pod paths")
+    served, _ = serving(torch, serve_mod, tf, sa, rs, idn, irn,
+                        (*kmods, sa, idn, irn), ref, tree_mod, main_rec)
+    clock.mark("4, serving")
     launches = {k: sum(run.get(k, 0) for run in (
         launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
         rwkv_planes, deep, served)) for k in recs}
@@ -3555,6 +3780,7 @@ def main() -> None:
     for arch, km in (("minitron-8b", fa), ("rwkv6-3b", rs)):
         for plane in ("masked", "partitioned"):
             llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane)
+    clock.mark("5, card against plain and CPU")
     port_contract(torch, train, tree_mod)
     llm_contract(torch, train, "minitron-8b", tree_mod)
     llm_contract(torch, train, "rwkv6-3b", tree_mod)
@@ -3562,11 +3788,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         restart_contract(torch, train, tree_mod, tmp)
         prefetch_and_metrics(torch, train, tree_mod, tmp)
+        clock.mark("6, the port's contracts")
         where_time_goes(torch, train)
         llm_where_time_goes(torch, train, "minitron-8b", tmp)
         llm_where_time_goes(torch, train, "rwkv6-3b", tmp)
         llm_where_time_goes(torch, train, "minitron-8b", tmp,
                             (*PARTITIONED, "--p-limited", "1.0"))
+    clock.mark("7, profiles")
 
     f32 = "torch.float32"
     main_shape = {  # the row of each kernel at the main path's shape
@@ -3593,6 +3821,10 @@ def main() -> None:
                 # no TPU kernel: XLA einsums of the serving attention
                 # (also :238, :354, :389)
                 "serve_attention": "models/attention.py:166",
+                # no TPU kernel: the XLA dot and reduction of the serving
+                # projections and norms
+                "invariant_dense": "models/layers.py:22",
+                "invariant_rmsnorm": "models/layers.py:41",
                 # the TPU path has no backward kernel: XLA differentiates
                 # the scan of time_mix
                 "rwkv6_bwd": "models/rwkv6.py:119"}
@@ -3606,7 +3838,9 @@ def main() -> None:
               "flash_bwd_dq": "flash_attention_sm90.cu",
               "flash_bwd_dkdv": "flash_attention_sm90.cu",
               "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu",
-              "serve_attention": "serve_attention.cu"}
+              "serve_attention": "serve_attention.cu",
+              "invariant_dense": "invariant_dense.cu",
+              "invariant_rmsnorm": "invariant_rmsnorm.cu"}
     # the flash rows at minitron's shape as the main path calls it (GQA)
     flash_main = next(r for r in flash_rec if r["case"] == FLASH_GQA)
     flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
@@ -3628,6 +3862,13 @@ def main() -> None:
             row = next(r for r in serve_rec if r["case"] == SERVE_MAIN)
             b, by = row["bound_ms"], row["bound_by"]
             err = max(r["err"] for r in serve_rec)
+        elif name in idn.KERNELS or name in irn.KERNELS:
+            # minitron's decode step (M 4): w_out, the norm at d 4096
+            main_case = (("w_out", 4) if name in idn.KERNELS else
+                         ("bfloat16", 4096, 4))
+            row = next(r for r in recs[name] if r["case"] == main_case)
+            b, by = row["bound_ms"], row["bound_by"]
+            err = max(r["err"] for r in recs[name])
         else:
             rec = recs[name]
             # ama_mix: one legacy round of the CNN, one call

@@ -56,6 +56,22 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+#: device -> int32 counters, zero between launches: a kernel that folds
+#: partials in its last block to arrive counts the arrivals there and
+#: resets each counter it used (invariant_dense, serve_attention; both run
+#: on the stream that owns their data, so the launches never overlap)
+_COUNTERS: dict = {}
+
+
+def _counters(dev, n: int):
+    """At least ``n`` zeroed int32 counters on ``dev``."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
+
+
 def _fold(x, dim, size):
     """The vmapped dim of ``x`` (or a broadcast of an unbatched ``x``)
     folded into its leading B axis, contiguous."""

@@ -66,10 +66,16 @@ SIGNATURES = {
     # window, scale, stream
     "flash_bwd_dkdv": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                        _P, _P, *_GEO, _P),
-    # dtype, hd, q, k, v, positions, ck, cv, cpos, table, ring, out, B, c,
-    # H, KH, NB, bs, mb, window, stream
-    "serve_attention": (ctypes.c_int, ctypes.c_int, *(_P,) * 10,
-                        *(ctypes.c_int,) * 8, _P),
+    # dtype, hd, q, k, v, positions, ck, cv, cpos, table, ring, out, part,
+    # count, B, c, H, KH, NB, bs, mb, window, rpw, stream
+    "serve_attention": (ctypes.c_int, ctypes.c_int, *(_P,) * 12,
+                        *(ctypes.c_int,) * 9, _P),
+    # dtype, x, w, b, y, part, count, M, N, K, S, stream
+    "invariant_dense": (ctypes.c_int, *(_P,) * 6, *(ctypes.c_int,) * 4,
+                        _P),
+    # dtype, x, g, y, M, d, eps, stream
+    "invariant_rmsnorm": (ctypes.c_int, _P, _P, _P, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, _P),
     # hd, ckpt, r, k, v, w, u, s0, y, s_final, states, B, S, H, stream
     "rwkv6_fwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 9,
                   *(ctypes.c_int,) * 3, _P),

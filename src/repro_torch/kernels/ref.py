@@ -28,6 +28,12 @@ wraps the window): one query row at a time, every sum a sequential scan
 (``cumsum``) in slot order, so no result depends on the chunk width,
 the batch or the cache's length.
 
+``invariant_dense_ref`` and ``invariant_rmsnorm_ref`` are the serving
+steps' projection and RMSNorm as the JAX package's ``models/layers.py:
+dense, rmsnorm`` compute them (``x @ w + b``; the mean of squares in f32):
+on the CPU the row-invariant kernels' wrappers run exactly these, so the
+serving path keeps the bits of ``layers.dense`` / ``layers.rmsnorm``.
+
 ``rwkv6_scan_ref`` is the RWKV-6 recurrence of the JAX package's
 ``kernels/ref.py: rwkv6_scan_ref``, a loop over time, returning the
 states it saves every ``RWKV6_CKPT`` steps as well;
@@ -36,7 +42,8 @@ recurrence the backward kernel computes, recomputing each segment's
 states from the saved ones.
 
 The wrappers in ``server_plane.py``, ``ama_mix.py``,
-``flash_attention.py``, ``serve_attention.py`` and ``rwkv6_scan.py``
+``flash_attention.py``, ``serve_attention.py``, ``invariant_dense.py``,
+``invariant_rmsnorm.py`` and ``rwkv6_scan.py``
 run these for CPU
 tensors; on the card the server-plane ones run only when
 ``fl.server_plane == "ref"``.
@@ -438,6 +445,30 @@ def serve_attention_ref(q, k, v, positions, cache_k, cache_v, cache_pos,
         acc = _last_of_scan(p[..., None] * vi[:, :, :, None, :], 1)
         out.append((acc / l[..., None]).reshape(B, H, hd))
     return torch.stack(out, 1).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# the serving steps' row-invariant projection and RMSNorm
+# --------------------------------------------------------------------------
+
+def invariant_dense_ref(x, w, b=None):
+    """The plain version of the ``invariant_dense`` kernel: ``x @ w``
+    (+ ``b``) as ``layers.dense`` computes it. x: (..., K); w: (K, N) in
+    the JAX layout; b: (N,) or None. Returns (..., N) in x's dtype."""
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def invariant_rmsnorm_ref(x, g, eps: float = 1e-6):
+    """The plain version of the ``invariant_rmsnorm`` kernel:
+    ``layers.rmsnorm`` (the mean of squares over the last axis in f32,
+    times its rsqrt, times g in f32, cast back to x's dtype)."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * g.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -7,12 +7,17 @@ einsums in ``models/attention.py`` (``attention_decode`` :166,
 ``attention_prefill_paged`` :389), repeating kv to the query heads in
 f32 and, for a prefill chunk over a ring, building a (B, c, L, H, hd)
 copy of V. The kernel (CUDA C++ for ``sm_90a``,
-``csrc/serve_attention.cu``) reads the cache once in the model dtype
-through the block table, reads kv head h // n_rep for query head h, and
-selects each query row's ring state in registers. Every output is
-reduced in an order fixed by the slot index and hd alone, so a row of a
-c-row chunk equals that row computed at c = 1 bit for bit, and a paged
-pool equals the dense cache it maps.
+``csrc/serve_attention.cu``) reads the cache in the model dtype through
+the block table, reads kv head h // n_rep for query head h, and selects
+each query row's ring state as it goes. The logical ring is split over
+blocks in spans of SPAN slots (by slot index alone), every query row of
+a kv head (up to 64) shares a block's K/V tiles, bf16 scores run on the
+tensor cores and P.V on the CUDA cores in slot order, and the last
+block of a row group to arrive folds the spans' partials in span order
+(one launch; f32 scratch and integer counters from this wrapper). Every
+output is reduced in an order fixed by the slot index and hd alone, so
+a row of a c-row chunk equals that row computed at c = 1 bit for bit,
+and a paged pool equals the dense cache it maps.
 
 ``serve_attention(q, k, v, positions, cache_k, cache_v, cache_pos,
 table=None, ring_len=None, *, window=0)``: see
@@ -33,7 +38,7 @@ import weakref
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._launch import (_DTYPE_CODE, _check,
+from repro_torch.kernels._launch import (_DTYPE_CODE, _check, _counters,
                                          _kernel_device, _ptr, _raise_on,
                                          _stream)
 
@@ -41,6 +46,13 @@ __all__ = ["serve_attention", "KERNELS", "reset_counts", "HEAD_DIMS"]
 
 #: head dims the CUDA kernel is instantiated for
 HEAD_DIMS = (32, 64, 96, 128)
+#: slots a span: the kernel's unit of the split over blocks, cut by
+#: logical slot index alone (csrc/serve_attention.cu: kSpan)
+SPAN = 256
+#: warps a block (csrc/serve_attention.cu: kWarps); a warp owns one query
+#: row when a kv head has at most this many (c x n_rep), else 8 (blocks of
+#: 64 rows)
+WARPS = 8
 
 _I32 = (torch.int32,)
 
@@ -123,18 +135,29 @@ def serve_attention(q, k, v, positions, cache_k, cache_v, cache_pos,
     if hd not in HEAD_DIMS:
         raise ValueError(f"the serve_attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
-        raise ValueError("serve_attention reads the cache 16 bytes at a "
-                         "time: cache_k and cache_v must start on a 16-byte "
-                         "boundary")
+    if any(t.data_ptr() % 16 for t in (q, k, v, cache_k, cache_v)):
+        raise ValueError("serve_attention reads its rows 16 bytes at a "
+                         "time: q, k, v, cache_k and cache_v must start on "
+                         "a 16-byte boundary")
     out = torch.empty_like(q)
+    rows = c * (H // KH)
+    rpw = 1 if rows <= WARPS else 8
+    spans = -(-mb * bs // SPAN)
+    groups = -(-rows // (WARPS * rpw))
+    part = cnt = None       # held here until the launch is enqueued
+    if spans > 1:
+        cnt = _counters(q.device, B * KH * groups)
+        part = torch.empty((B, KH, rows, spans, hd + 4), dtype=torch.float32,
+                           device=q.device)
     null = ctypes.c_void_p(None)
     err = build.load().serve_attention(
         _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(k), _ptr(v), _ptr(positions),
         _ptr(cache_k), _ptr(cache_v), _ptr(cache_pos),
         null if table is None else _ptr(table),
-        null if ring_len is None else _ptr(ring_len), _ptr(out), B, c, H, KH,
-        NB, bs, mb, int(window), _stream(q.device))
+        null if ring_len is None else _ptr(ring_len), _ptr(out),
+        null if part is None else _ptr(part),
+        null if cnt is None else _ptr(cnt), B, c, H, KH, NB, bs, mb,
+        int(window), rpw, _stream(q.device))
     _raise_on(err, "serve_attention")
     serve_attention.launches += 1
     return out

@@ -14,7 +14,10 @@ Serving (decode, chunked prefill, the paged KV pool): the port of
 ``init_kv_cache``, ``_chunk_slots``, ``attention_decode``,
 ``attention_prefill``, ``paged_view``, ``_paged_write``,
 ``attention_decode_paged`` and ``attention_prefill_paged``. Projections
-and RoPE are those of ``attention_fwd``; the scores, mask, softmax and
+and RoPE are those of ``attention_fwd``, the projections on the
+row-invariant GEMM (``kernels.invariant_dense``: the same bits as
+``dense`` on the CPU; on the card a row does not depend on the rows
+beside it, as cuBLAS's do); the scores, mask, softmax and
 weighted sum of all four entry points go through
 ``kernels.serve_attention`` (the hand-written CUDA kernel on the card,
 its plain version on the CPU), which reads the cache as it was before the
@@ -33,7 +36,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 # the pad sentinels of a prefill chunk (PAD_POS for the engines' pad rows)
 from repro_torch.kernels.ref import PAD_FLOOR, PAD_POS  # noqa: F401
 from repro_torch.kernels.serve_attention import serve_attention
-from repro_torch.models.layers import apply_rope, dense, dense_init
+from repro_torch.models.layers import (apply_rope, dense, dense_init,
+                                       dense_serve)
 
 
 def attn_init(gen: torch.Generator, cfg, dtype) -> dict:
@@ -91,11 +95,12 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device=None) -> dict:
 def _qkv(p, cfg, x, positions):
     """q (pre-scaled by hd**-0.5 in the model dtype, as ``attention_fwd``
     hands it to its kernel), k, v of x (B, c, d) at ``positions`` (B, c),
-    RoPE applied."""
+    RoPE applied. The serving projections (here and in ``_out``) run on
+    the row-invariant GEMM (``layers.dense_serve``)."""
     hd = cfg.resolved_head_dim
-    q = _split_heads(dense(p["wq"], x), cfg.num_heads, hd)
-    k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads, hd)
-    v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads, hd)
+    q = _split_heads(dense_serve(p["wq"], x), cfg.num_heads, hd)
+    k = _split_heads(dense_serve(p["wk"], x), cfg.num_kv_heads, hd)
+    v = _split_heads(dense_serve(p["wv"], x), cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return (q * hd ** -0.5).contiguous(), k.contiguous(), v.contiguous()
@@ -103,7 +108,7 @@ def _qkv(p, cfg, x, positions):
 
 def _out(p, cfg, out):
     B, c = out.shape[:2]
-    return dense(p["wo"], out.reshape(B, c, -1))
+    return dense_serve(p["wo"], out.reshape(B, c, -1))
 
 
 def attention_decode(p, cfg, x, cache, position):

@@ -1,6 +1,8 @@
 """Neural-net primitives on params-as-dicts (the port of the JAX
 package's ``models/layers.py``: dense, embedding, RMSNorm, LayerNorm,
-rotary embeddings, the gated/GELU MLP and the cross-entropy losses).
+rotary embeddings, the gated/GELU MLP and the cross-entropy losses),
+and ``dense_serve`` / ``rmsnorm_serve``, the serving steps' projection
+and norm on the row-invariant kernels (the same bits on the CPU).
 
 The f32 casts sit exactly where the JAX package has them: RMSNorm,
 LayerNorm, RoPE and the losses compute in f32 and return in the input's
@@ -15,6 +17,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.invariant_dense import invariant_dense
+from repro_torch.kernels.invariant_rmsnorm import invariant_rmsnorm
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
@@ -43,6 +48,14 @@ def dense(p: dict, x):
     return y
 
 
+def dense_serve(p: dict, x):
+    """``dense`` on the row-invariant kernel (``kernels.invariant_dense``):
+    a row's result does not depend on how many rows come with it, which
+    the serving steps' bitwise contracts need on the card. The same bits
+    as ``dense`` on the CPU."""
+    return invariant_dense(x, p["w"], p.get("b"))
+
+
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
     """N(0, 1) drawn in f32, cast to ``dtype``, then scaled by 0.02 in
     ``dtype`` (the JAX order)."""
@@ -65,6 +78,13 @@ def rmsnorm(p: dict, x, eps: float = 1e-6):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["g"].float()).to(x.dtype)
+
+
+def rmsnorm_serve(p: dict, x, eps: float = 1e-6):
+    """``rmsnorm`` on the row-invariant kernel
+    (``kernels.invariant_rmsnorm``), for the serving steps; the same bits
+    as ``rmsnorm`` on the CPU."""
+    return invariant_rmsnorm(x, p["g"], eps)
 
 
 def layernorm_init(d: int, dtype) -> dict:
@@ -115,15 +135,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     return p
 
 
-def mlp(p: dict, x):
+def mlp(p: dict, x, proj=dense):
     """SwiGLU when the params carry ``w_gate``, else GELU (tanh
-    approximation, ``jax.nn.gelu``'s default)."""
-    h = dense(p["w_in"], x)
+    approximation, ``jax.nn.gelu``'s default). ``proj`` computes the
+    projections: ``dense``, or ``dense_serve`` in the serving steps."""
+    h = proj(p["w_in"], x)
     if "w_gate" in p:
-        h = F.silu(dense(p["w_gate"], x)) * h
+        h = F.silu(proj(p["w_gate"], x)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return dense(p["w_out"], h)
+    return proj(p["w_out"], h)
 
 
 # ---------------------------------------------------------------- losses ----

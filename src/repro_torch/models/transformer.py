@@ -25,6 +25,12 @@ CHUNK, bit-identical to looping ``decode_step``), ``init_paged_pool``,
 and pools are stacked on the layer axis like the parameters, allocated on
 the caller's device, and written IN PLACE: each call returns the same
 tensors it was given (JAX returns new ones, which its engines donate).
+The dense family's serving steps run every projection (7 a layer and
+``lm_head``) and every RMSNorm (2 a layer and the final norm) on the
+row-invariant kernels (``layers.dense_serve``, ``rmsnorm_serve``): on
+the card a row's result does not depend on how many rows the step
+carries, so chunked prefill equals the per-token loop there too. The
+ssm family serves per token only and keeps ``dense`` / ``rmsnorm``.
 """
 from __future__ import annotations
 
@@ -33,8 +39,9 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6
 from repro_torch.models.layers import (chunked_cross_entropy, dense,
-                                       dense_init, embedding, embedding_init,
-                                       mlp, mlp_init, rmsnorm, rmsnorm_init)
+                                       dense_init, dense_serve, embedding,
+                                       embedding_init, mlp, mlp_init, rmsnorm,
+                                       rmsnorm_init, rmsnorm_serve)
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 #: family -> the slice of the port that brings it
@@ -262,10 +269,11 @@ def block_decode(p, cfg, x, cache, position):
         h, cache = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x)[:, 0],
                                      cache, single=True)
         return x + h[:, None], cache
-    h, cache = attn.attention_decode(p["attn"], cfg, rmsnorm(p["ln1"], x),
-                                     cache, position)
+    h, cache = attn.attention_decode(p["attn"], cfg,
+                                     rmsnorm_serve(p["ln1"], x), cache,
+                                     position)
     x = x + h
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), cache
+    return x + mlp(p["mlp"], rmsnorm_serve(p["ln2"], x), dense_serve), cache
 
 
 def _scan_blocks_decode(stacked, cfg, x, cache, position):
@@ -291,8 +299,17 @@ def decode_step(params, cfg, token, position, cache):
                                position)
     x, _ = _scan_blocks_decode(params["tail"], cfg, x, cache["tail"],
                                position)
-    x = rmsnorm(params["final_norm"], x)
-    return dense(params["lm_head"], x)[:, 0], cache
+    return _head(params, cfg, x)[:, 0], cache
+
+
+def _head(params, cfg, x):
+    """The final norm and ``lm_head`` of a serving step: on the
+    row-invariant kernels for the dense family (its serving contract),
+    on ``rmsnorm`` / ``dense`` for the ssm family (per token only)."""
+    if cfg.family == "ssm":
+        return dense(params["lm_head"], rmsnorm(params["final_norm"], x))
+    return dense_serve(params["lm_head"],
+                       rmsnorm_serve(params["final_norm"], x))
 
 
 # ---------------------------------------------------- chunked prefill ------
@@ -302,10 +319,11 @@ def block_prefill(p, cfg, x, cache, positions):
     blocks only (the ssm family keeps the per-token path); the MLP half is
     the decode path's, so the residual stream matches ``block_decode``
     row for row."""
-    h, cache = attn.attention_prefill(p["attn"], cfg, rmsnorm(p["ln1"], x),
-                                      cache, positions)
+    h, cache = attn.attention_prefill(p["attn"], cfg,
+                                      rmsnorm_serve(p["ln1"], x), cache,
+                                      positions)
     x = x + h
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x)), cache
+    return x + mlp(p["mlp"], rmsnorm_serve(p["ln2"], x), dense_serve), cache
 
 
 def _scan_blocks_prefill(stacked, cfg, x, cache, positions):
@@ -322,14 +340,13 @@ def prefill(params, cfg, tokens, positions, cache):
     tokens/positions: (B, c); pad rows carry positions >=
     ``attention.PAD_FLOOR`` and never enter the cache. Returns (logits
     (B, c, V), cache), bit-identical to looping ``decode_step`` over the
-    chunk where the projections are row-invariant."""
+    chunk (the projections and norms on the row-invariant kernels)."""
     x = embedding(params["embed"], tokens)
     x, _ = _scan_blocks_prefill(params["body"], cfg, x, cache["body"],
                                 positions)
     x, _ = _scan_blocks_prefill(params["tail"], cfg, x, cache["tail"],
                                 positions)
-    x = rmsnorm(params["final_norm"], x)
-    return dense(params["lm_head"], x), cache
+    return _head(params, cfg, x), cache
 
 
 # --------------------------------------------------------- paged cache -----
@@ -364,10 +381,10 @@ def _scan_blocks_paged(stacked, cfg, x, pool, table, ring_len, positions,
         else attn.attention_decode_paged
     for i in range(leaves(stacked)[0].shape[0]):
         p = tree_map(lambda a, i=i: a[i], stacked)
-        h, _ = fn(p["attn"], cfg, rmsnorm(p["ln1"], x), _layer(pool, i),
-                  table, ring_len, positions)
+        h, _ = fn(p["attn"], cfg, rmsnorm_serve(p["ln1"], x),
+                  _layer(pool, i), table, ring_len, positions)
         x = x + h
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x))
+        x = x + mlp(p["mlp"], rmsnorm_serve(p["ln2"], x), dense_serve)
     return x, pool
 
 
@@ -380,8 +397,7 @@ def decode_step_paged(params, cfg, token, position, pool, table, ring_len):
     for g in ("body", "tail"):
         x, _ = _scan_blocks_paged(params[g], cfg, x, pool[g], table,
                                   ring_len, position, False)
-    x = rmsnorm(params["final_norm"], x)
-    return dense(params["lm_head"], x)[:, 0], pool
+    return _head(params, cfg, x)[:, 0], pool
 
 
 def prefill_paged(params, cfg, tokens, positions, pool, table, ring_len):
@@ -392,5 +408,4 @@ def prefill_paged(params, cfg, tokens, positions, pool, table, ring_len):
     for g in ("body", "tail"):
         x, _ = _scan_blocks_paged(params[g], cfg, x, pool[g], table,
                                   ring_len, positions, True)
-    x = rmsnorm(params["final_norm"], x)
-    return dense(params["lm_head"], x), pool
+    return _head(params, cfg, x), pool

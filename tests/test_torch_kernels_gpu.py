@@ -665,7 +665,16 @@ SERVE_CASES = [("bfloat16", 2, 1, 64, 8, 2, 128, 64, 16),
                ("bfloat16", 2, 8, 64, 8, 2, 128, 64, 16),
                ("bfloat16", 1, 16, 0, 4, 4, 64, 96, 8),
                ("float32", 3, 5, 32, 4, 2, 64, 32, 4),
-               ("float32", 2, 1, 0, 6, 2, 96, 48, 16)]
+               ("float32", 2, 1, 0, 6, 2, 96, 48, 16),
+               # rings of several 256-slot spans: decode over a linear
+               # cache whose later spans are empty (fully masked, the last
+               # block unmapped when paged), 80 query rows of a kv head
+               # (two row groups) under a window over a wrapped ring, f32
+               # in 64-row groups, hd 32 in 8-row groups
+               ("bfloat16", 2, 1, 0, 8, 2, 128, 640, 16),
+               ("bfloat16", 2, 20, 300, 8, 2, 128, 528, 16),
+               ("float32", 1, 9, 0, 4, 4, 64, 272, 16),
+               ("bfloat16", 1, 3, 0, 8, 4, 32, 800, 16)]
 
 
 def _serve_state(dev, g, dt, B, c, window, H, KH, hd, L, bs):
@@ -769,3 +778,137 @@ def test_serve_attention_wrapper_refuses_what_the_kernel_does_not_take():
     c = torch.zeros(1, 8 * 64 * 2 + 1, **f)[:, 1:].reshape(1, 8, 2, 64)
     with pytest.raises(ValueError, match="16-byte"):
         tsa.serve_attention(x, x, x, pos, c, c, cpos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_serve_attention_masked_null_block_never_reaches_a_row(dt):
+    """A paged pool whose null block (the unmapped last block of each row
+    and the pad rows' trash) holds NaN gives, bit for bit, the dense
+    cache's rows: a masked slot's value never enters a row that sees a
+    slot, in a ring of three spans whose last two are empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import serve_attention as tsa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    chunk, dense, paged = _serve_state(dev, g, getattr(torch, dt), 2, 4, 0,
+                                       8, 2, 64, 640, 16)
+    pk, pv, ppos, table, ring = paged
+    assert bool((table == 0).any())
+    pk[0], pv[0] = float("nan"), float("nan")
+    got = tsa.serve_attention(*chunk, *dense)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, tsa.serve_attention(*chunk, pk, pv, ppos, table,
+                                                ring))
+
+
+#: (K, N): a tile without a split, a ragged last n tile, minitron's wk/wv
+#: shape (K split 8 ways), a split of 2 and one n tile
+DENSE_SHAPES = [(256, 512), (1024, 136), (4096, 1024), (512, 64)]
+DENSE_ROWS = (1, 4, 5, 64, 65, 130, 260)
+
+
+def _ulp_bf16(x):
+    m, e = torch.frexp(x.abs().float().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones_like(m), e - 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", DENSE_SHAPES)
+def test_invariant_dense_rows_bitwise_across_m_on_card(K, N):
+    """bf16 invariant_dense: every row bitwise the same whatever M (1 to
+    260, and a 3-d input), one launch a call; within twice cuBLAS's error
+    against the f32 product of the same bf16 operands (floor: one bf16
+    ulp of max|ref|); with a bias, (x @ w) rounded then + b."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    x = torch.randn(260, K, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
+        torch.bfloat16)
+    tid.reset_counts()
+    full = tid.invariant_dense(x, w)
+    for M in DENSE_ROWS:
+        assert torch.equal(tid.invariant_dense(x[:M].contiguous(), w),
+                           full[:M]), M
+    assert torch.equal(tid.invariant_dense(x.reshape(2, 130, K), w),
+                       full.reshape(2, 130, N))
+    assert tid.invariant_dense.launches == len(DENSE_ROWS) + 2
+    ref32 = x.float() @ w.float()
+    err = float((full.float() - ref32).abs().max())
+    lib = float(((x @ w).float() - ref32).abs().max())
+    floor = float(_ulp_bf16(ref32.abs().max()))
+    assert err <= max(2 * lib, floor), (err, lib, floor)
+    b = torch.randn(N, device=dev, generator=g).to(torch.bfloat16)
+    got = tid.invariant_dense(x, w, b)
+    assert torch.equal(got, (full.float() + b.float()).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_invariant_dense_f32_rows_bitwise_on_card():
+    """f32 invariant_dense (one fmaf a k on the CUDA cores): rows bitwise
+    across M, within 1e-5 of the f64 product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    K, N = 256, 136
+    x = torch.randn(70, K, device=dev, generator=g)
+    w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+    b = torch.randn(N, device=dev, generator=g)
+    full = tid.invariant_dense(x, w, b)
+    for M in (1, 4, 5, 9, 64, 70):
+        assert torch.equal(tid.invariant_dense(x[:M].contiguous(), w, b),
+                           full[:M]), M
+    want = (x.double() @ w.double() + b.double()).float()
+    torch.testing.assert_close(full, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_invariant_dense_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tid.invariant_dense(torch.zeros(4, 12, **bf), torch.zeros(12, 64, **bf))
+    with pytest.raises(ValueError, match="16-byte"):
+        x = torch.zeros(4 * 64 + 1, **bf)[1:].reshape(4, 64)
+        tid.invariant_dense(x, torch.zeros(64, 64, **bf))
+    with pytest.raises(ValueError, match="contiguous"):
+        tid.invariant_dense(torch.zeros(64, 4, **bf).t(),
+                            torch.zeros(64, 64, **bf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,d", [("bfloat16", 4096), ("bfloat16", 1000),
+                                  ("float32", 256)])
+def test_invariant_rmsnorm_rows_bitwise_across_m_on_card(dt, d):
+    """invariant_rmsnorm: rows bitwise whatever M (1 to 260), within one
+    ulp of the output dtype (bf16) or four (f32) of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_rmsnorm as tin
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(260, d, device=dev, generator=g).to(dtype)
+    gain = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+    tin.reset_counts()
+    full = tin.invariant_rmsnorm(x, gain)
+    for M in DENSE_ROWS:
+        assert torch.equal(tin.invariant_rmsnorm(x[:M].contiguous(), gain),
+                           full[:M]), M
+    assert tin.invariant_rmsnorm.launches == len(DENSE_ROWS) + 1
+    want = tref.invariant_rmsnorm_ref(x, gain)
+    if dtype == torch.bfloat16:
+        tol = _ulp_bf16(want)
+    else:
+        m, e = torch.frexp(want.abs().clamp(min=2.0 ** -126))
+        tol = 4 * torch.ldexp(torch.ones_like(m), e - 24)
+    assert bool(((full.float() - want.float()).abs() <= tol).all())

@@ -1,0 +1,434 @@
+"""The serving path's row invariance at reduced size on the CPU.
+
+- A plain-PyTorch mirror of ``serve_attention``'s second design
+  (``csrc/serve_attention.cu``): the logical ring cut into fixed spans,
+  each span's online softmax over tiles (the tile's sum a fixed xor
+  butterfly, a row's sums set to 0 at its first visible slot, a term of
+  weight exactly 0 skipped), the spans folded in span order with a span
+  that saw no visible slot weighed 0. It holds chunk rows == the rows at
+  c = 1 and paged == dense bitwise (a null block holding NaN among
+  them), and, put in the kernel's place, the port's attention entry
+  points against JAX's ``attention_decode`` / ``attention_prefill`` (and
+  the paged pair) within ``tests/test_torch_serve_attention.py``'s
+  tolerances.
+- ``invariant_dense`` and ``invariant_rmsnorm`` on the CPU are bitwise
+  ``layers.dense`` and ``layers.rmsnorm``; the dense family's serving
+  steps route every projection (7 a layer and lm_head) and every RMSNorm
+  (2 a layer and the final norm) through them, a training forward and
+  rwkv6's serving none; their wrappers refuse what the kernels do not
+  take; the split of K is a function of (K, N) alone.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs.base import reduced as jreduced
+from repro.configs.registry import ARCHS as JARCHS
+from repro.models import attention as jattn
+from repro.models import transformer as jtf
+from repro_torch.configs.base import reduced as treduced
+from repro_torch.configs.registry import ARCHS as TARCHS
+from repro_torch.kernels import invariant_dense as tid
+from repro_torch.kernels import invariant_rmsnorm as tin
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttf
+from repro_torch.models.api import build_model as tbuild
+from repro_torch.utils.tree import params_from_numpy, params_to_numpy
+
+F32_TOL = dict(rtol=1e-4, atol=1e-5)      # test_torch_serve_attention.py
+BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -6)
+NEG = -1e30
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: this module's many small ops crawl when the
+    test workers' thread pools share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------ the split-ring mirror --
+
+def _butterfly(x):
+    """The kernel's warp sum over a tile: lane l adds lane l ^ o for o =
+    T/2 .. 1 (every lane ends with the same bits)."""
+    idx = torch.arange(x.shape[-1])
+    o = x.shape[-1] // 2
+    while o:
+        x = x + x[..., idx ^ o]
+        o //= 2
+    return x[..., 0]
+
+
+def split_ring(q, k, v, positions, cache_k, cache_v, cache_pos, table=None,
+               ring_len=None, *, window=0, span=16, tile=4):
+    """``ref.serve_attention_ref``'s function in the order of the kernel's
+    second design, spans of ``span`` slots in tiles of ``tile``. Every
+    transcendental runs on a tensor of one fixed shape (a tile, or a 0-d
+    scalar) so its bits cannot depend on how many rows are computed."""
+    B, c, H, hd = q.shape
+    KH = k.shape[2]
+    n_rep = H // KH
+    nb, bs = cache_pos.shape
+    if table is None:
+        blk = torch.arange(B)[:, None]
+        ring = torch.full((B,), bs, dtype=torch.int32)
+        mapped = torch.ones(B, 1, dtype=torch.bool)
+    else:
+        blk, ring, mapped = table.long().clamp(0, nb - 1), ring_len, table > 0
+    n = blk.shape[1] * bs
+    old_k = cache_k[blk].reshape(B, n, KH, hd).float()
+    old_v = cache_v[blk].reshape(B, n, KH, hd).float()
+    old_p = torch.where(mapped.repeat_interleave(bs, 1),
+                        cache_pos[blk].reshape(B, n).long(), -1)
+    src = tref.serve_chunk_sources(positions, ring, table, n, bs)
+    pos = positions.long()
+    out = torch.empty(B, c, H, hd, dtype=torch.float32)
+    for b in range(B):
+        for h in range(H):
+            kh = h // n_rep
+            for i in range(c):
+                qi, pi = q[b, i, h].float(), int(pos[b, i])
+                parts = []
+                for s0 in range(0, n, span):
+                    m = torch.tensor(NEG)
+                    l = torch.tensor(0.0)
+                    acc = torch.zeros(hd)
+                    for t0 in range(s0, min(s0 + span, n), tile):
+                        sl = torch.arange(t0, t0 + tile)
+                        exists = sl < min(s0 + span, n)
+                        sl = sl.clamp(max=n - 1)
+                        j = src[b, sl]
+                        fresh = exists & (j <= i)
+                        jj = j.clamp(max=c - 1)
+                        key = torch.where(fresh[:, None], k[b, jj, kh].float(),
+                                          old_k[b, sl, kh])
+                        val = torch.where(fresh[:, None], v[b, jj, kh].float(),
+                                          old_v[b, sl, kh])
+                        p = torch.where(fresh, pos[b, jj], old_p[b, sl])
+                        dot = torch.cumsum(qi * key, -1)[:, -1]
+                        ok = (p >= 0) & (p <= pi)
+                        if window:
+                            ok &= p > pi - window
+                        sc = torch.where(exists, torch.where(ok, dot, NEG),
+                                         -torch.inf)
+                        m_new = torch.maximum(m, sc.max())
+                        corr = torch.exp(m - m_new)
+                        pr = torch.exp(sc - m_new)
+                        l = l * corr + _butterfly(pr)
+                        acc = torch.zeros(hd) if corr == 0 else acc * corr
+                        for t in range(tile):
+                            if bool(exists[t]) and pr[t] != 0:
+                                acc = acc + pr[t] * val[t]
+                        m = m_new
+                    parts.append((m, l, acc))
+                M = max(p[0] for p in parts)
+                L, A = torch.tensor(0.0), torch.zeros(hd)
+                for m_s, l_s, a_s in parts:       # spans in slot order
+                    w = torch.exp(m_s - M)
+                    if w != 0:
+                        L, A = L + w * l_s, A + w * a_s
+                out[b, i, h] = A / L
+    return out.to(q.dtype)
+
+
+def _serve_state(dtype, B, c, window, H, KH, hd, L, bs, seed, nan_null=False):
+    """A cache before a chunk (each slot the latest position below the
+    chunk's first, of its residue; under window 0 only the first few
+    slots written, so later spans are empty), the chunk (the last batch
+    row's last two rows pad when c > 2), and the same cache as a pool
+    under a shuffled table (window 0: each row's last block unmapped; the
+    null block holds NaN when ``nan_null``)."""
+    g = torch.Generator().manual_seed(seed)
+    p0 = torch.tensor([(L + 9 if window else 3) + 5 * b for b in range(B)])
+    s = torch.arange(L)
+    cpos = p0[:, None] - 1 - torch.remainder(p0[:, None] - 1 - s, L)
+    cpos = torch.where(cpos >= 0, cpos, -1).to(torch.int32)
+    rnd = lambda *sh: torch.randn(*sh, generator=g).to(dtype)
+    ck, cv = rnd(B, L, KH, hd), rnd(B, L, KH, hd)
+    q = (torch.randn(B, c, H, hd, generator=g) * hd ** -0.5).to(dtype)
+    kn, vn = rnd(B, c, KH, hd), rnd(B, c, KH, hd)
+    pos = (p0[:, None] + torch.arange(c)).to(torch.int32)
+    if c > 2:
+        pos[-1, -2:] = tref.PAD_POS
+    mb = L // bs
+    table = (torch.randperm(B * mb, generator=g) + 1).reshape(B, mb).to(
+        torch.int32)
+    if not window:
+        table[:, -1] = 0
+    nb = 1 + B * mb
+    pk, pv = rnd(nb, bs, KH, hd), rnd(nb, bs, KH, hd)
+    ppos = torch.full((nb, bs), 3, dtype=torch.int32)
+    keep = table.flatten() > 0
+    idx = table.flatten()[keep].long()
+    pk[idx] = ck.reshape(B * mb, bs, KH, hd)[keep]
+    pv[idx] = cv.reshape(B * mb, bs, KH, hd)[keep]
+    ppos[idx] = cpos.reshape(B * mb, bs)[keep]
+    if nan_null:
+        pk[0], pv[0] = float("nan"), float("nan")
+    ring = torch.full((B,), L, dtype=torch.int32)
+    return (q, kn, vn, pos), (ck, cv, cpos), (pk, pv, ppos, table, ring)
+
+
+def _row_at_c1(chunk, dense, i, window):
+    """Row i alone (c = 1) against the dense cache holding the chunk's
+    real rows before it, as the per-token loop holds them."""
+    q, k, v, pos = chunk
+    ck, cv, cpos = (x.clone() for x in dense)
+    B, L = cpos.shape
+    for j in range(i):
+        for b in range(B):
+            if pos[b, j] < tref.PAD_FLOOR:
+                slot = int(pos[b, 0] + j) % L
+                ck[b, slot], cv[b, slot] = k[b, j], v[b, j]
+                cpos[b, slot] = pos[b, j]
+    row = lambda x: x[:, i:i + 1].contiguous()
+    return split_ring(row(q), row(k), row(v), row(pos), ck, cv, cpos,
+                      window=window)[:, 0]
+
+
+#: (dtype, B, c, window, H, KH, hd, ring, block size): rings of 2-3 spans
+#: of 16 slots, a wrapped ring under a window (spans outside it fully
+#: masked), a linear cache whose later spans are empty, decode and chunks
+SPLIT_CASES = [("float32", 2, 5, 12, 4, 2, 8, 40, 4),
+               ("float32", 2, 1, 12, 4, 2, 8, 40, 4),
+               ("float32", 2, 6, 0, 4, 2, 8, 48, 8),
+               ("bfloat16", 1, 4, 0, 2, 1, 8, 32, 4)]
+
+
+@pytest.mark.parametrize("dt,B,c,window,H,KH,hd,L,bs", SPLIT_CASES)
+def test_split_ring_rows_and_paged_bitwise(dt, B, c, window, H, KH, hd, L,
+                                           bs):
+    """The split-ring order: every row of a chunk bitwise that row at
+    c = 1, the paged pool (its null block NaN) bitwise the dense cache,
+    and the plain version's function within f32 rounding."""
+    dtype = getattr(torch, dt)
+    chunk, dense, paged = _serve_state(dtype, B, c, window, H, KH, hd, L, bs,
+                                       seed=L + c, nan_null=True)
+    got = split_ring(*chunk, *dense, window=window)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, split_ring(*chunk, *paged, window=window))
+    for i in range(c):
+        assert torch.equal(got[:, i], _row_at_c1(chunk, dense, i, window)), i
+    f32 = [x.float() if x.is_floating_point() else x
+           for x in (*chunk, *dense)]
+    want = tref.serve_attention_ref(*f32, window=window)
+    torch.testing.assert_close(got.float(), want, rtol=2e-5, atol=2e-6) \
+        if dtype == torch.float32 else torch.testing.assert_close(
+            got.float(), want, **BF16_TOL)
+
+
+def test_split_ring_fully_masked_row_is_the_plain_mean():
+    """A pad row under a window sees no slot: like the plain version it
+    gets the mean of every slot's v, folded over the spans."""
+    chunk, dense, _ = _serve_state(torch.float32, 2, 5, 12, 4, 2, 8, 40, 4,
+                                   seed=1)
+    got = split_ring(*chunk, *dense, window=12)
+    want = tref.serve_attention_ref(*chunk, *dense, window=12)
+    assert chunk[3][-1, -1] >= tref.PAD_FLOOR
+    torch.testing.assert_close(got[-1, -1], want[-1, -1], rtol=2e-5,
+                               atol=2e-6)
+
+
+def _cfgs(dtype, window):
+    j = jreduced(JARCHS["minitron-8b"], dtype=dtype)
+    t = treduced(TARCHS["minitron-8b"], dtype=dtype)
+    if window:
+        j, t = j.with_(sliding_window=window), t.with_(sliding_window=window)
+    return j, t
+
+
+def _np(x, dtype):
+    return np.array(jnp.asarray(x, jnp.float32).astype(dtype))
+
+
+@pytest.mark.parametrize("entry", ["decode", "prefill", "decode_paged",
+                                   "prefill_paged"])
+@pytest.mark.parametrize("window", [0, 12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_ring_in_the_entry_points_matches_jax(entry, window, dtype,
+                                                    monkeypatch):
+    """The mirror put where the kernel runs (``models/attention.py``'s
+    ``serve_attention``): the port's attention entry points against
+    JAX's, over a ring of three 16-slot spans (window 12: the ring wraps;
+    window 0: a linear cache, its last block unmapped when paged), pad
+    rows in the chunk, GQA n_rep 2."""
+    monkeypatch.setattr(tattn, "serve_attention", split_ring)
+    jcfg, tcfg = _cfgs(dtype, window)
+    H, KH, hd = tcfg.num_heads, tcfg.num_kv_heads, tcfg.resolved_head_dim
+    B, L, bs = 2, 40 if window else 48, 8
+    c = 1 if entry.startswith("decode") else 5
+    rng = np.random.RandomState(c + window)
+    p0 = np.array([L + 3, L + 17]) if window else np.array([3, 9])
+    s = np.arange(L)
+    pos = p0[:, None] - 1 - np.mod(p0[:, None] - 1 - s, L)
+    pos = np.where(pos >= 0, pos, -1).astype(np.int32)
+    k, v = (_np(rng.randn(B, L, KH, hd), dtype) for _ in range(2))
+    x = _np(rng.randn(B, c, tcfg.d_model), dtype)
+    positions = (p0[:, None] + np.arange(c)).astype(np.int32)
+    if c > 2:
+        positions[-1, -2:] = tref.PAD_POS
+    mb = L // bs
+    table = (rng.permutation(B * mb) + 1).reshape(B, mb).astype(np.int32)
+    if not window:
+        table[:, -1] = 0
+    nb = 1 + B * mb
+    pk, pv = (_np(rng.randn(nb, bs, KH, hd), dtype) for _ in range(2))
+    ppos = np.full((nb, bs), 5, np.int32)
+    flat = table.reshape(-1)
+    keep = flat > 0
+    pk[flat[keep]] = k.reshape(B * mb, bs, KH, hd)[keep]
+    pv[flat[keep]] = v.reshape(B * mb, bs, KH, hd)[keep]
+    ppos[flat[keep]] = pos.reshape(B * mb, bs)[keep]
+    ring = np.full((B,), L, np.int32)
+    jp = jax.tree.map(lambda a: np.asarray(a[0]), jtf.init_params(
+        jcfg, jax.random.PRNGKey(0))["body"])["attn"]
+    tp = params_from_numpy(jp)
+    paged = entry.endswith("paged")
+    store = ({"k": pk, "v": pv, "pos": ppos} if paged
+             else {"k": k, "v": v, "pos": pos})
+    jstore = {kk: jnp.asarray(a) for kk, a in store.items()}
+    tstore = params_from_numpy(store)
+    at = positions[:, 0] if c == 1 else positions
+    jfn, tfn = (getattr(jattn, f"attention_{entry}"),
+                getattr(tattn, f"attention_{entry}"))
+    tx = params_from_numpy({"x": x})["x"]
+    if paged:
+        jout, _ = jfn(jp, jcfg, jnp.asarray(x), jstore, jnp.asarray(table),
+                      jnp.asarray(ring), jnp.asarray(at))
+        tout, _ = tfn(tp, tcfg, tx, tstore, torch.from_numpy(table),
+                      torch.from_numpy(ring), torch.from_numpy(at))
+    else:
+        jout, _ = jfn(jp, jcfg, jnp.asarray(x), jstore, jnp.asarray(at))
+        tout, _ = tfn(tp, tcfg, tx, tstore, torch.from_numpy(at))
+    got = params_to_numpy({"o": tout})["o"].astype(np.float32)
+    want = np.asarray(jout, np.float32)
+    np.testing.assert_allclose(got, want, **(F32_TOL if dtype == "float32"
+                                             else BF16_TOL))
+
+
+# ------------------------------------------- the row-invariant kernels --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_invariant_kernels_on_the_cpu_are_layers_bitwise(dtype):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 64, generator=g).to(dtype)
+    p = {"w": torch.randn(64, 24, generator=g).to(dtype),
+         "b": torch.randn(24, generator=g).to(dtype)}
+    assert torch.equal(tid.invariant_dense(x, p["w"], p["b"]),
+                       tlayers.dense(p, x))
+    assert torch.equal(tlayers.dense_serve({"w": p["w"]}, x),
+                       tlayers.dense({"w": p["w"]}, x))
+    n = {"g": (1 + 0.1 * torch.randn(64, generator=g)).to(dtype)}
+    assert torch.equal(tin.invariant_rmsnorm(x, n["g"]),
+                       tlayers.rmsnorm(n, x))
+    assert torch.equal(tlayers.rmsnorm_serve(n, x), tlayers.rmsnorm(n, x))
+
+
+def test_invariant_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros(4, 64)
+    with pytest.raises(TypeError):
+        tid.invariant_dense(x.half(), torch.zeros(64, 8).half())
+    with pytest.raises(TypeError):
+        tid.invariant_dense(x, torch.zeros(64, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        tid.invariant_dense(x, torch.zeros(32, 8))
+    with pytest.raises(ValueError, match="shape"):
+        tid.invariant_dense(x, torch.zeros(64, 8), torch.zeros(9))
+    with pytest.raises(ValueError, match="contiguous"):
+        tid.invariant_dense(torch.zeros(64, 4).t(), torch.zeros(64, 8))
+    with pytest.raises(TypeError):
+        tin.invariant_rmsnorm(x.to(torch.int32), torch.ones(64))
+    with pytest.raises(ValueError, match="shape"):
+        tin.invariant_rmsnorm(x, torch.ones(32))
+    with pytest.raises(ValueError, match="contiguous"):
+        tin.invariant_rmsnorm(torch.zeros(64, 4).t(), torch.ones(64))
+
+
+def test_split_of_k_is_a_function_of_k_and_n_alone():
+    """split_k at minitron-8b's projections (the n tiles of 64 filling 256
+    blocks at M <= 64, ranges of 512 or more) and its signature."""
+    import inspect
+    assert list(inspect.signature(tid.split_k).parameters) == ["K", "N"]
+    got = {name: tid.split_k(K, N) for name, (K, N) in {
+        "wq": (4096, 4096), "wk": (4096, 1024), "w_in": (4096, 16384),
+        "w_out": (16384, 4096), "lm_head": (4096, 256000),
+        "reduced": (256, 512)}.items()}
+    assert got == {"wq": 4, "wk": 8, "w_in": 1, "w_out": 4, "lm_head": 1,
+                   "reduced": 1}
+
+
+class _Count:
+    """Counts the plain versions' calls (the wrappers reach them by module
+    attribute on the CPU)."""
+
+    def __init__(self, monkeypatch):
+        self.n = {"invariant_dense_ref": 0, "invariant_rmsnorm_ref": 0}
+        for name in self.n:
+            real = getattr(tref, name)
+
+            def counted(*a, _n=name, _real=real, **kw):
+                self.n[_n] += 1
+                return _real(*a, **kw)
+            monkeypatch.setattr(tref, name, counted)
+
+    def take(self):
+        out = dict(self.n)
+        for k in self.n:
+            self.n[k] = 0
+        return out
+
+
+def test_serving_steps_route_every_projection_and_norm(monkeypatch):
+    """decode_step, prefill and the paged pair of reduced minitron-8b: 7 x
+    layers + 1 invariant_dense calls and 2 x layers + 1 invariant_rmsnorm
+    calls a step; a training forward and loss none; rwkv6-3b's per-token
+    decode none."""
+    count = _Count(monkeypatch)
+    cfg = treduced(TARCHS["minitron-8b"], dtype="float32").with_(
+        sliding_window=8)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+    L = cfg.num_layers
+    want = {"invariant_dense_ref": 7 * L + 1, "invariant_rmsnorm_ref": 2 * L + 1}
+    B, bs, mb = 2, 4, 2
+    tok = torch.tensor([3, 5], dtype=torch.int32)
+    at = torch.tensor([0, 0], dtype=torch.int32)
+    with torch.no_grad():
+        cache = model.init_decode_cache(params, B, 8)
+        model.decode_step(params, tok, at, cache)
+        assert count.take() == want
+        toks = torch.tensor([[3, 4, 5], [6, 7, 8]], dtype=torch.int32)
+        poss = torch.tensor([[1, 2, 3], [1, 2, 3]], dtype=torch.int32)
+        model.prefill(params, toks, poss, cache)
+        assert count.take() == want
+        pool = model.init_paged_pool(1 + B * mb, bs)
+        table = torch.arange(1, 1 + B * mb, dtype=torch.int32).reshape(B, mb)
+        ring = torch.full((B,), bs * mb, dtype=torch.int32)
+        model.prefill_paged(params, toks, poss - 1, pool, table, ring)
+        assert count.take() == want
+        model.decode_step_paged(params, tok, at + 3, pool, table, ring)
+        assert count.take() == want
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 16),
+                                         generator=torch.Generator()
+                                         .manual_seed(1))}
+        ttf.loss_fn(params, cfg, batch)
+        ttf.forward(params, cfg, batch)
+        assert count.take() == {k: 0 for k in want}
+        rcfg = treduced(TARCHS["rwkv6-3b"], dtype="float32")
+        rmodel = tbuild(rcfg)
+        rparams = rmodel.init(torch.Generator().manual_seed(0),
+                              torch.device("cpu"))
+        rcache = rmodel.init_decode_cache(rparams, B, 8)
+        rmodel.decode_step(rparams, tok, at, rcache)
+        assert count.take() == {k: 0 for k in want}
