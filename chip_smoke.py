@@ -114,7 +114,7 @@ Phases (any error or out-of-tolerance result exits non-zero):
      at 8 layers per token (the paged engine refused): tokens/s,
      p50/p95/p99, prefill and decode seconds, peak memory (under 75 GB),
      the decode step's weight bound, exact launches of serve_attention
-     (layers x serving steps), invariant_dense ((7 layers + 1) x steps),
+     (layers x serving steps), invariant_dense ((4 layers + 1) x steps),
      invariant_rmsnorm ((2 layers + 1) x steps) and rwkv6_fwd (layers x
      decode steps), no plain version on the card, loop chunked 64 and
      paged serving the per-token loop's tokens at full width; then at
@@ -1604,8 +1604,13 @@ DENSE_PROJ = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
               "w_gate": (4096, 16384), "w_out": (16384, 4096),
               "lm_head": (4096, 256000)}
 #: rows of the bitwise check: a decode step at 1, 4 and 5 requests, a
-#: chunk of 64, four of 64 (the paged engine's prefill), a ragged tail
-DENSE_ROWS = (1, 4, 5, 64, 256, 260)
+#: chunk of 64 (the decode form's last), 65, 128 and 129 (the prefill
+#: forms' first), four chunks of 64 (the paged engine's prefill), a
+#: ragged tail
+DENSE_ROWS = (1, 4, 5, 64, 65, 128, 129, 256, 260)
+#: the serving path's groups: one launch for the projections of one x
+DENSE_GROUPS = {"wq|wk|wv": ("wq", "wk", "wv"),
+                "w_in|w_gate": ("w_in", "w_gate")}
 #: the timed rows: the decode step (4 slots) and the paged prefill chunk
 DENSE_TIMED = (4, 256)
 #: a reduced f32 shape (reduced minitron's w_in: d 256, d_ff 512)
@@ -1682,13 +1687,23 @@ def check_invariant_dense(torch, idn, ref, record):
                   for M, (ms, bnd, by, plain, lib) in times.items()))
         del w, x, full, copies
         torch.cuda.empty_cache()
-    step = sum(r["ms"] for r in record if r["M"] == 4 and r["dtype"] ==
-               "bfloat16" and r["case"][0] in DENSE_PROJ)
-    layer = step - next(r["ms"] for r in record if r["case"] == ("lm_head",
-                                                                 4))
-    print(f"invariant_dense: minitron-8b's 32-layer decode step (M 4) of "
-          f"projections: 32 x {layer:.4f} + lm_head = "
-          f"{32 * layer + step - layer:.3f} ms")
+    check_dense_groups(torch, idn, record)
+    ms = {r["case"]: r for r in record}
+    for M, what in ((4, "decode step (M 4)"),
+                    (256, "prefill chunk (M 256: 4 slots x 64 rows)")):
+        head = ms[("lm_head", M)]["ms"]
+        layer = sum(ms[(n, M)]["ms"] for n in DENSE_PROJ if n != "lm_head")
+        grouped = sum(ms[(n, M)]["ms"] for n in (*DENSE_GROUPS, "wo",
+                                                 "w_out"))
+        lib = sum(ms[(n, M)]["library_ms"] for n in DENSE_PROJ
+                  if n != "lm_head")
+        print(f"invariant_dense: minitron-8b's 32-layer {what} of "
+              f"projections: 32 x {layer:.4f} + lm_head = "
+              f"{32 * layer + head:.3f} ms; as the serving path launches "
+              f"them (two groups) 32 x {grouped:.4f} + lm_head = "
+              f"{32 * grouped + head:.3f} ms; torch.matmul 32 x {lib:.4f} + "
+              f"{ms[('lm_head', M)]['library_ms']:.4f} = "
+              f"{32 * lib + ms[('lm_head', M)]['library_ms']:.3f} ms")
     K, N = DENSE_F32
     x = torch.randn(max(DENSE_ROWS), K, device=dev, generator=g)
     w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
@@ -1704,6 +1719,93 @@ def check_invariant_dense(torch, idn, ref, record):
     record.append(dict(case=("reduced f32", max(DENSE_ROWS)), dtype="float32",
                        K=K, N=N, M=max(DENSE_ROWS), err=err))
     print(f"  f32 ({K}, {N}) | bitwise | {err:.3e} vs the f64 product")
+
+
+def check_dense_groups(torch, idn, record):
+    """The serving path's grouped calls at minitron-8b's widths
+    (DENSE_GROUPS), with and without bias: one launch a group, each output
+    bitwise that problem's single call at M 4 and 256. Times (weights
+    cold) beside the bound, the problems' single calls and the sum of
+    their ``torch.matmul``; and the eager time (host included, weights
+    warm) of one layer's serving projections as 7 single calls and as the
+    path launches them (the two groups, wo, w_out)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = {}
+    warm = {}
+    for gname, names in DENSE_GROUPS.items():
+        K = DENSE_PROJ[names[0]][0]
+        Ns = [DENSE_PROJ[n][1] for n in names]
+        ws = [(torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
+            torch.bfloat16) for N in Ns]
+        bs = [torch.randn(N, device=dev, generator=g).to(torch.bfloat16)
+              for N in Ns]
+        if K not in x:
+            x[K] = torch.randn(max(DENSE_TIMED), K, device=dev,
+                               generator=g).to(torch.bfloat16)
+        for M in DENSE_TIMED:
+            xm = x[K][:M].contiguous()
+            for bias in (False, True):
+                probs = list(zip(ws, bs if bias else [None] * len(ws)))
+                before = idn.invariant_dense.launches
+                got = idn.invariant_dense_group(xm, probs)
+                check(idn.invariant_dense.launches - before == 1,
+                      f"invariant_dense group {gname}: "
+                      f"{idn.invariant_dense.launches - before} launches")
+                for n, y, (w, b) in zip(names, got, probs):
+                    check(torch.equal(y, idn.invariant_dense(xm, w, b)),
+                          f"invariant_dense group {gname} (bias {bias}) at "
+                          f"M {M}: {n} differs from its single call")
+        sets = [ws] + [[w.clone() for w in ws] for _ in range(max(
+            0, math.ceil(2 * L2_BYTES / (K * sum(Ns) * 2)) - 1))]
+        line = []
+        for M in DENSE_TIMED:
+            xm = x[K][:M].contiguous()
+            nbytes = (M * K + K * sum(Ns) + M * sum(Ns)) * 2
+            bnd, by = bound_ms(nbytes, 2 * M * K * sum(Ns), BF16_FLOPS_PER_S)
+            t = cold_ms(torch, lambda wl: idn.invariant_dense_group(
+                xm, [(w, None) for w in wl]), sets)
+            alone = cold_ms(torch, lambda wl: [idn.invariant_dense(xm, w)
+                                               for w in wl], sets)
+            lib = cold_ms(torch, lambda wl: [torch.matmul(xm, w)
+                                             for w in wl], sets)
+            record.append(dict(case=(gname, M), group=names, K=K, N=sum(Ns),
+                               M=M, ms=t, alone_ms=alone, library_ms=lib,
+                               bound_ms=bnd, bound_by=by, nbytes=nbytes))
+            line.append(f"M {M}: {t:.4f} ms (bound {bnd:.4f}, "
+                        f"{K * sum(Ns) * 2 / (t * 1e-3) / HBM_BYTES_PER_S:.1%}"
+                        f" of HBM peak) single calls {alone:.4f} torch.matmul "
+                        f"{lib:.4f}")
+        print(f"  group {gname} (K {K}, N {' + '.join(map(str, Ns))}): one "
+              f"launch, each output bitwise its single call (bias and none, "
+              f"M {DENSE_TIMED}) | " + "; ".join(line))
+        warm.update(zip(names, ws))
+    for n in ("wo", "w_out"):
+        K, N = DENSE_PROJ[n]
+        warm[n] = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+                   ).to(torch.bfloat16)
+    xd = x[DENSE_PROJ["wq"][0]][:4].contiguous()
+    xf = torch.randn(4, DENSE_PROJ["w_out"][0], device=dev,
+                     generator=g).to(torch.bfloat16)
+
+    def singles():
+        for n in ("wq", "wk", "wv", "wo", "w_in", "w_gate"):
+            idn.invariant_dense(xd, warm[n])
+        idn.invariant_dense(xf, warm["w_out"])
+
+    def grouped():
+        idn.invariant_dense_group(xd, [(warm[n], None) for n in
+                                       DENSE_GROUPS["wq|wk|wv"]])
+        idn.invariant_dense(xd, warm["wo"])
+        idn.invariant_dense_group(xd, [(warm[n], None) for n in
+                                       DENSE_GROUPS["w_in|w_gate"]])
+        idn.invariant_dense(xf, warm["w_out"])
+    before, after = call_ms(torch, singles), call_ms(torch, grouped)
+    record.append(dict(case=("layer call", 4), M=4, call_ms_singles=before,
+                       call_ms_grouped=after))
+    print(f"  one layer's serving projections at M 4, eager (host "
+          f"included, weights warm): 7 single calls {before:.4f} ms, as "
+          f"the path launches them (4 calls) {after:.4f} ms")
 
 
 RMS_CASES = (("bfloat16", 4096), ("float32", 256))
@@ -3242,7 +3344,8 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     """One serving run through ``launch.serve.serve`` on the card, the
     counts set to 0 just before it and read just after: for the dense
     family serve_attention launched layers x serving steps,
-    invariant_dense (7 layers + 1) x steps and invariant_rmsnorm (2 layers
+    invariant_dense (4 layers + 1) x steps (wq|wk|wv and w_in|w_gate one
+    launch each) and invariant_rmsnorm (2 layers
     + 1) x steps; for the ssm family rwkv6_fwd layers x decode steps; no
     other kernel, no plain version on the card;
     every request served its tokens. Prints tokens/s, latency percentiles,
@@ -3265,7 +3368,7 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     want = ({"rwkv6_fwd": L * steps.calls["decode_step"]}
             if cfg.family == "ssm" else
             {"serve_attention": L * calls,
-             "invariant_dense": (7 * L + 1) * calls,
+             "invariant_dense": (4 * L + 1) * calls,
              "invariant_rmsnorm": (2 * L + 1) * calls})
     new = sum(r["new_tokens"] for r in results)
     mean = lambda k: statistics.mean(r[k] for r in results)
@@ -3868,7 +3971,7 @@ def main() -> None:
                          ("bfloat16", 4096, 4))
             row = next(r for r in recs[name] if r["case"] == main_case)
             b, by = row["bound_ms"], row["bound_by"]
-            err = max(r["err"] for r in recs[name])
+            err = max(r["err"] for r in recs[name] if "err" in r)
         else:
             rec = recs[name]
             # ama_mix: one legacy round of the CNN, one call

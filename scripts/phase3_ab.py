@@ -22,7 +22,9 @@ checkout is enough there (rounds/s are recorded too);
 ``server_mix_llm`` is server_mix at the two LLM paths' N; ``ama_mix``
 runs its one-leaf and its many-leaf cases; ``server_adam`` and
 ``server_mix_delta`` run each checkout's own cases (a checkout's cases at
-the same shapes are read side by side). Needs a CUDA device.
+the same shapes are read side by side); ``invariant_dense`` each
+checkout's projections (and, where its chip_smoke has them, its groups),
+rows bitwise across M and the times at M 4 and 256. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ CHECKS = {
     "main_cnn": "cs.main_path(torch, train, sp, ref, tree_mod, [r for r in "
                 "cs.MAIN_RUNS if r[2] in ('server_adam', 'server_mix_delta')"
                 "], rec)",
+    "invariant_dense": "cs.check_invariant_dense(torch, idn, ref, rec)",
 }
 
 _RUN = """
@@ -61,6 +64,7 @@ import chip_smoke as cs
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import ama_mix as am
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import invariant_dense as idn
 from repro_torch.kernels import rwkv6_scan as rs
 from repro_torch.kernels import server_plane as sp
 from repro_torch.launch import train

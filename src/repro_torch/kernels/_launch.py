@@ -58,8 +58,8 @@ def _raise_on(err: int, what: str) -> None:
 
 #: device -> int32 counters, zero between launches: a kernel that folds
 #: partials in its last block to arrive counts the arrivals there and
-#: resets each counter it used (invariant_dense, serve_attention; both run
-#: on the stream that owns their data, so the launches never overlap)
+#: resets each counter it used (serve_attention; it runs on the stream
+#: that owns its data, so the launches never overlap)
 _COUNTERS: dict = {}
 
 

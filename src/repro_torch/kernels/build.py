@@ -70,9 +70,10 @@ SIGNATURES = {
     # count, B, c, H, KH, NB, bs, mb, window, rpw, stream
     "serve_attention": (ctypes.c_int, ctypes.c_int, *(_P,) * 12,
                         *(ctypes.c_int,) * 9, _P),
-    # dtype, x, w, b, y, part, count, M, N, K, S, stream
-    "invariant_dense": (ctypes.c_int, *(_P,) * 6, *(ctypes.c_int,) * 4,
-                        _P),
+    # dtype, x, M, K, P, problem table (host: w, b, y, N, S each), form,
+    # stream
+    "invariant_dense": (ctypes.c_int, _P, *(ctypes.c_int,) * 3, _P,
+                        ctypes.c_int, _P),
     # dtype, x, g, y, M, d, eps, stream
     "invariant_rmsnorm": (ctypes.c_int, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, _P),

@@ -68,9 +68,8 @@
 // dK and dV accumulating in registers. hd in {64, 96, 128}; 96 is padded
 // to two column blocks, whose upper half the TMA fills with zeros.
 //
-// The host side encodes the TMA descriptors (cuTensorMapEncodeTiled,
-// looked up with cudaGetDriverEntryPoint, so nothing links
-// libcuda) per launch; the entries return cudaGetLastError().
+// The host side encodes the TMA descriptors per launch (sm90.cuh:
+// encode_tiled); the entries return cudaGetLastError().
 
 #include "flash_attention.cuh"
 #include "sm90.cuh"
@@ -97,11 +96,6 @@ struct Head {
     return kCB * rows * kRow;
   }
 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
 
 // query row qp may attend to key kp
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
@@ -749,31 +743,6 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------- launchers
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // TMA descriptor of a (B, S, Hx, hd) bf16 tensor read in boxes of 64
 // columns x `rows` rows of one head, 128-byte swizzle; rows past S and

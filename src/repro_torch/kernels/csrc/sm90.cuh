@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash-attention
-// kernels (flash_attention_sm90.cu): mbarriers, TMA tile loads, wgmma
-// shared-memory descriptors and the bf16 wgmma products with f32
-// accumulators.
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_attention_sm90.cu, invariant_dense.cu): mbarriers, TMA tile loads
+// and the host's tensor-map encoder, wgmma shared-memory descriptors and
+// the bf16 wgmma products with f32 accumulators.
 //
 // Tiles live in shared memory in the layout a TMA load with 128-byte
 // swizzle writes: rows of 64 bf16 (128 bytes), the 16-byte chunk c of row
@@ -36,6 +36,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary at or after p (swizzled tiles need it)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
 // ------------------------------------------------------------- mbarriers
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -57,6 +63,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// one plain arrival (a consumer handing a stage back to the producer)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // cycles after which a wait gives up (about 10 s at the H100's clock)
@@ -96,6 +109,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// box of a 2-D tensor map at element coordinates (c0 innermost)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// The driver's cuTensorMapEncodeTiled, looked up through the runtime
+// (cudaGetDriverEntryPoint), so nothing links libcuda; null if missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -37,7 +37,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import PAD_FLOOR, PAD_POS  # noqa: F401
 from repro_torch.kernels.serve_attention import serve_attention
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
-                                       dense_serve)
+                                       dense_serve, dense_serve_group)
 
 
 def attn_init(gen: torch.Generator, cfg, dtype) -> dict:
@@ -96,11 +96,13 @@ def _qkv(p, cfg, x, positions):
     """q (pre-scaled by hd**-0.5 in the model dtype, as ``attention_fwd``
     hands it to its kernel), k, v of x (B, c, d) at ``positions`` (B, c),
     RoPE applied. The serving projections (here and in ``_out``) run on
-    the row-invariant GEMM (``layers.dense_serve``)."""
+    the row-invariant GEMM, wq, wk and wv in one launch
+    (``layers.dense_serve_group``)."""
     hd = cfg.resolved_head_dim
-    q = _split_heads(dense_serve(p["wq"], x), cfg.num_heads, hd)
-    k = _split_heads(dense_serve(p["wk"], x), cfg.num_kv_heads, hd)
-    v = _split_heads(dense_serve(p["wv"], x), cfg.num_kv_heads, hd)
+    q, k, v = dense_serve_group((p["wq"], p["wk"], p["wv"]), x)
+    q = _split_heads(q, cfg.num_heads, hd)
+    k = _split_heads(k, cfg.num_kv_heads, hd)
+    v = _split_heads(v, cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return (q * hd ** -0.5).contiguous(), k.contiguous(), v.contiguous()

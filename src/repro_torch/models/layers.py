@@ -1,8 +1,9 @@
 """Neural-net primitives on params-as-dicts (the port of the JAX
 package's ``models/layers.py``: dense, embedding, RMSNorm, LayerNorm,
 rotary embeddings, the gated/GELU MLP and the cross-entropy losses),
-and ``dense_serve`` / ``rmsnorm_serve``, the serving steps' projection
-and norm on the row-invariant kernels (the same bits on the CPU).
+and ``dense_serve`` / ``dense_serve_group`` / ``mlp_serve`` /
+``rmsnorm_serve``, the serving steps' projections and norm on the
+row-invariant kernels (the same bits on the CPU).
 
 The f32 casts sit exactly where the JAX package has them: RMSNorm,
 LayerNorm, RoPE and the losses compute in f32 and return in the input's
@@ -18,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.invariant_dense import invariant_dense
+from repro_torch.kernels.invariant_dense import (invariant_dense,
+                                                invariant_dense_group)
 from repro_torch.kernels.invariant_rmsnorm import invariant_rmsnorm
 
 
@@ -54,6 +56,13 @@ def dense_serve(p: dict, x):
     the serving steps' bitwise contracts need on the card. The same bits
     as ``dense`` on the CPU."""
     return invariant_dense(x, p["w"], p.get("b"))
+
+
+def dense_serve_group(ps, x):
+    """``dense_serve`` of each params dict of ``ps`` over the same x, in
+    one launch on the card (``kernels.invariant_dense_group``): each
+    output the bits of its own ``dense_serve``."""
+    return invariant_dense_group(x, [(p["w"], p.get("b")) for p in ps])
 
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
@@ -135,16 +144,27 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     return p
 
 
-def mlp(p: dict, x, proj=dense):
+def mlp(p: dict, x):
     """SwiGLU when the params carry ``w_gate``, else GELU (tanh
-    approximation, ``jax.nn.gelu``'s default). ``proj`` computes the
-    projections: ``dense``, or ``dense_serve`` in the serving steps."""
-    h = proj(p["w_in"], x)
+    approximation, ``jax.nn.gelu``'s default)."""
+    h = dense(p["w_in"], x)
     if "w_gate" in p:
-        h = F.silu(proj(p["w_gate"], x)) * h
+        h = F.silu(dense(p["w_gate"], x)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return proj(p["w_out"], h)
+    return dense(p["w_out"], h)
+
+
+def mlp_serve(p: dict, x):
+    """``mlp`` in the serving steps: the projections on the row-invariant
+    kernel, w_in and w_gate in one launch; the same ops in the same
+    order, so the same bits as ``mlp`` on the CPU."""
+    if "w_gate" in p:
+        h, gate = dense_serve_group((p["w_in"], p["w_gate"]), x)
+        h = F.silu(gate) * h
+    else:
+        h = F.gelu(dense_serve(p["w_in"], x), approximate="tanh")
+    return dense_serve(p["w_out"], h)
 
 
 # ---------------------------------------------------------------- losses ----

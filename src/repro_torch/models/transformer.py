@@ -25,9 +25,11 @@ CHUNK, bit-identical to looping ``decode_step``), ``init_paged_pool``,
 and pools are stacked on the layer axis like the parameters, allocated on
 the caller's device, and written IN PLACE: each call returns the same
 tensors it was given (JAX returns new ones, which its engines donate).
-The dense family's serving steps run every projection (7 a layer and
-``lm_head``) and every RMSNorm (2 a layer and the final norm) on the
-row-invariant kernels (``layers.dense_serve``, ``rmsnorm_serve``): on
+The dense family's serving steps run every projection (7 a layer in 4
+launches: wq|wk|wv and w_in|w_gate grouped; and ``lm_head``) and every
+RMSNorm (2 a layer and the final norm) on the row-invariant kernels
+(``layers.dense_serve``, ``dense_serve_group``, ``mlp_serve``,
+``rmsnorm_serve``): on
 the card a row's result does not depend on how many rows the step
 carries, so chunked prefill equals the per-token loop there too. The
 ssm family serves per token only and keeps ``dense`` / ``rmsnorm``.
@@ -40,8 +42,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6
 from repro_torch.models.layers import (chunked_cross_entropy, dense,
                                        dense_init, dense_serve, embedding,
-                                       embedding_init, mlp, mlp_init, rmsnorm,
-                                       rmsnorm_init, rmsnorm_serve)
+                                       embedding_init, mlp, mlp_init,
+                                       mlp_serve, rmsnorm, rmsnorm_init,
+                                       rmsnorm_serve)
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 #: family -> the slice of the port that brings it
@@ -273,7 +276,7 @@ def block_decode(p, cfg, x, cache, position):
                                      rmsnorm_serve(p["ln1"], x), cache,
                                      position)
     x = x + h
-    return x + mlp(p["mlp"], rmsnorm_serve(p["ln2"], x), dense_serve), cache
+    return x + mlp_serve(p["mlp"], rmsnorm_serve(p["ln2"], x)), cache
 
 
 def _scan_blocks_decode(stacked, cfg, x, cache, position):
@@ -323,7 +326,7 @@ def block_prefill(p, cfg, x, cache, positions):
                                       rmsnorm_serve(p["ln1"], x), cache,
                                       positions)
     x = x + h
-    return x + mlp(p["mlp"], rmsnorm_serve(p["ln2"], x), dense_serve), cache
+    return x + mlp_serve(p["mlp"], rmsnorm_serve(p["ln2"], x)), cache
 
 
 def _scan_blocks_prefill(stacked, cfg, x, cache, positions):
@@ -384,7 +387,7 @@ def _scan_blocks_paged(stacked, cfg, x, pool, table, ring_len, positions,
         h, _ = fn(p["attn"], cfg, rmsnorm_serve(p["ln1"], x),
                   _layer(pool, i), table, ring_len, positions)
         x = x + h
-        x = x + mlp(p["mlp"], rmsnorm_serve(p["ln2"], x), dense_serve)
+        x = x + mlp_serve(p["mlp"], rmsnorm_serve(p["ln2"], x))
     return x, pool
 
 

@@ -806,7 +806,8 @@ def test_serve_attention_masked_null_block_never_reaches_a_row(dt):
 #: (K, N): a tile without a split, a ragged last n tile, minitron's wk/wv
 #: shape (K split 8 ways), a split of 2 and one n tile
 DENSE_SHAPES = [(256, 512), (1024, 136), (4096, 1024), (512, 64)]
-DENSE_ROWS = (1, 4, 5, 64, 65, 130, 260)
+#: the decode form up to 64 rows, the prefill forms above
+DENSE_ROWS = (1, 4, 5, 64, 65, 128, 129, 130, 256, 260)
 
 
 def _ulp_bf16(x):
@@ -845,6 +846,93 @@ def test_invariant_dense_rows_bitwise_across_m_on_card(K, N):
     b = torch.randn(N, device=dev, generator=g).to(torch.bfloat16)
     got = tid.invariant_dense(x, w, b)
     assert torch.equal(got, (full.float() + b.float()).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(4096, 1024), (1024, 136)])
+def test_invariant_dense_forms_give_the_same_bits_on_card(K, N, monkeypatch):
+    """Both prefill forms (128 and 256 rows a block) forced at M = 65, 256
+    and 260 give the bits the wrapper's own choice gives, and those rows
+    equal the decode form's at M = 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(K * N)
+    x = torch.randn(260, K, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
+        torch.bfloat16)
+    want = {M: tid.invariant_dense(x[:M].contiguous(), w)
+            for M in (64, 65, 256, 260)}
+    for fm in (1, 2):
+        monkeypatch.setattr(tid, "form", lambda M, K, Ns, sms, _f=fm:
+                            0 if M <= tid.DECODE_ROWS else _f)
+        tid._plan.cache_clear()
+        for M in (65, 256, 260):
+            got = tid.invariant_dense(x[:M].contiguous(), w)
+            assert torch.equal(got, want[M]), (fm, M)
+            assert torch.equal(got[:64], want[64]), (fm, M)
+    tid._plan.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M", [1, 4, 64, 65, 256, 260])
+def test_invariant_dense_group_equals_single_calls_on_card(M, bias):
+    """A grouped call (minitron's wq|wk|wv shapes cut to K 1024 and a
+    w_in|w_gate pair) is one launch, and each output equals that
+    problem's single call bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(M + bias)
+    for K, Ns in ((1024, (1024, 256, 256)), (512, (2048, 2048))):
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        probs = [((torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+                   ).to(torch.bfloat16),
+                  torch.randn(N, device=dev, generator=g).to(torch.bfloat16)
+                  if bias else None) for N in Ns]
+        tid.reset_counts()
+        got = tid.invariant_dense_group(x, probs)
+        assert tid.invariant_dense.launches == 1
+        assert [tuple(y.shape) for y in got] == [(M, N) for N in Ns]
+        for y, (w, b) in zip(got, probs):
+            assert torch.equal(y, tid.invariant_dense(x, w, b))
+        assert tid.invariant_dense.launches == 1 + len(Ns)
+    xf = torch.randn(M, 256, device=dev, generator=g)
+    wf = [torch.randn(256, N, device=dev, generator=g) / 16 for N in (136, 64)]
+    tid.reset_counts()
+    got = tid.invariant_dense_group(xf, [(w, None) for w in wf])
+    assert tid.invariant_dense.launches == 1
+    for y, w in zip(got, wf):
+        assert torch.equal(y, tid.invariant_dense(xf, w))
+
+
+@pytest.mark.gpu
+def test_invariant_dense_group_refuses_what_one_launch_cannot_take():
+    """A group whose problems disagree on K or dtype, or whose x (or a w)
+    is not on a 16-byte boundary, raises; nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    x = torch.zeros(4, 64, **bf)
+    w = torch.zeros(64, 64, **bf)
+    tid.reset_counts()
+    with pytest.raises(ValueError, match="shape"):
+        tid.invariant_dense_group(x, [(w, None), (torch.zeros(128, 64, **bf),
+                                                  None)])
+    with pytest.raises(TypeError):
+        tid.invariant_dense_group(x, [(w, None), (w.float(), None)])
+    with pytest.raises(ValueError, match="16-byte"):
+        xo = torch.zeros(4 * 64 + 1, **bf)[1:].reshape(4, 64)
+        tid.invariant_dense_group(xo, [(w, None), (w, None)])
+    with pytest.raises(ValueError, match="16-byte"):
+        wo = torch.zeros(64 * 64 + 1, **bf)[1:].reshape(64, 64)
+        tid.invariant_dense_group(x, [(w, None), (wo, None)])
+    assert tid.invariant_dense.launches == 0
 
 
 @pytest.mark.gpu

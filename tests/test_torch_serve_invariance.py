@@ -17,6 +17,11 @@
   (2 a layer and the final norm) through them, a training forward and
   rwkv6's serving none; their wrappers refuse what the kernels do not
   take; the split of K is a function of (K, N) alone.
+- ``invariant_dense_group`` on the CPU is ``layers.dense`` of each of its
+  problems bitwise (and JAX's within tolerance), the serving MLP
+  (``layers.mlp_serve``) is ``layers.mlp`` bitwise; the group refuses
+  problems that disagree on K or dtype; the kernel's form is M's alone
+  at the boundary (decode up to 64 rows) and never changes the split.
 """
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ import jax.numpy as jnp
 from repro.configs.base import reduced as jreduced
 from repro.configs.registry import ARCHS as JARCHS
 from repro.models import attention as jattn
+from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro_torch.configs.base import reduced as treduced
 from repro_torch.configs.registry import ARCHS as TARCHS
@@ -355,16 +361,123 @@ def test_invariant_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_split_of_k_is_a_function_of_k_and_n_alone():
-    """split_k at minitron-8b's projections (the n tiles of 64 filling 256
-    blocks at M <= 64, ranges of 512 or more) and its signature."""
+    """split_k at minitron-8b's projections (the n tiles of 128 filling 64
+    blocks, ranges of 512 or more, at most 8 ranges) and its
+    signature."""
     import inspect
     assert list(inspect.signature(tid.split_k).parameters) == ["K", "N"]
     got = {name: tid.split_k(K, N) for name, (K, N) in {
         "wq": (4096, 4096), "wk": (4096, 1024), "w_in": (4096, 16384),
         "w_out": (16384, 4096), "lm_head": (4096, 256000),
         "reduced": (256, 512)}.items()}
-    assert got == {"wq": 4, "wk": 8, "w_in": 1, "w_out": 4, "lm_head": 1,
+    assert got == {"wq": 2, "wk": 8, "w_in": 1, "w_out": 2, "lm_head": 1,
                    "reduced": 1}
+    # at most SPLIT_MAX ranges (a tile's ranges fold in one cluster)
+    assert tid.split_k(65536, 128) == tid.SPLIT_MAX == 8
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_invariant_dense_group_on_the_cpu_is_layers_dense_of_each(dtype,
+                                                                  bias):
+    """The grouped wrapper on the CPU: each output is ``layers.dense`` of
+    its problem bitwise (wq|wk|wv-like widths), and JAX's ``dense`` on the
+    same numpy draws within the serving tests' tolerances."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    ps = [{"w": rng.standard_normal((64, n)).astype(np.float32) / 8}
+          for n in (48, 16, 16)]
+    if bias:
+        for q in ps:
+            q["b"] = rng.standard_normal(q["w"].shape[1]).astype(np.float32)
+    tx = torch.from_numpy(x).to(dtype)
+    tps = [{k: torch.from_numpy(v).to(dtype) for k, v in q.items()}
+           for q in ps]
+    got = tid.invariant_dense_group(tx, [(q["w"], q.get("b")) for q in tps])
+    assert [tuple(y.shape) for y in got] == [(2, 5, 48), (2, 5, 16),
+                                             (2, 5, 16)]
+    grp = tlayers.dense_serve_group(tps, tx)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    for y, yg, q, tq in zip(got, grp, ps, tps):
+        assert y.dtype == dtype
+        assert torch.equal(y, tlayers.dense(tq, tx))
+        assert torch.equal(yg, y)
+        want = jlayers.dense({k: jnp.asarray(v, jdt) for k, v in q.items()},
+                             jnp.asarray(x, jdt))
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   **(F32_TOL if dtype == torch.float32
+                                      else BF16_TOL))
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_mlp_is_the_training_mlp_bitwise_on_the_cpu(dtype, gated):
+    """``mlp_serve`` (w_in|w_gate grouped) gives ``mlp``'s bits on the
+    CPU, SwiGLU and GELU, and JAX's ``mlp`` within tolerance."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((3, 4, 32)).astype(np.float32)
+    p = {"w_in": {"w": rng.standard_normal((32, 64)).astype(np.float32) / 6},
+         "w_out": {"w": rng.standard_normal((64, 32)).astype(np.float32) / 8}}
+    if gated:
+        p["w_gate"] = {"w": rng.standard_normal((32, 64)).astype(np.float32)
+                       / 6}
+    tp = params_from_numpy(p)
+    tp = {k: {"w": v["w"].to(dtype)} for k, v in tp.items()}
+    tx = torch.from_numpy(x).to(dtype)
+    got = tlayers.mlp_serve(tp, tx)
+    assert torch.equal(got, tlayers.mlp(tp, tx))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jlayers.mlp({k: {"w": jnp.asarray(v["w"], jdt)}
+                        for k, v in p.items()}, jnp.asarray(x, jdt))
+    tol = F32_TOL if dtype == torch.float32 else dict(rtol=2 ** -5,
+                                                     atol=2 ** -5)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+def test_invariant_dense_group_refuses_what_one_launch_cannot_take():
+    """Problems that disagree on K (with x) or on the dtype, an empty or
+    too large group: refused before any kernel or plain version runs."""
+    x = torch.zeros(4, 64)
+    w = torch.zeros(64, 8)
+    with pytest.raises(ValueError, match="shape"):
+        tid.invariant_dense_group(x, [(w, None), (torch.zeros(32, 8), None)])
+    with pytest.raises(TypeError):
+        tid.invariant_dense_group(x, [(w, None), (w.to(torch.bfloat16),
+                                                  None)])
+    with pytest.raises(TypeError):
+        tid.invariant_dense_group(x, [(w, None), (w, torch.zeros(
+            8, dtype=torch.bfloat16))])
+    with pytest.raises(ValueError, match="projections a launch"):
+        tid.invariant_dense_group(x, [])
+    with pytest.raises(ValueError, match="projections a launch"):
+        tid.invariant_dense_group(x, [(w, None)] * (tid.MAX_GROUP + 1))
+
+
+def test_the_form_is_a_function_of_m_that_never_moves_the_split():
+    """The bf16 kernel's form: decode (one 64-row tile a block) up to
+    DECODE_ROWS rows, a prefill form above; the prefill form with 256-row
+    blocks where no problem splits K and they fill 7/8 of the card, else
+    128-row ones; the split in the launch plan is ``split_k``'s at every
+    M."""
+    import inspect
+    assert list(inspect.signature(tid.form).parameters) == ["M", "K", "Ns",
+                                                           "sms"]
+    for M in (1, 4, 64):
+        assert tid.form(M, 4096, (4096,), 132) == 0
+    assert tid.form(65, 4096, (16384,), 132) == 2       # 128 blocks
+    assert tid.form(256, 4096, (16384, 16384), 132) == 2
+    assert tid.form(256, 4096, (16384,), 256) == 1      # 128 of 256 SMs
+    assert tid.form(256, 4096, (256000,), 132) == 2
+    for Ns in ((1024,), (4096,), (4096, 1024, 1024)):  # K split
+        assert tid.form(256, 4096, Ns, 132) == 1
+        assert tid.form(257, 4096, Ns, 132) == 1
+    for M in (1, 4, 64, 65, 128, 129, 256, 260):
+        fm, splits = tid._plan(M, 4096, (4096, 1024), True, 132)
+        assert fm == tid.form(M, 4096, (4096, 1024), 132)
+        assert splits == (tid.split_k(4096, 4096), tid.split_k(4096, 1024))
+    assert tid._plan(5, 64, (8, 16), False, 132) == (0, (1, 1))
 
 
 class _Count:
