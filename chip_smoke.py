@@ -45,8 +45,12 @@ Phases (any error or out-of-tolerance result exits non-zero):
      serving projection in bf16 (rows bitwise at M 1, 4, 5, 64, 256 and
      260; within twice cuBLAS's error against the f32 product, floor one
      bf16 ulp) and at a reduced f32 shape, with its times at M 4 and 256
-     (weights cold) beside torch.matmul; invariant_rmsnorm at d 4096 bf16
-     and d 256 f32 (rows bitwise, within N_ULP of the plain version), with
+     (weights cold) beside torch.matmul; invariant_rmsnorm's two forms
+     (the residual add and the norm in one launch, and the norm alone) at
+     d 4096 and 16384 bf16, d 256 f32 and d 1000 bf16 (per element): rows
+     bitwise, s bitwise x + h, y bitwise the norm alone on s, within
+     N_ULP of the plain version; the add then the norm against the fused
+     call, device and host time; with
      device times (CUDA-graph replay) beside the least time the card
      could take (its bound; for rwkv6 also its design's bound), the
      plain version's and a library call's;
@@ -104,9 +108,10 @@ Phases (any error or out-of-tolerance result exits non-zero):
      them, bitwise;
      Serving (slices 13-14): a row-invariance probe at minitron's full
      width (bf16, M = 4 against M = 256: the serving path's
-     invariant_dense, invariant_rmsnorm and argmax, each a check, and
-     torch.matmul and layers.rmsnorm as a yardstick); minitron-8b CONFIG_SWA
-     (window 4096) at its published widths and all 32 layers through
+     invariant_dense, both forms of invariant_rmsnorm and argmax, each a
+     check, and torch.matmul and layers.rmsnorm as a yardstick);
+     minitron-8b CONFIG_SWA (window 4096) at its published widths and all
+     32 layers through
      ``launch.serve.serve``: PagedEngine (4 slots, blocks of 16, prefill
      chunk 64) over two prompts of 4,000 tokens (the ring wraps), four of
      512 and four of 128, 128 new tokens each; LoopEngine per token,
@@ -115,9 +120,12 @@ Phases (any error or out-of-tolerance result exits non-zero):
      p50/p95/p99, prefill and decode seconds, peak memory (under 75 GB),
      the decode step's weight bound, exact launches of serve_attention
      (layers x serving steps), invariant_dense ((4 layers + 1) x steps),
-     invariant_rmsnorm ((2 layers + 1) x steps) and rwkv6_fwd (layers x
-     decode steps), no plain version on the card, loop chunked 64 and
-     paged serving the per-token loop's tokens at full width; then at
+     invariant_add_rmsnorm (2 layers x steps), invariant_rmsnorm (1 x
+     steps) and rwkv6_fwd (layers x decode steps), no plain version on
+     the card, loop chunked 64 and paged serving the per-token loop's
+     tokens at full width; a profile of the paged engine (2 prefill
+     chunks, 16 decode steps) and the device kernels of one traced
+     32-layer decode step; then at
      reduced size paged == dense bitwise, reduced f32 card == CPU,
      chunked == per token bitwise and the engines' tokens equal;
   5. fused against plain server planes on the card (ama_fes, async_ama,
@@ -653,8 +661,14 @@ TRACE_LOG: list = []
 
 
 def device_kernels(torch, fn, label: str) -> list[str]:
-    """Names of the device kernels one ``fn()`` call runs, from a
-    torch.profiler trace (kernels, copies and sets on the card). The
+    """Names of the device kernels one ``fn()`` call runs
+    (``device_events``)."""
+    return [name for name, _ in device_events(torch, fn, label)]
+
+
+def device_events(torch, fn, label: str) -> list[tuple[str, float]]:
+    """(name, microseconds) of each device kernel one ``fn()`` call runs,
+    from a torch.profiler trace (kernels, copies and sets on the card). The
     session traces one warm-up call first and discards it (the
     profiler's ``warmup`` step): a trace that starts cold can drop the
     first kernel of the session. A trace that holds no device activity
@@ -680,7 +694,7 @@ def device_kernels(torch, fn, label: str) -> list[str]:
                     torch.cuda.synchronize()
                     prof.step()
             events = json.loads(path.read_text())["traceEvents"]
-        names = [e["name"] for e in events
+        names = [(e["name"], float(e.get("dur", 0.0))) for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         if names:
             break
@@ -1808,47 +1822,168 @@ def check_dense_groups(torch, idn, record):
           f"the path launches them (4 calls) {after:.4f} ms")
 
 
-RMS_CASES = (("bfloat16", 4096), ("float32", 256))
+#: (dtype, d): minitron-8b's width, llama3-405b's (eight warps a row),
+#: reduced minitron's f32 width, a width that is not a multiple of the
+#: 16-byte vector (the per-element form)
+RMS_CASES = (("bfloat16", 4096), ("bfloat16", 16384), ("float32", 256),
+             ("bfloat16", 1000))
+#: the case of the kernels line: minitron-8b's decode step (4 slots)
+RMS_MAIN = ("bfloat16", 4096, 4)
 
 
-def check_invariant_rmsnorm(torch, irn, ref, record):
-    """invariant_rmsnorm at minitron's width (bf16, d 4096) and reduced
-    (f32, d 256): rows bitwise at M in DENSE_ROWS, within N_ULP of the
-    output dtype of the plain version (``layers.rmsnorm``); times at M 4
-    and 256 beside the bound (bytes), the plain version and
-    ``F.rms_norm``."""
+#: widths timed also with their rows cold (copies past the L2)
+RMS_COLD = (4096, 16384)
+
+
+def cold_rows_ms(torch, irn, form, operands, nbytes) -> float:
+    """device_ms of one ``form`` call ("norm" or "add+norm") whose rows
+    come from device memory: each captured call takes its own copy of x
+    and h, the copies summing past twice the L2 (the gain is shared)."""
+    x, h, gain = operands
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+    copies = [(x.clone(), h.clone()) for _ in range(n)]
+    fn = ((lambda x, h: irn.invariant_rmsnorm(x, gain)) if form == "norm"
+          else (lambda x, h: irn.invariant_add_rmsnorm(x, h, gain)))
+    it = iter(range(1 << 30))
+    return device_ms(torch, lambda: fn(*copies[next(it) % n]), reps=n,
+                     replays=10)
+
+
+def host_ms(torch, fn, iters: int = 200) -> float:
+    """Host time of one eager ``fn()`` call: ``iters`` calls back to back
+    on the host clock, the device synchronised before and after (the
+    device keeps up with calls that cost it less than the host's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
+def add_norm_pair(torch, irn, record, d=4096, rows=DENSE_TIMED) -> dict:
+    """At d (bf16) and each M of ``rows``: the device time (CUDA-graph
+    replay), the eager call's time (CUDA events, host included) and the
+    host time of one call of the residual add then the norm,
+    ``irn.invariant_rmsnorm(x + h, g)`` (the serving path before the
+    fused form), and, where ``irn`` has it, of
+    ``irn.invariant_add_rmsnorm(x, h, g)``. Uses only what every
+    checkout's ``irn`` has, so scripts/phase3_ab.py runs it against
+    another checkout (check ``add_norm``). Returns {M: record}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    bf = torch.bfloat16
+    x = torch.randn(max(rows), d, device=dev, generator=g).to(bf)
+    h = torch.randn(max(rows), d, device=dev, generator=g).to(bf)
+    gain = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+    fused = getattr(irn, "invariant_add_rmsnorm", None)
+    out = {}
+    for M in rows:
+        xm, hm = x[:M].contiguous(), h[:M].contiguous()
+        calls = {"pair": lambda: irn.invariant_rmsnorm(xm + hm, gain)}
+        if fused is not None:
+            calls["fused"] = lambda: fused(xm, hm, gain)
+        r = dict(case=("add then norm", d, M), d=d, M=M)
+        for k, fn in calls.items():
+            r.update({f"{k}_ms": device_ms(torch, fn),
+                      f"{k}_call_ms": call_ms(torch, fn),
+                      f"{k}_host_ms": host_ms(torch, fn)})
+        record.append(r)
+        out[M] = r
+    return out
+
+
+def check_invariant_rmsnorm(torch, irn, ref, record, fused_record=None):
+    """invariant_rmsnorm's two forms at RMS_CASES (bf16 at d 4096 and
+    16384, f32 at d 256, bf16 at d 1000): invariant_add_rmsnorm's s
+    bitwise ``x + h`` and its y bitwise the norm-only form on s; both
+    forms' rows bitwise at M in DENSE_ROWS; within N_ULP of the output
+    dtype of their plain versions (``layers.rmsnorm``); each width's plan
+    (warps a row, vectors a thread, 16-byte or per element). Times at M 4
+    and 256 (inputs in L2, as a serving step finds x and h just written;
+    at d 4096 and 16384 also cold, ``cold_rows_ms``) beside the bound
+    (bytes: x and h read, s and y written, or x read and y written; and
+    g), the plain version and the library yardstick
+    (``F.rms_norm``, after ``x + h`` for the fused form); then the add
+    followed by the norm against the fused call (``add_norm_pair``).
+    The fused form's records go to ``fused_record`` (default
+    ``record``)."""
     import torch.nn.functional as F
+    fused_record = record if fused_record is None else fused_record
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(25)
+    print("invariant_rmsnorm: both forms, rows bitwise at M "
+          f"{DENSE_ROWS}; M: kernel ms, bound, plain, library (F.rms_norm; "
+          "x + h then F.rms_norm for add+norm)")
     for dtype, d in RMS_CASES:
         dt = getattr(torch, dtype)
+        tag = f"{dtype} d {d}"
         x = torch.randn(max(DENSE_ROWS), d, device=dev, generator=g).to(dt)
+        h = torch.randn(max(DENSE_ROWS), d, device=dev, generator=g).to(dt)
         gain = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
         full = irn.invariant_rmsnorm(x, gain)
+        s, y = irn.invariant_add_rmsnorm(x, h, gain)
+        check(torch.equal(s, x + h),
+              f"invariant_add_rmsnorm {tag}: s differs from x + h")
+        check(torch.equal(y, irn.invariant_rmsnorm(s, gain)),
+              f"invariant_add_rmsnorm {tag}: y differs from the norm-only "
+              "form on s")
         for M in DENSE_ROWS[:-1]:
-            check(torch.equal(irn.invariant_rmsnorm(x[:M].contiguous(), gain),
-                              full[:M]),
-                  f"invariant_rmsnorm {dtype} d {d}: rows at M = {M} differ")
+            xm, hm = x[:M].contiguous(), h[:M].contiguous()
+            check(torch.equal(irn.invariant_rmsnorm(xm, gain), full[:M]),
+                  f"invariant_rmsnorm {tag}: rows at M = {M} differ")
+            sm, ym = irn.invariant_add_rmsnorm(xm, hm, gain)
+            check(torch.equal(sm, s[:M]) and torch.equal(ym, y[:M]),
+                  f"invariant_add_rmsnorm {tag}: rows at M = {M} differ")
         want = ref.invariant_rmsnorm_ref(x, gain)
-        err = compare(torch, f"invariant_rmsnorm {dtype} d {d}", full, want,
+        err = compare(torch, f"invariant_rmsnorm {tag}", full, want,
                       want.float().abs(), dt)
+        _, want = ref.invariant_add_rmsnorm_ref(x, h, gain)
+        err_f = compare(torch, f"invariant_add_rmsnorm {tag}", y, want,
+                        want.float().abs(), dt)
+        plan = irn.plan(d, dt)
         line = []
         for M in DENSE_TIMED:
-            xm = x[:M].contiguous()
-            nbytes = (2 * M * d + d) * x.element_size()
-            bnd, by = bound_ms(nbytes, 4 * M * d)
-            ms = device_ms(torch, lambda: irn.invariant_rmsnorm(xm, gain))
-            plain = device_ms(torch, lambda: ref.invariant_rmsnorm_ref(
-                xm, gain))
-            lib = device_ms(torch, lambda: F.rms_norm(xm, (d,), gain, 1e-6))
-            record.append(dict(case=(dtype, d, M), M=M, ms=ms, plain_ms=plain,
-                               library_ms=lib, bound_ms=bnd, bound_by=by,
-                               nbytes=nbytes, err=err))
-            line.append(f"M {M}: {ms:.4f} ms bound {bnd:.4f} plain "
-                        f"{plain:.4f} F.rms_norm {lib:.4f}")
-        print(f"invariant_rmsnorm {dtype} d {d}: rows bitwise at M "
-              f"{DENSE_ROWS}, max err vs plain {err:.3e} (within "
-              f"{N_ULP[dtype]} ulp); " + "; ".join(line))
+            xm, hm = x[:M].contiguous(), h[:M].contiguous()
+            forms = (
+                ("norm", record, 2, err,
+                 lambda: irn.invariant_rmsnorm(xm, gain),
+                 lambda: ref.invariant_rmsnorm_ref(xm, gain),
+                 lambda: F.rms_norm(xm, (d,), gain, 1e-6)),
+                ("add+norm", fused_record, 4, err_f,
+                 lambda: irn.invariant_add_rmsnorm(xm, hm, gain),
+                 lambda: ref.invariant_add_rmsnorm_ref(xm, hm, gain),
+                 lambda: F.rms_norm(xm + hm, (d,), gain, 1e-6)))
+            for form, rec, n_rows, e, fn, plain_fn, lib_fn in forms:
+                nbytes = (n_rows * M * d + d) * x.element_size()
+                bnd, by = bound_ms(nbytes, (3 + n_rows // 2) * M * d)
+                ms = device_ms(torch, fn)
+                plain = device_ms(torch, plain_fn)
+                lib = device_ms(torch, lib_fn)
+                cold = None
+                if dt == torch.bfloat16 and d in RMS_COLD:
+                    cold = cold_rows_ms(torch, irn, form, (xm, hm, gain),
+                                        nbytes)
+                rec.append(dict(case=(dtype, d, M), form=form, M=M, ms=ms,
+                                cold_ms=cold, plain_ms=plain,
+                                library_ms=lib, bound_ms=bnd, bound_by=by,
+                                nbytes=nbytes, err=e, plan=plan))
+                line.append(f"{form} M {M}: {ms:.4f}" + (
+                    "" if cold is None else f" (cold {cold:.4f})") +
+                    f" bound {bnd:.5f} plain {plain:.4f} lib {lib:.4f}")
+        print(f"  {tag}: plan (warps {plan[0]}, vectors {plan[1]}, "
+              f"{'16-byte' if plan[2] else 'per element'}) | bitwise | err "
+              f"norm {err:.3e}, add+norm {err_f:.3e} (within "
+              f"{N_ULP[dtype]} ulp) | " + "; ".join(line))
+    for M, r in add_norm_pair(torch, irn, fused_record).items():
+        print(f"  bf16 d 4096 M {M}: x + h then invariant_rmsnorm (the path "
+              f"before) {r['pair_ms']:.4f} ms device, eager call "
+              f"{r['pair_call_ms']:.4f}, host {r['pair_host_ms']:.4f} | "
+              f"invariant_add_rmsnorm {r['fused_ms']:.4f} ms device, eager "
+              f"call {r['fused_call_ms']:.4f}, host "
+              f"{r['fused_host_ms']:.4f}")
 
 
 # ------------------------------------------------------------ phase 4/5 ---
@@ -3345,9 +3480,10 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     counts set to 0 just before it and read just after: for the dense
     family serve_attention launched layers x serving steps,
     invariant_dense (4 layers + 1) x steps (wq|wk|wv and w_in|w_gate one
-    launch each) and invariant_rmsnorm (2 layers
-    + 1) x steps; for the ssm family rwkv6_fwd layers x decode steps; no
-    other kernel, no plain version on the card;
+    launch each), invariant_add_rmsnorm 2 layers x steps and
+    invariant_rmsnorm 1 x steps (the first block's norm); for the ssm
+    family rwkv6_fwd layers x decode steps; no other kernel, no plain
+    version on the card;
     every request served its tokens. Prints tokens/s, latency percentiles,
     the mean prefill and decode seconds a request and the peak device
     memory. Returns (results, engine, counts)."""
@@ -3357,7 +3493,8 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     for m in kmods:
         m.reset_counts()
     with CountPlain(ref, ("serve_attention_ref", "rwkv6_scan_ref",
-                          "invariant_dense_ref", "invariant_rmsnorm_ref")) \
+                          "invariant_dense_ref", "invariant_rmsnorm_ref",
+                          "invariant_add_rmsnorm_ref")) \
             as plain, CountSteps(tf) as steps:
         results, summary, dt, engine = serve_mod.serve(
             args, cfg, torch.device("cuda"), params)
@@ -3369,7 +3506,8 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
             if cfg.family == "ssm" else
             {"serve_attention": L * calls,
              "invariant_dense": (4 * L + 1) * calls,
-             "invariant_rmsnorm": (2 * L + 1) * calls})
+             "invariant_add_rmsnorm": 2 * L * calls,
+             "invariant_rmsnorm": calls})
     new = sum(r["new_tokens"] for r in results)
     mean = lambda k: statistics.mean(r[k] for r in results)
     bound = decode_bound_ms(cfg, params, tree_mod, len(results)
@@ -3450,12 +3588,95 @@ def serve_where_time_goes(torch, serve_mod, cfg, params):
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
 
 
+#: the kernels a decode step's norm sites may launch: the row-invariant
+#: norm (both forms) and PyTorch's elementwise add (the residual adds,
+#: beside the step's other adds)
+NORM_SITE_KERNELS = {"norm": "invariant_rmsnorm", "add": "CUDAFunctor_add"}
+
+
+def decode_step_profile(torch, cfg, params, slots=4, bs=16) -> dict:
+    """The device kernels of ONE decode step of ``cfg``'s dense model
+    (``decode_step_paged`` over ``slots`` requests at position 0, each
+    with one block of ``bs`` slots), from a torch.profiler trace of the
+    step (``device_events``): how many, their device time, and the
+    launches and time of the norm sites' kernels (NORM_SITE_KERNELS); the
+    kernels by name are printed. Uses only what every checkout of the
+    port has, so scripts/phase3_ab.py runs it against another checkout
+    (check ``decode_step``)."""
+    from repro_torch.models.api import build_model
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    pool = model.init_paged_pool(1 + slots, bs, dev)
+    table = torch.arange(1, 1 + slots, dtype=torch.int32,
+                         device=dev)[:, None].contiguous()
+    ring = torch.full((slots,), bs, dtype=torch.int32, device=dev)
+    tok = torch.ones(slots, dtype=torch.int32, device=dev)
+    pos = torch.zeros(slots, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        events = device_events(torch, lambda: model.decode_step_paged(
+            params, tok, pos, pool, table, ring), "decode step")
+    del pool
+    by_name: dict = {}
+    for name, us in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
+    rec = dict(layers=cfg.num_layers, slots=slots, kernels=len(events),
+               device_us=sum(us for _, us in events), by_name=by_name)
+    for key, part in NORM_SITE_KERNELS.items():
+        own = [v for k, v in by_name.items() if part in k]
+        rec[f"{key}_launches"] = sum(n for n, _ in own)
+        rec[f"{key}_us"] = sum(us for _, us in own)
+    print(f"decode step of {cfg.name} at {cfg.num_layers} layers, {slots} "
+          f"requests (one step traced): {rec['kernels']} device kernels, "
+          f"{rec['device_us'] / 1e3:.4f} ms of device time; the norm "
+          f"kernel {rec['norm_launches']} launches, "
+          f"{rec['norm_us'] / 1e3:.4f} ms; PyTorch's adds (the residual "
+          f"adds among them) {rec['add_launches']} launches, "
+          f"{rec['add_us'] / 1e3:.4f} ms")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {n:5d}x {us / 1e3:8.4f} ms  {name[:110]}")
+    return rec
+
+
+def decode_step_fresh(label: str) -> dict:
+    """``decode_step_record`` in a process of its own (the kernels built,
+    minitron's params made anew there): a profiler session opened in
+    this process after its many others (the launcher's --profile among
+    them) missed the first 17 kernels of the traced step on the card,
+    where a fresh process traced every one. Returns the record."""
+    code = ("import json, sys; sys.path[:0] = ['src', '.']; import torch; "
+            "import chip_smoke as cs; rec = []; "
+            "cs.decode_step_record(torch, rec); "
+            "print('DECODE-STEP ' + json.dumps(rec[0], default=str))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    out = proc.stdout.splitlines()
+    print("\n".join(x for x in out if not x.startswith("DECODE-STEP ")))
+    check(proc.returncode == 0, f"{label}: the decode step's trace failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(next(x for x in out if x.startswith(
+        "DECODE-STEP "))[len("DECODE-STEP "):])
+
+
+def decode_step_record(torch, record):
+    """``decode_step_profile`` of minitron-8b CONFIG_SWA at its published
+    widths and all 32 layers (params from seed 0, made on the card),
+    appended to ``record`` (``decode_step_fresh``; scripts/phase3_ab.py's
+    ``decode_step``)."""
+    cfg = serve_config("minitron-8b")
+    params, _ = serve_params(torch, cfg)
+    record.append(decode_step_profile(torch, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+
+
 def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
     """Whether each row-wise reduction of a full-width serving step gives a
     row the same bits at M = B (a decode step) as at M = B c (a prefill
     chunk), on the card: the serving path's own ops (``invariant_dense``
-    at minitron's wq, wk, wv, wo, the MLP and lm_head; ``invariant_rmsnorm``
-    at d_model; the logits' ``argmax``), each a check, and beside them the
+    at minitron's wq, wk, wv, wo, the MLP and lm_head; both forms of
+    ``invariant_rmsnorm`` at d_model; the logits' ``argmax``), each a
+    check, and beside them the
     ops the path no longer calls (``torch.matmul`` at every projection,
     ``layers.rmsnorm``), reported as a yardstick. Returns {op: max
     |difference|} (0.0 where every row is bitwise equal)."""
@@ -3493,6 +3714,10 @@ def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
         torch.bfloat16)
     path["invariant_rmsnorm"] = gap(lambda t: irn.invariant_rmsnorm(t, gain),
                                     x)
+    path["invariant_add_rmsnorm"] = gap(
+        lambda t: torch.cat(irn.invariant_add_rmsnorm(t, t.flip(-1)
+                                                      .contiguous(), gain),
+                            -1), x)
     yard["layers.rmsnorm"] = gap(lambda t: rmsnorm({"g": gain}, t), x)
     torch.cuda.empty_cache()
     bad = {k: v for k, v in path.items() if v}
@@ -3703,6 +3928,11 @@ def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
           "per-token loop's tokens")
     del params
     torch.cuda.empty_cache()
+    step = decode_step_fresh("serving")
+    whole = step["norm_launches"] == 2 * cfg.num_layers + 1
+    print(f"decode step: the norm kernel launched {step['norm_launches']} "
+          f"times in the trace ({2 * cfg.num_layers} with the add and 1 "
+          f"alone expected: the trace {'whole' if whole else 'NOT whole'})")
 
     cfg = serve_config("rwkv6-3b")
     params, init_s = serve_params(torch, cfg)
@@ -3731,8 +3961,8 @@ def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
 
 #: a mangled template argument: float, int8 (signed char), bf16, a
 #: back-reference (only bf16 repeats among the kernels' arguments), an
-#: integer literal
-_TARG = r"f|a|13__nv_bfloat16|S\d*_|Li\d+E"
+#: integer or bool literal
+_TARG = r"f|a|13__nv_bfloat16|S\d*_|L[ib]\d+E"
 
 
 def kernel_name(mangled: str) -> str:
@@ -3842,7 +4072,8 @@ def main() -> None:
     check_rwkv6(torch, rs, ref, rwkv_rec)
     check_serve_attention(torch, sa, ref, serve_rec)
     check_invariant_dense(torch, idn, ref, recs["invariant_dense"])
-    check_invariant_rmsnorm(torch, irn, ref, recs["invariant_rmsnorm"])
+    check_invariant_rmsnorm(torch, irn, ref, recs["invariant_rmsnorm"],
+                            recs["invariant_add_rmsnorm"])
     clock.mark("1-3, the header, the build and every kernel against its "
                "plain version")
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
@@ -3928,6 +4159,7 @@ def main() -> None:
                 # projections and norms
                 "invariant_dense": "models/layers.py:22",
                 "invariant_rmsnorm": "models/layers.py:41",
+                "invariant_add_rmsnorm": "models/layers.py:41",
                 # the TPU path has no backward kernel: XLA differentiates
                 # the scan of time_mix
                 "rwkv6_bwd": "models/rwkv6.py:119"}
@@ -3943,7 +4175,8 @@ def main() -> None:
               "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu",
               "serve_attention": "serve_attention.cu",
               "invariant_dense": "invariant_dense.cu",
-              "invariant_rmsnorm": "invariant_rmsnorm.cu"}
+              "invariant_rmsnorm": "invariant_rmsnorm.cu",
+              "invariant_add_rmsnorm": "invariant_rmsnorm.cu"}
     # the flash rows at minitron's shape as the main path calls it (GQA)
     flash_main = next(r for r in flash_rec if r["case"] == FLASH_GQA)
     flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
@@ -3967,8 +4200,7 @@ def main() -> None:
             err = max(r["err"] for r in serve_rec)
         elif name in idn.KERNELS or name in irn.KERNELS:
             # minitron's decode step (M 4): w_out, the norm at d 4096
-            main_case = (("w_out", 4) if name in idn.KERNELS else
-                         ("bfloat16", 4096, 4))
+            main_case = ("w_out", 4) if name in idn.KERNELS else RMS_MAIN
             row = next(r for r in recs[name] if r["case"] == main_case)
             b, by = row["bound_ms"], row["bound_by"]
             err = max(r["err"] for r in recs[name] if "err" in r)

@@ -24,7 +24,15 @@ runs its one-leaf and its many-leaf cases; ``server_adam`` and
 ``server_mix_delta`` run each checkout's own cases (a checkout's cases at
 the same shapes are read side by side); ``invariant_dense`` each
 checkout's projections (and, where its chip_smoke has them, its groups),
-rows bitwise across M and the times at M 4 and 256. Needs a CUDA device.
+rows bitwise across M and the times at M 4 and 256; ``invariant_rmsnorm``
+each checkout's norm checks. Two checks run THIS checkout's chip_smoke
+code against the other checkout's package: ``add_norm`` times the residual
+add followed by the norm (and the fused call where the package has it),
+device and host, at d 4096 bf16, M 4 and 256; ``decode_step`` traces one
+full-width 32-layer minitron-8b decode step and counts its device
+kernels and the norm sites' launches and time (one turn a checkout is
+enough there: the kernels a step launches do not vary). Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -54,17 +62,24 @@ CHECKS = {
                 "cs.MAIN_RUNS if r[2] in ('server_adam', 'server_mix_delta')"
                 "], rec)",
     "invariant_dense": "cs.check_invariant_dense(torch, idn, ref, rec)",
+    "invariant_rmsnorm": "cs.check_invariant_rmsnorm(torch, irn, ref, rec)",
+    "add_norm": "this.add_norm_pair(torch, irn, rec)",
+    "decode_step": "this.decode_step_record(torch, rec)",
 }
 
 _RUN = """
-import json, sys
+import importlib.util, json, sys
 sys.path.insert(0, "src")
 import torch
 import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("this", {this!r})
+this = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(this)
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import ama_mix as am
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import invariant_dense as idn
+from repro_torch.kernels import invariant_rmsnorm as irn
 from repro_torch.kernels import rwkv6_scan as rs
 from repro_torch.kernels import server_plane as sp
 from repro_torch.launch import train
@@ -80,7 +95,8 @@ print("AB-RECORD " + json.dumps(out, default=str))
 
 
 def run(checkout: Path, checks) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _RUN.format(checks=checks)],
+    code = _RUN.format(checks=checks, this=str(ROOT / "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, "-c", code],
                           cwd=checkout, capture_output=True, text=True,
                           timeout=1800)
     sys.stdout.write(proc.stdout)

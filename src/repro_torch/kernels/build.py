@@ -74,8 +74,8 @@ SIGNATURES = {
     # stream
     "invariant_dense": (ctypes.c_int, _P, *(ctypes.c_int,) * 3, _P,
                         ctypes.c_int, _P),
-    # dtype, x, g, y, M, d, eps, stream
-    "invariant_rmsnorm": (ctypes.c_int, _P, _P, _P, ctypes.c_int,
+    # dtype, x, h, g, s, y, M, d, eps, stream (h and s null: norm only)
+    "invariant_rmsnorm": (ctypes.c_int, *(_P,) * 5, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, _P),
     # hd, ckpt, r, k, v, w, u, s0, y, s_final, states, B, S, H, stream
     "rwkv6_fwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 9,
@@ -100,6 +100,8 @@ VOID_SIGNATURES = {
     # counts: 2 int64, server_mix_delta launches per kernel (per element,
     # vector)
     "server_mix_delta_design_counts": (_P,),
+    # dtype, d, out: 4 int32, invariant_rmsnorm's plan for rows of width d
+    "invariant_rmsnorm_plan": (ctypes.c_int, ctypes.c_int, _P),
 }
 
 

@@ -28,8 +28,9 @@ wraps the window): one query row at a time, every sum a sequential scan
 (``cumsum``) in slot order, so no result depends on the chunk width,
 the batch or the cache's length.
 
-``invariant_dense_ref`` and ``invariant_rmsnorm_ref`` are the serving
-steps' projection and RMSNorm as the JAX package's ``models/layers.py:
+``invariant_dense_ref``, ``invariant_rmsnorm_ref`` and
+``invariant_add_rmsnorm_ref`` are the serving steps' projection, RMSNorm
+and residual add + RMSNorm as the JAX package's ``models/layers.py:
 dense, rmsnorm`` compute them (``x @ w + b``; the mean of squares in f32):
 on the CPU the row-invariant kernels' wrappers run exactly these, so the
 serving path keeps the bits of ``layers.dense`` / ``layers.rmsnorm``.
@@ -465,6 +466,17 @@ def invariant_rmsnorm_ref(x, g, eps: float = 1e-6):
     """The plain version of the ``invariant_rmsnorm`` kernel:
     ``layers.rmsnorm`` (the mean of squares over the last axis in f32,
     times its rsqrt, times g in f32, cast back to x's dtype)."""
+    return _rmsnorm(x, g, eps)
+
+
+def invariant_add_rmsnorm_ref(x, h, g, eps: float = 1e-6):
+    """The plain version of the ``invariant_add_rmsnorm`` kernel: ``(s,
+    layers.rmsnorm(s))`` for s = x + h."""
+    s = x + h
+    return s, _rmsnorm(s, g, eps)
+
+
+def _rmsnorm(x, g, eps):
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)

@@ -2,8 +2,9 @@
 package's ``models/layers.py``: dense, embedding, RMSNorm, LayerNorm,
 rotary embeddings, the gated/GELU MLP and the cross-entropy losses),
 and ``dense_serve`` / ``dense_serve_group`` / ``mlp_serve`` /
-``rmsnorm_serve``, the serving steps' projections and norm on the
-row-invariant kernels (the same bits on the CPU).
+``rmsnorm_serve`` / ``add_rmsnorm_serve``, the serving steps'
+projections, norm and residual add on the row-invariant kernels (the
+same bits on the CPU).
 
 The f32 casts sit exactly where the JAX package has them: RMSNorm,
 LayerNorm, RoPE and the losses compute in f32 and return in the input's
@@ -21,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.invariant_dense import (invariant_dense,
                                                 invariant_dense_group)
-from repro_torch.kernels.invariant_rmsnorm import invariant_rmsnorm
+from repro_torch.kernels.invariant_rmsnorm import (invariant_add_rmsnorm,
+                                                  invariant_rmsnorm)
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float, dtype):
@@ -94,6 +96,16 @@ def rmsnorm_serve(p: dict, x, eps: float = 1e-6):
     (``kernels.invariant_rmsnorm``), for the serving steps; the same bits
     as ``rmsnorm`` on the CPU."""
     return invariant_rmsnorm(x, p["g"], eps)
+
+
+def add_rmsnorm_serve(p: dict, x, r, eps: float = 1e-6):
+    """``(x + r, rmsnorm(x + r))`` in one launch on the card
+    (``kernels.invariant_add_rmsnorm``), for the serving steps, where r is
+    a residual branch not yet added; ``(x, rmsnorm_serve(x))`` when r is
+    None. The same bits as ``x + r`` and ``rmsnorm`` on the CPU."""
+    if r is None:
+        return x, rmsnorm_serve(p, x, eps)
+    return invariant_add_rmsnorm(x, r, p["g"], eps)
 
 
 def layernorm_init(d: int, dtype) -> dict:

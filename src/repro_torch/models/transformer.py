@@ -29,10 +29,14 @@ The dense family's serving steps run every projection (7 a layer in 4
 launches: wq|wk|wv and w_in|w_gate grouped; and ``lm_head``) and every
 RMSNorm (2 a layer and the final norm) on the row-invariant kernels
 (``layers.dense_serve``, ``dense_serve_group``, ``mlp_serve``,
-``rmsnorm_serve``): on
-the card a row's result does not depend on how many rows the step
-carries, so chunked prefill equals the per-token loop there too. The
-ssm family serves per token only and keeps ``dense`` / ``rmsnorm``.
+``add_rmsnorm_serve``): on the card a row's result does not depend on
+how many rows the step carries, so chunked prefill equals the per-token
+loop there too. A dense serving block takes the residual stream x and
+``r``, the previous block's MLP output not yet added (None before the
+first block), and returns the same pair: each norm takes the add before
+it into its own launch (``x, n = add_rmsnorm_serve(ln, x, r)``), the
+final norm the last block's. The ssm family serves per token only and
+keeps ``dense`` / ``rmsnorm``.
 """
 from __future__ import annotations
 
@@ -40,11 +44,11 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6
-from repro_torch.models.layers import (chunked_cross_entropy, dense,
+from repro_torch.models.layers import (add_rmsnorm_serve,
+                                       chunked_cross_entropy, dense,
                                        dense_init, dense_serve, embedding,
                                        embedding_init, mlp, mlp_init,
-                                       mlp_serve, rmsnorm, rmsnorm_init,
-                                       rmsnorm_serve)
+                                       mlp_serve, rmsnorm, rmsnorm_init)
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 #: family -> the slice of the port that brings it
@@ -263,79 +267,91 @@ def _layer(tree, i):
     return {k: a[i] for k, a in tree.items()}
 
 
-def block_decode(p, cfg, x, cache, position):
-    """One-token block application. x: (B, 1, d). Returns (x, cache)."""
+def _serve_block(p, x, r, attend):
+    """A dense block of a serving step: the residual r added in ln1's
+    launch, ``attend(n)`` the block's attention output on ln1's output,
+    added in ln2's launch. Every serving path applies its dense blocks
+    through this, so their residual streams match row for row. Returns
+    (x, r), r the MLP output not yet added."""
+    x, n = add_rmsnorm_serve(p["ln1"], x, r)
+    x, n = add_rmsnorm_serve(p["ln2"], x, attend(n))
+    return x, mlp_serve(p["mlp"], n)
+
+
+def block_decode(p, cfg, x, r, cache, position):
+    """One-token block application. x: (B, 1, d); r: the residual branch
+    not yet added to x (None before the first dense block; the ssm
+    family adds its own). Returns (x, r, cache), the cache written in
+    place."""
     if cfg.family == "ssm":
         h, cache = rwkv6.time_mix_step(p["rwkv"], cfg,
                                        rmsnorm(p["ln1"], x)[:, 0], cache)
         x = x + h[:, None]
         h, cache = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x)[:, 0],
                                      cache, single=True)
-        return x + h[:, None], cache
-    h, cache = attn.attention_decode(p["attn"], cfg,
-                                     rmsnorm_serve(p["ln1"], x), cache,
-                                     position)
-    x = x + h
-    return x + mlp_serve(p["mlp"], rmsnorm_serve(p["ln2"], x)), cache
+        return x + h[:, None], None, cache
+    x, r = _serve_block(p, x, r, lambda n: attn.attention_decode(
+        p["attn"], cfg, n, cache, position)[0])
+    return x, r, cache
 
 
-def _scan_blocks_decode(stacked, cfg, x, cache, position):
+def _scan_blocks_decode(stacked, cfg, x, r, cache, position):
     """Apply a stacked group of blocks to one token, layer by layer (JAX:
-    ``lax.scan``), each layer's state written back into the stack."""
+    ``lax.scan``), each layer's state written back into the stack.
+    Returns (x, r)."""
     if stacked is None:
-        return x, cache
+        return x, r
     for i in range(leaves(stacked)[0].shape[0]):
         layer_c = _layer(cache, i)
-        x, new_c = block_decode(tree_map(lambda a, i=i: a[i], stacked), cfg,
-                                x, layer_c, position)
+        x, r, new_c = block_decode(tree_map(lambda a, i=i: a[i], stacked),
+                                   cfg, x, r, layer_c, position)
         for k, a in new_c.items():
             if a is not layer_c[k]:          # the ssm state is new tensors
                 cache[k][i].copy_(a)
-    return x, cache
+    return x, r
 
 
 def decode_step(params, cfg, token, position, cache):
     """token: (B,) int; position: (B,) int32. Returns (logits (B, V),
     cache), the cache updated in place."""
-    x = embedding(params["embed"], token[:, None])
-    x, _ = _scan_blocks_decode(params["body"], cfg, x, cache["body"],
-                               position)
-    x, _ = _scan_blocks_decode(params["tail"], cfg, x, cache["tail"],
-                               position)
-    return _head(params, cfg, x)[:, 0], cache
+    x, r = embedding(params["embed"], token[:, None]), None
+    for g in ("body", "tail"):
+        x, r = _scan_blocks_decode(params[g], cfg, x, r, cache[g], position)
+    return _head(params, cfg, x, r)[:, 0], cache
 
 
-def _head(params, cfg, x):
+def _head(params, cfg, x, r):
     """The final norm and ``lm_head`` of a serving step: on the
-    row-invariant kernels for the dense family (its serving contract),
-    on ``rmsnorm`` / ``dense`` for the ssm family (per token only)."""
+    row-invariant kernels for the dense family (its serving contract; the
+    last block's residual r added in the norm's launch), on ``rmsnorm`` /
+    ``dense`` for the ssm family (per token only)."""
     if cfg.family == "ssm":
         return dense(params["lm_head"], rmsnorm(params["final_norm"], x))
-    return dense_serve(params["lm_head"],
-                       rmsnorm_serve(params["final_norm"], x))
+    _, n = add_rmsnorm_serve(params["final_norm"], x, r)
+    return dense_serve(params["lm_head"], n)
 
 
 # ---------------------------------------------------- chunked prefill ------
 
-def block_prefill(p, cfg, x, cache, positions):
-    """One prompt chunk through one block. x: (B, c, d). Attention-family
-    blocks only (the ssm family keeps the per-token path); the MLP half is
-    the decode path's, so the residual stream matches ``block_decode``
-    row for row."""
-    h, cache = attn.attention_prefill(p["attn"], cfg,
-                                      rmsnorm_serve(p["ln1"], x), cache,
-                                      positions)
-    x = x + h
-    return x + mlp_serve(p["mlp"], rmsnorm_serve(p["ln2"], x)), cache
+def block_prefill(p, cfg, x, r, cache, positions):
+    """One prompt chunk through one block. x: (B, c, d); r as in
+    ``block_decode``. Attention-family blocks only (the ssm family keeps
+    the per-token path); the norms and the MLP half are the decode
+    path's (``_serve_block``), so the residual stream matches
+    ``block_decode`` row for row. Returns (x, r, cache), the cache
+    written in place."""
+    x, r = _serve_block(p, x, r, lambda n: attn.attention_prefill(
+        p["attn"], cfg, n, cache, positions)[0])
+    return x, r, cache
 
 
-def _scan_blocks_prefill(stacked, cfg, x, cache, positions):
+def _scan_blocks_prefill(stacked, cfg, x, r, cache, positions):
     if stacked is None:
-        return x, cache
+        return x, r
     for i in range(leaves(stacked)[0].shape[0]):
-        x, _ = block_prefill(tree_map(lambda a, i=i: a[i], stacked), cfg, x,
-                             _layer(cache, i), positions)
-    return x, cache
+        x, r, _ = block_prefill(tree_map(lambda a, i=i: a[i], stacked), cfg,
+                                x, r, _layer(cache, i), positions)
+    return x, r
 
 
 def prefill(params, cfg, tokens, positions, cache):
@@ -344,12 +360,11 @@ def prefill(params, cfg, tokens, positions, cache):
     ``attention.PAD_FLOOR`` and never enter the cache. Returns (logits
     (B, c, V), cache), bit-identical to looping ``decode_step`` over the
     chunk (the projections and norms on the row-invariant kernels)."""
-    x = embedding(params["embed"], tokens)
-    x, _ = _scan_blocks_prefill(params["body"], cfg, x, cache["body"],
-                                positions)
-    x, _ = _scan_blocks_prefill(params["tail"], cfg, x, cache["tail"],
-                                positions)
-    return _head(params, cfg, x), cache
+    x, r = embedding(params["embed"], tokens), None
+    for g in ("body", "tail"):
+        x, r = _scan_blocks_prefill(params[g], cfg, x, r, cache[g],
+                                    positions)
+    return _head(params, cfg, x, r), cache
 
 
 # --------------------------------------------------------- paged cache -----
@@ -376,19 +391,20 @@ def init_paged_pool(cfg, num_blocks: int, block_size: int, dtype=None,
     return {g: group(n) for g, n in _groups(cfg).items()}
 
 
-def _scan_blocks_paged(stacked, cfg, x, pool, table, ring_len, positions,
-                       prefill_chunk: bool):
+def _scan_blocks_paged(stacked, cfg, x, r, pool, table, ring_len,
+                       positions, prefill_chunk: bool):
+    """The blocks of a group against the pool (``_serve_block``).
+    Returns (x, r)."""
     if stacked is None:
-        return x, pool
+        return x, r
     fn = attn.attention_prefill_paged if prefill_chunk \
         else attn.attention_decode_paged
     for i in range(leaves(stacked)[0].shape[0]):
         p = tree_map(lambda a, i=i: a[i], stacked)
-        h, _ = fn(p["attn"], cfg, rmsnorm_serve(p["ln1"], x),
-                  _layer(pool, i), table, ring_len, positions)
-        x = x + h
-        x = x + mlp_serve(p["mlp"], rmsnorm_serve(p["ln2"], x))
-    return x, pool
+        x, r = _serve_block(p, x, r, lambda n, p=p, i=i: fn(
+            p["attn"], cfg, n, _layer(pool, i), table, ring_len,
+            positions)[0])
+    return x, r
 
 
 def decode_step_paged(params, cfg, token, position, pool, table, ring_len):
@@ -396,19 +412,19 @@ def decode_step_paged(params, cfg, token, position, pool, table, ring_len):
     (B,); table: (B, mb) int32 block ids (0 = unmapped); ring_len: (B,)
     int32 logical ring modulus per request. Returns (logits (B, V),
     pool), the pool updated in place."""
-    x = embedding(params["embed"], token[:, None])
+    x, r = embedding(params["embed"], token[:, None]), None
     for g in ("body", "tail"):
-        x, _ = _scan_blocks_paged(params[g], cfg, x, pool[g], table,
+        x, r = _scan_blocks_paged(params[g], cfg, x, r, pool[g], table,
                                   ring_len, position, False)
-    return _head(params, cfg, x)[:, 0], pool
+    return _head(params, cfg, x, r)[:, 0], pool
 
 
 def prefill_paged(params, cfg, tokens, positions, pool, table, ring_len):
     """Chunked prefill against the shared block pool. tokens/positions:
     (B, c). Returns (logits (B, c, V), pool), the pool updated in
     place."""
-    x = embedding(params["embed"], tokens)
+    x, r = embedding(params["embed"], tokens), None
     for g in ("body", "tail"):
-        x, _ = _scan_blocks_paged(params[g], cfg, x, pool[g], table,
+        x, r = _scan_blocks_paged(params[g], cfg, x, r, pool[g], table,
                                   ring_len, positions, True)
-    return _head(params, cfg, x), pool
+    return _head(params, cfg, x, r), pool

@@ -1000,3 +1000,52 @@ def test_invariant_rmsnorm_rows_bitwise_across_m_on_card(dt, d):
         m, e = torch.frexp(want.abs().clamp(min=2.0 ** -126))
         tol = 4 * torch.ldexp(torch.ones_like(m), e - 24)
     assert bool(((full.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,d", [("bfloat16", 4096), ("bfloat16", 16384),
+                                  ("float32", 256), ("bfloat16", 1000),
+                                  ("bfloat16", 100)])
+def test_invariant_add_rmsnorm_rows_bitwise_across_m_on_card(dt, d):
+    """invariant_add_rmsnorm: s bitwise ``x + h``, y bitwise the norm-only
+    form on s, rows bitwise whatever M (1 to 260), y within one ulp of the
+    output dtype (bf16) or four (f32) of the plain version, one launch a
+    call (d 100 takes the per-element form, d 16384 eight warps a row);
+    an operand offset by one element (no 16-byte loads) gives the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_rmsnorm as tin
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(d + 1)
+    x = torch.randn(260, d, device=dev, generator=g).to(dtype)
+    h = torch.randn(260, d, device=dev, generator=g).to(dtype)
+    gain = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+    tin.reset_counts()
+    s, y = tin.invariant_add_rmsnorm(x, h, gain)
+    assert tin.invariant_add_rmsnorm.launches == 1
+    assert torch.equal(s, x + h)
+    assert torch.equal(y, tin.invariant_rmsnorm(s, gain))
+    assert tin.invariant_rmsnorm.launches == 1
+    for M in DENSE_ROWS:
+        sm, ym = tin.invariant_add_rmsnorm(x[:M].contiguous(),
+                                           h[:M].contiguous(), gain)
+        assert torch.equal(sm, s[:M]) and torch.equal(ym, y[:M]), M
+    assert tin.invariant_add_rmsnorm.launches == len(DENSE_ROWS) + 1
+    buf = torch.empty(5 * d + 1, device=dev, dtype=dtype)[1:]
+    xo = buf.view(5, d)
+    xo.copy_(x[:5])
+    so, yo = tin.invariant_add_rmsnorm(xo, h[:5].contiguous(), gain)
+    assert torch.equal(so, s[:5]) and torch.equal(yo, y[:5])
+    want_s, want = tref.invariant_add_rmsnorm_ref(x, h, gain)
+    assert torch.equal(want_s, s)
+    if dtype == torch.bfloat16:
+        tol = _ulp_bf16(want)
+    else:
+        m, e = torch.frexp(want.abs().clamp(min=2.0 ** -126))
+        tol = 4 * torch.ldexp(torch.ones_like(m), e - 24)
+    assert bool(((y.float() - want.float()).abs() <= tol).all())
+    warps, vpt, vec = tin.plan(d, dtype)
+    assert vec == (d % (16 // x.element_size()) == 0)
+    assert warps * 32 * vpt * (16 // x.element_size()) >= d

@@ -12,11 +12,15 @@
   the paged pair) within ``tests/test_torch_serve_attention.py``'s
   tolerances.
 - ``invariant_dense`` and ``invariant_rmsnorm`` on the CPU are bitwise
-  ``layers.dense`` and ``layers.rmsnorm``; the dense family's serving
+  ``layers.dense`` and ``layers.rmsnorm``, ``invariant_add_rmsnorm``
+  bitwise ``(x + h, layers.rmsnorm(x + h))``; the dense family's serving
   steps route every projection (7 a layer and lm_head) and every RMSNorm
-  (2 a layer and the final norm) through them, a training forward and
-  rwkv6's serving none; their wrappers refuse what the kernels do not
-  take; the split of K is a function of (K, N) alone.
+  (2 a layer and the final norm: the first norm-only, the others with
+  the residual add before them) through them, a training forward and
+  rwkv6's serving none, and give bitwise the logits and caches of the
+  unfused composition (the add, then the norm); their wrappers refuse
+  what the kernels do not take; the split of K is a function of (K, N)
+  alone.
 - ``invariant_dense_group`` on the CPU is ``layers.dense`` of each of its
   problems bitwise (and JAX's within tolerance), the serving MLP
   (``layers.mlp_serve``) is ``layers.mlp`` bitwise; the group refuses
@@ -45,7 +49,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import build_model as tbuild
-from repro_torch.utils.tree import params_from_numpy, params_to_numpy
+from repro_torch.utils.tree import (leaves, params_from_numpy,
+                                    params_to_numpy, tree_map)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)      # test_torch_serve_attention.py
 BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -6)
@@ -360,6 +365,59 @@ def test_invariant_wrappers_refuse_what_the_kernels_do_not_take():
         tin.invariant_rmsnorm(torch.zeros(64, 4).t(), torch.ones(64))
 
 
+@pytest.mark.parametrize("d", [8, 100, 256, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_on_the_cpu_is_the_add_then_layers_rmsnorm(dtype, d):
+    """The fused wrapper's plain version: s bitwise ``x + h`` and y
+    bitwise ``layers.rmsnorm(x + h)`` (d 100 is not a multiple of the
+    16-byte vector: the kernel's per-element form on the card), and y
+    bitwise the norm-only form on s."""
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(3, 5, d, generator=g).to(dtype)
+    h = torch.randn(3, 5, d, generator=g).to(dtype)
+    n = {"g": (1 + 0.1 * torch.randn(d, generator=g)).to(dtype)}
+    tin.reset_counts()
+    s, y = tin.invariant_add_rmsnorm(x, h, n["g"])
+    assert s.dtype == y.dtype == dtype and s.shape == y.shape == x.shape
+    assert torch.equal(s, x + h)
+    assert torch.equal(y, tlayers.rmsnorm(n, x + h))
+    assert torch.equal(y, tin.invariant_rmsnorm(s, n["g"]))
+    s2, y2 = tlayers.add_rmsnorm_serve(n, x, h)
+    assert torch.equal(s2, s) and torch.equal(y2, y)
+    x3, y3 = tlayers.add_rmsnorm_serve(n, x, None)
+    assert x3 is x and torch.equal(y3, tlayers.rmsnorm(n, x))
+    # on the CPU the plain versions run, and no launch is counted
+    assert tin.invariant_add_rmsnorm.launches == 0
+    assert tin.invariant_rmsnorm.launches == 0
+
+
+def test_add_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():
+    """Mismatched shapes and dtypes, an unsupported dtype, non-contiguous
+    operands: refused before any kernel or plain version runs."""
+    x = torch.zeros(4, 64)
+    one = torch.ones(64)
+    with pytest.raises(ValueError, match="shape"):
+        tin.invariant_add_rmsnorm(x, torch.zeros(4, 32), one)
+    with pytest.raises(ValueError, match="shape"):
+        tin.invariant_add_rmsnorm(x, torch.zeros(2, 64), one)
+    with pytest.raises(ValueError, match="shape"):
+        tin.invariant_add_rmsnorm(x, x, torch.ones(32))
+    with pytest.raises(TypeError):
+        tin.invariant_add_rmsnorm(x, x.to(torch.bfloat16), one)
+    with pytest.raises(TypeError):
+        tin.invariant_add_rmsnorm(x, x, one.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        tin.invariant_add_rmsnorm(x.half(), x.half(), one.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tin.invariant_add_rmsnorm(torch.zeros(64, 4).t(), x, one)
+    with pytest.raises(ValueError, match="contiguous"):
+        tin.invariant_add_rmsnorm(x, torch.zeros(64, 4).t(), one)
+    with pytest.raises(ValueError, match="contiguous"):
+        tin.invariant_add_rmsnorm(x, x, torch.ones(64, 2)[:, 0])
+    with pytest.raises(ValueError, match="is on meta"):
+        tin.invariant_add_rmsnorm(x, torch.zeros(4, 64, device="meta"), one)
+
+
 def test_split_of_k_is_a_function_of_k_and_n_alone():
     """split_k at minitron-8b's projections (the n tiles of 128 filling 64
     blocks, ranges of 512 or more, at most 8 ranges) and its
@@ -485,7 +543,8 @@ class _Count:
     attribute on the CPU)."""
 
     def __init__(self, monkeypatch):
-        self.n = {"invariant_dense_ref": 0, "invariant_rmsnorm_ref": 0}
+        self.n = {"invariant_dense_ref": 0, "invariant_rmsnorm_ref": 0,
+                  "invariant_add_rmsnorm_ref": 0}
         for name in self.n:
             real = getattr(tref, name)
 
@@ -503,9 +562,11 @@ class _Count:
 
 def test_serving_steps_route_every_projection_and_norm(monkeypatch):
     """decode_step, prefill and the paged pair of reduced minitron-8b: 7 x
-    layers + 1 invariant_dense calls and 2 x layers + 1 invariant_rmsnorm
-    calls a step; a training forward and loss none; rwkv6-3b's per-token
-    decode none."""
+    layers + 1 invariant_dense calls, 2 x layers invariant_add_rmsnorm
+    calls (each norm but the first takes the residual add before it) and
+    1 invariant_rmsnorm call (the first block's norm of the embedding) a
+    step; a training forward and loss none; rwkv6-3b's per-token decode
+    none."""
     count = _Count(monkeypatch)
     cfg = treduced(TARCHS["minitron-8b"], dtype="float32").with_(
         sliding_window=8)
@@ -513,7 +574,8 @@ def test_serving_steps_route_every_projection_and_norm(monkeypatch):
     params = model.init(torch.Generator().manual_seed(0),
                         torch.device("cpu"))
     L = cfg.num_layers
-    want = {"invariant_dense_ref": 7 * L + 1, "invariant_rmsnorm_ref": 2 * L + 1}
+    want = {"invariant_dense_ref": 7 * L + 1, "invariant_rmsnorm_ref": 1,
+            "invariant_add_rmsnorm_ref": 2 * L}
     B, bs, mb = 2, 4, 2
     tok = torch.tensor([3, 5], dtype=torch.int32)
     at = torch.tensor([0, 0], dtype=torch.int32)
@@ -545,3 +607,84 @@ def test_serving_steps_route_every_projection_and_norm(monkeypatch):
         rcache = rmodel.init_decode_cache(rparams, B, 8)
         rmodel.decode_step(rparams, tok, at, rcache)
         assert count.take() == {k: 0 for k in want}
+
+
+def _unfused(params, tokens, attend):
+    """A dense serving step composed as before the residual add moved into
+    the norm's launch: ``x = x + h`` after attention and after the MLP,
+    each norm on its own (``rmsnorm_serve``). ``attend(p, group, i, n)``
+    is layer i's attention on its normed input n."""
+    x = tlayers.embedding(params["embed"], tokens)
+    for grp in ("body", "tail"):
+        if params[grp] is None:
+            continue
+        for i in range(leaves(params[grp])[0].shape[0]):
+            p = tree_map(lambda a, i=i: a[i], params[grp])
+            x = x + attend(p, grp, i, tlayers.rmsnorm_serve(p["ln1"], x))
+            x = x + tlayers.mlp_serve(p["mlp"],
+                                      tlayers.rmsnorm_serve(p["ln2"], x))
+    return tlayers.dense_serve(params["lm_head"], tlayers.rmsnorm_serve(
+        params["final_norm"], x))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_paths_equal_the_unfused_composition_bitwise(dtype):
+    """Reduced minitron-8b (3 layers: 2 body, 1 tail, so the residual
+    crosses the group boundary; window 8): a chunked prefill, then two
+    decode steps, over the dense cache and the paged pool, give bitwise
+    the logits and the caches of the unfused composition."""
+    cfg = treduced(TARCHS["minitron-8b"], dtype=dtype).with_(
+        num_layers=3, sliding_window=8)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(2),
+                        torch.device("cpu"))
+    B, bs, mb = 2, 4, 2
+    toks = torch.tensor([[3, 4, 5], [6, 7, 8]], dtype=torch.int32)
+    poss = torch.tensor([[0, 1, 2], [0, 1, 2]], dtype=torch.int32)
+    steps = [(torch.tensor([9, 10], dtype=torch.int32),
+              torch.tensor([3, 3], dtype=torch.int32)),
+             (torch.tensor([11, 12], dtype=torch.int32),
+              torch.tensor([4, 4], dtype=torch.int32))]
+    table = torch.arange(1, 1 + B * mb, dtype=torch.int32).reshape(B, mb)
+    ring = torch.full((B,), bs * mb, dtype=torch.int32)
+
+    def layer(tree, grp, i):
+        return {k: a[i] for k, a in tree[grp].items()}
+
+    def flat(tree):
+        return [a for grp in ("body", "tail") for a in tree[grp].values()]
+
+    with torch.no_grad():
+        ca = model.init_decode_cache(params, B, 8)
+        cb = model.init_decode_cache(params, B, 8)
+        got, _ = model.prefill(params, toks, poss, ca)
+        want = _unfused(params, toks, lambda p, grp, i, n: tattn.
+                        attention_prefill(p["attn"], cfg, n,
+                                          layer(cb, grp, i), poss)[0])
+        assert torch.equal(got, want)
+        for tok, at in steps:
+            got, _ = model.decode_step(params, tok, at, ca)
+            want = _unfused(params, tok[:, None], lambda p, grp, i, n: tattn.
+                            attention_decode(p["attn"], cfg, n,
+                                             layer(cb, grp, i), at)[0])[:, 0]
+            assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(flat(ca), flat(cb),
+                                                     strict=True))
+        pa = model.init_paged_pool(1 + B * mb, bs)
+        pb = model.init_paged_pool(1 + B * mb, bs)
+        got, _ = model.prefill_paged(params, toks, poss, pa, table, ring)
+        want = _unfused(params, toks, lambda p, grp, i, n: tattn.
+                        attention_prefill_paged(p["attn"], cfg, n,
+                                                layer(pb, grp, i), table,
+                                                ring, poss)[0])
+        assert torch.equal(got, want)
+        for tok, at in steps:
+            got, _ = model.decode_step_paged(params, tok, at, pa, table,
+                                             ring)
+            want = _unfused(params, tok[:, None], lambda p, grp, i, n: tattn.
+                            attention_decode_paged(p["attn"], cfg, n,
+                                                   layer(pb, grp, i), table,
+                                                   ring, at)[0])[:, 0]
+            assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(flat(pa), flat(pb),
+                                                     strict=True))
