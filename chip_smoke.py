@@ -148,12 +148,32 @@ Phases (any error or out-of-tolerance result exits non-zero):
      into its kernels (the rwkv6 passes), and of 2 minitron-8b rounds
      with every cohort limited on the partitioned plane; a line counting
      the profiler sessions that traced no device activity.
+Slice 17 (the moe family and the large dense configs) adds, in the
+phases above: phase 3 at their shapes (flash at mixtral's 48 heads over
+8 with its window of 4096; serve_attention decode and c 64 at n_rep 6,
+12 and 16; invariant_dense at llama3-405b's w_in, qwen1.5-110b's biased
+wq|wk|wv and its lm_head, the experts' pairs and w_out, and the f32
+routers at N 16 and 8, ``check_dense_wide``; invariant_rmsnorm at d
+6144, 8192 and 12288); in phase 4 phi3.5-moe's pod path at full width (2
+of 32 layers, ``moe_pod_path``: server_mix 2 a round, one launch for each
+dtype group), the MoE serving ops in the row-invariance probe, and the
+five configs served at their published widths, depth cut to 31-35 GB of
+weights (``serving_families``: the moe pair's loop chunked 64 and paged
+serving the per-token loop's tokens); in phases 5-6 the reduced
+phi3.5-moe (global and blocked dispatch, masked and partitioned),
+mixtral (window 16) and qwen (qkv bias) paths, card == CPU and chunked
+== per round (``moe_reduced_on_card``); in phase 7 a profile of 2
+phi3.5-moe rounds with the device time of its MoE layers' dispatch,
+experts' GEMMs and combine read from the trace's profiler ranges
+(``moe_where_time_goes``). The full-width pod runs of phases 4-7 share
+one parameter draw a config (``MemoInit``).
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
 """
 from __future__ import annotations
 
+import bisect
 import json
 import math
 import re
@@ -231,6 +251,16 @@ def call_ms(torch, fn, iters: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def slow_ms(torch, fn) -> float:
+    """``device_ms`` at one call a graph and 3 replays, or, where one eager
+    call takes more than 50 ms (a plain version that loops), the median
+    of 2 eager calls (CUDA events; the host's share is nothing there)."""
+    first = call_ms(torch, fn, iters=1)
+    if first > 50:
+        return call_ms(torch, fn, iters=2)
+    return device_ms(torch, fn, reps=1, replays=3)
 
 
 class PhaseClock:
@@ -960,6 +990,7 @@ def ama_mix_round_row(recs):
 
 LLM_N = 2_583_711_744            # minitron-8b, 2 layers, full width
 RWKV_N = 1_018_698_240           # rwkv6-3b, 8 layers, full width
+PHI_N = 2_863_288_320            # phi3.5-moe, 2 layers, full width
 LLM_K = 2                        # the pod path's cohorts
 CUBLAS_ROWS = 1 << 30            # addmv rows a call, below 2**31
 
@@ -1037,7 +1068,11 @@ def check_server_mix_llm(torch, sp, ref, record, N, label):
 #: 100 (one partial tile) in bf16
 FLASH_MAIN = ("bfloat16", 128, True, 0, 2, 2048, 32, 32)
 FLASH_GQA = ("bfloat16", 128, True, 0, 2, 2048, 32, 8)
-FLASH_CASES = [FLASH_MAIN, FLASH_GQA,
+#: mixtral-8x22b's attention on its pod path: 48 heads over 8 (n_rep 6),
+#: its window of 4096 (wider than S, so every causal pair is visible)
+FLASH_MIXTRAL = ("bfloat16", 128, True, 4096, 2, 2048, 48, 8)
+FLASH_TIMED = (FLASH_MAIN, FLASH_GQA, FLASH_MIXTRAL)
+FLASH_CASES = [FLASH_MAIN, FLASH_GQA, FLASH_MIXTRAL,
                ("bfloat16", 64, True, 0, 2, 2048, 32, 32),
                ("bfloat16", 96, True, 0, 2, 2048, 32, 32),
                ("float32", 128, True, 0, 2, 2048, 32, 32),
@@ -1149,7 +1184,7 @@ def check_flash(torch, fa, ref, record):
               f"{errs[3]:.3e} (fwd plain bf16 {own:.3e}) | {want}")
         rec = dict(case=case, err_fwd=errs[0], err_dq=errs[1],
                    err_dkdv=max(errs[2:]))
-        if case in (FLASH_MAIN, FLASH_GQA):
+        if case in FLASH_TIMED:
             rec.update(time_flash(torch, fa, ref, F, case, q, k, v, dout,
                                   out_lo, lse_lo, d_lo))
         record.append(rec)
@@ -1197,6 +1232,10 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
                                                          lse, delta, **kw)}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = dict(enable_gqa=True) if Hkv != H else {}
+    # SDPA computes the same function where the window lets every causal
+    # pair through (window 0 or wider than S)
+    check(not window or window >= S, f"time_flash: no library call for a "
+          f"window of {window} at S {S}")
     lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, **gqa), reps=10, replays=10)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
@@ -1205,9 +1244,9 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
     lib_bwd = call_ms(torch, lambda: torch.autograd.grad(
         o, (qg, kg, vg), do, retain_graph=True), iters=10)
     out_rec = {"library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
-    print(f"flash attention at {dtn} hd={hd} causal={causal} B={B} S={S} "
-          f"H={H} Hkv={Hkv}: kernel device ms | bound ms (by) | plain device "
-          "ms | library")
+    print(f"flash attention at {dtn} hd={hd} causal={causal} "
+          f"window={window} B={B} S={S} H={H} Hkv={Hkv}: kernel device ms | "
+          "bound ms (by) | plain device ms | library")
     for name, fn in kernels.items():
         ms = device_ms(torch, fn, reps=3, replays=5)
         plain = device_ms(torch, plains[name], reps=1, replays=3)
@@ -1410,9 +1449,21 @@ SERVE_CASES = [SERVE_MAIN,
                ("float32", 2, 8, 0, 0, "prefill c 8 f32, linear")]
 SERVE_TIMED = (SERVE_MAIN, SERVE_PREFILL,
                ("bfloat16", 4, 8, 4096, 3, "prefill c 8, pads"))
+#: slice 17's head ratios, as a 7th field the query heads over the same 8
+#: kv heads: mixtral-8x22b's 48 (n_rep 6, its window of 4096 over a
+#: wrapped ring), mistral-large-123b's 96 (12) and llama3-405b's 128 (16)
+#: over a linear cache; decode and a prefill chunk of 64, all timed
+SERVE_WIDE = [("bfloat16", 4, 1, 4096, 0, "decode, n_rep 6", 48),
+              ("bfloat16", 4, 64, 4096, 0, "prefill c 64, n_rep 6", 48),
+              ("bfloat16", 4, 1, 0, 0, "decode, n_rep 12", 96),
+              ("bfloat16", 4, 64, 0, 5, "prefill c 64, n_rep 12", 96),
+              ("bfloat16", 4, 1, 0, 0, "decode, n_rep 16", 128),
+              ("bfloat16", 4, 64, 0, 0, "prefill c 64, n_rep 16", 128)]
+SERVE_CASES += SERVE_WIDE
+SERVE_TIMED += tuple(SERVE_WIDE)
 
 
-def serve_state(torch, g, ref, dtype, B, c, window, pads):
+def serve_state(torch, g, ref, dtype, B, c, window, pads, H=SERVE_H):
     """One serving-attention input at minitron's shape: the cache of a
     ring of SERVE_L slots before a chunk of c rows (every slot holding the
     latest position below the chunk's first, of that slot's residue), the
@@ -1431,7 +1482,7 @@ def serve_state(torch, g, ref, dtype, B, c, window, pads):
     rnd = lambda *shape, scale=1.0: (scale * torch.randn(
         *shape, device=dev, generator=g)).to(dt)
     ck, cv = rnd(B, L, KH, hd), rnd(B, L, KH, hd)
-    q = rnd(B, c, SERVE_H, hd, scale=hd ** -0.5)
+    q = rnd(B, c, H, hd, scale=hd ** -0.5)
     kn, vn = rnd(B, c, KH, hd), rnd(B, c, KH, hd)
     pos = (p0[:, None] + torch.arange(c, device=dev)).to(torch.int32)
     if pads:
@@ -1508,8 +1559,8 @@ def check_serve_attention(torch, sa, ref, record):
     print("serve_attention: dtype B c window pads case | max err vs plain "
           "(rule) | paged == dense | rows == c=1 rows")
     for case in SERVE_CASES:
-        dtype, B, c, window, pads, label = case
-        st = serve_state(torch, g, ref, dtype, B, c, window, pads)
+        dtype, B, c, window, pads, label, *heads = case
+        st = serve_state(torch, g, ref, dtype, B, c, window, pads, *heads)
         args = (st["q"], st["k"], st["v"], st["pos"])
         got = sa.serve_attention(*args, *st["dense"], window=window)
         paged = sa.serve_attention(*args, *st["paged"], window=window)
@@ -1563,14 +1614,14 @@ def time_serve_attention(torch, sa, ref, F, case, st):
     flops (4 hd a visible query-slot pair and head) at the tensor-core
     rate for bf16 (f32: the CUDA cores' rate), and the design's bound
     (P.V, half the flops, at the f32 rate)."""
-    dtype, B, c, window, pads, label = case
+    dtype, B, c, window, pads, label, *_ = case
     q, k, v, pos = st["q"], st["k"], st["v"], st["pos"]
     ck, cv, cpos = st["dense"]
     s = q.element_size()
     nbytes = ((2 * q.numel() + k.numel() + v.numel() + ck.numel()
                + cv.numel()) * s + (pos.numel() + cpos.numel()) * 4)
-    flops = 4 * SERVE_HD * SERVE_H * serve_visible(torch, ref, pos, cpos,
-                                                   window)
+    flops = 4 * SERVE_HD * q.shape[2] * serve_visible(torch, ref, pos, cpos,
+                                                      window)
     # bf16: the card's bound at the tensor-core rate; the design's keeps
     # P.V (half the flops) on the CUDA cores at the f32 rate
     bf16 = dtype == "bfloat16"
@@ -1582,8 +1633,8 @@ def time_serve_attention(torch, sa, ref, F, case, st):
         q, k, v, pos, ck, cv, cpos, window=window), reps=10, replays=10)
     ms_paged = device_ms(torch, lambda: sa.serve_attention(
         q, k, v, pos, *st["paged"], window=window), reps=10, replays=10)
-    plain = device_ms(torch, lambda: ref.serve_attention_ref(
-        q, k, v, pos, ck, cv, cpos, window=window), reps=1, replays=3)
+    plain = slow_ms(torch, lambda: ref.serve_attention_ref(
+        q, k, v, pos, ck, cv, cpos, window=window))
     lib = None
     if c == 1:
         bidx = torch.arange(B, device=q.device)
@@ -1702,6 +1753,9 @@ def check_invariant_dense(torch, idn, ref, record):
         del w, x, full, copies
         torch.cuda.empty_cache()
     check_dense_groups(torch, idn, record)
+    check_dense_wide(torch, idn, ref, record)
+    check_dense_wide(torch, idn, ref, record, DENSE_F32_EARLIER,
+                     "its earlier f32 shapes")
     ms = {r["case"]: r for r in record}
     for M, what in ((4, "decode step (M 4)"),
                     (256, "prefill chunk (M 256: 4 slots x 64 rows)")):
@@ -1822,11 +1876,126 @@ def check_dense_groups(torch, idn, record):
           f"the path launches them (4 calls) {after:.4f} ms")
 
 
+#: slice 17's serving projections at their published widths, each one
+#: launch as the serving path makes it: (label, K, Ns, bias, dtype)
+DENSE_WIDE = [
+    ("llama3-405b w_in", 16384, (53248,), False, "bfloat16"),
+    ("qwen1.5-110b wq|wk|wv", 8192, (8192, 1024, 1024), True, "bfloat16"),
+    ("qwen1.5-110b lm_head", 8192, (152064,), False, "bfloat16"),
+    ("phi3.5-moe expert pair", 4096, (6400,) * 4, False, "bfloat16"),
+    ("phi3.5-moe w_out", 6400, (4096,), False, "bfloat16"),
+    ("mixtral-8x22b expert pair", 6144, (16384,) * 4, False, "bfloat16"),
+    ("phi3.5-moe router", 4096, (16,), False, "float32"),
+    ("mixtral-8x22b router", 6144, (8,), False, "float32")]
+#: the f32 shapes the kernel served before slice 17 (the reduced f32
+#: serving projections of minitron-8b, as the serving path launches them,
+#: and a width of 136) at which its f32 form is timed too
+DENSE_F32_EARLIER = [
+    ("f32 (256, 136)", 256, (136,), False, "float32"),
+    ("reduced minitron-8b wq|wk|wv", 256, (256, 128, 128), False,
+     "float32"),
+    ("reduced minitron-8b w_out", 512, (256,), False, "float32"),
+    ("reduced minitron-8b lm_head", 256, (512,), False, "float32")]
+#: the rows held bitwise against M 256's
+DENSE_WIDE_ROWS = (1, 4, 65, 256)
+
+
+def check_dense_wide(torch, idn, ref, record, cases=None,
+                     title="slice 17's widths"):
+    """invariant_dense at DENSE_WIDE (or ``cases``), each one launch (a
+    group where the serving path groups): every row bitwise the same at M in
+    DENSE_WIDE_ROWS; bf16 within max(2 x cuBLAS's error, one bf16 ulp of
+    max|ref|) of the f32 product (+ bias) of the same operands, f32
+    within rtol 1e-5, atol 1e-5 of the f64 product; times at M 4 and 256
+    (weights cold) beside the bound (bytes at 3.35 TB/s, flops at the
+    dtype's rate), the plain version (``x @ w (+ b)`` a problem) and
+    ``torch.matmul`` a problem as the library call."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(28)
+    print(f"invariant_dense at {title}: projection (K, N) | rows "
+          f"bitwise at M {DENSE_WIDE_ROWS} | err (cuBLAS's) | M: kernel ms "
+          "(% HBM peak) bound plain torch.matmul")
+    for label, K, Ns, bias, dtn in cases or DENSE_WIDE:
+        dt = getattr(torch, dtn)
+        ws = [(torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(dt)
+              for N in Ns]
+        bs = [torch.randn(N, device=dev, generator=g).to(dt) if bias
+              else None for N in Ns]
+        probs = list(zip(ws, bs))
+        x = torch.randn(max(DENSE_WIDE_ROWS), K, device=dev,
+                        generator=g).to(dt)
+        before = idn.invariant_dense.launches
+        full = idn.invariant_dense_group(x, probs)
+        check(idn.invariant_dense.launches - before == 1,
+              f"invariant_dense {label}: not one launch")
+        for M in DENSE_WIDE_ROWS[:-1]:
+            part = idn.invariant_dense_group(x[:M].contiguous(), probs)
+            check(all(torch.equal(a, b[:M]) for a, b in zip(part, full)),
+                  f"invariant_dense {label}: rows at M = {M} differ from "
+                  f"the same rows at M = {max(DENSE_WIDE_ROWS)}")
+        err, lib_err = 0.0, 0.0
+        for y, (w, b) in zip(full, probs):
+            if dt == torch.float32:
+                want = (x.double() @ w.double()).float()
+                e = float((y - want).abs().max())
+                check(bool(torch.allclose(y, want, rtol=1e-5, atol=1e-5)),
+                      f"invariant_dense {label}: {e:.3e} from the f64 "
+                      "product")
+                err = max(err, e)
+                continue
+            ref32 = x.float() @ w.float()
+            lib = x @ w
+            if b is not None:
+                ref32, lib = ref32 + b.float(), lib + b
+            e = float((y.float() - ref32).abs().max())
+            le = float((lib.float() - ref32).abs().max())
+            floor = float(ulp(torch, ref32.abs().max(), torch.bfloat16))
+            check(e <= max(2 * le, floor), f"invariant_dense {label}: max "
+                  f"error {e:.3e} beyond twice cuBLAS's {le:.3e} (floor "
+                  f"{floor:.3e})")
+            err, lib_err = max(err, e), max(lib_err, le)
+            del ref32, lib
+        size = x.element_size()
+        wbytes = K * sum(Ns) * size
+        sets = [probs] + [[(w.clone(), b) for w, b in probs] for _ in range(
+            max(0, math.ceil(2 * L2_BYTES / wbytes) - 1))]
+        line = []
+        for M in DENSE_TIMED:
+            xm = x[:M].contiguous()
+            nbytes = (M * K + M * sum(Ns)) * size + wbytes + (
+                sum(Ns) * size if bias else 0)
+            bnd, by = bound_ms(nbytes, 2 * M * K * sum(Ns),
+                               BF16_FLOPS_PER_S if dt == torch.bfloat16
+                               else F32_FLOPS_PER_S)
+            ms = cold_ms(torch, lambda pr: idn.invariant_dense_group(xm, pr),
+                         sets)
+            plain = cold_ms(torch, lambda pr: [
+                ref.invariant_dense_ref(xm, w, b) for w, b in pr], sets)
+            lib = cold_ms(torch, lambda pr: [
+                torch.matmul(xm, w) if b is None else torch.matmul(xm, w) + b
+                for w, b in pr], sets)
+            record.append(dict(case=(label, M), dtype=dtn, K=K, N=sum(Ns),
+                               problems=len(Ns), M=M, ms=ms, plain_ms=plain,
+                               library_ms=lib, bound_ms=bnd, bound_by=by,
+                               nbytes=nbytes, err=err, lib_err=lib_err))
+            line.append(f"{M}: {ms:.4f} ({wbytes / (ms * 1e-3) / HBM_BYTES_PER_S:.1%}"
+                        f") bound {bnd:.4f} plain {plain:.4f} matmul "
+                        f"{lib:.4f}")
+        print(f"  {label} ({K}, {' + '.join(map(str, Ns))}){' + bias' * bias}"
+              f" {dtn} S {[idn.split_k(K, N) for N in Ns]} | bitwise | "
+              f"{err:.3e} ({lib_err:.3e}) | " + "; ".join(line))
+        del ws, bs, probs, x, full, sets
+        torch.cuda.empty_cache()
+
+
 #: (dtype, d): minitron-8b's width, llama3-405b's (eight warps a row),
 #: reduced minitron's f32 width, a width that is not a multiple of the
 #: 16-byte vector (the per-element form)
 RMS_CASES = (("bfloat16", 4096), ("bfloat16", 16384), ("float32", 256),
-             ("bfloat16", 1000))
+             ("bfloat16", 1000),
+             # slice 17: mixtral-8x22b's, qwen1.5-110b's and
+             # mistral-large-123b's widths
+             ("bfloat16", 6144), ("bfloat16", 8192), ("bfloat16", 12288))
 #: the case of the kernels line: minitron-8b's decode step (4 slots)
 RMS_MAIN = ("bfloat16", 4096, 4)
 
@@ -2786,18 +2955,76 @@ POD_ROUNDS, POD_STEPS, POD_C, POD_B, POD_S = 3, 2, 2, 1, 2048
 #: kernels once). minitron-8b: 2 of 32 layers (one body, one tail block);
 #: rwkv6-3b: 8 of 32 (6 body, the config's own 2 tail blocks), then once
 #: at the deepest depth whose peak memory is predicted within 70 GB
-#: (rwkv6_deep).
+#: (rwkv6_deep); phi3.5-moe: 2 of 32 (one body, one tail block). mixtral
+#: and qwen run reduced only (their full-width layer does not leave room
+#: for two cohorts beside it at 2 layers, PERF.md).
+_FLASH = dict(plain=("flash_attention_ref", "flash_bwd_dq_ref",
+                     "flash_bwd_dkdv_ref"), trace="flash_",
+              parts=("flash_fwd", "flash_bwd"), fwd=("flash_fwd",))
+PHI = "phi3.5-moe-42b-a6.6b"
 LLMS = {
-    "minitron-8b": dict(layers=2, tail=1, params=LLM_N,
-                        plain=("flash_attention_ref", "flash_bwd_dq_ref",
-                               "flash_bwd_dkdv_ref"), trace="flash_",
-                        parts=("flash_fwd", "flash_bwd"),
-                        fwd=("flash_fwd",)),
+    "minitron-8b": dict(layers=2, tail=1, params=LLM_N, **_FLASH),
     "rwkv6-3b": dict(layers=8, tail=2, params=RWKV_N,
                      plain=("rwkv6_scan_ref", "rwkv6_scan_bwd_ref"),
                      trace="rwkv6_", parts=("rwkv6_fwd", "rwkv6_bwd"),
                      fwd=("rwkv6_fwd",)),
+    PHI: dict(layers=2, tail=1, params=PHI_N, **_FLASH),
+    "mixtral-8x22b": dict(_FLASH),
+    "qwen1.5-110b": dict(_FLASH),
 }
+
+
+#: the archs whose full-width pod runs (``llm_full_width``) repeat over
+#: phases 4-7 and so share one parameter draw (``MemoInit``)
+MEMO_ARCHS = ("minitron-8b", "rwkv6-3b", PHI)
+
+
+class MemoInit:
+    """A ``with`` block in which the model API's ``transformer.init_params``
+    draws each of ``cfgs`` (remat aside) once: the first call for a
+    config and seed takes the real init on the card (the launcher's own
+    path) and keeps a CPU copy of the tree and the generator's state
+    after the draw; each later call for it from a fresh seeded CPU
+    generator, as the launcher makes, copies that tree to the card and
+    leaves the generator where the draw would: the same values without
+    another ~25 s of CPU time. ``drop(cfg)`` frees a config's copy after
+    its last run. Other calls take the real init."""
+
+    def __init__(self, tf, cfgs):
+        self.tf, self.real, self.trees = tf, tf.init_params, {}
+        self.cfgs = {c.with_(remat=True) for c in cfgs}
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.utils.tree import tree_map
+
+        def init(cfg, gen, device=None):
+            key = (cfg.with_(remat=True), gen.initial_seed())
+            fresh = gen.device.type == "cpu" and torch.equal(
+                gen.get_state(),
+                torch.Generator().manual_seed(key[1]).get_state())
+            if key[0] not in self.cfgs or not fresh or device is None \
+                    or torch.device(device).type != "cuda":
+                return self.real(cfg, gen, device)
+            if key not in self.trees:
+                out = self.real(cfg, gen, device)
+                self.trees[key] = (tree_map(lambda x: x.cpu(), out),
+                                   gen.get_state())
+                return out
+            tree, after = self.trees[key]
+            gen.set_state(after)
+            return tree_map(lambda x: x.to(device), tree)
+        self.tf.init_params = init
+        return self
+
+    def drop(self, cfg):
+        base = cfg.with_(remat=True)
+        self.trees = {k: v for k, v in self.trees.items() if k[0] != base}
+
+    def __exit__(self, *exc):
+        self.tf.init_params = self.real
+        self.trees.clear()
 
 
 def plan_launches(arch, cfg, km, chunks, partitioned: bool):
@@ -3171,6 +3398,7 @@ def pod_client_planes(torch, train, arch, km, kmods, ref, tree_mod,
                            steady_tokens_per_s=steady_tok_s, peak_bytes=peak,
                            losses=[float(x) for x in loss],
                            limited_per_round=n_lim,
+                           params=sum(x.numel() for x in params),
                            limited_split=runner.limited_split,
                            launches={k: v for k, v in counts.items() if v})
         main_record.append(rows[label])
@@ -3267,16 +3495,18 @@ def rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_record):
     return counts
 
 
-def llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane="masked"):
+def llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane="masked",
+                    cfg=None, label=""):
     """The reduced LLM path in f32 (TF32 off), with the config's remat
     on, the same params (drawn on the CPU from the seed) and tokens: on
     the card through the kernels, on the CPU through the plain versions;
     params and losses within rtol 1e-4, atol 1e-5 after 2 rounds (one
     chunk) on the client ``plane``, the kernels' launches as
-    ``plan_launches`` derives them from the staged schedule."""
+    ``plan_launches`` derives them from the staged schedule. ``cfg``
+    overrides the reduced config (``label`` names the change)."""
     argv = [*reduced_pod(arch), "--rounds", "2", "--client-plane", plane]
     km.reset_counts()
-    cfg = llm_reduced(arch)
+    cfg = cfg or llm_reduced(arch)
     a, ma, _ = run_pod(torch, train, argv, cfg, "cuda")
     want = plan_launches(arch, cfg, km, pod_chunks(train, argv),
                          plane == "partitioned")
@@ -3295,14 +3525,14 @@ def llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane="masked"):
               for p, q in zip(ma["loss"], mb["loss"])),
           f"reduced {arch}: losses {ma['loss']} (card) vs {mb['loss']} "
           "(CPU)")
-    print(f"reduced {arch} f32, {plane} client plane, 2 rounds: card "
+    print(f"reduced {arch}{label} f32, {plane} client plane, 2 rounds: card "
           f"({LLMS[arch]['trace']}* launches {want} + "
           f"server kernels) vs CPU (plain versions) max |diff| {worst:.3e} "
           f"(tolerance rtol 1e-4, atol 1e-5); losses {list(ma['loss'])} vs "
           f"{list(mb['loss'])}")
 
 
-def llm_partitioned_contract(torch, train, arch, tree_mod):
+def llm_partitioned_contract(torch, train, arch, tree_mod, cfg=None):
     """chunked == per-round, bitwise, on the reduced LLM path on the
     card under the partitioned client plane: ama_fes, 3 rounds at
     p_limited 0.5 through one ``ChunkRunner`` chunk and through its
@@ -3316,7 +3546,7 @@ def llm_partitioned_contract(torch, train, arch, tree_mod):
     from repro_torch.models.api import build_model
     argv = [*reduced_pod(arch), "--rounds", "3", *PARTITIONED]
     args = train.parser().parse_args(argv)
-    cfg = llm_reduced(arch)
+    cfg = cfg or llm_reduced(arch)
     fl = train.fl_config(args).with_(clients_per_round=POD_C)
     model = build_model(cfg)
     sb = env_mod.resolve(fl.with_(num_clients=POD_C)).batch(0, 3)
@@ -3341,27 +3571,84 @@ def llm_partitioned_contract(torch, train, arch, tree_mod):
           "per round, bitwise, params and losses")
 
 
-def llm_contract(torch, train, arch, tree_mod):
+def llm_contract(torch, train, arch, tree_mod, cfg=None, label=""):
     """chunked == per-round (--no-scan), bitwise, on the reduced LLM path
-    on the card: ama_fes, 3 rounds."""
+    on the card: ama_fes, 3 rounds (``cfg`` overrides the reduced
+    config)."""
     argv = [*reduced_pod(arch), "--rounds", "3"]
-    a, ma, _ = run_pod(torch, train, argv, llm_reduced(arch))
-    b, mb, _ = run_pod(torch, train, argv + ["--no-scan"], llm_reduced(arch))
+    cfg = cfg or llm_reduced(arch)
+    a, ma, _ = run_pod(torch, train, argv, cfg)
+    b, mb, _ = run_pod(torch, train, argv + ["--no-scan"], cfg)
     check(all(torch.equal(x, y) for x, y in zip(
         tree_mod.leaves(a), tree_mod.leaves(b), strict=True)),
           f"reduced {arch}: chunked and per-round runs differ")
     check(list(ma["loss"]) == list(mb["loss"]),
           f"reduced {arch}: chunked and per-round losses differ")
-    print(f"port contract: 3 rounds of the reduced {arch} path (ama_fes) "
-          "chunked == per round (--no-scan), bitwise, params and losses")
+    print(f"port contract: 3 rounds of the reduced {arch}{label} path "
+          "(ama_fes) chunked == per round (--no-scan), bitwise, params and "
+          "losses")
 
 
-def llm_where_time_goes(torch, train, arch, tmp, extra=()):
+def device_ms_by_range(events, names) -> dict:
+    """{name: (ms, launches)}: the device time (kernels, copies, sets) of
+    a Chrome trace's ``events`` launched inside the profiler ranges
+    ``names`` (``obs.timing.annotate``) or by the backward of an op
+    recorded inside one: each such op's ``fwdbwd`` flow ends at the
+    backward function it made (``autograd::engine::evaluate_function``),
+    whose span, on the thread that ran it, counts for the range. A
+    launch belongs to the span around its runtime call (same thread,
+    the call's start inside the span; the spans of one thread do not
+    overlap)."""
+    spans: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in names:
+            spans.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+
+    def find(tid, ts, among):
+        for a, b, n in among.get(tid, ()):
+            if a <= ts <= b:
+                return n
+        return None
+    ops = {(e["tid"], e["ts"]): e for e in events if e.get("cat") == "cpu_op"}
+    flows = [e for e in events if e.get("cat") == "fwdbwd"]
+    starts = {e["id"]: e for e in flows if e["ph"] == "s"}
+    fwd = {tid: list(v) for tid, v in spans.items()}
+    for e in flows:
+        s = starts.get(e["id"]) if e["ph"] == "f" else None
+        op = s and ops.get((e["tid"], e["ts"]))
+        name = op and find(s["tid"], s["ts"], fwd)
+        if name:
+            spans.setdefault(e["tid"], []).append(
+                (op["ts"], op["ts"] + op["dur"], name))
+    for v in spans.values():
+        v.sort()
+    starts_of = {tid: [a for a, _, _ in v] for tid, v in spans.items()}
+    launch = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {n: (0.0, 0) for n in names}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        at = launch.get(e.get("args", {}).get("correlation"))
+        if at is None or at[0] not in spans:
+            continue
+        i = bisect.bisect_right(starts_of[at[0]], at[1]) - 1
+        if i >= 0 and at[1] <= spans[at[0]][i][1]:
+            ms, n = out[spans[at[0]][i][2]]
+            out[spans[at[0]][i][2]] = (ms + float(e.get("dur", 0.0)) / 1e3,
+                                       n + 1)
+    return out
+
+
+def llm_where_time_goes(torch, train, arch, tmp, extra=(), ranges=()):
     """2 full-width rounds of ``arch`` (the config's remat on; ``extra``
     launcher arguments) under the launcher's --profile: device time by
     kernel from the Chrome trace, the arch's kernels' share of it, each
     kernel's passes, and the device's idle share of the training wall
-    time."""
+    time; with ``ranges``, the device time of each of those profiler
+    ranges (``device_ms_by_range``) under the key "ranges"."""
     trace_dir = str(Path(tmp) / f"profile_{arch}{len(extra)}")
     argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds", "2",
             "--profile", trace_dir, *extra]
@@ -3396,6 +3683,99 @@ def llm_where_time_goes(torch, train, arch, tmp, extra=()):
                       f"{us / 1e3 / busy:.1%}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
+    return dict(wall_ms=dt * 1e3, busy_ms=busy, own_ms=own,
+                ranges=device_ms_by_range(events, ranges) if ranges else {})
+
+
+# ------------------------------------------------ the moe family (A1) -----
+
+#: the reduced moe path's blocked dispatch: groups of 32 of a cohort's
+#: 2 x 64 tokens (the launcher's --batch and --seq defaults)
+MOE_BLOCK = 32
+#: mixtral's reduced window (64) cut so that it bites at S 64
+MIXTRAL_WINDOW = 16
+
+
+def moe_pod_path(torch, train, km, kmods, ref, tree_mod, main_record):
+    """phi3.5-moe at full width, 2 of its 32 layers (one body, one tail
+    block: 2,863,288,320 parameters, two dtype groups, the bf16 weights
+    and the f32 routers), remat on, masked client plane, ama_fes, 3
+    rounds of 2 cohorts x 2 local steps x 1 x 2048 tokens with --no-scan
+    through ``pod_client_planes``: the flash kernels' launches from
+    ``plan_launches`` (all on wgmma), server_mix once a round for each of
+    the 2 groups, no other kernel and no plain version on the card,
+    losses near ln(vocab) that fall, tokens/s over rounds 2-3, peak
+    memory under 75 GB. Returns the counts."""
+    from repro_torch.models.moe import _capacity
+    cfg = llm_full_width(PHI)
+    counts = pod_client_planes(torch, train, PHI, km, kmods, ref, tree_mod,
+                               main_record,
+                               runs=[("masked p_limited 0.5", "masked", 0.5)])
+    check(counts["server_mix"] == 2 * POD_ROUNDS,
+          f"phi3.5-moe: server_mix launched {counts['server_mix']} times, "
+          f"expected 2 a round (the bf16 group and the f32 routers)")
+    row = main_record[-1]
+    check(row["params"] == LLMS[PHI]["params"], f"phi3.5-moe: "
+          f"{row['params']} params, expected {LLMS[PHI]['params']}")
+    print(f"phi3.5-moe pod path: full width, {cfg.num_layers} layers "
+          f"({cfg.num_experts} experts, top {cfg.top_k}, a cohort's "
+          f"{POD_B * POD_S} tokens dispatched in one group of capacity "
+          f"{_capacity(POD_B * POD_S, cfg)}), "
+          f"{LLMS[PHI]['params']:,} params; peak {row['peak_bytes'] / 1e9:.2f} "
+          f"GB (limit 75); {row['steady_tokens_per_s']:,.0f} tokens/s over "
+          f"rounds 2-{POD_ROUNDS}; server_mix {counts['server_mix']} "
+          f"launches (2 dtype groups x {POD_ROUNDS} rounds)")
+    return counts
+
+
+def moe_reduced_on_card(torch, train, fa, tree_mod):
+    """The reduced moe and large dense configs in f32 on the card against
+    the CPU (rtol 1e-4, atol 1e-5) and chunked == per round bitwise:
+    phi3.5-moe through the global dispatch (a cohort's 128 tokens in one
+    group) and the blocked one (groups of MOE_BLOCK), mixtral with its
+    window cut to MIXTRAL_WINDOW, qwen with its qkv bias, and phi3.5-moe
+    on the partitioned client plane."""
+    blocked = llm_reduced(PHI).with_(moe_group_size=MOE_BLOCK)
+    mixtral = llm_reduced("mixtral-8x22b").with_(
+        sliding_window=MIXTRAL_WINDOW)
+    runs = [(PHI, None, " (global dispatch)"),
+            (PHI, blocked, f" (blocked dispatch, groups of {MOE_BLOCK})"),
+            ("mixtral-8x22b", mixtral, f" (window {MIXTRAL_WINDOW})"),
+            ("qwen1.5-110b", None, " (qkv bias)")]
+    for arch, cfg, label in runs:
+        llm_card_vs_cpu(torch, train, arch, fa, tree_mod, "masked", cfg,
+                        label)
+        llm_contract(torch, train, arch, tree_mod, cfg, label)
+    llm_card_vs_cpu(torch, train, PHI, fa, tree_mod, "partitioned")
+    llm_partitioned_contract(torch, train, PHI, tree_mod)
+
+
+def moe_where_time_goes(torch, train, fa, tmp):
+    """2 full-width rounds of phi3.5-moe under the launcher's --profile
+    (``llm_where_time_goes``: device busy and idle, the flash kernels'
+    share, the top kernels) and, from the same trace, the device time of
+    its MoE layers' parts (``device_ms_by_range`` over ``moe_apply``'s
+    profiler ranges, each with its backward): the routing and dispatch
+    product, the experts' GEMMs, the combine product. Checks that each
+    part launched work on the card."""
+    from repro_torch.models import moe
+    parts = {moe.DISPATCH: "dispatch", moe.EXPERTS: "experts' GEMMs",
+             moe.COMBINE: "combine"}
+    prof = llm_where_time_goes(torch, train, PHI, tmp, ranges=tuple(parts))
+    busy = prof["busy_ms"]
+    for key, label in parts.items():
+        ms, n = prof["ranges"][key]
+        check(n > 0, f"phi3.5-moe profile: no device work in the {key} "
+              "range")
+        print(f"  phi3.5-moe {label} ({key} and its backward): {ms:.1f} ms "
+              f"in {n} launches = {ms / busy:.1%} of device time")
+    share = {label: prof["ranges"][key][0] / busy
+             for key, label in parts.items()}
+    print(f"where the time goes, phi3.5-moe full width, 2 rounds (trace): "
+          f"flash {prof['own_ms'] / busy:.1%}, "
+          + ", ".join(f"{k} {v:.1%}" for k, v in share.items())
+          + f" of device time; idle {1 - busy / prof['wall_ms']:.1%}")
+    return share
 
 
 # ------------------------------------------------------- serving (A5) -----
@@ -3405,7 +3785,20 @@ def llm_where_time_goes(torch, train, arch, tmp, extra=()):
 #: 4,000 tokens that carry the ring past 4,096, four of 512, four of 128,
 #: 128 new tokens each) and the loop engine per token and chunked over 4
 #: requests of 64-300 tokens; rwkv6-3b at 8 layers per token
-SERVE_DEPTH = {"minitron-8b": 32, "rwkv6-3b": 8}
+SERVE_DEPTH = {"minitron-8b": 32, "rwkv6-3b": 8,
+               # slice 17: the depths whose bf16 weights take 31-35 GB
+               PHI: 12, "mixtral-8x22b": 6, "mistral-large-123b": 12,
+               "qwen1.5-110b": 11, "llama3-405b": 4}
+#: slice 17's configs at full width, depth cut as SERVE_DEPTH says: the
+#: paged engine over two prompts of 200 tokens and two of 64, 16 new each;
+#: the moe pair also through the loop engine per token, chunked 64 and
+#: paged over three requests (SERVE_FAMILY_LOOP_MIX)
+SERVE_FAMILIES = (PHI, "mixtral-8x22b", "mistral-large-123b",
+                  "qwen1.5-110b", "llama3-405b")
+SERVE_FAMILY_RUN = ["--engine", "paged", "--prompt-mix", "200x2,64x2",
+                    "--tokens", "16", "--max-slots", "4", "--block-size",
+                    "16", "--prefill-chunk", "64"]
+SERVE_FAMILY_LOOP_MIX = ["--prompt-mix", "24x1,40x1,70x1", "--tokens", "8"]
 SERVE_PAGED_RUN = ["--engine", "paged", "--prompt-mix",
                    "4000x2,512x4,128x4", "--tokens", "128", "--max-slots",
                    "4", "--block-size", "16", "--prefill-chunk", "64"]
@@ -3463,6 +3856,18 @@ def serve_params(torch, cfg, seed=0):
     return params, time.perf_counter() - t0
 
 
+def dense_launches(cfg) -> int:
+    """invariant_dense launches a layer of a serving step: the attention's
+    wq|wk|wv and wo, then the MLP's w_in|w_gate and w_out, or a moe
+    block's router, its experts' w_in|w_gate pairs (two experts a launch)
+    and each expert's w_out."""
+    if not cfg.num_experts:
+        return 4
+    from repro_torch.kernels.invariant_dense import MAX_GROUP
+    E = cfg.num_experts
+    return 2 + 1 + -(-E // (MAX_GROUP // 2)) + E
+
+
 def decode_bound_ms(cfg, params, tree_mod, slots: int) -> float:
     """The least time of one decode step at ``slots`` requests: every
     weight read once (the embedding table only at the slots' rows)."""
@@ -3478,9 +3883,10 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
               main_record, tree_mod):
     """One serving run through ``launch.serve.serve`` on the card, the
     counts set to 0 just before it and read just after: for the dense
-    family serve_attention launched layers x serving steps,
-    invariant_dense (4 layers + 1) x steps (wq|wk|wv and w_in|w_gate one
-    launch each), invariant_add_rmsnorm 2 layers x steps and
+    and moe families serve_attention launched layers x serving steps,
+    invariant_dense (``dense_launches`` x layers + 1) x steps (dense: 4 a
+    layer, wq|wk|wv and w_in|w_gate one launch each; moe: 3 + 3 E / 2),
+    invariant_add_rmsnorm 2 layers x steps and
     invariant_rmsnorm 1 x steps (the first block's norm); for the ssm
     family rwkv6_fwd layers x decode steps; no other kernel, no plain
     version on the card;
@@ -3505,7 +3911,7 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     want = ({"rwkv6_fwd": L * steps.calls["decode_step"]}
             if cfg.family == "ssm" else
             {"serve_attention": L * calls,
-             "invariant_dense": (4 * L + 1) * calls,
+             "invariant_dense": (dense_launches(cfg) * L + 1) * calls,
              "invariant_add_rmsnorm": 2 * L * calls,
              "invariant_rmsnorm": calls})
     new = sum(r["new_tokens"] for r in results)
@@ -3670,7 +4076,8 @@ def decode_step_record(torch, record):
     torch.cuda.empty_cache()
 
 
-def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
+def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64,
+                         moe_cfg=None) -> dict:
     """Whether each row-wise reduction of a full-width serving step gives a
     row the same bits at M = B (a decode step) as at M = B c (a prefill
     chunk), on the card: the serving path's own ops (``invariant_dense``
@@ -3678,8 +4085,13 @@ def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
     ``invariant_rmsnorm`` at d_model; the logits' ``argmax``), each a
     check, and beside them the
     ops the path no longer calls (``torch.matmul`` at every projection,
-    ``layers.rmsnorm``), reported as a yardstick. Returns {op: max
-    |difference|} (0.0 where every row is bitwise equal)."""
+    ``layers.rmsnorm``), reported as a yardstick. With ``moe_cfg`` also
+    the MoE serving ops at its widths (``moe.moe_serve``): the router's
+    f32 product on ``invariant_dense``, ``torch.softmax`` over its E
+    columns, the stable sort of the top-k, the combine's per-row steps
+    and one whole layer of ``moe_serve``, each a check, with
+    ``torch.matmul`` of the router as a yardstick. Returns {op: max |difference|} (0.0
+    where every row is bitwise equal)."""
     from repro_torch.models.layers import rmsnorm
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(31)
@@ -3719,6 +4131,9 @@ def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
                                                       .contiguous(), gain),
                             -1), x)
     yard["layers.rmsnorm"] = gap(lambda t: rmsnorm({"g": gain}, t), x)
+    del x
+    if moe_cfg is not None:
+        path.update(moe_row_invariance(torch, idn, moe_cfg, gap, yard, B, c))
     torch.cuda.empty_cache()
     bad = {k: v for k, v in path.items() if v}
     off = {k: v for k, v in yard.items() if v}
@@ -3731,6 +4146,43 @@ def row_invariance_probe(torch, idn, irn, cfg, B=4, c=64) -> dict:
     check(not bad, f"row invariance: the serving path's {sorted(bad)} give a "
           f"row other bits at M = {B} than at M = {B * c}: {bad}")
     return {**path, **yard}
+
+
+def moe_row_invariance(torch, idn, cfg, gap, yard, B, c) -> dict:
+    """The MoE serving ops of ``row_invariance_probe`` at ``cfg``'s widths
+    (one layer's parameters from a seed, on the card): returns the path's
+    gaps and adds the yardsticks to ``yard``."""
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(33)
+    E, d = cfg.num_experts, cfg.d_model
+    p = moe.moe_init(g, cfg, torch.bfloat16)
+    rw = p["router"]["w"]
+    xf = torch.randn(B, c, d, device=dev, generator=g)
+    path = {"invariant_dense router (f32)": gap(
+        lambda t: idn.invariant_dense(t, rw), xf)}
+    yard["torch.matmul router (f32)"] = gap(lambda t: t @ rw, xf)
+    lg = 4 * idn.invariant_dense(xf, rw)
+    path["torch.softmax router"] = gap(lambda t: torch.softmax(t, -1), lg)
+    probs = torch.softmax(lg, -1)
+    path["moe top-k (stable sort)"] = gap(lambda t: torch.cat(
+        [v.float() for v in moe._top_k(t, cfg.top_k)], -1), probs)
+    ys = torch.randn(E, B, c, d, device=dev, generator=g).to(torch.bfloat16)
+
+    def combine(rows):                  # the combine over rows ``rows``
+        out = None
+        for e in range(E):
+            out = moe._combine_step(out, ys[e][:, rows].contiguous(),
+                                    probs[:, rows, e:e + 1].contiguous())
+        return out
+    each = torch.cat([combine(slice(i, i + 1)) for i in range(c)], 1)
+    path["moe combine (per-row steps)"] = float(
+        (combine(slice(None)) - each).abs().max())
+    xb = torch.randn(B, c, d, device=dev, generator=g).to(torch.bfloat16)
+    path[f"moe_serve ({cfg.name}, one layer)"] = gap(
+        lambda t: moe.moe_serve(p, cfg, t)[0], xb)
+    del p, xf, lg, probs, ys, xb
+    return path
 
 
 def serve_contract(torch, serve_mod, ref):
@@ -3881,6 +4333,63 @@ def serve_contract(torch, serve_mod, ref):
               "serve identical tokens")
 
 
+def serving_families(torch, serve_mod, tf, kmods, ref, tree_mod,
+                     main_record) -> dict:
+    """Slice 17's configs served at their published widths, depth cut as
+    SERVE_DEPTH says (bf16 params from seed 0, made on the card): one
+    PagedEngine run each (SERVE_FAMILY_RUN, ``serve_run``: launches
+    exact, no plain version, peak under 75 GB, tokens/s and the decode
+    bound printed); the moe pair also through the loop engine per token,
+    chunked 64 and paged (SERVE_FAMILY_LOOP_MIX), which must serve the
+    per-token loop's tokens. Returns the kernels' launches summed over
+    the runs."""
+    from repro_torch.configs.registry import get_arch
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    for arch in SERVE_FAMILIES:
+        cfg = serve_config(arch)
+        params, init_s = serve_params(torch, cfg)
+        n = sum(x.numel() for x in tree_mod.leaves(params))
+        print(f"serving {arch}: {cfg.num_layers} of "
+              f"{get_arch(arch).num_layers} "
+              f"layers at its published widths (d {cfg.d_model}, "
+              f"{cfg.num_heads} heads over {cfg.num_kv_heads}, d_ff "
+              f"{cfg.d_ff}" + (f", {cfg.num_experts} experts top "
+                               f"{cfg.top_k}" if cfg.num_experts else "")
+              + (f", window {cfg.sliding_window}" if cfg.sliding_window
+                 else "") + f"), {n:,} bf16 params "
+              f"({sum(x.numel() * x.element_size() for x in tree_mod.leaves(params)) / 1e9:.1f}"
+              f" GB) made on the card in {init_s:.1f} s")
+        # only the counts are kept: an engine holds the params and pool
+        add(serve_run(torch, serve_mod, tf, kmods, ref, cfg, params,
+                      [*SERVE_FAMILY_RUN, "--device", "cuda"], "paged",
+                      main_record, tree_mod)[2])
+        if cfg.num_experts:
+            tokens = {}
+            for label, run in SERVE_LOOP_RUNS:
+                res, engine, counts = serve_run(
+                    torch, serve_mod, tf, kmods, ref, cfg, params,
+                    [*run, *SERVE_FAMILY_LOOP_MIX, "--device", "cuda"],
+                    label, main_record, tree_mod)
+                del engine
+                add(counts)
+                tokens[label] = [r["tokens"] for r in res]
+            agree = {k: v == tokens["loop per token"]
+                     for k, v in tokens.items()}
+            check(all(agree.values()), f"serving {arch}: loop chunked 64 / "
+                  f"paged served other tokens than the per-token loop: "
+                  f"{agree}")
+            print(f"serving {arch} full width: loop chunked 64 and paged "
+                  "serve the per-token loop's tokens")
+        del params
+        torch.cuda.empty_cache()
+    return totals
+
+
 def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
             main_record):
     """Phase 4's serving runs (module docstring): the row-invariance probe,
@@ -3894,7 +4403,8 @@ def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
             totals[k] = totals.get(k, 0) + v
 
     cfg = serve_config("minitron-8b")
-    probe = row_invariance_probe(torch, idn, irn, cfg)
+    probe = row_invariance_probe(torch, idn, irn, cfg,
+                                 moe_cfg=serve_config(PHI))
     params, init_s = serve_params(torch, cfg)
     n = sum(x.numel() for x in tree_mod.leaves(params))
     print(f"serving minitron-8b CONFIG_SWA: {cfg.num_layers} layers, window "
@@ -4092,42 +4602,57 @@ def main() -> None:
     scen = scenario_runs(torch, train, sp, ref, tree_mod, main_rec)
     fed = federation_scale(torch, sp, tree_mod, main_rec)
     clock.mark("4, scenarios and the federation scale")
-    llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
-                           tree_mod, main_rec)
-    llm_planes = pod_client_planes(torch, train, "minitron-8b", fa, kmods,
-                                   ref, tree_mod, main_rec)
-    rwkv, peak_at_8 = pod_main_path(torch, train, "rwkv6-3b", rs, kmods, ref,
-                                    tree_mod, main_rec)
-    rwkv_planes = pod_client_planes(torch, train, "rwkv6-3b", rs, kmods, ref,
-                                    tree_mod, main_rec)
-    deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8, main_rec)
-    clock.mark("4, the LLM pod paths")
-    served, _ = serving(torch, serve_mod, tf, sa, rs, idn, irn,
-                        (*kmods, sa, idn, irn), ref, tree_mod, main_rec)
-    clock.mark("4, serving")
-    launches = {k: sum(run.get(k, 0) for run in (
-        launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
-        rwkv_planes, deep, served)) for k in recs}
-    fused_vs_plain(torch, train, tree_mod)
-    legacy_kernel_vs_plain(torch, train, tree_mod)
-    client_planes_per_cohort(torch, tree_mod)
-    for arch, km in (("minitron-8b", fa), ("rwkv6-3b", rs)):
-        for plane in ("masked", "partitioned"):
-            llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane)
-    clock.mark("5, card against plain and CPU")
-    port_contract(torch, train, tree_mod)
-    llm_contract(torch, train, "minitron-8b", tree_mod)
-    llm_contract(torch, train, "rwkv6-3b", tree_mod)
-    llm_partitioned_contract(torch, train, "minitron-8b", tree_mod)
-    with tempfile.TemporaryDirectory() as tmp:
-        restart_contract(torch, train, tree_mod, tmp)
-        prefetch_and_metrics(torch, train, tree_mod, tmp)
-        clock.mark("6, the port's contracts")
-        where_time_goes(torch, train)
-        llm_where_time_goes(torch, train, "minitron-8b", tmp)
-        llm_where_time_goes(torch, train, "rwkv6-3b", tmp)
-        llm_where_time_goes(torch, train, "minitron-8b", tmp,
-                            (*PARTITIONED, "--p-limited", "1.0"))
+    # one draw a full-width config for the pod runs of phases 4-7
+    with MemoInit(tf, [llm_full_width(a) for a in MEMO_ARCHS]) as memo:
+        llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
+                               tree_mod, main_rec)
+        llm_planes = pod_client_planes(torch, train, "minitron-8b", fa,
+                                       kmods, ref, tree_mod, main_rec)
+        rwkv, peak_at_8 = pod_main_path(torch, train, "rwkv6-3b", rs, kmods,
+                                        ref, tree_mod, main_rec)
+        rwkv_planes = pod_client_planes(torch, train, "rwkv6-3b", rs, kmods,
+                                        ref, tree_mod, main_rec)
+        deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8,
+                          main_rec)
+        clock.mark("4, the LLM pod paths")
+        moe_pod = moe_pod_path(torch, train, fa, kmods, ref, tree_mod,
+                               main_rec)
+        clock.mark("4, the phi3.5-moe pod path")
+        served, _ = serving(torch, serve_mod, tf, sa, rs, idn, irn,
+                            (*kmods, sa, idn, irn), ref, tree_mod, main_rec)
+        clock.mark("4, serving")
+        families = serving_families(torch, serve_mod, tf,
+                                    (*kmods, sa, idn, irn), ref, tree_mod,
+                                    main_rec)
+        clock.mark("4, serving the moe and large dense configs")
+        launches = {k: sum(run.get(k, 0) for run in (
+            launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
+            rwkv_planes, deep, moe_pod, served, families)) for k in recs}
+        fused_vs_plain(torch, train, tree_mod)
+        legacy_kernel_vs_plain(torch, train, tree_mod)
+        client_planes_per_cohort(torch, tree_mod)
+        for arch, km in (("minitron-8b", fa), ("rwkv6-3b", rs)):
+            for plane in ("masked", "partitioned"):
+                llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane)
+        clock.mark("5, card against plain and CPU")
+        port_contract(torch, train, tree_mod)
+        llm_contract(torch, train, "minitron-8b", tree_mod)
+        llm_contract(torch, train, "rwkv6-3b", tree_mod)
+        llm_partitioned_contract(torch, train, "minitron-8b", tree_mod)
+        moe_reduced_on_card(torch, train, fa, tree_mod)
+        with tempfile.TemporaryDirectory() as tmp:
+            restart_contract(torch, train, tree_mod, tmp)
+            prefetch_and_metrics(torch, train, tree_mod, tmp)
+            clock.mark("5-6, the port's contracts and the reduced moe, "
+                       "mixtral and qwen paths")
+            where_time_goes(torch, train)
+            llm_where_time_goes(torch, train, "minitron-8b", tmp)
+            llm_where_time_goes(torch, train, "minitron-8b", tmp,
+                                (*PARTITIONED, "--p-limited", "1.0"))
+            memo.drop(llm_full_width("minitron-8b"))     # its last pod run
+            llm_where_time_goes(torch, train, "rwkv6-3b", tmp)
+            memo.drop(llm_full_width("rwkv6-3b"))
+            moe_where_time_goes(torch, train, fa, tmp)
     clock.mark("7, profiles")
 
     f32 = "torch.float32"

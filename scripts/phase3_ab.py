@@ -25,8 +25,11 @@ runs its one-leaf and its many-leaf cases; ``server_adam`` and
 the same shapes are read side by side); ``invariant_dense`` each
 checkout's projections (and, where its chip_smoke has them, its groups),
 rows bitwise across M and the times at M 4 and 256; ``invariant_rmsnorm``
-each checkout's norm checks. Two checks run THIS checkout's chip_smoke
-code against the other checkout's package: ``add_norm`` times the residual
+each checkout's norm checks. Three checks run THIS checkout's chip_smoke
+code against the other checkout's package: ``dense_f32`` holds
+``invariant_dense``'s f32 form rows bitwise and times it at the f32
+shapes it served before slice 17 (``DENSE_F32_EARLIER``, M 4 and 256);
+``add_norm`` times the residual
 add followed by the norm (and the fused call where the package has it),
 device and host, at d 4096 bf16, M 4 and 256; ``decode_step`` traces one
 full-width 32-layer minitron-8b decode step and counts its device
@@ -65,6 +68,8 @@ CHECKS = {
     "invariant_rmsnorm": "cs.check_invariant_rmsnorm(torch, irn, ref, rec)",
     "add_norm": "this.add_norm_pair(torch, irn, rec)",
     "decode_step": "this.decode_step_record(torch, rec)",
+    "dense_f32": "this.check_dense_wide(torch, idn, ref, rec, "
+                 "this.DENSE_F32_EARLIER, 'its earlier f32 shapes')",
 }
 
 _RUN = """

@@ -1,8 +1,10 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
-The port has the paper's own CNN, the dense transformer minitron-8b and
-the RWKV-6 model rwkv6-3b; the other LLM families join with their
-models.
+The port has the paper's own CNN, the dense transformers minitron-8b,
+llama3-405b, mistral-large-123b and qwen1.5-110b, the mixture-of-experts
+transformers phi3.5-moe-42b-a6.6b and mixtral-8x22b, and the RWKV-6
+model rwkv6-3b; the hybrid, VLM and encoder-decoder families join with
+their models.
 
 Also the config-side door to the environment and scenario registries
 (``repro_torch.env``): ``get_scenario`` / ``scenario_names`` resolve a
@@ -11,13 +13,21 @@ package imports configs.base, so it must not be imported at this
 module's import time)."""
 from __future__ import annotations
 
-from repro_torch.configs import minitron_8b, paper_cnn, rwkv6_3b
+from repro_torch.configs import (llama3_405b, minitron_8b,
+                                 mistral_large_123b, mixtral_8x22b,
+                                 paper_cnn, phi35_moe_42b, qwen15_110b,
+                                 rwkv6_3b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    "minitron-8b": minitron_8b.CONFIG,
-    "paper-cnn": paper_cnn.CONFIG,
     "rwkv6-3b": rwkv6_3b.CONFIG,
+    "minitron-8b": minitron_8b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
+    "mistral-large-123b": mistral_large_123b.CONFIG,
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "llama3-405b": llama3_405b.CONFIG,
+    "qwen1.5-110b": qwen15_110b.CONFIG,
+    "paper-cnn": paper_cnn.CONFIG,
 }
 
 
@@ -29,7 +39,8 @@ def get_arch(name: str) -> ModelConfig:
 
 def serving_config(name: str) -> ModelConfig:
     """Config used for decode shapes (long-context variants where
-    needed): minitron-8b serves its sliding-window variant."""
+    needed): minitron-8b serves its sliding-window variant; mixtral-8x22b
+    its own windowed config."""
     cfg = get_arch(name)
     if name == "minitron-8b":
         return minitron_8b.CONFIG_SWA

@@ -73,9 +73,12 @@
 //    with a 6-stage ring), and a launch whose clusters do not fit in one
 //    wave takes the two-an-SM rings instead.
 //
-// f32, on the CUDA cores (the reduced f32 checks only): a thread owns a
-// column and 8 rows, one fmaf a k in K order; a group is one launch over
-// its problems' column blocks. No split.
+// f32, on the CUDA cores (the MoE routers, N 16 or 8, and the reduced f32
+// checks): a warp owns a column and 8 rows; lane l sums k = l, l + 32, ...
+// in K order, one fmaf a k, then the lanes' sums fold in a fixed butterfly
+// and lane 0 writes: an order fixed by K alone. A group is one launch over
+// its problems' column blocks. At N 16 one thread a column would leave
+// the card one block and a serial chain of K dependent loads.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -368,6 +371,7 @@ __global__ void __launch_bounds__(Form<CONS, MT, STAGES, BPS>::kThreads, BPS)
 }
 
 constexpr int kRowsF32 = 8;
+constexpr int kWarpsF32 = 4;   // columns a block
 
 struct F32Problem {
   const float* w;
@@ -382,21 +386,23 @@ struct F32Args {
   int P, M, K;
 };
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(32 * kWarpsF32)
     invariant_dense_f32_kernel(const __grid_constant__ F32Args a) {
   int pi = 0;
 #pragma unroll
   for (int q = 1; q < kMaxProblems; ++q)
     if (q < a.P && static_cast<int>(blockIdx.x) >= a.p[q].first) pi = q;
   const F32Problem& p = a.p[pi];
-  const int n = (blockIdx.x - p.first) * 128 + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int n = (blockIdx.x - p.first) * kWarpsF32 + (threadIdx.x >> 5);
   const int m0 = blockIdx.y * kRowsF32;
-  if (n >= p.N) return;
+  if (n >= p.N) return;                 // a whole warp: n is the warp's
   const int rows = min(kRowsF32, a.M - m0);
   float acc[kRowsF32];
 #pragma unroll
   for (int r = 0; r < kRowsF32; ++r) acc[r] = 0.f;
-  for (int k = 0; k < a.K; ++k) {       // K order, one fmaf a k
+#pragma unroll 4
+  for (int k = lane; k < a.K; k += 32) {   // the lane's k in K order
     const float wk = __ldg(p.w + static_cast<size_t>(k) * p.N + n);
 #pragma unroll
     for (int r = 0; r < kRowsF32; ++r)
@@ -404,9 +410,15 @@ __global__ void __launch_bounds__(128)
         acc[r] = fmaf(__ldg(a.x + static_cast<size_t>(m0 + r) * a.K + k), wk,
                       acc[r]);
   }
-  for (int r = 0; r < rows; ++r)
-    p.y[static_cast<size_t>(m0 + r) * p.N + n] =
-        p.b ? acc[r] + p.b[n] : acc[r];
+#pragma unroll
+  for (int r = 0; r < kRowsF32; ++r)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+  if (lane == 0)
+    for (int r = 0; r < rows; ++r)
+      p.y[static_cast<size_t>(m0 + r) * p.N + n] =
+          p.b ? acc[r] + p.b[n] : acc[r];
 }
 
 // TMA map of a row-major (rows, cols) bf16 matrix read in boxes of 64
@@ -510,7 +522,7 @@ struct Launch {
 // of two <= 8; 1 for f32; K % (S * 64) == 0 when S > 1). form (bf16): 0
 // decode (one 64-row tile a block, M <= 64), 1 prefill (128 rows a block),
 // 2 prefill (256 rows). The wrapper checks shapes, dtypes, contiguity,
-// 16-byte alignment and K, N % 8 == 0.
+// 16-byte alignment, K % 8 == 0 and, in bf16, N % 8 == 0.
 extern "C" int invariant_dense(int dtype, const void* x, int M, int K, int P,
                                const long long* table, int form,
                                void* stream) {
@@ -524,15 +536,15 @@ extern "C" int invariant_dense(int dtype, const void* x, int M, int K, int P,
     int blocks = 0;
     for (int q = 0; q < P; ++q) {
       const long long* row = table + 5 * q;
-      const int N = static_cast<int>(row[3]);
-      if (N < 1 || N % 8) return static_cast<int>(cudaErrorInvalidValue);
+      const int N = static_cast<int>(row[3]);   // any N: one column a thread
+      if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
       a.p[q] = F32Problem{reinterpret_cast<const float*>(row[0]),
                           reinterpret_cast<const float*>(row[1]),
                           reinterpret_cast<float*>(row[2]), N, blocks};
-      blocks += (N + 127) / 128;
+      blocks += (N + kWarpsF32 - 1) / kWarpsF32;
     }
     const dim3 grid(blocks, (M + kRowsF32 - 1) / kRowsF32);
-    invariant_dense_f32_kernel<<<grid, 128, 0, st>>>(a);
+    invariant_dense_f32_kernel<<<grid, 32 * kWarpsF32, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype != 1 || form < 0 || form > 2 || (form == 0) != (M <= 64))

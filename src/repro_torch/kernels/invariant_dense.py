@@ -10,15 +10,17 @@ split, partials and fold). It replaces no Pallas kernel: it is the XLA
 dot of the JAX package's ``models/layers.py: dense`` (:22) on the serving
 path. On the card every output element is summed over K in an order
 fixed by (K, N) alone, whatever the number of rows M
-(``csrc/invariant_dense.cu``: bf16 on the tensor cores, f32 with one
-fmaf a k on the CUDA cores): a row of a 256-row prefill chunk equals
+(``csrc/invariant_dense.cu``: bf16 on the tensor cores, f32 on the CUDA
+cores, a warp a column summing K in 32 strided lanes and a fixed fold): a row of a 256-row prefill chunk equals
 that row of a 4-row decode step bit for bit, which ``torch.matmul``
 (cuBLAS picks its tiling and split of K by M) does not give. M picks only
 the kernel's form (``form``: how many 64-row tiles a block carries).
 
-Only the transformer family's serving steps call it: the attention's
+Only the transformer families' serving steps call it: the attention's
 wq|wk|wv as one group and wo, the MLP's w_in|w_gate as one group and
-w_out, and ``lm_head``: 4 launches a layer and 1 a step. Training keeps
+w_out, and ``lm_head``: 4 launches a layer and 1 a step; a moe block
+(``models/moe.py: moe_serve``) the f32 router, each two experts'
+w_in|w_gate and each expert's w_out in place of the MLP. Training keeps
 ``layers.dense``.
 
 Dispatch is by device: a CPU tensor takes the plain version
@@ -124,9 +126,9 @@ def _dense(x, problems):
     if K < 1 or M < 1 or min(Ns) < 1:
         raise ValueError(f"invariant_dense takes non-empty operands: x "
                          f"{tuple(x.shape)}, w (K, N) {Ns}")
-    if K % 8 or any(N % 8 for N in Ns):
-        raise ValueError(f"invariant_dense reads 16-byte rows: K ({K}) and "
-                         f"N {Ns} must be multiples of 8")
+    if K % 8 or (x.dtype == torch.bfloat16 and any(N % 8 for N in Ns)):
+        raise ValueError(f"invariant_dense reads 16-byte rows: K ({K}) and, "
+                         f"in bf16, N {Ns} must be multiples of 8")
     if x.data_ptr() % 16 or any(
             t is not None and t.data_ptr() % 16 for p in problems for t in p):
         raise ValueError("invariant_dense: x, w and b must start on a "

@@ -1,5 +1,5 @@
 """Unified model API (the port's part of the JAX package's
-``models/api.py``: the paper CNN and the dense and ssm (RWKV-6)
+``models/api.py``: the paper CNN and the dense, moe and ssm (RWKV-6)
 transformer families):
 
     model = build_model(cfg)
@@ -10,9 +10,10 @@ transformer families):
     logits, cache = model.decode_step(params, token, position, cache)
 
 The serving surface of the transformer families: ``decode_step`` and
-``init_decode_cache`` (dense and ssm), ``prefill_logits``, and, for the
-attention family only (as in JAX: the ssm family decodes through
-recurrent state, not a KV ring), ``prefill`` and the paged entries
+``init_decode_cache`` (dense, moe and ssm), ``prefill_logits``, and, for
+the attention families (dense and moe) only (as in JAX: the ssm family
+decodes through recurrent state, not a KV ring), ``prefill`` and the
+paged entries
 ``init_paged_pool``, ``decode_step_paged``, ``prefill_paged``; ``None``
 elsewhere. Caches and pools are allocated on the params' device
 (``init_decode_cache(params, batch, max_len)``) or on the device given
@@ -64,7 +65,7 @@ def build_model(cfg: ModelConfig) -> Model:
             forward=lambda p, b: cnn.forward(p, cfg, b),
         )
     transformer.check_family(cfg)
-    attn_family = cfg.family == "dense"
+    attn_family = cfg.family in ("dense", "moe")
     tf = transformer
     return Model(
         cfg=cfg,

@@ -1,6 +1,8 @@
-"""The decoder stack of the dense and ssm (RWKV-6) families (the port of
-the JAX package's ``models/transformer.py`` for ``family`` "dense" and
-"ssm").
+"""The decoder stack of the dense, moe and ssm (RWKV-6) families (the
+port of the JAX package's ``models/transformer.py`` for ``family``
+"dense", "moe" and "ssm"). A block with ``cfg.num_experts`` carries
+``moe`` (``models/moe.py``) where a dense block carries ``mlp``, as in
+JAX: its aux loss flows into ``loss_fn``'s ``0.01 * aux``.
 
 The stack is split into BODY and TAIL block groups so the paper's FES
 scheme (feature extractor = embed + body; classifier = tail + final norm
@@ -14,8 +16,8 @@ block's input (and its parameters, which are alive anyway) between the
 forward and the backward, and the backward runs the block again to take
 its vector-Jacobian product. That changes memory, not values: the loss
 and every gradient are bitwise those of the stack without remat, on the
-CPU and, with the deterministic kernels, on the card. The hybrid, moe,
-vlm and audio families raise NotImplementedError: they come with later
+CPU and, with the deterministic kernels, on the card. The hybrid, vlm
+and audio families raise NotImplementedError: they come with later
 slices of the port.
 
 Serving: ``init_decode_cache``, ``decode_step`` (dense and ssm),
@@ -29,9 +31,10 @@ The dense family's serving steps run every projection (7 a layer in 4
 launches: wq|wk|wv and w_in|w_gate grouped; and ``lm_head``) and every
 RMSNorm (2 a layer and the final norm) on the row-invariant kernels
 (``layers.dense_serve``, ``dense_serve_group``, ``mlp_serve``,
-``add_rmsnorm_serve``): on the card a row's result does not depend on
-how many rows the step carries, so chunked prefill equals the per-token
-loop there too. A dense serving block takes the residual stream x and
+``add_rmsnorm_serve``; a moe block's experts through ``moe.moe_serve``,
+1 + 3 E / 2 launches in place of the MLP's 2): on the card a row's
+result does not depend on how many rows the step carries, so chunked
+prefill equals the per-token loop there too. A dense serving block takes the residual stream x and
 ``r``, the previous block's MLP output not yet added (None before the
 first block), and returns the same pair: each norm takes the add before
 it into its own launch (``x, n = add_rmsnorm_serve(ln, x, r)``), the
@@ -43,7 +46,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv6
+from repro_torch.models import moe, rwkv6
 from repro_torch.models.layers import (add_rmsnorm_serve,
                                        chunked_cross_entropy, dense,
                                        dense_init, dense_serve, embedding,
@@ -52,14 +55,13 @@ from repro_torch.models.layers import (add_rmsnorm_serve,
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 #: family -> the slice of the port that brings it
-_LATER = {"hybrid": "the mamba2/hybrid slice",
-          "moe": "the MoE slice", "vlm": "the VLM slice",
+_LATER = {"hybrid": "the mamba2/hybrid slice", "vlm": "the VLM slice",
           "audio": "the encoder-decoder slice"}
 
 
 def check_family(cfg) -> None:
-    family = "moe" if cfg.num_experts else cfg.family
-    if family not in ("dense", "ssm"):
+    family = cfg.family
+    if family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"model family {family!r} ({cfg.name}) is not ported yet: it "
             f"comes with {_LATER.get(family, 'a later slice')}")
@@ -74,10 +76,14 @@ def block_init(gen: torch.Generator, cfg, dtype) -> dict:
         return {"rwkv": rwkv6.rwkv6_init(gen, cfg, dtype),
                 "ln1": rmsnorm_init(cfg.d_model, dtype),
                 "ln2": rmsnorm_init(cfg.d_model, dtype)}
-    return {"ln1": rmsnorm_init(cfg.d_model, dtype),
-            "ln2": rmsnorm_init(cfg.d_model, dtype),
-            "attn": attn.attn_init(gen, cfg, dtype),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.mlp_gated)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, dtype),
+         "ln2": rmsnorm_init(cfg.d_model, dtype),
+         "attn": attn.attn_init(gen, cfg, dtype)}
+    if cfg.num_experts:
+        p["moe"] = moe.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, cfg.mlp_gated)
+    return p
 
 
 def _stacked_block_init(gen: torch.Generator, cfg, n: int, dtype):
@@ -101,7 +107,11 @@ def block_fwd(p, cfg, x, positions, aux):
         return x + h, aux
     h = attn.attention_fwd(p["attn"], cfg, rmsnorm(p["ln1"], x), positions)
     x = x + h
-    h = mlp(p["mlp"], rmsnorm(p["ln2"], x))
+    if cfg.num_experts:
+        h, a = moe.moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x))
+        aux = aux + a
+    else:
+        h = mlp(p["mlp"], rmsnorm(p["ln2"], x))
     return x + h, aux
 
 
@@ -200,8 +210,8 @@ def embed_inputs(params, cfg, batch):
 
 
 def hidden_states(params, cfg, batch):
-    """Final-norm hidden states (no logits) and the aux loss (0 for the
-    dense and ssm families)."""
+    """Final-norm hidden states (no logits) and the aux loss (the moe
+    blocks' summed; 0 for the dense and ssm families)."""
     x, positions = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = _run_blocks(params["body"], cfg, x, positions, aux)
@@ -267,14 +277,17 @@ def _layer(tree, i):
     return {k: a[i] for k, a in tree.items()}
 
 
-def _serve_block(p, x, r, attend):
-    """A dense block of a serving step: the residual r added in ln1's
-    launch, ``attend(n)`` the block's attention output on ln1's output,
-    added in ln2's launch. Every serving path applies its dense blocks
-    through this, so their residual streams match row for row. Returns
-    (x, r), r the MLP output not yet added."""
+def _serve_block(p, cfg, x, r, attend):
+    """An attention block of a serving step: the residual r added in
+    ln1's launch, ``attend(n)`` the block's attention output on ln1's
+    output, added in ln2's launch, then the MLP (``moe.moe_serve`` in a
+    moe block). Every serving path applies its attention blocks through
+    this, so their residual streams match row for row. Returns (x, r), r
+    the MLP output not yet added."""
     x, n = add_rmsnorm_serve(p["ln1"], x, r)
     x, n = add_rmsnorm_serve(p["ln2"], x, attend(n))
+    if cfg.num_experts:
+        return x, moe.moe_serve(p["moe"], cfg, n)[0]
     return x, mlp_serve(p["mlp"], n)
 
 
@@ -290,7 +303,7 @@ def block_decode(p, cfg, x, r, cache, position):
         h, cache = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x)[:, 0],
                                      cache, single=True)
         return x + h[:, None], None, cache
-    x, r = _serve_block(p, x, r, lambda n: attn.attention_decode(
+    x, r = _serve_block(p, cfg, x, r, lambda n: attn.attention_decode(
         p["attn"], cfg, n, cache, position)[0])
     return x, r, cache
 
@@ -340,7 +353,7 @@ def block_prefill(p, cfg, x, r, cache, positions):
     path's (``_serve_block``), so the residual stream matches
     ``block_decode`` row for row. Returns (x, r, cache), the cache
     written in place."""
-    x, r = _serve_block(p, x, r, lambda n: attn.attention_prefill(
+    x, r = _serve_block(p, cfg, x, r, lambda n: attn.attention_prefill(
         p["attn"], cfg, n, cache, positions)[0])
     return x, r, cache
 
@@ -401,7 +414,7 @@ def _scan_blocks_paged(stacked, cfg, x, r, pool, table, ring_len,
         else attn.attention_decode_paged
     for i in range(leaves(stacked)[0].shape[0]):
         p = tree_map(lambda a, i=i: a[i], stacked)
-        x, r = _serve_block(p, x, r, lambda n, p=p, i=i: fn(
+        x, r = _serve_block(p, cfg, x, r, lambda n, p=p, i=i: fn(
             p["attn"], cfg, n, _layer(pool, i), table, ring_len,
             positions)[0])
     return x, r

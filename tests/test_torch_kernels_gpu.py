@@ -937,23 +937,59 @@ def test_invariant_dense_group_refuses_what_one_launch_cannot_take():
 
 @pytest.mark.gpu
 def test_invariant_dense_f32_rows_bitwise_on_card():
-    """f32 invariant_dense (one fmaf a k on the CUDA cores): rows bitwise
-    across M, within 1e-5 of the f64 product."""
+    """f32 invariant_dense (a warp a column on the CUDA cores, K in 32
+    strided lanes and a fixed fold): rows bitwise across M, within 1e-5
+    of the f64 product; N need not be a multiple of 8 in f32 (the MoE
+    routers: N 16, 8 and the reduced configs' 4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import invariant_dense as tid
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    K, N = 256, 136
-    x = torch.randn(70, K, device=dev, generator=g)
-    w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
-    b = torch.randn(N, device=dev, generator=g)
-    full = tid.invariant_dense(x, w, b)
-    for M in (1, 4, 5, 9, 64, 70):
-        assert torch.equal(tid.invariant_dense(x[:M].contiguous(), w, b),
-                           full[:M]), M
-    want = (x.double() @ w.double() + b.double()).float()
-    torch.testing.assert_close(full, want, rtol=1e-5, atol=1e-5)
+    for K, N in ((256, 136), (4096, 16), (6144, 8), (256, 4)):
+        x = torch.randn(70, K, device=dev, generator=g)
+        w = torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+        b = torch.randn(N, device=dev, generator=g)
+        full = tid.invariant_dense(x, w, b)
+        for M in (1, 4, 5, 9, 64, 70):
+            assert torch.equal(tid.invariant_dense(x[:M].contiguous(), w, b),
+                               full[:M]), (K, N, M)
+        want = (x.double() @ w.double() + b.double()).float()
+        torch.testing.assert_close(full, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_serve_rows_bitwise_on_card(dtype):
+    """The MoE serving form on the card at reduced size (4 experts, top
+    2): a row's output does not depend on the rows beside it (rows of a
+    (3, 8) call bitwise the same rows called alone), 1 + E / 2 + E
+    invariant_dense launches a call, and moe_apply_dense (cuBLAS) within
+    the dtype's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import invariant_dense as tid
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    cfg = reduced(ARCHS["phi3.5-moe-42b-a6.6b"], dtype=dtype)
+    dt = getattr(torch, dtype)
+    p = moe.moe_init(torch.Generator(device=dev).manual_seed(5), cfg, dt)
+    x = torch.randn(3, 8, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    x = x.to(dt)
+    tid.reset_counts()
+    full, _ = moe.moe_serve(p, cfg, x)
+    E = cfg.num_experts
+    assert tid.invariant_dense.launches == 1 + E // 2 + E
+    for i in range(x.shape[1]):
+        one, _ = moe.moe_serve(p, cfg, x[:, i:i + 1].contiguous())
+        assert torch.equal(one, full[:, i:i + 1]), i
+    want, _ = moe.moe_apply_dense(p, cfg, x)
+    tol = dict(rtol=2e-2, atol=2e-2) if dt == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(full.float(), want.float(), **tol)
 
 
 @pytest.mark.gpu

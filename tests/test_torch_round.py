@@ -176,5 +176,5 @@ def test_unported_options_are_refused():
         tstrategies.resolve(TFL(server_plane="interpret"))
     with pytest.raises(KeyError):
         tstrategies.resolve(TFL(algorithm="scaffold"))
-    with pytest.raises(NotImplementedError, match="moe"):
-        tbuild(TARCHS["minitron-8b"].with_(num_experts=8))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        tbuild(TARCHS["minitron-8b"].with_(family="hybrid"))
