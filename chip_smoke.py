@@ -167,6 +167,28 @@ phi3.5-moe rounds with the device time of its MoE layers' dispatch,
 experts' GEMMs and combine read from the trace's profiler ranges
 (``moe_where_time_goes``). The full-width pod runs of phases 4-7 share
 one parameter draw a config (``MemoInit``).
+Slice 18 (the hybrid family, zamba2-1.2b) adds: in phase 3 the mamba2
+recurrence's forward and backward kernels against their plain versions
+(``check_mamba2``: the pod shape (B 2, S 2048, H 64, P 64, N 64), the
+reduced widths (H 8, N 16), S 100, S 1, h0 = 0, decays near 0 and near
+1; within 1e-5 x (1 + max |plain|), the states bitwise; times, plain
+times and bounds at the pod shape and the decode step); in phase 4
+zamba2 at full width and all 38 layers on the pod path
+(``zamba2_pod_path``: ama_fes and fedavg, then masked with --no-scan;
+launches from ``plan_launches`` over both kernel families, 152
+mamba2_fwd, 76 mamba2_bwd and 12 of each flash kernel a round; server_mix
+2 a round; peak, tokens/s over rounds 2-3) and served at 38 layers per
+token twice through the loop engine, the same tokens both times
+(``zamba2_serving``); in phases 5-6 the reduced zamba2 at 6 layers card
+== CPU on both client planes, chunked == per round and remat on == off
+bitwise (``zamba2_reduced_on_card``); in phase 7 a 2-round profile with
+the mamba2 kernels' and flash's shares and the device time of the
+recurrence's and the shared attention's profiler ranges
+(``zamba2_where_time_goes``). The mamba2 kernels' device kernels a call
+are traced in a process of their own (``mamba2_kernels_fresh``), and
+every profiler session of the run keeps CUPTI set up between sessions
+(``TEARDOWN_CUPTI`` = 0, as PyTorch sets it where CUDA graphs are
+captured: the run captures them for its timings).
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -176,6 +198,7 @@ from __future__ import annotations
 import bisect
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -991,6 +1014,7 @@ def ama_mix_round_row(recs):
 LLM_N = 2_583_711_744            # minitron-8b, 2 layers, full width
 RWKV_N = 1_018_698_240           # rwkv6-3b, 8 layers, full width
 PHI_N = 2_863_288_320            # phi3.5-moe, 2 layers, full width
+ZAMBA_N = 1_119_979_648          # zamba2-1.2b, all 38 layers, full width
 LLM_K = 2                        # the pod path's cohorts
 CUBLAS_ROWS = 1 << 30            # addmv rows a call, below 2**31
 
@@ -1421,6 +1445,191 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
                          nbytes=nbytes, flops=flops, bound_ms=bnd,
                          bound_by=by, design_bound_ms=dbnd)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------- mamba2 (A1) -----
+
+#: (B, S, H, N, decay, h0, label): the pod path's shape (2 cohorts x 1 x
+#: 2048 tokens, zamba2's 64 heads of 64 and state 64), the reduced
+#: config's widths (8 heads, state 16), a ragged S, the serving path's
+#: decode step, a zero h0, and decays near 0 and near 1
+MAMBA_MAIN = (2, 2048, 64, 64, "model", True, "pod shape")
+MAMBA_DECODE = (4, 1, 64, 64, "model", True, "decode, S = 1")
+MAMBA_CASES = [MAMBA_MAIN,
+               (2, 2048, 8, 16, "model", True, "reduced widths"),
+               (2, 100, 64, 64, "model", True, "S 100, ragged"),
+               MAMBA_DECODE,
+               (2, 256, 64, 64, "model", False, "h0 = 0"),
+               (2, 256, 4, 64, "near 0", True, "decay ~1e-30"),
+               (2, 2048, 4, 64, "near 1", True, "decay 0.99990")]
+
+
+def mamba2_inputs(torch, g, B, S, H, N, decay, h0_on):
+    """The recurrence's operands as the model makes them: a = exp(dt_s A)
+    with dt_s = softplus(dt), A = -exp(A_log), xdt = x dt_s, B and C off
+    the conv; near 0 and near 1 the decay is drawn there."""
+    dev = torch.device("cuda")
+    dt_s = torch.nn.functional.softplus(
+        torch.randn(B, S, H, device=dev, generator=g))
+    if decay == "model":
+        A = -torch.exp(0.5 * torch.randn(H, device=dev, generator=g))
+        a = torch.exp(dt_s * A)
+    elif decay == "near 0":
+        a = 1e-30 * torch.rand(B, S, H, device=dev, generator=g)
+    else:
+        a = torch.full((B, S, H), 0.9999, device=dev)
+    x = torch.randn(B, S, H, 64, device=dev, generator=g)
+    xdt = x * dt_s[..., None]
+    Bm, Cm = (torch.randn(B, S, N, device=dev, generator=g)
+              for _ in range(2))
+    h0 = 0.3 * torch.randn(B, H, 64, N, device=dev, generator=g)
+    if not h0_on:
+        h0.zero_()
+    dy = 0.5 * torch.randn(B, S, H, 64, device=dev, generator=g)
+    dh = 0.3 * torch.randn(B, H, 64, N, device=dev, generator=g)
+    return a, xdt, Bm, Cm, h0, dy, dh
+
+
+def check_mamba2(torch, ms, ref, record):
+    """mamba2_fwd and mamba2_bwd against their plain versions on the same
+    inputs in every MAMBA_CASES case: every output and gradient within
+    1e-5 x (1 + max |plain|), the states and h_final bitwise (the state
+    update rounds each op alone, as the plain version does); device times
+    at the pod shape and the decode step beside the bound and the plain
+    version (no single library call computes the recurrence)."""
+    traced = mamba2_kernels_fresh()
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(28)
+    names = ("y", "h_final", "states", "da", "dxdt", "dB", "dC", "dh0")
+    print("mamba2: B, S, H, N, case | max |kernel - plain| / (1 + max "
+          "|plain|) over y, h_final, states / da, dxdt, dB, dC, dh0 "
+          "(limit 1e-5) | max |kernel - plain| fwd / bwd | states bitwise")
+    for case in MAMBA_CASES:
+        B, S, H, N, decay, h0_on, label = case
+        a, xdt, Bm, Cm, h0, dy, dh = mamba2_inputs(torch, g, B, S, H, N,
+                                                   decay, h0_on)
+        got = ms.mamba2_fwd(a, xdt, Bm, Cm, h0)
+        want = ref.mamba2_scan_ref(a, xdt, Bm, Cm, h0)
+        got += ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm, want[2])
+        want += ref.mamba2_scan_bwd_ref(dy, dh, a, xdt, Bm, Cm, want[2])
+        torch.cuda.synchronize()
+        errs, abss = [], []
+        for name, u, v in zip(names, got, want, strict=True):
+            check(u.shape == v.shape, f"mamba2 {label}: {name} shape")
+            abss.append(float((u - v).abs().max()))
+            e = abss[-1] / (1.0 + float(v.abs().max()))
+            check(e <= 1e-5, f"mamba2 {label} (B={B} S={S} H={H} N={N}): "
+                  f"{name} differs by {e:.3e} x (1 + max |plain|)")
+            errs.append(e)
+        exact = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        check(exact, f"mamba2 {label}: h_final or the states are not the "
+              "plain version's bits")
+        print(f"  B={B} S={S:5d} H={H:2d} N={N} {label:16s} | "
+              f"{max(errs[:3]):.2e} / {max(errs[3:]):.2e} | "
+              f"{max(abss[:3]):.2e} / {max(abss[3:]):.2e} | {exact}")
+        rec = dict(case=case, err_fwd=max(abss[:3]), err_bwd=max(abss[3:]))
+        if case in (MAMBA_MAIN, MAMBA_DECODE):
+            rec.update(time_mamba2(torch, ms, ref, case, a, xdt, Bm, Cm, h0,
+                                   dy, dh, want[2], traced))
+        record.append(rec)
+        del a, xdt, Bm, Cm, h0, dy, dh, got, want
+        torch.cuda.empty_cache()
+
+
+def mamba2_traced(torch, ms) -> dict:
+    """{wrapper: the device kernels one call of it runs} for mamba2_fwd and
+    mamba2_bwd at the pod shape (MAMBA_MAIN), from profiler traces of
+    this process (``device_kernels``)."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(28)
+    B, S, H, N, decay, h0_on, _ = MAMBA_MAIN
+    a, xdt, Bm, Cm, h0, dy, dh = mamba2_inputs(torch, g, B, S, H, N, decay,
+                                               h0_on)
+    states = ms.mamba2_fwd(a, xdt, Bm, Cm, h0)[2]
+    return {"mamba2_fwd": device_kernels(
+                torch, lambda: ms.mamba2_fwd(a, xdt, Bm, Cm, h0),
+                "mamba2_fwd"),
+            "mamba2_bwd": device_kernels(
+                torch, lambda: ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm, states),
+                "mamba2_bwd")}
+
+
+def mamba2_kernels_fresh() -> dict:
+    """``mamba2_traced`` in a process of its own, whose profiler sessions
+    are the first it opens and follow no CUDA graph: in this process,
+    after phase 3's other checks, three sessions around one mamba2 call
+    in a row have traced no device activity. Prints that process's
+    ``trace_summary`` and returns its result."""
+    code = ("import json, sys; sys.path[:0] = ['src', '.']; import torch; "
+            "import chip_smoke as cs; "
+            "from repro_torch.kernels import mamba2_scan as ms; "
+            "got = cs.mamba2_traced(torch, ms); "
+            "print('  fresh process: ' + cs.trace_summary()); "
+            "print('MAMBA2-KERNELS ' + json.dumps(got))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    out = proc.stdout.splitlines()
+    print("\n".join(x for x in out if not x.startswith("MAMBA2-KERNELS ")))
+    check(proc.returncode == 0, "mamba2: the traces of one call failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(next(x for x in out if x.startswith(
+        "MAMBA2-KERNELS "))[len("MAMBA2-KERNELS "):])
+
+
+def time_mamba2(torch, ms, ref, case, a, xdt, Bm, Cm, h0, dy, dh, states,
+                traced):
+    """Device times of both kernels and their plain versions at one
+    shape, with each kernel's bound: the bytes and flops of the function
+    it computes, not of its design (the states the forward saves every
+    MAMBA2_CKPT steps and the backward's recomputation are left out).
+    Bytes: each input read once, each output written once; forward a,
+    xdt, B, C, h0 -> y, h_final; backward dy, d(h_final), a, xdt, B, C, h0
+    -> da, dxdt, dB, dC, dh0. Flops a step per (b, h) at the f32 rate:
+    forward 5 P N (a h + x B, y = h C); backward 14 P N (h_t again, G +=
+    dy C, G = a G, the four products dC, dxdt, dB, da). The forward runs
+    one device kernel a call, the backward two (the recurrence, the sum
+    over the heads): ``traced``, the kernels one call of each runs at the
+    pod shape (``mamba2_kernels_fresh``)."""
+    B, S, H, N = case[:4]
+    P = 64
+    E, BS, mat = B * S * H * P, B * S, B * H * P * N
+    steps = B * S * H
+    work = {"mamba2_fwd": (4 * (BS * H + E + 2 * BS * N + mat + E + mat),
+                           steps * 5 * P * N),
+            "mamba2_bwd": (4 * (2 * E + mat + BS * H + 2 * BS * N + mat
+                                + BS * H + E + 2 * BS * N + mat),
+                           steps * 14 * P * N)}
+    kernels = {"mamba2_fwd": lambda: ms.mamba2_fwd(a, xdt, Bm, Cm, h0),
+               "mamba2_bwd": lambda: ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm,
+                                                   states)}
+    plains = {"mamba2_fwd": lambda: ref.mamba2_scan_ref(a, xdt, Bm, Cm, h0),
+              "mamba2_bwd": lambda: ref.mamba2_scan_bwd_ref(
+                  dy, dh, a, xdt, Bm, Cm, states)}
+    passes = {"mamba2_fwd": ["mamba2_fwd_kernel"],
+              "mamba2_bwd": ["mamba2_bwd_heads_kernel", "mamba2_bwd_kernel"]}
+    print(f"mamba2 at B={B} S={S} H={H} P={P} N={N} f32: kernel device ms | "
+          "bound ms (by) | plain device ms | library: none (no single call "
+          "computes the recurrence)")
+    out = {}
+    for name, fn in kernels.items():
+        got = "not traced"
+        if case == MAMBA_MAIN:
+            launched = traced[name]
+            got = sorted(m.group(0) for n in launched
+                         if (m := re.search(r"mamba2_\w+_kernel", n)))
+            check(len(launched) == len(passes[name])
+                  and got == passes[name], f"{name}: one call ran "
+                  f"{launched}, expected {passes[name]}")
+        ms_ = device_ms(torch, fn, reps=5, replays=10)
+        plain = slow_ms(torch, plains[name])
+        nbytes, flops = work[name]
+        bnd, by = bound_ms(nbytes, flops)
+        print(f"  {name:10s} | {ms_:9.4f} ms | {bnd:.4f} ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | plain "
+              f"{plain:9.4f} | kernels {got}")
+        out[name] = dict(ms=ms_, plain_ms=plain, library_ms=None,
+                         nbytes=nbytes, flops=flops, bound_ms=bnd,
+                         bound_by=by)
         torch.cuda.empty_cache()
     return out
 
@@ -2962,6 +3171,7 @@ _FLASH = dict(plain=("flash_attention_ref", "flash_bwd_dq_ref",
                      "flash_bwd_dkdv_ref"), trace="flash_",
               parts=("flash_fwd", "flash_bwd"), fwd=("flash_fwd",))
 PHI = "phi3.5-moe-42b-a6.6b"
+ZAMBA = "zamba2-1.2b"
 LLMS = {
     "minitron-8b": dict(layers=2, tail=1, params=LLM_N, **_FLASH),
     "rwkv6-3b": dict(layers=8, tail=2, params=RWKV_N,
@@ -2971,12 +3181,41 @@ LLMS = {
     PHI: dict(layers=2, tail=1, params=PHI_N, **_FLASH),
     "mixtral-8x22b": dict(_FLASH),
     "qwen1.5-110b": dict(_FLASH),
+    # slice 18: two kernel families, the mamba2 recurrence a layer (its
+    # forward twice under remat) and flash at the shared-attention
+    # sites (``sites``: after each group of attn_every blocks, outside
+    # remat); all 38 layers (6 sites); remat on == off is held at reduced
+    # size (``zamba2_reduced_on_card``)
+    ZAMBA: dict(layers=38, tail=2, params=ZAMBA_N, remat_off=False,
+                plain=("mamba2_scan_ref", "mamba2_scan_bwd_ref",
+                       *_FLASH["plain"]),
+                trace="mamba2_", parts=("mamba2_fwd", "mamba2_bwd",
+                                        "flash_fwd", "flash_bwd"),
+                fwd=("mamba2_fwd", "flash_fwd"),
+                sites=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")),
 }
+
+
+class KernelSet:
+    """Kernel modules seen as one (``KERNELS``, ``reset_counts`` and, if
+    one has it, ``design_launches``): an arch whose path runs more than
+    one kernel family."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+        self.KERNELS = {k: v for m in mods for k, v in m.KERNELS.items()}
+        for m in mods:
+            if hasattr(m, "design_launches"):
+                self.design_launches = m.design_launches
+
+    def reset_counts(self):
+        for m in self.mods:
+            m.reset_counts()
 
 
 #: the archs whose full-width pod runs (``llm_full_width``) repeat over
 #: phases 4-7 and so share one parameter draw (``MemoInit``)
-MEMO_ARCHS = ("minitron-8b", "rwkv6-3b", PHI)
+MEMO_ARCHS = ("minitron-8b", "rwkv6-3b", PHI, ZAMBA)
 
 
 class MemoInit:
@@ -3037,18 +3276,24 @@ def plan_launches(arch, cfg, km, chunks, partitioned: bool):
     cohorts (a body block's forward kernels once and no backward; a tail
     block as in the masked program); L is the dispatch's least limited
     count (0 on the masked plane); one vmapped call covers a program's
-    cohorts."""
+    cohorts. The hybrid family's ``sites`` kernels run once a
+    shared-attention site (outside remat) instead of once a layer."""
     tail = min(cfg.fes_tail_layers, cfg.num_layers)
     body = cfg.num_layers - tail
     per = 2 if cfg.remat else 1
+    spec = LLMS[arch]
+    sites = [n // cfg.attn_every if cfg.attn_every and n >= cfg.attn_every
+             else 0 for n in (body, tail)]
     out = dict.fromkeys(km.KERNELS, 0)
     for lim in chunks:
         n, C = lim.shape
         L = int(lim.sum(axis=1).min()) if partitioned else 0
         for name in out:
-            fwd = name in LLMS[arch]["fwd"]
-            full = cfg.num_layers * (per if fwd else 1)
-            limited = tail * (per if fwd else 1) + (body if fwd else 0)
+            fwd = name in spec["fwd"]
+            b, t = sites if name in spec.get("sites", ()) else (body, tail)
+            rep = per if fwd and name not in spec.get("sites", ()) else 1
+            full = (b + t) * rep
+            limited = t * rep + (b if fwd else 0)
             out[name] += n * POD_STEPS * ((full if C - L else 0)
                                           + (limited if L else 0))
     return out
@@ -3166,7 +3411,9 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
     dtype groups, no other kernel of ``kmods`` (the kernel modules, the
     server plane's first) and no plain version on the card. Then ama_fes
     again with remat off (``remat_off_vs_on``). Returns the counts summed
-    over the runs and the ama_fes run's peak memory."""
+    over the runs and the ama_fes run's peak memory. (zamba2 skips the
+    remat-off run at full width: its 38 layers' activations; phase 5 holds
+    remat on == off at reduced size.)"""
     spec = LLMS[arch]
     cfg = llm_full_width(arch)
     check(cfg.remat, f"{arch}: the config's remat is off")
@@ -3253,10 +3500,13 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
                                 losses=[float(x) for x in loss],
                                 peak_bytes=peak, params=n_params))
         if algo == "ama_fes":
-            kept = ([x.cpu() for x in params], list(loss), peak)
+            kept = ([x.cpu() for x in params]
+                    if spec.get("remat_off", True) else None, list(loss),
+                    peak)
         del state, params
         torch.cuda.empty_cache()
-    remat_off_vs_on(torch, train, arch, tree_mod, *kept, main_record)
+    if spec.get("remat_off", True):
+        remat_off_vs_on(torch, train, arch, tree_mod, *kept, main_record)
     return totals, kept[2]
 
 
@@ -3778,6 +4028,127 @@ def moe_where_time_goes(torch, train, fa, tmp):
     return share
 
 
+# ----------------------------------------------- the hybrid family (A1) --
+
+#: the reduced zamba2 of phases 5-6: 6 layers, a body of 5 blocks (2
+#: shared-attention sites at reduced attn_every 2, and a remainder) and a
+#: tail of 1 (at reduced()'s 2 layers the body is shorter than attn_every
+#: and the shared attention never runs)
+ZAMBA_REDUCED_LAYERS = 6
+
+
+def zamba2_pod_path(torch, train, km, kmods, ref, tree_mod, main_record):
+    """zamba2-1.2b at full width and all 38 layers (36 body blocks with 6
+    shared-attention sites, 2 tail blocks; 1,119,979,648 parameters in
+    two dtype groups, bf16 and the blocks' f32 A_log, D, dt_bias), remat
+    on, 3 rounds of 2 cohorts x 2 local steps x 1 x 2048 tokens: ama_fes
+    and fedavg through ``pod_main_path`` (``km`` the mamba2 and flash
+    kernels: launches from ``plan_launches``, flash all on wgmma,
+    server_mix once a round for each of the 2 groups, no plain version on
+    the card), then ama_fes on the masked plane with --no-scan through
+    ``pod_client_planes`` for tokens/s over rounds 2-3. Returns the
+    counts summed over the runs."""
+    import numpy as np
+    cfg = llm_full_width(ZAMBA)
+    counts, peak = pod_main_path(torch, train, ZAMBA, km, kmods, ref,
+                                 tree_mod, main_record)
+    more = pod_client_planes(torch, train, ZAMBA, km, kmods, ref, tree_mod,
+                             main_record,
+                             runs=[("masked p_limited 0.5", "masked", 0.5)])
+    row = main_record[-1]
+    check(row["params"] == ZAMBA_N, f"zamba2: {row['params']} params, "
+          f"expected {ZAMBA_N}")
+    check(more["server_mix"] == 2 * POD_ROUNDS, f"zamba2: server_mix "
+          f"launched {more['server_mix']} times, expected 2 a round")
+    a_round = plan_launches(ZAMBA, cfg, km, [np.zeros((1, POD_C), bool)],
+                            False)
+    print(f"zamba2 pod path: full width (d {cfg.d_model}, {cfg.num_layers} "
+          f"layers, {cfg.num_layers - cfg.fes_tail_layers} body blocks, "
+          f"{(cfg.num_layers - cfg.fes_tail_layers) // cfg.attn_every} "
+          f"shared-attention sites, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, state {cfg.ssm_state}), {ZAMBA_N:,} params; "
+          f"peak {peak / 1e9:.2f} GB (limit 75); "
+          f"{row['steady_tokens_per_s']:,.0f} tokens/s over rounds "
+          f"2-{POD_ROUNDS} (masked, --no-scan), peak there "
+          f"{row['peak_bytes'] / 1e9:.2f} GB; launches a round {a_round} "
+          f"(the plan) and server_mix 2 (2 dtype groups)")
+    return {k: counts.get(k, 0) + more.get(k, 0)
+            for k in set(counts) | set(more)}
+
+
+def zamba2_reduced():
+    return llm_reduced(ZAMBA).with_(num_layers=ZAMBA_REDUCED_LAYERS)
+
+
+def remat_contract(torch, train, arch, km, tree_mod, cfg):
+    """Remat on == off on the card, bitwise: 2 rounds of the reduced path
+    in f32 (ama_fes, masked) with each block under ``_BlockRemat`` and
+    without; the forward kernels of the remat blocks twice a layer a
+    step with remat, once without."""
+    argv = [*reduced_pod(arch), "--rounds", "2"]
+    out = []
+    for on in (True, False):
+        km.reset_counts()
+        c = cfg.with_(remat=on)
+        state, metrics, _ = run_pod(torch, train, argv, c)
+        want = plan_launches(arch, c, km, pod_chunks(train, argv), False)
+        got = {k: fn.launches for k, fn in km.KERNELS.items()}
+        check(got == want, f"reduced {arch} remat {on}: launches {got}, "
+              f"expected {want}")
+        out.append((state, list(metrics["loss"])))
+    (a, la), (b, lb) = out
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_mod.leaves(a["params"]), tree_mod.leaves(b["params"]),
+        strict=True)) and la == lb
+    check(same, f"reduced {arch}: remat on and off differ")
+    print(f"port contract: 2 rounds of the reduced {arch} path (f32, "
+          f"{cfg.num_layers} layers) with remat on == off, bitwise, params "
+          "and losses")
+
+
+def zamba2_reduced_on_card(torch, train, km, tree_mod):
+    """The reduced zamba2 at 6 layers in f32 on the card against the CPU
+    (rtol 1e-4, atol 1e-5) on the masked and partitioned client planes,
+    chunked == per round and remat on == off, bitwise."""
+    cfg = zamba2_reduced()
+    label = (f" ({cfg.num_layers} layers, "
+             f"{(cfg.num_layers - cfg.fes_tail_layers) // cfg.attn_every} "
+             "shared-attention sites)")
+    for plane in ("masked", "partitioned"):
+        llm_card_vs_cpu(torch, train, ZAMBA, km, tree_mod, plane, cfg, label)
+    llm_contract(torch, train, ZAMBA, tree_mod, cfg, label)
+    remat_contract(torch, train, ZAMBA, km, tree_mod, cfg)
+
+
+def zamba2_where_time_goes(torch, train, tmp):
+    """2 full-width rounds of zamba2 under the launcher's --profile
+    (``llm_where_time_goes``: device busy and idle, the mamba2 kernels'
+    share and that of each kernel and of flash, the top kernels) and,
+    from the same trace, the device time of the recurrence's profiler
+    range (``mamba2_scan``: its kernels, forward and backward) and of the
+    shared-attention sites (``shared_attention``: the norm, the
+    projections and flash, with their backward). Returns the shares."""
+    from repro_torch.models import mamba2, transformer
+    ranges = {mamba2.SCAN: "the recurrence",
+              transformer.SHARED_ATTN: "the shared attention"}
+    prof = llm_where_time_goes(torch, train, ZAMBA, tmp,
+                               ranges=tuple(ranges))
+    busy = prof["busy_ms"]
+    for key, label in ranges.items():
+        ms, n = prof["ranges"][key]
+        check(n > 0, f"zamba2 profile: no device work in the {key} range")
+        print(f"  zamba2 {label} ({key} and its backward): {ms:.1f} ms in "
+              f"{n} launches = {ms / busy:.1%} of device time")
+    share = {label: prof["ranges"][key][0] / busy
+             for key, label in ranges.items()}
+    print(f"where the time goes, zamba2 full width, 2 rounds (trace): busy "
+          f"{busy / prof['wall_ms']:.1%} of the wall; mamba2 kernels "
+          f"{prof['own_ms'] / busy:.1%}, "
+          + ", ".join(f"{k} {v:.1%}" for k, v in share.items())
+          + " of device time")
+    return share
+
+
 # ------------------------------------------------------- serving (A5) -----
 
 #: the serving runs at full width: minitron-8b's CONFIG_SWA (window 4096)
@@ -3788,7 +4159,9 @@ def moe_where_time_goes(torch, train, fa, tmp):
 SERVE_DEPTH = {"minitron-8b": 32, "rwkv6-3b": 8,
                # slice 17: the depths whose bf16 weights take 31-35 GB
                PHI: 12, "mixtral-8x22b": 6, "mistral-large-123b": 12,
-               "qwen1.5-110b": 11, "llama3-405b": 4}
+               "qwen1.5-110b": 11, "llama3-405b": 4,
+               # slice 18: all 38 layers (2.24 GB of bf16 weights)
+               ZAMBA: 38}
 #: slice 17's configs at full width, depth cut as SERVE_DEPTH says: the
 #: paged engine over two prompts of 200 tokens and two of 64, 16 new each;
 #: the moe pair also through the loop engine per token, chunked 64 and
@@ -3812,6 +4185,10 @@ SERVE_LOOP_RUNS = [("loop per token", ["--engine", "loop",
 SERVE_RWKV_RUN = ["--engine", "loop", "--prompt-mix",
                   "64x1,128x1,192x1,256x1", "--tokens", "64",
                   "--prefill-chunk", "0"]
+#: zamba2 at all 38 layers through the loop engine, per token (its only
+#: serving path): two prompts of 64 tokens and two of 128, 32 new each
+SERVE_ZAMBA_RUN = ["--engine", "loop", "--prompt-mix", "64x2,128x2",
+                   "--tokens", "32", "--prefill-chunk", "0"]
 SERVE_STEPS = ("decode_step", "prefill", "decode_step_paged",
                "prefill_paged")
 
@@ -3888,8 +4265,10 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     layer, wq|wk|wv and w_in|w_gate one launch each; moe: 3 + 3 E / 2),
     invariant_add_rmsnorm 2 layers x steps and
     invariant_rmsnorm 1 x steps (the first block's norm); for the ssm
-    family rwkv6_fwd layers x decode steps; no other kernel, no plain
-    version on the card;
+    family rwkv6_fwd layers x decode steps; for the hybrid family
+    mamba2_fwd layers x decode steps, and serve_attention once and
+    invariant_dense twice (wq|wk|wv, wo) a shared-attention site a step;
+    no other kernel, no plain version on the card;
     every request served its tokens. Prints tokens/s, latency percentiles,
     the mean prefill and decode seconds a request and the peak device
     memory. Returns (results, engine, counts)."""
@@ -3899,7 +4278,8 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     for m in kmods:
         m.reset_counts()
     with CountPlain(ref, ("serve_attention_ref", "rwkv6_scan_ref",
-                          "invariant_dense_ref", "invariant_rmsnorm_ref",
+                          "mamba2_scan_ref", "invariant_dense_ref",
+                          "invariant_rmsnorm_ref",
                           "invariant_add_rmsnorm_ref")) \
             as plain, CountSteps(tf) as steps:
         results, summary, dt, engine = serve_mod.serve(
@@ -3908,12 +4288,18 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     counts = {k: fn.launches for m in kmods for k, fn in m.KERNELS.items()}
     calls = sum(steps.calls.values())
     L = cfg.num_layers
-    want = ({"rwkv6_fwd": L * steps.calls["decode_step"]}
-            if cfg.family == "ssm" else
-            {"serve_attention": L * calls,
-             "invariant_dense": (dense_launches(cfg) * L + 1) * calls,
-             "invariant_add_rmsnorm": 2 * L * calls,
-             "invariant_rmsnorm": calls})
+    decode = steps.calls["decode_step"]
+    sites = (L - min(cfg.fes_tail_layers, L)) // max(cfg.attn_every, 1)
+    if cfg.family == "ssm":
+        want = {"rwkv6_fwd": L * decode}
+    elif cfg.family == "hybrid":
+        want = {"mamba2_fwd": L * decode, "serve_attention": sites * decode,
+                "invariant_dense": 2 * sites * decode}
+    else:
+        want = {"serve_attention": L * calls,
+                "invariant_dense": (dense_launches(cfg) * L + 1) * calls,
+                "invariant_add_rmsnorm": 2 * L * calls,
+                "invariant_rmsnorm": calls}
     new = sum(r["new_tokens"] for r in results)
     mean = lambda k: statistics.mean(r[k] for r in results)
     bound = decode_bound_ms(cfg, params, tree_mod, len(results)
@@ -4390,6 +4776,51 @@ def serving_families(torch, serve_mod, tf, kmods, ref, tree_mod,
     return totals
 
 
+def zamba2_serving(torch, serve_mod, tf, kmods, ref, tree_mod,
+                   main_record) -> dict:
+    """zamba2-1.2b served at its published widths and all 38 layers (bf16
+    params from seed 0, made on the card) through the lockstep loop
+    engine per token, twice (SERVE_ZAMBA_RUN, ``serve_run``: mamba2_fwd
+    at S = 1 a layer a step, serve_attention and invariant_dense at the
+    6 shared-attention sites, no other kernel and no plain version,
+    tokens/s, the decode bound, peak under 75 GB): the two runs must
+    serve the same tokens; the paged engine is refused by name. Returns
+    the kernels' launches summed over the runs."""
+    cfg = serve_config(ZAMBA)
+    params, init_s = serve_params(torch, cfg)
+    n = sum(x.numel() for x in tree_mod.leaves(params))
+    print(f"serving {ZAMBA}: {cfg.num_layers} layers at its published "
+          f"widths (d {cfg.d_model}, state {cfg.ssm_state}, shared "
+          f"attention every {cfg.attn_every} blocks, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}), {n:,} params made on the card in "
+          f"{init_s:.1f} s")
+    totals, tokens = {}, []
+    for run in (1, 2):
+        res, engine, counts = serve_run(
+            torch, serve_mod, tf, kmods, ref, cfg, params,
+            [*SERVE_ZAMBA_RUN, "--device", "cuda"],
+            f"loop per token, run {run}", main_record, tree_mod)
+        del engine
+        tokens.append([r["tokens"] for r in res])
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    check(tokens[0] == tokens[1], "serving zamba2: two runs served other "
+          "tokens")
+    print("serving zamba2 full width: two runs serve the same tokens")
+    try:
+        serve_mod.build_engine(serve_mod.build_model(cfg), params,
+                               serve_mod.parser().parse_args(
+                                   ["--engine", "paged"]))
+    except ValueError as e:
+        check("no paged serving path" in str(e), f"zamba2 paged: {e}")
+        print(f"serving zamba2 paged: refused ({e})")
+    else:
+        fail("serving: the paged engine took the hybrid family")
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
 def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
             main_record):
     """Phase 4's serving runs (module docstring): the row-invariance probe,
@@ -4525,6 +4956,11 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
              "checkout of the repository")
     sys.path.insert(0, str(SRC))
+    # CUPTI torn down after a profiler session and set up again for the
+    # next one with CUDA graphs captured in between (``device_ms``) is
+    # what PyTorch itself switches off: a session then traced no device
+    # activity at all, three times in a row, in one run of this script
+    os.environ["TEARDOWN_CUPTI"] = "0"
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -4553,6 +4989,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import invariant_dense as idn
     from repro_torch.kernels import invariant_rmsnorm as irn
+    from repro_torch.kernels import mamba2_scan as ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
     from repro_torch.kernels import serve_attention as sa
@@ -4565,10 +5002,12 @@ def main() -> None:
     resolve_device("cuda")
 
     recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS, **rs.KERNELS,
-                            **sa.KERNELS, **idn.KERNELS, **irn.KERNELS}}
-    flash_rec, rwkv_rec, serve_rec = [], [], []
+                            **sa.KERNELS, **idn.KERNELS, **irn.KERNELS,
+                            **ms.KERNELS}}
+    flash_rec, rwkv_rec, serve_rec, mamba_rec = [], [], [], []
     main_rec = []
-    kmods = (sp, fa, rs)
+    kmods = (sp, fa, rs, ms)
+    zk = KernelSet(ms, fa)        # zamba2's two kernel families
     check_server_mix(torch, sp, ref, recs["server_mix"])
     check_server_mix_llm(torch, sp, ref, recs["server_mix"], LLM_N, "LLM")
     check_server_mix_llm(torch, sp, ref, recs["server_mix"], RWKV_N,
@@ -4580,6 +5019,7 @@ def main() -> None:
     check_ama_mix(torch, am, ref, recs["ama_mix"])
     check_flash(torch, fa, ref, flash_rec)
     check_rwkv6(torch, rs, ref, rwkv_rec)
+    check_mamba2(torch, ms, ref, mamba_rec)
     check_serve_attention(torch, sa, ref, serve_rec)
     check_invariant_dense(torch, idn, ref, recs["invariant_dense"])
     check_invariant_rmsnorm(torch, irn, ref, recs["invariant_rmsnorm"],
@@ -4618,6 +5058,9 @@ def main() -> None:
         moe_pod = moe_pod_path(torch, train, fa, kmods, ref, tree_mod,
                                main_rec)
         clock.mark("4, the phi3.5-moe pod path")
+        zamba = zamba2_pod_path(torch, train, zk, kmods, ref, tree_mod,
+                                main_rec)
+        clock.mark("4, the zamba2 pod path")
         served, _ = serving(torch, serve_mod, tf, sa, rs, idn, irn,
                             (*kmods, sa, idn, irn), ref, tree_mod, main_rec)
         clock.mark("4, serving")
@@ -4625,9 +5068,14 @@ def main() -> None:
                                     (*kmods, sa, idn, irn), ref, tree_mod,
                                     main_rec)
         clock.mark("4, serving the moe and large dense configs")
+        zserved = zamba2_serving(torch, serve_mod, tf,
+                                 (*kmods, sa, idn, irn), ref, tree_mod,
+                                 main_rec)
+        clock.mark("4, serving zamba2")
         launches = {k: sum(run.get(k, 0) for run in (
             launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
-            rwkv_planes, deep, moe_pod, served, families)) for k in recs}
+            rwkv_planes, deep, moe_pod, served, families, zamba, zserved))
+            for k in recs}
         fused_vs_plain(torch, train, tree_mod)
         legacy_kernel_vs_plain(torch, train, tree_mod)
         client_planes_per_cohort(torch, tree_mod)
@@ -4640,11 +5088,12 @@ def main() -> None:
         llm_contract(torch, train, "rwkv6-3b", tree_mod)
         llm_partitioned_contract(torch, train, "minitron-8b", tree_mod)
         moe_reduced_on_card(torch, train, fa, tree_mod)
+        zamba2_reduced_on_card(torch, train, zk, tree_mod)
         with tempfile.TemporaryDirectory() as tmp:
             restart_contract(torch, train, tree_mod, tmp)
             prefetch_and_metrics(torch, train, tree_mod, tmp)
             clock.mark("5-6, the port's contracts and the reduced moe, "
-                       "mixtral and qwen paths")
+                       "mixtral, qwen and zamba2 paths")
             where_time_goes(torch, train)
             llm_where_time_goes(torch, train, "minitron-8b", tmp)
             llm_where_time_goes(torch, train, "minitron-8b", tmp,
@@ -4653,6 +5102,7 @@ def main() -> None:
             llm_where_time_goes(torch, train, "rwkv6-3b", tmp)
             memo.drop(llm_full_width("rwkv6-3b"))
             moe_where_time_goes(torch, train, fa, tmp)
+            zamba2_where_time_goes(torch, train, tmp)
     clock.mark("7, profiles")
 
     f32 = "torch.float32"
@@ -4687,7 +5137,11 @@ def main() -> None:
                 "invariant_add_rmsnorm": "models/layers.py:41",
                 # the TPU path has no backward kernel: XLA differentiates
                 # the scan of time_mix
-                "rwkv6_bwd": "models/rwkv6.py:119"}
+                "rwkv6_bwd": "models/rwkv6.py:119",
+                # no TPU kernel: the lax.scan of the SSD recurrence and
+                # its XLA autodiff
+                "mamba2_fwd": "models/mamba2.py:113",
+                "mamba2_bwd": "models/mamba2.py:113"}
     source = {"server_mix": "server_plane.cu", "server_async":
               "server_plane.cu", "server_adam": "server_adam.cu",
               "server_mix_delta": "server_mix_compressed.cu",
@@ -4701,13 +5155,16 @@ def main() -> None:
               "serve_attention": "serve_attention.cu",
               "invariant_dense": "invariant_dense.cu",
               "invariant_rmsnorm": "invariant_rmsnorm.cu",
-              "invariant_add_rmsnorm": "invariant_rmsnorm.cu"}
+              "invariant_add_rmsnorm": "invariant_rmsnorm.cu",
+              "mamba2_fwd": "mamba2_scan.cu", "mamba2_bwd": "mamba2_scan.cu"}
     # the flash rows at minitron's shape as the main path calls it (GQA)
     flash_main = next(r for r in flash_rec if r["case"] == FLASH_GQA)
     flash_err = {"flash_fwd": "err_fwd", "flash_bwd_dq": "err_dq",
                  "flash_bwd_dkdv": "err_dkdv"}
     rwkv_main = next(r for r in rwkv_rec if r["case"] == RWKV_MAIN)
     rwkv_err = {"rwkv6_fwd": "err_fwd", "rwkv6_bwd": "err_bwd"}
+    mamba_main = next(r for r in mamba_rec if r["case"] == MAMBA_MAIN)
+    mamba_err = {"mamba2_fwd": "err_fwd", "mamba2_bwd": "err_bwd"}
     kernels = []
     for name in recs:
         check(launches[name] > 0, f"{name}: never launched on the main path")
@@ -4719,6 +5176,10 @@ def main() -> None:
             row = rwkv_main[name]
             b, by = row["bound_ms"], row["bound_by"]
             err = max(r[rwkv_err[name]] for r in rwkv_rec)
+        elif name in ms.KERNELS:   # zamba2's pod shape
+            row = mamba_main[name]
+            b, by = row["bound_ms"], row["bound_by"]
+            err = max(r[mamba_err[name]] for r in mamba_rec)
         elif name in sa.KERNELS:   # minitron's decode over its ring
             row = next(r for r in serve_rec if r["case"] == SERVE_MAIN)
             b, by = row["bound_ms"], row["bound_by"]

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the server plane,
-``ama_mix``, flash attention and the RWKV-6 recurrence.
+``ama_mix``, flash attention, the serving kernels and the RWKV-6 and
+Mamba-2 recurrences.
 
 The counterparts of the JAX package's ``kernels/ref.py: _norm_weights,
 server_mix_math, server_mix_delta_math, server_mix_scatter_math,
@@ -42,9 +43,16 @@ states it saves every ``RWKV6_CKPT`` steps as well;
 recurrence the backward kernel computes, recomputing each segment's
 states from the saved ones.
 
+``mamba2_scan_ref`` is the Mamba-2 (SSD) state recurrence of the JAX
+package's ``models/mamba2.py: mamba2_fwd`` (the ``step`` of its
+``lax.scan``), a loop over time, returning the states it saves every
+``MAMBA2_CKPT`` steps as well; ``mamba2_scan_bwd_ref`` is its gradient
+by the adjoint recurrence the backward kernel computes, recomputing each
+segment's states from the saved ones.
+
 The wrappers in ``server_plane.py``, ``ama_mix.py``,
 ``flash_attention.py``, ``serve_attention.py``, ``invariant_dense.py``,
-``invariant_rmsnorm.py`` and ``rwkv6_scan.py``
+``invariant_rmsnorm.py``, ``rwkv6_scan.py`` and ``mamba2_scan.py``
 run these for CPU
 tensors; on the card the server-plane ones run only when
 ``fl.server_plane == "ref"``.
@@ -554,3 +562,72 @@ def rwkv6_scan_bwd_ref(dy, ds, r, k, v, w, u, states):
             du = du + r_t * k_t * dyv
             G = w_t[..., :, None] * G + r_t[..., :, None] * dy_t[..., None, :]
     return dr, dk, dv, dw, du, G
+
+
+# ---------------------------------------------------------------- mamba2 ----
+
+#: the forward saves the state entering every MAMBA2_CKPT-th step (the
+#: JAX scan's chunk of 64), which the backward restarts from
+MAMBA2_CKPT = 64
+
+
+def _mamba2_step(h, a_t, x_t, B_t):
+    """h_t = a_t h_{t-1} + x_t (outer) B_t, in the op order of the JAX
+    ``step``. h: (B, H, P, N); a_t: (B, H); x_t: (B, H, P); B_t: (B, N)."""
+    return a_t[..., None, None] * h + x_t[..., :, None] * B_t[:, None, None, :]
+
+
+def mamba2_scan_ref(a, xdt, Bm, Cm, h0):
+    """Mamba-2 (SSD) recurrence, one step at a time, per (batch, head):
+    h_t = a_t h_{t-1} + x_t (outer) B_t, y_t = h_t C_t.
+
+    a: (B, S, H) f32 (the decay, in [0, 1]); xdt: (B, S, H, P) f32 (the
+    dt-scaled input); Bm, Cm: (B, S, N) f32, shared by the heads; h0: (B,
+    H, P, N) f32. Returns (y (B, S, H, P) f32, h_final (B, H, P, N) f32,
+    states (B, H, ceil(S / MAMBA2_CKPT), P, N) f32: the state entering
+    every MAMBA2_CKPT-th step, h0 first), the states being what the
+    backward restarts from."""
+    S = a.shape[1]
+    h = h0
+    ys, states = [], []
+    for t in range(S):
+        if t % MAMBA2_CKPT == 0:
+            states.append(h)
+        h = _mamba2_step(h, a[:, t], xdt[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, 1), h, torch.stack(states, 2)
+
+
+def mamba2_scan_bwd_ref(dy, dh, a, xdt, Bm, Cm, states):
+    """The gradient of ``mamba2_scan_ref``'s (y, h_final) by the adjoint
+    recurrence. dy: (B, S, H, P) f32; dh: (B, H, P, N) f32, the gradient
+    of h_final; states: the forward's saved states. Walking time
+    backward with G the adjoint of h_t (dh for the last step):
+
+        G    += dy_t (outer) C_t
+        dC_t  = sum_{h,p} h_t dy_t          dxdt_t = G B_t
+        dB_t  = sum_{h,p} G x_t             da_t   = sum_{p,n} G * h_{t-1}
+        G    <- a_t G                       (and dh0 = G at the end)
+
+    h_{t-1} is recomputed forward from the saved state of its segment
+    (never by dividing by a_t, which underflows to 0). Returns (da, dxdt,
+    dB, dC, dh0), f32, shaped as a, xdt, Bm, Cm and h0."""
+    S = a.shape[1]
+    G = dh
+    da, dxdt, dB, dC = (torch.empty_like(x) for x in (a, xdt, Bm, Cm))
+    for g in reversed(range(states.shape[2])):
+        t0 = g * MAMBA2_CKPT
+        h, prev = states[:, :, g], []
+        for t in range(t0, min(t0 + MAMBA2_CKPT, S)):
+            prev.append(h)
+            h = _mamba2_step(h, a[:, t], xdt[:, t], Bm[:, t])
+        for t in reversed(range(t0, t0 + len(prev))):
+            hp = prev[t - t0]
+            h_t = _mamba2_step(hp, a[:, t], xdt[:, t], Bm[:, t])
+            G = G + dy[:, t, :, :, None] * Cm[:, t, None, None, :]
+            dC[:, t] = torch.einsum("bhpn,bhp->bn", h_t, dy[:, t])
+            dxdt[:, t] = torch.einsum("bhpn,bn->bhp", G, Bm[:, t])
+            dB[:, t] = torch.einsum("bhpn,bhp->bn", G, xdt[:, t])
+            da[:, t] = (G * hp).sum((-2, -1))
+            G = a[:, t, :, None, None] * G
+    return da, dxdt, dB, dC, G

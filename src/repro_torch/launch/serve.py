@@ -7,6 +7,8 @@ the JAX package's ``launch/serve.py``). Runs on the GPU unless
   python -m repro_torch.launch.serve --arch minitron-8b --reduced \
       --device cpu --engine paged --prompt-mix 6x2,20x2 \
       --max-batch-tokens 256 --metrics-out serve.jsonl
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced \
+      --device cpu            # the loop engine only (recurrent state)
 
 Engines (``repro_torch.serve``):
   loop   lockstep per-token decode with per-request prompt lengths

@@ -74,6 +74,7 @@ Examples:
   python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 3
   python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 2 --device cpu
   python -m repro_torch.launch.train --arch rwkv6-3b --pod --reduced --client-plane partitioned --no-scan
+  python -m repro_torch.launch.train --arch zamba2-1.2b --pod --reduced --rounds 2 --device cpu
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Unified model API (the port's part of the JAX package's
-``models/api.py``: the paper CNN and the dense, moe and ssm (RWKV-6)
-transformer families):
+``models/api.py``: the paper CNN and the dense, moe, ssm (RWKV-6) and
+hybrid (Zamba2) transformer families):
 
     model = build_model(cfg)
     params = model.init(generator, device)
@@ -10,10 +10,10 @@ transformer families):
     logits, cache = model.decode_step(params, token, position, cache)
 
 The serving surface of the transformer families: ``decode_step`` and
-``init_decode_cache`` (dense, moe and ssm), ``prefill_logits``, and, for
-the attention families (dense and moe) only (as in JAX: the ssm family
-decodes through recurrent state, not a KV ring), ``prefill`` and the
-paged entries
+``init_decode_cache`` (every transformer family), ``prefill_logits``,
+and, for the attention families (dense and moe) only (as in JAX: the ssm
+and hybrid families decode through recurrent state, not a KV ring),
+``prefill`` and the paged entries
 ``init_paged_pool``, ``decode_step_paged``, ``prefill_paged``; ``None``
 elsewhere. Caches and pools are allocated on the params' device
 (``init_decode_cache(params, batch, max_len)``) or on the device given

@@ -1,8 +1,15 @@
-"""The decoder stack of the dense, moe and ssm (RWKV-6) families (the
-port of the JAX package's ``models/transformer.py`` for ``family``
-"dense", "moe" and "ssm"). A block with ``cfg.num_experts`` carries
-``moe`` (``models/moe.py``) where a dense block carries ``mlp``, as in
-JAX: its aux loss flows into ``loss_fn``'s ``0.01 * aux``.
+"""The decoder stack of the dense, moe, ssm (RWKV-6) and hybrid (Zamba2)
+families (the port of the JAX package's ``models/transformer.py`` for
+``family`` "dense", "moe", "ssm" and "hybrid"). A block with
+``cfg.num_experts`` carries ``moe`` (``models/moe.py``) where a dense
+block carries ``mlp``, as in JAX: its aux loss flows into ``loss_fn``'s
+``0.01 * aux``. A hybrid block is a Mamba-2 block (``models/mamba2.py``)
+behind one RMSNorm; the stack applies ONE shared attention block
+(``shared_attn``: its own RMSNorm and attention, reused across depth)
+after every group of ``cfg.attn_every`` blocks, for the body and, in
+training, the tail, exactly where JAX's ``_scan_blocks`` does; the
+shared attention is not under remat (JAX checkpoints the block, not the
+group).
 
 The stack is split into BODY and TAIL block groups so the paper's FES
 scheme (feature extractor = embed + body; classifier = tail + final norm
@@ -16,11 +23,11 @@ block's input (and its parameters, which are alive anyway) between the
 forward and the backward, and the backward runs the block again to take
 its vector-Jacobian product. That changes memory, not values: the loss
 and every gradient are bitwise those of the stack without remat, on the
-CPU and, with the deterministic kernels, on the card. The hybrid, vlm
-and audio families raise NotImplementedError: they come with later
-slices of the port.
+CPU and, with the deterministic kernels, on the card. The vlm and audio
+families raise NotImplementedError: they come with later slices of the
+port.
 
-Serving: ``init_decode_cache``, ``decode_step`` (dense and ssm),
+Serving: ``init_decode_cache``, ``decode_step`` (every family),
 ``prefill`` (chunked prefill of the dense family: one call a prompt
 CHUNK, bit-identical to looping ``decode_step``), ``init_paged_pool``,
 ``decode_step_paged``, ``prefill_paged`` and ``prefill_logits``. Caches
@@ -38,30 +45,37 @@ prefill equals the per-token loop there too. A dense serving block takes the res
 ``r``, the previous block's MLP output not yet added (None before the
 first block), and returns the same pair: each norm takes the add before
 it into its own launch (``x, n = add_rmsnorm_serve(ln, x, r)``), the
-final norm the last block's. The ssm family serves per token only and
-keeps ``dense`` / ``rmsnorm``.
+final norm the last block's. The ssm and hybrid families serve per token
+only and keep ``dense`` / ``rmsnorm`` (the hybrid's shared attention
+decodes through ``attention.attention_decode``: ``serve_attention`` and
+the row-invariant projections, over G = n_body // attn_every KV caches,
+``cache["shared"]``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import moe, rwkv6
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import (add_rmsnorm_serve,
                                        chunked_cross_entropy, dense,
                                        dense_init, dense_serve, embedding,
                                        embedding_init, mlp, mlp_init,
                                        mlp_serve, rmsnorm, rmsnorm_init)
+from repro_torch.obs.timing import annotate
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
 #: family -> the slice of the port that brings it
-_LATER = {"hybrid": "the mamba2/hybrid slice", "vlm": "the VLM slice",
-          "audio": "the encoder-decoder slice"}
+_LATER = {"vlm": "the VLM slice", "audio": "the encoder-decoder slice"}
+
+#: the profiler's name (``obs.timing.annotate``) of a shared-attention
+#: site of the hybrid family in training
+SHARED_ATTN = "shared_attention"
 
 
 def check_family(cfg) -> None:
     family = cfg.family
-    if family not in ("dense", "moe", "ssm"):
+    if family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"model family {family!r} ({cfg.name}) is not ported yet: it "
             f"comes with {_LATER.get(family, 'a later slice')}")
@@ -76,6 +90,9 @@ def block_init(gen: torch.Generator, cfg, dtype) -> dict:
         return {"rwkv": rwkv6.rwkv6_init(gen, cfg, dtype),
                 "ln1": rmsnorm_init(cfg.d_model, dtype),
                 "ln2": rmsnorm_init(cfg.d_model, dtype)}
+    if cfg.family == "hybrid":                    # zamba2 mamba block
+        return {"mamba": mamba2.mamba2_init(gen, cfg, dtype),
+                "ln": rmsnorm_init(cfg.d_model, dtype)}
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype),
          "ln2": rmsnorm_init(cfg.d_model, dtype),
          "attn": attn.attn_init(gen, cfg, dtype)}
@@ -96,14 +113,18 @@ def _stacked_block_init(gen: torch.Generator, cfg, n: int, dtype):
 
 
 def block_fwd(p, cfg, x, positions, aux):
-    """Full-sequence block application. Returns (x, aux). An rwkv6
-    block starts from a fresh zero state and drops the new one, as in
-    the JAX package."""
+    """Full-sequence block application. Returns (x, aux). An rwkv6 or
+    mamba2 block starts from a fresh zero state and drops the new one, as
+    in the JAX package."""
     if cfg.family == "ssm":
         st = rwkv6.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
         h, st = rwkv6.time_mix(p["rwkv"], cfg, rmsnorm(p["ln1"], x), st)
         x = x + h
         h, _ = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x), st)
+        return x + h, aux
+    if cfg.family == "hybrid":
+        st = mamba2.init_mamba_state(cfg, x.shape[0], x.dtype, x.device)
+        h, _ = mamba2.mamba2_fwd(p["mamba"], cfg, rmsnorm(p["ln"], x), st)
         return x + h, aux
     h = attn.attention_fwd(p["attn"], cfg, rmsnorm(p["ln1"], x), positions)
     x = x + h
@@ -161,19 +182,44 @@ class _BlockRemat(torch.autograd.Function):
         return (gx, gaux, None, None, None, *gflat)
 
 
-def _run_blocks(stacked, cfg, x, positions, aux):
+def _apply_block(stacked, i, cfg, x, positions, aux):
+    """Block ``i`` of a stacked group, under ``_BlockRemat`` when
+    ``cfg.remat``."""
+    p = tree_map(lambda a: a[i], stacked)
+    if cfg.remat:
+        return _BlockRemat.apply(x, aux, positions, tree_map(lambda _: 0, p),
+                                 cfg, *leaves(p))
+    return block_fwd(p, cfg, x, positions, aux)
+
+
+def _shared_groups(cfg, L: int, shared) -> int:
+    """G, the groups of ``cfg.attn_every`` blocks of a stack of L that a
+    shared attention block follows (0 outside the hybrid family, without
+    ``shared`` params or when L < attn_every), as JAX's ``_scan_blocks``
+    and ``_scan_blocks_decode`` group them."""
+    if (cfg.family == "hybrid" and cfg.attn_every and shared is not None
+            and L >= cfg.attn_every):
+        return L // cfg.attn_every
+    return 0
+
+
+def _run_blocks(stacked, cfg, x, positions, aux, shared_attn=None):
     """Apply a stacked group of blocks, layer by layer, each under
-    ``_BlockRemat`` when ``cfg.remat``."""
+    ``_BlockRemat`` when ``cfg.remat``. In the hybrid family the shared
+    attention block (``shared_attn``, outside remat) follows each of the
+    first G groups of ``cfg.attn_every`` blocks (``_shared_groups``); the
+    remaining blocks come after the last site."""
     if stacked is None:
         return x, aux
-    for i in range(leaves(stacked)[0].shape[0]):
-        p = tree_map(lambda a, i=i: a[i], stacked)
-        if cfg.remat:
-            x, aux = _BlockRemat.apply(x, aux, positions,
-                                       tree_map(lambda _: 0, p), cfg,
-                                       *leaves(p))
-        else:
-            x, aux = block_fwd(p, cfg, x, positions, aux)
+    L = leaves(stacked)[0].shape[0]
+    G, per = _shared_groups(cfg, L, shared_attn), cfg.attn_every
+    for i in range(L):
+        x, aux = _apply_block(stacked, i, cfg, x, positions, aux)
+        if i < G * per and (i + 1) % per == 0:
+            with annotate(SHARED_ATTN):
+                x = x + attn.attention_fwd(
+                    shared_attn["attn"], cfg,
+                    rmsnorm(shared_attn["ln"], x), positions)
     return x, aux
 
 
@@ -194,6 +240,11 @@ def init_params(cfg, gen: torch.Generator, device=None) -> dict:
         "final_norm": rmsnorm_init(cfg.d_model, dtype),
         "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_size, dtype),
     }
+    if cfg.family == "hybrid" and cfg.attn_every:
+        acfg = cfg.with_(num_heads=cfg.num_heads or 32,
+                         num_kv_heads=cfg.num_kv_heads or 32)
+        params["shared_attn"] = {"attn": attn.attn_init(gen, acfg, dtype),
+                                 "ln": rmsnorm_init(cfg.d_model, dtype)}
     return tree_map(lambda x: x.to(device), params)
 
 
@@ -211,11 +262,14 @@ def embed_inputs(params, cfg, batch):
 
 def hidden_states(params, cfg, batch):
     """Final-norm hidden states (no logits) and the aux loss (the moe
-    blocks' summed; 0 for the dense and ssm families)."""
+    blocks' summed; 0 for the other families). The hybrid family's
+    shared attention goes to the body and the tail, as in JAX's
+    ``forward``."""
     x, positions = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x, aux = _run_blocks(params["body"], cfg, x, positions, aux)
-    x, aux = _run_blocks(params["tail"], cfg, x, positions, aux)
+    shared = params.get("shared_attn")
+    x, aux = _run_blocks(params["body"], cfg, x, positions, aux, shared)
+    x, aux = _run_blocks(params["tail"], cfg, x, positions, aux, shared)
     return rmsnorm(params["final_norm"], x), aux
 
 
@@ -257,20 +311,35 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=None,
                       device=None) -> dict:
     """Per-layer decode state stacked on the layer axis, per group: the
     KV cache (``attention.init_kv_cache``) of the dense family, the
-    recurrent state (``rwkv6.init_rwkv_state``) of the ssm family."""
+    recurrent state of the ssm (``rwkv6.init_rwkv_state``) and hybrid
+    (``mamba2.init_mamba_state``) families; the hybrid family's shared
+    attention adds ``shared``, G = n_body // attn_every KV caches (one a
+    site of the body; JAX's decode gives the tail none)."""
     check_family(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
+
+    def stack(one, n):
+        return {k: torch.stack([a] * n) for k, a in one.items()}
 
     def group(n):
         if n == 0:
             return None
         if cfg.family == "ssm":
-            one = rwkv6.init_rwkv_state(cfg, batch, dtype, device)
-        else:
-            one = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
-        return {k: torch.stack([a] * n) for k, a in one.items()}
+            return stack(rwkv6.init_rwkv_state(cfg, batch, dtype, device), n)
+        if cfg.family == "hybrid":
+            return stack(mamba2.init_mamba_state(cfg, batch, dtype, device),
+                         n)
+        return stack(attn.init_kv_cache(cfg, batch, max_len, dtype, device),
+                     n)
 
-    return {g: group(n) for g, n in _groups(cfg).items()}
+    sizes = _groups(cfg)
+    cache = {g: group(n) for g, n in sizes.items()}
+    if cfg.family == "hybrid" and cfg.attn_every:
+        G = sizes["body"] // cfg.attn_every
+        if G > 0:
+            cache["shared"] = stack(attn.init_kv_cache(
+                cfg, batch, max_len, dtype, device), G)
+    return cache
 
 
 def _layer(tree, i):
@@ -303,33 +372,53 @@ def block_decode(p, cfg, x, r, cache, position):
         h, cache = rwkv6.channel_mix(p["rwkv"], rmsnorm(p["ln2"], x)[:, 0],
                                      cache, single=True)
         return x + h[:, None], None, cache
+    if cfg.family == "hybrid":
+        h, cache = mamba2.mamba2_step(p["mamba"], cfg,
+                                      rmsnorm(p["ln"], x)[:, 0], cache)
+        return x + h[:, None], None, cache
     x, r = _serve_block(p, cfg, x, r, lambda n: attn.attention_decode(
         p["attn"], cfg, n, cache, position)[0])
     return x, r, cache
 
 
-def _scan_blocks_decode(stacked, cfg, x, r, cache, position):
+def _scan_blocks_decode(stacked, cfg, x, r, cache, position, shared_attn=None,
+                        shared_cache=None):
     """Apply a stacked group of blocks to one token, layer by layer (JAX:
-    ``lax.scan``), each layer's state written back into the stack.
-    Returns (x, r)."""
+    ``lax.scan``), each layer's state written back into the stack; in
+    the hybrid family the shared attention decodes after each of the
+    first G groups of ``cfg.attn_every`` blocks, over site g's KV cache
+    ``shared_cache``. Returns (x, r)."""
     if stacked is None:
         return x, r
-    for i in range(leaves(stacked)[0].shape[0]):
+    L = leaves(stacked)[0].shape[0]
+    G = _shared_groups(cfg, L, None if shared_cache is None
+                       else shared_attn)
+    per = cfg.attn_every
+    for i in range(L):
         layer_c = _layer(cache, i)
         x, r, new_c = block_decode(tree_map(lambda a, i=i: a[i], stacked),
                                    cfg, x, r, layer_c, position)
         for k, a in new_c.items():
-            if a is not layer_c[k]:          # the ssm state is new tensors
+            if a is not layer_c[k]:      # a recurrent state is new tensors
                 cache[k][i].copy_(a)
+        if i < G * per and (i + 1) % per == 0:
+            h, _ = attn.attention_decode(
+                shared_attn["attn"], cfg, rmsnorm(shared_attn["ln"], x),
+                _layer(shared_cache, i // per), position)
+            x = x + h
     return x, r
 
 
 def decode_step(params, cfg, token, position, cache):
     """token: (B,) int; position: (B,) int32. Returns (logits (B, V),
-    cache), the cache updated in place."""
+    cache), the cache updated in place. The hybrid family's shared
+    attention decodes in the body only, as in JAX's ``decode_step``."""
     x, r = embedding(params["embed"], token[:, None]), None
-    for g in ("body", "tail"):
-        x, r = _scan_blocks_decode(params[g], cfg, x, r, cache[g], position)
+    x, r = _scan_blocks_decode(params["body"], cfg, x, r, cache["body"],
+                               position, params.get("shared_attn"),
+                               cache.get("shared"))
+    x, r = _scan_blocks_decode(params["tail"], cfg, x, r, cache["tail"],
+                               position)
     return _head(params, cfg, x, r)[:, 0], cache
 
 
@@ -337,8 +426,8 @@ def _head(params, cfg, x, r):
     """The final norm and ``lm_head`` of a serving step: on the
     row-invariant kernels for the dense family (its serving contract; the
     last block's residual r added in the norm's launch), on ``rmsnorm`` /
-    ``dense`` for the ssm family (per token only)."""
-    if cfg.family == "ssm":
+    ``dense`` for the ssm and hybrid families (per token only)."""
+    if cfg.family in ("ssm", "hybrid"):
         return dense(params["lm_head"], rmsnorm(params["final_norm"], x))
     _, n = add_rmsnorm_serve(params["final_norm"], x, r)
     return dense_serve(params["lm_head"], n)

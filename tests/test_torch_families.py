@@ -11,7 +11,8 @@ the f32 router) flattened as JAX's server plane flattens them; chunked
 ``prefill`` / the paged pair; paged == dense and chunked == per token
 bitwise; the served tokens equal JAX's engines'; a JAX round-state
 checkpoint of a moe tree served through the port; both launchers for all
-five configs; and the families still refused.
+five configs; the vlm and audio families still refused, and the hybrid
+config accepted (its own tests: tests/test_torch_hybrid.py).
 """
 import dataclasses
 
@@ -452,14 +453,27 @@ def test_launchers_run_the_arch_on_the_cpu(arch, capsys):
         assert e.value.code == 2
 
 
-@pytest.mark.parametrize("arch,family", [("zamba2-1.2b", "hybrid"),
-                                         ("phi-3-vision-4.2b", "vlm"),
+@pytest.mark.parametrize("arch,family", [("phi-3-vision-4.2b", "vlm"),
                                          ("whisper-medium", "audio")])
 def test_later_families_are_still_refused(arch, family):
-    """The JAX package's hybrid, vlm and audio configs, copied field by
-    field into the port's ModelConfig, are refused by name."""
+    """The JAX package's vlm and audio configs, copied field by field
+    into the port's ModelConfig, are refused by name."""
     cfg = TModelConfig(**dataclasses.asdict(JARCHS[arch]))
     assert cfg.family == family
     for fn in (ttf.check_family, tbuild):
         with pytest.raises(NotImplementedError, match=family):
             fn(cfg)
+
+
+def test_hybrid_config_is_accepted_and_equals_jax():
+    """The JAX package's zamba2-1.2b config, copied field by field into
+    the port's ModelConfig, equals the port's own and builds a model (the
+    hybrid family, ported with its slice)."""
+    cfg = TModelConfig(**dataclasses.asdict(JARCHS["zamba2-1.2b"]))
+    assert cfg == TARCHS["zamba2-1.2b"]
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        JARCHS["zamba2-1.2b"])
+    ttf.check_family(cfg)
+    model = tbuild(cfg)
+    assert cfg.family == "hybrid" and model.decode_step is not None
+    assert model.prefill is None and model.init_paged_pool is None

@@ -403,6 +403,79 @@ def test_rwkv6_fwd_is_two_launches_a_call(S):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+#: (B, S, H, N, decay range, h0 scale): chip_smoke.py's mamba2 cases at
+#: test size; S = 100 leaves a ragged last segment (and sub-segment), S =
+#: 64 is exactly one, S = 1 the serving path's decode step
+MAMBA2_CASES = [(2, 256, 4, 64, (0.3, 0.99), 0.3),
+                (1, 100, 8, 16, (0.3, 0.99), 0.3),
+                (2, 64, 2, 32, (0.3, 0.99), 0.0),
+                (2, 130, 2, 64, (0.0, 1e-30), 0.3),
+                (2, 130, 2, 64, (0.9999, 1.0), 0.3),
+                (4, 1, 64, 64, (0.3, 0.99), 0.3)]      # a decode step
+
+
+def _mamba2_inputs(dev, g, B, S, H, N, decay, hs):
+    lo, hi = decay
+    a = lo + (hi - lo) * torch.rand(B, S, H, device=dev, generator=g)
+    x, dy = (0.5 * torch.randn(B, S, H, 64, device=dev, generator=g)
+             for _ in range(2))
+    Bm, Cm = (torch.randn(B, S, N, device=dev, generator=g)
+              for _ in range(2))
+    h0, dh = (hs * torch.randn(B, H, 64, N, device=dev, generator=g)
+              for _ in range(2))
+    return a, x, Bm, Cm, h0, dy, dh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,N,decay,hs", MAMBA2_CASES)
+def test_mamba2_kernels_match_plain_on_card(B, S, H, N, decay, hs):
+    """mamba2_fwd and mamba2_bwd against their plain versions on the same
+    inputs, h0 and d(h_final) non-zero (but in one case), one wrapper
+    call each: every output within 1e-5 x (1 + max |plain|) (the dots
+    sum in another order; the states carry the plain version's bits);
+    two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import mamba2_scan as tms
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    a, x, Bm, Cm, h0, dy, dh = _mamba2_inputs(dev, g, B, S, H, N, decay, hs)
+    tms.reset_counts()
+    got = tms.mamba2_fwd(a, x, Bm, Cm, h0)
+    want = tref.mamba2_scan_ref(a, x, Bm, Cm, h0)
+    got_b = tms.mamba2_bwd(dy, dh, a, x, Bm, Cm, want[2])
+    want_b = tref.mamba2_scan_bwd_ref(dy, dh, a, x, Bm, Cm, want[2])
+    for a_, b_ in zip((*got, *got_b), (*want, *want_b)):
+        assert a_.shape == b_.shape
+        assert float((a_ - b_).abs().max()) <= 1e-5 * (
+            1 + float(b_.abs().max()))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert all(fn.launches == 1 for fn in tms.KERNELS.values())
+    again = (*tms.mamba2_fwd(a, x, Bm, Cm, h0),
+             *tms.mamba2_bwd(dy, dh, a, x, Bm, Cm, got[2]))
+    assert all(torch.equal(u, v) for u, v in zip(again, (*got, *got_b)))
+
+
+@pytest.mark.gpu
+def test_mamba2_wrappers_refuse_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import mamba2_scan as tms
+    dev = torch.device("cuda")
+    for P, N in ((32, 64), (64, 128), (64, 8)):
+        x = torch.zeros(1, 8, 2, P, device=dev)
+        bc = torch.zeros(1, 8, N, device=dev)
+        with pytest.raises(ValueError, match="mamba2 kernels take"):
+            tms.mamba2_fwd(torch.zeros(1, 8, 2, device=dev), x, bc, bc,
+                           torch.zeros(1, 2, P, N, device=dev))
+    a = torch.zeros(1, 8, 2, device=dev)
+    x, bc = torch.zeros(1, 8, 2, 64, device=dev), torch.zeros(1, 8, 16,
+                                                              device=dev)
+    off = torch.zeros(x.numel() + 1, device=dev)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        tms.mamba2_fwd(a, off, bc, bc, torch.zeros(1, 2, 64, 16, device=dev))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_server_mix_vector_and_per_element_kernels_bitwise(dt):
@@ -650,6 +723,58 @@ def test_remat_pod_round_bitwise_on_card(arch):
         calls = fl.local_steps * cfg.num_layers
         for name, fn in km.KERNELS.items():
             assert fn.launches == (2 if remat and name == fwd else 1) * calls
+        out.append((state, m))
+    (a, ma), (b, mb) = out
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a["params"]),
+                                                 leaves(b["params"]),
+                                                 strict=True))
+    assert list(ma["loss"]) == list(mb["loss"])
+
+
+@pytest.mark.gpu
+def test_zamba2_remat_pod_round_bitwise_on_card():
+    """One ama_fes pod round of the reduced zamba2 at 6 layers (2
+    shared-attention sites) in f32 on the card: params and losses with
+    remat on == off, bit for bit; mamba2_fwd twice a layer a local step
+    with remat, mamba2_bwd once, each flash kernel once a site a step
+    (the shared attention is outside remat)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch import env as tenv
+    from repro_torch.configs.base import FLConfig, reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.exec.engine import ChunkRunner
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import mamba2_scan as tms
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.api import build_model
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.tree import leaves
+    dev = resolve_device("cuda")
+    fl = FLConfig(num_clients=2, clients_per_round=2, cohorts=2,
+                  local_steps=2, p_limited=0.5, lr=0.1, algorithm="ama_fes",
+                  seed=0)
+    S = 128
+    out = []
+    for remat in (True, False):
+        cfg = reduced(ARCHS["zamba2-1.2b"], dtype="float32",
+                      num_layers=6).with_(remat=remat)
+        toks = make_lm_tokens(4, S + 1, cfg.vocab_size, n_topics=2,
+                              seed=0)["tokens"][:, :S].reshape(2, 2, 1, S)
+        params = ttf.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        state = {"params": params, "t": torch.zeros((), dtype=torch.int32,
+                                                     device=dev), "aux": {}}
+        runner = ChunkRunner(build_model(cfg), fl, per_round_batch=False,
+                             device=dev)
+        tms.reset_counts()
+        tfa.reset_counts()
+        state, m = runner.run_chunk(state, {"tokens": toks},
+                                    tenv.resolve(fl).batch(0, 1))
+        steps = fl.local_steps
+        assert tms.mamba2_fwd.launches == (2 if remat else 1) * 6 * steps
+        assert tms.mamba2_bwd.launches == 6 * steps
+        assert all(fn.launches == 2 * steps for fn in tfa.KERNELS.values())
         out.append((state, m))
     (a, ma), (b, mb) = out
     assert all(torch.equal(x, y) for x, y in zip(leaves(a["params"]),

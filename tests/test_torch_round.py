@@ -176,5 +176,5 @@ def test_unported_options_are_refused():
         tstrategies.resolve(TFL(server_plane="interpret"))
     with pytest.raises(KeyError):
         tstrategies.resolve(TFL(algorithm="scaffold"))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tbuild(TARCHS["minitron-8b"].with_(family="hybrid"))
+    with pytest.raises(NotImplementedError, match="vlm"):
+        tbuild(TARCHS["minitron-8b"].with_(family="vlm"))
