@@ -171,8 +171,8 @@ Slice 18 (the hybrid family, zamba2-1.2b) adds: in phase 3 the mamba2
 recurrence's forward and backward kernels against their plain versions
 (``check_mamba2``: the pod shape (B 2, S 2048, H 64, P 64, N 64), the
 reduced widths (H 8, N 16), S 100, S 1, h0 = 0, decays near 0 and near
-1; within 1e-5 x (1 + max |plain|), the states bitwise; times, plain
-times and bounds at the pod shape and the decode step); in phase 4
+1; within 1e-5 x (1 + max |plain|); times, plain times and bounds at the
+pod shape and the decode step); in phase 4
 zamba2 at full width and all 38 layers on the pod path
 (``zamba2_pod_path``: ama_fes and fedavg, then masked with --no-scan;
 launches from ``plan_launches`` over both kernel families, 152
@@ -189,6 +189,16 @@ are traced in a process of their own (``mamba2_kernels_fresh``), and
 every profiler session of the run keeps CUPTI set up between sessions
 (``TEARDOWN_CUPTI`` = 0, as PyTorch sets it where CUDA graphs are
 captured: the run captures them for its timings).
+Slice 19 redesigns the two mamba2 kernels in the chunked SSD form with
+their products on the tensor cores in 3xTF32: ``check_mamba2`` adds
+exact zeros in a and a = 1 to its cases, holds h_final and the states to
+the 1e-5 rule (no longer bitwise: a chunk boundary sums in another order
+than the per-step recurrence), the backward on the kernel's own states
+against the plain backward on the plain states, and two calls bitwise;
+``time_mamba2`` takes the kernels' bound at the tensor cores' tf32 rate
+for the chunk form's products in three passes (``mamba2_design_flops``),
+prints the per-step recurrence's f32-rate figure beside it, and traces
+three device kernels a forward call and four a backward call.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -213,6 +223,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12        # H100 SXM tf32 tensor cores, dense
 MAIN_N = 54_784                  # the paper CNN's parameter count
 MAIN_K = 5                       # quickstart: 5 clients per round
 MAIN_Q = 11                      # async at max_delay 10
@@ -1454,7 +1465,8 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
 #: (B, S, H, N, decay, h0, label): the pod path's shape (2 cohorts x 1 x
 #: 2048 tokens, zamba2's 64 heads of 64 and state 64), the reduced
 #: config's widths (8 heads, state 16), a ragged S, the serving path's
-#: decode step, a zero h0, and decays near 0 and near 1
+#: decode step, a zero h0, decays near 0 and near 1, exact zeros in a
+#: (a fifth of the steps) and a = 1 throughout
 MAMBA_MAIN = (2, 2048, 64, 64, "model", True, "pod shape")
 MAMBA_DECODE = (4, 1, 64, 64, "model", True, "decode, S = 1")
 MAMBA_CASES = [MAMBA_MAIN,
@@ -1463,21 +1475,29 @@ MAMBA_CASES = [MAMBA_MAIN,
                MAMBA_DECODE,
                (2, 256, 64, 64, "model", False, "h0 = 0"),
                (2, 256, 4, 64, "near 0", True, "decay ~1e-30"),
-               (2, 2048, 4, 64, "near 1", True, "decay 0.99990")]
+               (2, 2048, 4, 64, "near 1", True, "decay 0.99990"),
+               (2, 300, 8, 64, "zeros", True, "exact zeros in a"),
+               (2, 2048, 4, 64, "one", True, "a = 1")]
 
 
 def mamba2_inputs(torch, g, B, S, H, N, decay, h0_on):
     """The recurrence's operands as the model makes them: a = exp(dt_s A)
     with dt_s = softplus(dt), A = -exp(A_log), xdt = x dt_s, B and C off
-    the conv; near 0 and near 1 the decay is drawn there."""
+    the conv; near 0 and near 1 the decay is drawn there, "zeros" sets a
+    fifth of the model's decays to exactly 0 and "one" takes a = 1."""
     dev = torch.device("cuda")
     dt_s = torch.nn.functional.softplus(
         torch.randn(B, S, H, device=dev, generator=g))
-    if decay == "model":
+    if decay in ("model", "zeros"):
         A = -torch.exp(0.5 * torch.randn(H, device=dev, generator=g))
         a = torch.exp(dt_s * A)
+        if decay == "zeros":
+            a = a.masked_fill(
+                torch.rand(B, S, H, device=dev, generator=g) < 0.2, 0.0)
     elif decay == "near 0":
         a = 1e-30 * torch.rand(B, S, H, device=dev, generator=g)
+    elif decay == "one":
+        a = torch.ones(B, S, H, device=dev)
     else:
         a = torch.full((B, S, H), 0.9999, device=dev)
     x = torch.randn(B, S, H, 64, device=dev, generator=g)
@@ -1494,17 +1514,21 @@ def mamba2_inputs(torch, g, B, S, H, N, decay, h0_on):
 
 def check_mamba2(torch, ms, ref, record):
     """mamba2_fwd and mamba2_bwd against their plain versions on the same
-    inputs in every MAMBA_CASES case: every output and gradient within
-    1e-5 x (1 + max |plain|), the states and h_final bitwise (the state
-    update rounds each op alone, as the plain version does); device times
-    at the pod shape and the decode step beside the bound and the plain
-    version (no single library call computes the recurrence)."""
+    inputs in every MAMBA_CASES case: every output and gradient, h_final
+    and the states among them, within 1e-5 x (1 + max |plain|) (the chunk
+    form sums a chunk boundary's state in another order than the per-step
+    recurrence); the backward on the kernel's own states (the pod path's
+    pairing) within the same rule of the plain backward on the plain
+    states; a second call of each the same bits; device times at the pod
+    shape and the decode step beside the bounds and the plain version (no
+    single library call computes the recurrence)."""
     traced = mamba2_kernels_fresh()
     g = torch.Generator(device=torch.device("cuda")).manual_seed(28)
     names = ("y", "h_final", "states", "da", "dxdt", "dB", "dC", "dh0")
     print("mamba2: B, S, H, N, case | max |kernel - plain| / (1 + max "
-          "|plain|) over y, h_final, states / da, dxdt, dB, dC, dh0 "
-          "(limit 1e-5) | max |kernel - plain| fwd / bwd | states bitwise")
+          "|plain|) over y, h_final, states / da, dxdt, dB, dC, dh0 / the "
+          "backward on the kernel's states (limit 1e-5) | max |kernel - "
+          "plain| fwd / bwd | two calls bitwise")
     for case in MAMBA_CASES:
         B, S, H, N, decay, h0_on, label = case
         a, xdt, Bm, Cm, h0, dy, dh = mamba2_inputs(torch, g, B, S, H, N,
@@ -1513,27 +1537,33 @@ def check_mamba2(torch, ms, ref, record):
         want = ref.mamba2_scan_ref(a, xdt, Bm, Cm, h0)
         got += ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm, want[2])
         want += ref.mamba2_scan_bwd_ref(dy, dh, a, xdt, Bm, Cm, want[2])
+        own = ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm, got[2])
         torch.cuda.synchronize()
         errs, abss = [], []
-        for name, u, v in zip(names, got, want, strict=True):
+        for name, u, v in zip(names + names[3:], got + own, want + want[3:],
+                              strict=True):
             check(u.shape == v.shape, f"mamba2 {label}: {name} shape")
             abss.append(float((u - v).abs().max()))
             e = abss[-1] / (1.0 + float(v.abs().max()))
             check(e <= 1e-5, f"mamba2 {label} (B={B} S={S} H={H} N={N}): "
                   f"{name} differs by {e:.3e} x (1 + max |plain|)")
             errs.append(e)
-        exact = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-        check(exact, f"mamba2 {label}: h_final or the states are not the "
-              "plain version's bits")
+        again = (*ms.mamba2_fwd(a, xdt, Bm, Cm, h0),
+                 *ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm, want[2]))
+        same = all(torch.equal(u, v) for u, v in zip(again, got,
+                                                     strict=True))
+        check(same, f"mamba2 {label}: two calls differ")
         print(f"  B={B} S={S:5d} H={H:2d} N={N} {label:16s} | "
-              f"{max(errs[:3]):.2e} / {max(errs[3:]):.2e} | "
-              f"{max(abss[:3]):.2e} / {max(abss[3:]):.2e} | {exact}")
-        rec = dict(case=case, err_fwd=max(abss[:3]), err_bwd=max(abss[3:]))
+              f"{max(errs[:3]):.2e} / {max(errs[3:8]):.2e} / "
+              f"{max(errs[8:]):.2e} | {max(abss[:3]):.2e} / "
+              f"{max(abss[3:]):.2e} | {same}")
+        rec = dict(case=case, err_fwd=max(abss[:3]), err_bwd=max(abss[3:]),
+                   rel_fwd=max(errs[:3]), rel_bwd=max(errs[3:]))
         if case in (MAMBA_MAIN, MAMBA_DECODE):
             rec.update(time_mamba2(torch, ms, ref, case, a, xdt, Bm, Cm, h0,
                                    dy, dh, want[2], traced))
         record.append(rec)
-        del a, xdt, Bm, Cm, h0, dy, dh, got, want
+        del a, xdt, Bm, Cm, h0, dy, dh, got, want, own, again
         torch.cuda.empty_cache()
 
 
@@ -1576,20 +1606,43 @@ def mamba2_kernels_fresh() -> dict:
         "MAMBA2-KERNELS "))[len("MAMBA2-KERNELS "):])
 
 
+def mamba2_design_flops(B, S, H, N, P=64, L=64):
+    """The products the chunk form runs (csrc/mamba2_scan.cu), each
+    counted whole (2 m n k) whatever its triangle: forward C B^T once a
+    chunk and, per chunk and head, S_c = X^T diag(E) B, C h_c^T and (Lm o
+    C B^T) X; backward C B^T and, per chunk and head, U_c, dY X^T, dY h_c,
+    X R, W B, W^T C, B R^T, (Lm o C B^T)^T dY and (dY X^T o C B^T) L'^T.
+    Below S = L the forward runs the per-step form: 5 P N flops a step per
+    (b, h) on the CUDA cores."""
+    NC = -(-S // L)
+    unit = 2 * L
+    fwd = B * NC * (unit * L * N + H * unit * (P * N + N * P + L * P))
+    bwd = B * NC * (unit * L * N + H * unit * (
+        P * N + L * P + P * N + P * N + L * N + L * N + N * P + L * P
+        + L * L))
+    return {"mamba2_fwd": fwd if S >= L else None, "mamba2_bwd": bwd}
+
+
 def time_mamba2(torch, ms, ref, case, a, xdt, Bm, Cm, h0, dy, dh, states,
                 traced):
     """Device times of both kernels and their plain versions at one
-    shape, with each kernel's bound: the bytes and flops of the function
-    it computes, not of its design (the states the forward saves every
-    MAMBA2_CKPT steps and the backward's recomputation are left out).
-    Bytes: each input read once, each output written once; forward a,
-    xdt, B, C, h0 -> y, h_final; backward dy, d(h_final), a, xdt, B, C, h0
-    -> da, dxdt, dB, dC, dh0. Flops a step per (b, h) at the f32 rate:
-    forward 5 P N (a h + x B, y = h C); backward 14 P N (h_t again, G +=
-    dy C, G = a G, the four products dC, dxdt, dB, da). The forward runs
-    one device kernel a call, the backward two (the recurrence, the sum
-    over the heads): ``traced``, the kernels one call of each runs at the
-    pod shape (``mamba2_kernels_fresh``)."""
+    shape, with two bounds for each. Both take the bytes the function
+    must move (the states the forward saves and the design's scratch
+    left out): each input read once, each output written once; forward
+    a, xdt, B, C, h0 -> y, h_final; backward dy, d(h_final), a, xdt, B,
+    C, h0 -> da, dxdt, dB, dC, dh0. ``bound_ms``, at the rate of the
+    units the design runs on: the chunk form's products
+    (``mamba2_design_flops``) in three tf32 tensor-core passes at 495
+    TFLOP/s, or the bytes, whichever is larger (below S = 64 the
+    forward's per-step form runs on the CUDA cores: its f32 bound).
+    ``f32_bound_ms``, the per-step recurrence's flops at the f32 rate or
+    the bytes: flops a step per (b, h), forward 5 P N (a h + x B, y = h
+    C), backward 14 P N (h_t again, G += dy C, G = a G, the four products
+    dC, dxdt, dB, da); the chunk form runs below it, so it is no lower
+    bound there and is printed for comparison with PR 28's rows. The
+    forward runs three device kernels a call at the pod shape, the
+    backward four: ``traced``, the kernels one call of each runs there
+    (``mamba2_kernels_fresh``)."""
     B, S, H, N = case[:4]
     P = 64
     E, BS, mat = B * S * H * P, B * S, B * H * P * N
@@ -1599,17 +1652,22 @@ def time_mamba2(torch, ms, ref, case, a, xdt, Bm, Cm, h0, dy, dh, states,
             "mamba2_bwd": (4 * (2 * E + mat + BS * H + 2 * BS * N + mat
                                 + BS * H + E + 2 * BS * N + mat),
                            steps * 14 * P * N)}
+    design = mamba2_design_flops(B, S, H, N, P)
     kernels = {"mamba2_fwd": lambda: ms.mamba2_fwd(a, xdt, Bm, Cm, h0),
                "mamba2_bwd": lambda: ms.mamba2_bwd(dy, dh, a, xdt, Bm, Cm,
                                                    states)}
     plains = {"mamba2_fwd": lambda: ref.mamba2_scan_ref(a, xdt, Bm, Cm, h0),
               "mamba2_bwd": lambda: ref.mamba2_scan_bwd_ref(
                   dy, dh, a, xdt, Bm, Cm, states)}
-    passes = {"mamba2_fwd": ["mamba2_fwd_kernel"],
-              "mamba2_bwd": ["mamba2_bwd_heads_kernel", "mamba2_bwd_kernel"]}
+    passes = {"mamba2_fwd": ["mamba2_out_kernel", "mamba2_pass_kernel",
+                             "mamba2_state_kernel"],
+              "mamba2_bwd": ["mamba2_bwd_heads_kernel", "mamba2_grad_kernel",
+                             "mamba2_pass_kernel", "mamba2_state_kernel"]}
     print(f"mamba2 at B={B} S={S} H={H} P={P} N={N} f32: kernel device ms | "
-          "bound ms (by) | plain device ms | library: none (no single call "
-          "computes the recurrence)")
+          "bound ms (by; the design's products, 3 x tf32 at 495 TFLOP/s) | "
+          "f32-rate bound ms (by; the per-step flops at 67 TFLOP/s) | "
+          "plain device ms | library: none (no single call computes the "
+          "recurrence)")
     out = {}
     for name, fn in kernels.items():
         got = "not traced"
@@ -1622,14 +1680,21 @@ def time_mamba2(torch, ms, ref, case, a, xdt, Bm, Cm, h0, dy, dh, states,
                   f"{launched}, expected {passes[name]}")
         ms_ = device_ms(torch, fn, reps=5, replays=10)
         plain = slow_ms(torch, plains[name])
-        nbytes, flops = work[name]
-        bnd, by = bound_ms(nbytes, flops)
+        nbytes, f32_flops = work[name]
+        f32_bnd, f32_by = bound_ms(nbytes, f32_flops)
+        if design[name] is None:
+            bnd, by, flops = f32_bnd, f32_by, f32_flops
+        else:
+            flops = 3 * design[name]
+            bnd, by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S)
         print(f"  {name:10s} | {ms_:9.4f} ms | {bnd:.4f} ({by}; "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | plain "
-              f"{plain:9.4f} | kernels {got}")
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | "
+              f"{f32_bnd:.4f} ({f32_by}; {f32_flops / 1e9:.2f} GFLOP) | "
+              f"plain {plain:9.4f} | kernels {got}")
         out[name] = dict(ms=ms_, plain_ms=plain, library_ms=None,
                          nbytes=nbytes, flops=flops, bound_ms=bnd,
-                         bound_by=by)
+                         bound_by=by, f32_flops=f32_flops,
+                         f32_bound_ms=f32_bnd, f32_bound_by=f32_by)
         torch.cuda.empty_cache()
     return out
 
@@ -3185,12 +3250,22 @@ LLMS = {
     # forward twice under remat) and flash at the shared-attention
     # sites (``sites``: after each group of attn_every blocks, outside
     # remat); all 38 layers (6 sites); remat on == off is held at reduced
-    # size (``zamba2_reduced_on_card``)
+    # size (``zamba2_reduced_on_card``). Slice 19: a wrapper's device
+    # kernels are told apart by ``part_kernels`` (the chunk form's state
+    # and pass kernels serve both directions, told apart by their
+    # template arguments in the trace)
     ZAMBA: dict(layers=38, tail=2, params=ZAMBA_N, remat_off=False,
                 plain=("mamba2_scan_ref", "mamba2_scan_bwd_ref",
                        *_FLASH["plain"]),
                 trace="mamba2_", parts=("mamba2_fwd", "mamba2_bwd",
                                         "flash_fwd", "flash_bwd"),
+                part_kernels={
+                    "mamba2_fwd": r"mamba2_(step_kernel|out_kernel|"
+                                  r"state_kernel<\d+, false>|"
+                                  r"pass_kernel<false>)",
+                    "mamba2_bwd": r"mamba2_(grad_kernel|bwd_heads_kernel|"
+                                  r"state_kernel<\d+, true>|"
+                                  r"pass_kernel<true>)"},
                 fwd=("mamba2_fwd", "flash_fwd"),
                 sites=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")),
 }
@@ -3920,14 +3995,17 @@ def llm_where_time_goes(torch, train, arch, tmp, extra=(), ranges=()):
           f"{busy:.1f} ms = {busy / (dt * 1e3):.1%} (idle "
           f"{1 - busy / (dt * 1e3):.1%}); {tag}* kernels {own:.1f} ms = "
           f"{own / busy:.1%} of device time")
+    pats = LLMS[arch].get("part_kernels", {})
     for part in LLMS[arch]["parts"]:   # a kernel wrapper's launches
-        n = sum(c for k, (c, _) in by_name.items() if part in k)
-        ms = sum(us for k, (_, us) in by_name.items() if part in k) / 1e3
+        pat = pats.get(part, re.escape(part))
+        of = {k: v for k, v in by_name.items() if re.search(pat, k)}
+        n = sum(c for c, _ in of.values())
+        ms = sum(us for _, us in of.values()) / 1e3
         print(f"  {part}: {ms:.1f} ms in {n} launches = {ms / busy:.1%} of "
               "device time")
-        for k, (c, us) in sorted(by_name.items()):   # its passes
+        for k, (c, us) in sorted(of.items()):   # its passes
             m = re.search(r"\w+_kernel(<[^>]*>)?", k)
-            if part in k and m:
+            if m:
                 print(f"    {m.group(0)}: {us / 1e3:.1f} ms in {c} launches "
                       f"({us / 1e3 / c:.4f} ms each) = "
                       f"{us / 1e3 / busy:.1%}")
@@ -4984,6 +5062,7 @@ def main() -> None:
     clock = PhaseClock(t_start)
     for line in ptxas_summary(log):
         print("  " + line)
+    clock.mark("1-2, the header and the build")
 
     from repro_torch.kernels import ama_mix as am
     from repro_torch.kernels import flash_attention as fa
@@ -5019,13 +5098,15 @@ def main() -> None:
     check_ama_mix(torch, am, ref, recs["ama_mix"])
     check_flash(torch, fa, ref, flash_rec)
     check_rwkv6(torch, rs, ref, rwkv_rec)
+    clock.mark("3, the server, ama_mix, flash and rwkv6 kernels against "
+               "their plain versions")
     check_mamba2(torch, ms, ref, mamba_rec)
+    clock.mark("3, the mamba2 kernels against their plain versions")
     check_serve_attention(torch, sa, ref, serve_rec)
     check_invariant_dense(torch, idn, ref, recs["invariant_dense"])
     check_invariant_rmsnorm(torch, irn, ref, recs["invariant_rmsnorm"],
                             recs["invariant_add_rmsnorm"])
-    clock.mark("1-3, the header, the build and every kernel against its "
-               "plain version")
+    clock.mark("3, the serving kernels against their plain versions")
     # one short run first, so one-time CUDA/cuDNN set-up is not booked
     # against the first main-path run
     run_train(torch, train, ["--algorithm", "ama_fes", *QUICKSTART,

@@ -34,7 +34,12 @@ add followed by the norm (and the fused call where the package has it),
 device and host, at d 4096 bf16, M 4 and 256; ``decode_step`` traces one
 full-width 32-layer minitron-8b decode step and counts its device
 kernels and the norm sites' launches and time (one turn a checkout is
-enough there: the kernels a step launches do not vary). Needs a CUDA
+enough there: the kernels a step launches do not vary). ``mamba2`` runs
+each checkout's own ``check_mamba2`` on its pod-shape and decode cases
+only (``MAMBA_MAIN``, ``MAMBA_DECODE``): both kernels against their
+plain versions, then their device times; ``zamba2_pod`` phase 4's
+zamba2-1.2b pod path (full width, all 38 layers, ama_fes and fedavg,
+then masked with --no-scan for tokens/s over rounds 2-3). Needs a CUDA
 device.
 """
 from __future__ import annotations
@@ -70,6 +75,10 @@ CHECKS = {
     "decode_step": "this.decode_step_record(torch, rec)",
     "dense_f32": "this.check_dense_wide(torch, idn, ref, rec, "
                  "this.DENSE_F32_EARLIER, 'its earlier f32 shapes')",
+    "mamba2": "(setattr(cs, 'MAMBA_CASES', [cs.MAMBA_MAIN, "
+              "cs.MAMBA_DECODE]), cs.check_mamba2(torch, ms, ref, rec))",
+    "zamba2_pod": "cs.zamba2_pod_path(torch, train, cs.KernelSet(ms, fa), "
+                  "(sp, fa, rs, ms), ref, tree_mod, rec)",
 }
 
 _RUN = """
@@ -85,6 +94,7 @@ from repro_torch.kernels import ama_mix as am
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import invariant_dense as idn
 from repro_torch.kernels import invariant_rmsnorm as irn
+from repro_torch.kernels import mamba2_scan as ms
 from repro_torch.kernels import rwkv6_scan as rs
 from repro_torch.kernels import server_plane as sp
 from repro_torch.launch import train

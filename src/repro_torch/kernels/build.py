@@ -84,13 +84,14 @@ SIGNATURES = {
     # scratch, B, S, H, stream
     "rwkv6_bwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 15,
                   *(ctypes.c_int,) * 3, _P),
-    # N, ckpt, a, x, Bm, Cm, h0, y, h_final, states, B, S, H, P, stream
-    "mamba2_fwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 8,
-                   *(ctypes.c_int,) * 4, _P),
+    # N, ckpt, a, x, Bm, Cm, h0, y, h_final, states, decay, B, S, H, P,
+    # hg, stream
+    "mamba2_fwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 9,
+                   *(ctypes.c_int,) * 5, _P),
     # N, ckpt, dy, dh, a, x, Bm, Cm, states, da, dx, dB, dC, dh0, dBp, dCp,
-    # scratch, B, S, H, P, stream
-    "mamba2_bwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 15,
-                   *(ctypes.c_int,) * 4, _P),
+    # adj, decay, B, S, H, P, hg, stream
+    "mamba2_bwd": (ctypes.c_int, ctypes.c_int, *(_P,) * 16,
+                   *(ctypes.c_int,) * 5, _P),
 }
 #: C entries that return nothing -> argtypes
 VOID_SIGNATURES = {

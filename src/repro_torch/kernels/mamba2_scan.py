@@ -5,19 +5,27 @@ hand-written CUDA kernels and the autograd plumbing that lets
 The JAX package has no Pallas kernel here: it runs the recurrence as a
 ``lax.scan`` over 64-step chunks under ``jax.checkpoint``
 (``models/mamba2.py: mamba2_fwd``) and leaves its gradient to XLA. The
-kernels are CUDA C++ for ``sm_90a`` (``csrc/mamba2_scan.cu``):
+kernels are CUDA C++ for ``sm_90a`` (``csrc/mamba2_scan.cu``), in
+Mamba-2's chunked (SSD) form with their products on the tensor cores in
+3xTF32:
 
-  * ``mamba2_fwd`` — y and h_final; also the state entering every
-                     ``MAMBA2_CKPT``-th step, which the backward restarts
-                     from (one launch);
-  * ``mamba2_bwd`` — da, dxdt, dB, dC and dh0 by the adjoint recurrence,
-                     dB and dC summed over the heads in head order by a
-                     second launch (two launches a call, counted as one).
+  * ``mamba2_fwd`` — y and h_final, and the state entering every
+                     ``MAMBA2_CKPT``-step chunk, which the backward starts
+                     each chunk from (three launches a call: the chunks'
+                     own contributions, the scan over chunk boundaries,
+                     the outputs; below S = ``MAMBA2_CKPT`` one launch of
+                     the per-step form);
+  * ``mamba2_bwd`` — da, dxdt, dB, dC and dh0 in the same form run in
+                     reverse (four launches a call: the chunks' adjoint
+                     contributions, the reverse scan, the chunk gradients
+                     with dB and dC summed over groups of heads, the sum
+                     over the groups in order).
 
-Dispatch is by device: a CPU tensor takes the plain version in
-``kernels/ref.py`` (``mamba2_scan_ref``, ``mamba2_scan_bwd_ref``, the same
-signatures); a CUDA tensor launches the kernel, or the wrapper raises.
-Each kernel wrapper counts its launches (``mamba2_fwd.launches``, ...).
+A call is counted as one launch whatever its device kernels. Dispatch is
+by device: a CPU tensor takes the plain version in ``kernels/ref.py``
+(``mamba2_scan_ref``, ``mamba2_scan_bwd_ref``, the same signatures); a
+CUDA tensor launches the kernel, or the wrapper raises. Each kernel
+wrapper counts its launches (``mamba2_fwd.launches``, ...).
 
 ``mamba2_recurrence(a, xdt, Bm, Cm, h0)`` is the differentiable entry the
 model calls, for any S. It is built from two ``torch.autograd.Function``s,
@@ -44,9 +52,9 @@ __all__ = ["mamba2_recurrence", "mamba2_fwd", "mamba2_bwd", "Mamba2Scan",
 STATE_SIZES = (16, 32, 64)
 #: the head dim P the kernels take (models/mamba2.py: HEAD_DIM)
 HEAD_DIM = 64
-#: the backward kernel keeps the state entering every _SUB-th step of a
-#: segment in a per-block scratch (csrc/mamba2_scan.cu: kSub)
-_SUB = 4
+#: the most heads a block of the output and gradient kernels takes; the
+#: backward's dB and dC leave a partial sum per group of heads
+_HEAD_GROUP = 8
 
 _F32 = (torch.float32,)
 
@@ -66,6 +74,12 @@ def _geometry(a, xdt, Bm, Cm):
 
 def _states_shape(B, S, H, P, N):
     return (B, H, -(-S // ref.MAMBA2_CKPT), P, N)
+
+
+def _decay_scratch(B, S, H, dev):
+    """The chunks' decay products A_c, (B, H, ceil(S / MAMBA2_CKPT))."""
+    return torch.empty((B, H, -(-S // ref.MAMBA2_CKPT)), dtype=torch.float32,
+                       device=dev)
 
 
 def _launch_checks(what, P, N, *operands):
@@ -93,10 +107,11 @@ def mamba2_fwd(a, xdt, Bm, Cm, h0):
     h_final = torch.empty_like(h0)
     states = torch.empty(_states_shape(B, S, H, P, N), dtype=torch.float32,
                          device=xdt.device)
+    decay = _decay_scratch(B, S, H, xdt.device)
     err = build.load().mamba2_fwd(
         N, ref.MAMBA2_CKPT, _ptr(a), _ptr(xdt), _ptr(Bm), _ptr(Cm), _ptr(h0),
-        _ptr(y), _ptr(h_final), _ptr(states), B, S, H, P,
-        _stream(xdt.device))
+        _ptr(y), _ptr(h_final), _ptr(states), _ptr(decay), B, S, H, P,
+        min(_HEAD_GROUP, H), _stream(xdt.device))
     _raise_on(err, "mamba2_fwd")
     mamba2_fwd.launches += 1
     return y, h_final, states
@@ -117,17 +132,21 @@ def mamba2_bwd(dy, dh, a, xdt, Bm, Cm, states):
     _launch_checks("mamba2_bwd", P, N, dy, dh, xdt, Bm, Cm, states)
     da, dxdt, dB, dC = (torch.empty_like(x) for x in (a, xdt, Bm, Cm))
     dh0 = torch.empty_like(dh)
-    # dB and dC per head, summed over the heads by the second launch
-    dBp, dCp = (torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
-                for _ in range(2))
-    # the state entering every _SUB-th step of a segment, per (b, h)
-    scratch = torch.empty((B * H, ref.MAMBA2_CKPT // _SUB, P, N),
-                          dtype=torch.float32, device=dev)
+    # dB and dC per group of heads, summed over the groups by the last
+    # launch
+    hg = min(_HEAD_GROUP, H)
+    groups = -(-H // hg)
+    dBp, dCp = (torch.empty((B, S, groups, N), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    # the adjoint of the state leaving every chunk, from the steps after it
+    adj = torch.empty(_states_shape(B, S, H, P, N), dtype=torch.float32,
+                      device=dev)
+    decay = _decay_scratch(B, S, H, dev)
     err = build.load().mamba2_bwd(
         N, ref.MAMBA2_CKPT, _ptr(dy), _ptr(dh), _ptr(a), _ptr(xdt), _ptr(Bm),
         _ptr(Cm), _ptr(states), _ptr(da), _ptr(dxdt), _ptr(dB), _ptr(dC),
-        _ptr(dh0), _ptr(dBp), _ptr(dCp), _ptr(scratch), B, S, H, P,
-        _stream(dev))
+        _ptr(dh0), _ptr(dBp), _ptr(dCp), _ptr(adj), _ptr(decay), B, S, H, P,
+        hg, _stream(dev))
     _raise_on(err, "mamba2_bwd")
     mamba2_bwd.launches += 1
     return da, dxdt, dB, dC, dh0

@@ -404,19 +404,25 @@ def test_rwkv6_fwd_is_two_launches_a_call(S):
 
 
 #: (B, S, H, N, decay range, h0 scale): chip_smoke.py's mamba2 cases at
-#: test size; S = 100 leaves a ragged last segment (and sub-segment), S =
-#: 64 is exactly one, S = 1 the serving path's decode step
+#: test size; S = 100 leaves a ragged last chunk, S = 64 is exactly one,
+#: S = 1 the serving path's decode step; a third decay entry is the share
+#: of steps whose decay is exactly 0, and (1.0, 1.0) is a = 1 throughout
 MAMBA2_CASES = [(2, 256, 4, 64, (0.3, 0.99), 0.3),
                 (1, 100, 8, 16, (0.3, 0.99), 0.3),
                 (2, 64, 2, 32, (0.3, 0.99), 0.0),
                 (2, 130, 2, 64, (0.0, 1e-30), 0.3),
                 (2, 130, 2, 64, (0.9999, 1.0), 0.3),
+                (2, 200, 3, 64, (0.3, 0.99, 0.2), 0.3),   # exact zeros
+                (2, 192, 2, 32, (1.0, 1.0), 0.3),         # a = 1
                 (4, 1, 64, 64, (0.3, 0.99), 0.3)]      # a decode step
 
 
 def _mamba2_inputs(dev, g, B, S, H, N, decay, hs):
-    lo, hi = decay
+    lo, hi = decay[:2]
     a = lo + (hi - lo) * torch.rand(B, S, H, device=dev, generator=g)
+    if len(decay) > 2:
+        a = a.masked_fill(torch.rand(B, S, H, device=dev, generator=g)
+                          < decay[2], 0.0)
     x, dy = (0.5 * torch.randn(B, S, H, 64, device=dev, generator=g)
              for _ in range(2))
     Bm, Cm = (torch.randn(B, S, N, device=dev, generator=g)
@@ -426,14 +432,24 @@ def _mamba2_inputs(dev, g, B, S, H, N, decay, hs):
     return a, x, Bm, Cm, h0, dy, dh
 
 
+def _within_rule(got, want):
+    """Every pair within 1e-5 x (1 + max |plain|)."""
+    for a_, b_ in zip(got, want, strict=True):
+        assert a_.shape == b_.shape
+        assert float((a_ - b_).abs().max()) <= 1e-5 * (
+            1 + float(b_.abs().max()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,N,decay,hs", MAMBA2_CASES)
 def test_mamba2_kernels_match_plain_on_card(B, S, H, N, decay, hs):
     """mamba2_fwd and mamba2_bwd against their plain versions on the same
     inputs, h0 and d(h_final) non-zero (but in one case), one wrapper
-    call each: every output within 1e-5 x (1 + max |plain|) (the dots
-    sum in another order; the states carry the plain version's bits);
-    two calls give the same bits."""
+    call each: every output, h_final and the states among them, within
+    1e-5 x (1 + max |plain|) (the chunk form sums in another order than
+    the per-step recurrence); the backward on the kernel's own states
+    (the pod path's pairing) within the same rule of the plain backward
+    on the plain states; two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import mamba2_scan as tms
@@ -445,15 +461,13 @@ def test_mamba2_kernels_match_plain_on_card(B, S, H, N, decay, hs):
     want = tref.mamba2_scan_ref(a, x, Bm, Cm, h0)
     got_b = tms.mamba2_bwd(dy, dh, a, x, Bm, Cm, want[2])
     want_b = tref.mamba2_scan_bwd_ref(dy, dh, a, x, Bm, Cm, want[2])
-    for a_, b_ in zip((*got, *got_b), (*want, *want_b)):
-        assert a_.shape == b_.shape
-        assert float((a_ - b_).abs().max()) <= 1e-5 * (
-            1 + float(b_.abs().max()))
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _within_rule((*got, *got_b), (*want, *want_b))
     assert all(fn.launches == 1 for fn in tms.KERNELS.values())
+    own_b = tms.mamba2_bwd(dy, dh, a, x, Bm, Cm, got[2])
+    _within_rule(own_b, want_b)
     again = (*tms.mamba2_fwd(a, x, Bm, Cm, h0),
              *tms.mamba2_bwd(dy, dh, a, x, Bm, Cm, got[2]))
-    assert all(torch.equal(u, v) for u, v in zip(again, (*got, *got_b)))
+    assert all(torch.equal(u, v) for u, v in zip(again, (*got, *own_b)))
 
 
 @pytest.mark.gpu
