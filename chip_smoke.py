@@ -199,6 +199,33 @@ against the plain backward on the plain states, and two calls bitwise;
 for the chunk form's products in three passes (``mamba2_design_flops``),
 prints the per-step recurrence's f32-rate figure beside it, and traces
 three device kernels a forward call and four a backward call.
+Slice 20 (the vlm, phi-3-vision-4.2b, and the encoder-decoder,
+whisper-medium) adds: in phase 3 the flash kernels at any length and at
+q against k, v of another length (``check_flash``: the vlm's 2,624 rows
+at hd 96, whisper's encoder over 1,500 frames non-causal, its
+cross-attention 2,048 x 1,500 and one row x 1,500, ragged S 129 and 200
+on both designs, the three new shapes timed beside SDPA; a causal or
+windowed q against k, v of another length refused), serve_attention at
+the vlm's hd 96 with n_rep 1 and its cross form
+(``check_serve_cross``: c 1, 8 and 64 over 1,500 keys, bf16 and f32,
+every chunk row bitwise the c = 1 row, timed beside SDPA),
+invariant_dense at both families' serving projections (whisper's lm_head
+padded to 51,872 columns) and invariant_rmsnorm at d 3072 and 1024; in
+phase 4 both at full width on the pod path, the vlm at 24 of its 32
+layers (32 ran out of memory after the earlier phases), whisper at all
+24 + 24 (``slice20_pod_paths``: ama_fes and fedavg masked, whisper's remat off
+bitwise, then partitioned at p_limited 0.5; the depth, parameters and
+peak printed) and served (``slice20_serving``: the vlm paged twice and
+by the loop engine per token twice and chunked 64, whisper by the loop
+engine the same way with its frames encoded once a run, every run the
+first run's tokens; whisper's paged engine refused); in phases 5-6 the
+reduced vlm and whisper (100 frames) card == CPU on both client planes,
+chunked == per round and remat on == off, bitwise
+(``slice20_reduced_on_card``); in phase 7 a 2-round profile of whisper
+with the device time of its encoder's, decoder's and cross-attention's
+profiler ranges and of the flash kernels in each
+(``whisper_where_time_goes``). The kernels line gains
+``serve_cross_attention``.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -1026,6 +1053,8 @@ LLM_N = 2_583_711_744            # minitron-8b, 2 layers, full width
 RWKV_N = 1_018_698_240           # rwkv6-3b, 8 layers, full width
 PHI_N = 2_863_288_320            # phi3.5-moe, 2 layers, full width
 ZAMBA_N = 1_119_979_648          # zamba2-1.2b, all 38 layers, full width
+VLM_N = 2_918_206_464            # phi-3-vision-4.2b, 24 of 32 layers
+WHISPER_N = 812_523_520          # whisper-medium, all 24 + 24 layers
 LLM_K = 2                        # the pod path's cohorts
 CUBLAS_ROWS = 1 << 30            # addmv rows a call, below 2**31
 
@@ -1107,6 +1136,15 @@ FLASH_GQA = ("bfloat16", 128, True, 0, 2, 2048, 32, 8)
 #: its window of 4096 (wider than S, so every causal pair is visible)
 FLASH_MIXTRAL = ("bfloat16", 128, True, 4096, 2, 2048, 48, 8)
 FLASH_TIMED = (FLASH_MAIN, FLASH_GQA, FLASH_MIXTRAL)
+#: slice 20: the vlm's decoder (phi-3-vision-4.2b: 576 patches + 2,048
+#: tokens = 2,624 rows, 32 heads of 96, MHA, 2 cohorts), whisper-medium's
+#: encoder (1,500 frames, non-causal, 16 heads of 64) and its decoder's
+#: cross-attention (2,048 tokens against the 1,500 frames: a 9th field,
+#: Skv, when it differs from S)
+FLASH_VLM = ("bfloat16", 96, True, 0, 2, 2624, 32, 32)
+FLASH_WHISPER_ENC = ("bfloat16", 64, False, 0, 2, 1500, 16, 16)
+FLASH_WHISPER_CROSS = ("bfloat16", 64, False, 0, 2, 2048, 16, 16, 1500)
+FLASH_TIMED += (FLASH_VLM, FLASH_WHISPER_ENC, FLASH_WHISPER_CROSS)
 FLASH_CASES = [FLASH_MAIN, FLASH_GQA, FLASH_MIXTRAL,
                ("bfloat16", 64, True, 0, 2, 2048, 32, 32),
                ("bfloat16", 96, True, 0, 2, 2048, 32, 32),
@@ -1118,13 +1156,36 @@ FLASH_CASES = [FLASH_MAIN, FLASH_GQA, FLASH_MIXTRAL,
                ("bfloat16", 64, True, 0, 2, 2048, 32, 16),
                ("float32", 128, True, 0, 2, 512, 8, 2),
                ("bfloat16", 128, True, 0, 1, 100, 4, 2),
-               ("bfloat16", 64, False, 32, 1, 100, 3, 1)]
+               ("bfloat16", 64, False, 32, 1, 100, 3, 1),
+               FLASH_VLM, FLASH_WHISPER_ENC, FLASH_WHISPER_CROSS,
+               # whisper's decoder self-attention, a query row against
+               # the frames, small ragged lengths on both designs
+               ("bfloat16", 64, True, 0, 2, 2048, 16, 16),
+               ("bfloat16", 64, False, 0, 2, 1, 16, 16, 1500),
+               ("float32", 64, False, 0, 1, 1500, 4, 4),
+               ("float32", 64, False, 0, 1, 129, 4, 4, 1500),
+               ("bfloat16", 64, True, 0, 1, 129, 4, 2),
+               ("float32", 64, True, 0, 1, 129, 4, 2),
+               ("bfloat16", 96, True, 0, 1, 200, 4, 4),
+               ("float32", 96, True, 0, 1, 200, 4, 4)]
 #: the kernel design each input dtype must take (flash_design_counts)
 FLASH_DESIGN = {"bfloat16": "wgmma", "float32": "cuda_cores"}
 
 
-def visible_pairs(S: int, causal: bool, window: int) -> int:
-    """Query-key pairs the mask lets through (the work this input needs)."""
+def flash_case(case) -> tuple:
+    """(dtype, hd, causal, window, B, Sq, Skv, H, Hkv) of a FLASH_CASES
+    entry (Skv = S unless a 9th field gives it)."""
+    dtn, hd, causal, window, B, S, H, Hkv, *kv = case
+    return dtn, hd, causal, window, B, S, kv[0] if kv else S, H, Hkv
+
+
+def visible_pairs(S: int, causal: bool, window: int,
+                  Skv: int | None = None) -> int:
+    """Query-key pairs the mask lets through (the work this input needs);
+    every pair of S queries and Skv keys when they differ
+    (cross-attention)."""
+    if Skv is not None and Skv != S:
+        return S * Skv
     total = 0
     for i in range(S):
         hi = i if causal else S - 1
@@ -1163,19 +1224,19 @@ def check_flash(torch, fa, ref, record):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     F = torch.nn.functional
-    print("flash attention: dtype, hd, causal, window, B, S, H / Hkv | max "
-          "error of fwd / dq / dk / dv against the plain version in f32 "
-          "(the plain version's own bf16 error)")
+    print("flash attention: dtype, hd, causal, window, B, S (or Sq x Skv), "
+          "H / Hkv | max error of fwd / dq / dk / dv against the plain "
+          "version in f32 (the plain version's own bf16 error)")
     for case in FLASH_CASES:
-        dtn, hd, causal, window, B, S, H, Hkv = case
+        dtn, hd, causal, window, B, S, Skv, H, Hkv = flash_case(case)
         dt = getattr(torch, dtn)
         q, dout = (torch.randn(B, S, H, hd, device=dev, generator=g).to(dt)
                    for _ in range(2))
-        k, v = (torch.randn(B, S, Hkv, hd, device=dev, generator=g).to(dt)
+        k, v = (torch.randn(B, Skv, Hkv, hd, device=dev, generator=g).to(dt)
                 for _ in range(2))
         kw = dict(causal=causal, window=window)
-        tag = (f"{dtn} hd={hd} causal={causal} window={window} B={B} S={S} "
-               f"H={H}/{Hkv}")
+        tag = (f"{dtn} hd={hd} causal={causal} window={window} B={B} "
+               f"S={S if Skv == S else f'{S}x{Skv}'} H={H}/{Hkv}")
         before = fa.design_launches()
         up = [x.float() for x in (dout, q, k, v)]
         out32, _ = ref.flash_attention_ref(*up[1:], **kw)
@@ -1226,16 +1287,18 @@ def check_flash(torch, fa, ref, record):
         del q, k, v, dout, up, out, lse, out_lo, lse_lo, dq, delta, d_lo
         del dk32, dv32, dk_lo, dv_lo, dk, dv
         torch.cuda.empty_cache()
-    for S in (200, 130):
-        x = torch.zeros(1, S, 2, 128, device=dev, dtype=torch.bfloat16)
+    x = torch.zeros(1, 200, 2, 128, device=dev, dtype=torch.bfloat16)
+    for kw in (dict(causal=True), dict(causal=False, window=64)):
         for fn in (fa.flash_attention, fa.flash_fwd):
             try:
-                fn(x, x, x)
+                fn(x, x[:, :130], x[:, :130], **kw)
             except ValueError:
                 continue
-            fail(f"{fn.__name__} took S={S}, which the TPU kernel refuses")
-    print("flash attention: S = 200 and S = 130 refused (S must be a "
-          "multiple of min(128, S))")
+            fail(f"{fn.__name__} took q of 200 rows against k, v of 130 "
+                 f"with {kw}")
+    print("flash attention: any S goes (the 129 / 200 / 1,500 / 2,624 "
+          "cases above); q of 200 rows against k, v of 130 refused with a "
+          "causal mask or a window (cross-attention takes neither)")
 
 
 def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
@@ -1243,12 +1306,12 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
     one shape, with each kernel's bound (the function's flops at the peak
     rate of the input type, against its bytes: q, out, dO, dq at H heads,
     k, v, dk, dv at Hkv heads)."""
-    dtn, hd, causal, window, B, S, H, Hkv = case
+    dtn, hd, causal, window, B, S, Skv, H, Hkv = flash_case(case)
     kw = dict(causal=causal, window=window)
     rate = BF16_FLOPS_PER_S if dtn == "bfloat16" else F32_FLOPS_PER_S
     s = q.element_size()
-    E, Ekv, rows = B * S * H * hd, B * S * Hkv * hd, B * H * S * 4
-    n = B * H * visible_pairs(S, causal, window) * hd
+    E, Ekv, rows = B * S * H * hd, B * Skv * Hkv * hd, B * H * S * 4
+    n = B * H * visible_pairs(S, causal, window, Skv) * hd
     work = {"flash_fwd": ((2 * E + 2 * Ekv) * s + rows, 4 * n),
             "flash_bwd_dq": ((4 * E + 2 * Ekv) * s + 2 * rows,
                              6 * n + 2 * E),
@@ -1280,8 +1343,9 @@ def time_flash(torch, fa, ref, F, case, q, k, v, dout, out, lse, delta):
         o, (qg, kg, vg), do, retain_graph=True), iters=10)
     out_rec = {"library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
     print(f"flash attention at {dtn} hd={hd} causal={causal} "
-          f"window={window} B={B} S={S} H={H} Hkv={Hkv}: kernel device ms | "
-          "bound ms (by) | plain device ms | library")
+          f"window={window} B={B} S={S}{f' Skv={Skv}' * (Skv != S)} H={H} "
+          f"Hkv={Hkv}: kernel device ms | bound ms (by) | plain device ms | "
+          "library")
     for name, fn in kernels.items():
         ms = device_ms(torch, fn, reps=3, replays=5)
         plain = device_ms(torch, plains[name], reps=1, replays=3)
@@ -1733,11 +1797,19 @@ SERVE_WIDE = [("bfloat16", 4, 1, 4096, 0, "decode, n_rep 6", 48),
               ("bfloat16", 4, 64, 0, 5, "prefill c 64, n_rep 12", 96),
               ("bfloat16", 4, 1, 0, 0, "decode, n_rep 16", 128),
               ("bfloat16", 4, 64, 0, 0, "prefill c 64, n_rep 16", 128)]
-SERVE_CASES += SERVE_WIDE
-SERVE_TIMED += tuple(SERVE_WIDE)
+#: slice 20: phi-3-vision-4.2b's decode and prefill chunk, 32 query heads
+#: over 32 kv heads of 96 (n_rep 1; 8th and 9th fields: kv heads, hd)
+#: over a linear cache
+SERVE_VLM = [("bfloat16", 4, 1, 0, 0, "vlm decode, hd 96, n_rep 1", 32, 32,
+              96),
+             ("bfloat16", 4, 64, 0, 5, "vlm prefill c 64, hd 96", 32, 32,
+              96)]
+SERVE_CASES += SERVE_WIDE + SERVE_VLM
+SERVE_TIMED += tuple(SERVE_WIDE) + tuple(SERVE_VLM)
 
 
-def serve_state(torch, g, ref, dtype, B, c, window, pads, H=SERVE_H):
+def serve_state(torch, g, ref, dtype, B, c, window, pads, H=SERVE_H,
+                KH=SERVE_KH, hd=SERVE_HD):
     """One serving-attention input at minitron's shape: the cache of a
     ring of SERVE_L slots before a chunk of c rows (every slot holding the
     latest position below the chunk's first, of that slot's residue), the
@@ -1747,7 +1819,7 @@ def serve_state(torch, g, ref, dtype, B, c, window, pads, H=SERVE_H):
     0 each row's last block, empty, unmapped: the null block)."""
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
-    L, KH, hd, bs = SERVE_L, SERVE_KH, SERVE_HD, SERVE_BS
+    L, bs = SERVE_L, SERVE_BS
     p0 = torch.tensor([(L + 904 if window else L // 4) + L // 13 * b
                        for b in range(B)], device=dev)
     s = torch.arange(L, device=dev)
@@ -1894,8 +1966,8 @@ def time_serve_attention(torch, sa, ref, F, case, st):
     s = q.element_size()
     nbytes = ((2 * q.numel() + k.numel() + v.numel() + ck.numel()
                + cv.numel()) * s + (pos.numel() + cpos.numel()) * 4)
-    flops = 4 * SERVE_HD * q.shape[2] * serve_visible(torch, ref, pos, cpos,
-                                                      window)
+    flops = 4 * q.shape[3] * q.shape[2] * serve_visible(torch, ref, pos,
+                                                         cpos, window)
     # bf16: the card's bound at the tensor-core rate; the design's keeps
     # P.V (half the flops) on the CUDA cores at the f32 rate
     bf16 = dtype == "bfloat16"
@@ -1934,6 +2006,85 @@ def time_serve_attention(torch, sa, ref, F, case, st):
     return dict(ms=ms, ms_paged=ms_paged, plain_ms=plain, library_ms=lib,
                 nbytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by,
                 design_bound_ms=design)
+
+
+#: slice 20: serve_attention's cross form at whisper-medium's decoder
+#: shape (16 query heads over 16 kv heads of 64 against the encoder's
+#: 1,500 frames): (dtype, B, c, label); decode and chunks of 8 and 64
+CROSS_L, CROSS_H, CROSS_HD = 1500, 16, 64
+CROSS_MAIN = ("bfloat16", 4, 1, "decode")
+CROSS_CASES = [CROSS_MAIN, ("bfloat16", 4, 8, "chunk 8"),
+               ("bfloat16", 4, 64, "chunk 64"),
+               ("float32", 4, 1, "decode f32"),
+               ("float32", 2, 64, "chunk 64 f32")]
+CROSS_TIMED = (CROSS_MAIN, ("bfloat16", 4, 64, "chunk 64"))
+
+
+def check_serve_cross(torch, sa, ref, record):
+    """serve_attention's cross form (``serve_cross_attention``) against
+    its plain version in every CROSS_CASES case under FlashAttention's
+    rule, one launch a call on its own count (the self form's untouched);
+    every row of a chunk bitwise that row computed at c = 1. Device times
+    at CROSS_TIMED beside the bound (q, the encoder's K/V and out once,
+    bytes at 3.35 TB/s, against 4 hd flops a query-key pair and head at
+    the dtype's rate), the plain version and SDPA (``enable_gqa``, no
+    mask) as the library call."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    L, H, hd = CROSS_L, CROSS_H, CROSS_HD
+    print(f"serve_cross_attention (L {L}, {H} heads of {hd}): dtype B c | "
+          "max err vs plain (rule) | rows == c=1 rows | kernel ms, bound, "
+          "plain, SDPA")
+    for case in CROSS_CASES:
+        dtype, B, c, label = case
+        dt = getattr(torch, dtype)
+        q = (hd ** -0.5 * torch.randn(B, c, H, hd, device=dev,
+                                      generator=g)).to(dt)
+        ek, ev = (torch.randn(B, L, H, hd, device=dev, generator=g).to(dt)
+                  for _ in "kv")
+        sa.reset_counts()
+        got = sa.serve_cross_attention(q, ek, ev)
+        check((sa.serve_cross_attention.launches,
+               sa.serve_attention.launches) == (1, 0),
+              f"serve_cross_attention {label}: not one launch of its own")
+        want = ref.serve_cross_attention_ref(q, ek, ev)
+        want32 = ref.serve_cross_attention_ref(q.float(), ek.float(),
+                                               ev.float())
+        torch.cuda.synchronize()
+        err = flash_rule(torch, f"serve_cross_attention {label}", got,
+                         want32, want)
+        for i in range(c):
+            one = sa.serve_cross_attention(q[:, i:i + 1].contiguous(), ek,
+                                           ev)
+            check(torch.equal(got[:, i], one[:, 0]),
+                  f"serve_cross_attention {label}: row {i} differs from "
+                  "the row at c = 1")
+        rec = dict(case=case, err=err)
+        line = "-"
+        if case in CROSS_TIMED:
+            s_ = q.element_size()
+            nbytes = (2 * q.numel() + ek.numel() + ev.numel()) * s_
+            flops = 4 * hd * H * c * L * B
+            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S
+                               if dt == torch.bfloat16 else F32_FLOPS_PER_S)
+            ms = device_ms(torch, lambda: sa.serve_cross_attention(q, ek, ev),
+                           reps=10, replays=10)
+            plain = slow_ms(torch, lambda: ref.serve_cross_attention_ref(
+                q, ek, ev))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, ek, ev))
+            lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=1.0, enable_gqa=True), reps=10, replays=10)
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, nbytes=nbytes,
+                       flops=flops, bound_ms=bnd, bound_by=by)
+            line = (f"{ms:.4f} ms, bound {bnd:.4f} ({by}: "
+                    f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain "
+                    f"{plain:.4f}, SDPA {lib:.4f}")
+        print(f"  {dtype:8s} B={B} c={c:2d} {label:12s} | {err:.3e} | "
+              f"bitwise, {c} rows | {line}")
+        record.append(rec)
+        del q, ek, ev, got, want, want32
+        torch.cuda.empty_cache()
 
 
 #: minitron-8b's serving projections (d_in, d_out) at its published widths
@@ -2030,6 +2181,8 @@ def check_invariant_dense(torch, idn, ref, record):
     check_dense_wide(torch, idn, ref, record)
     check_dense_wide(torch, idn, ref, record, DENSE_F32_EARLIER,
                      "its earlier f32 shapes")
+    check_dense_wide(torch, idn, ref, record, DENSE_FAMILIES,
+                     "slice 20's widths")
     ms = {r["case"]: r for r in record}
     for M, what in ((4, "decode step (M 4)"),
                     (256, "prefill chunk (M 256: 4 slots x 64 rows)")):
@@ -2170,6 +2323,23 @@ DENSE_F32_EARLIER = [
      "float32"),
     ("reduced minitron-8b w_out", 512, (256,), False, "float32"),
     ("reduced minitron-8b lm_head", 256, (512,), False, "float32")]
+#: slice 20's serving projections at their published widths: the vlm's
+#: (phi-3-vision-4.2b: d 3072, 32 heads of 96, d_ff 8192, vocabulary
+#: 32,064) and whisper-medium's decoder (d 1024, d_ff 4096 plain GELU,
+#: vocabulary 51,865: its lm_head runs padded to 51,872 zero-filled
+#: columns, ``invariant_dense.pad_columns``, as ``encdec.serve_params``
+#: carries it)
+DENSE_FAMILIES = [
+    ("phi-3-vision wq|wk|wv", 3072, (3072,) * 3, False, "bfloat16"),
+    ("phi-3-vision wo", 3072, (3072,), False, "bfloat16"),
+    ("phi-3-vision w_in|w_gate", 3072, (8192,) * 2, False, "bfloat16"),
+    ("phi-3-vision w_out", 8192, (3072,), False, "bfloat16"),
+    ("phi-3-vision lm_head", 3072, (32064,), False, "bfloat16"),
+    ("whisper wq|wk|wv", 1024, (1024,) * 3, False, "bfloat16"),
+    ("whisper wo / cross wq", 1024, (1024,), False, "bfloat16"),
+    ("whisper w_in", 1024, (4096,), False, "bfloat16"),
+    ("whisper w_out", 4096, (1024,), False, "bfloat16"),
+    ("whisper lm_head, padded", 1024, (51865,), False, "bfloat16")]
 #: the rows held bitwise against M 256's
 DENSE_WIDE_ROWS = (1, 4, 65, 256)
 
@@ -2183,7 +2353,9 @@ def check_dense_wide(torch, idn, ref, record, cases=None,
     within rtol 1e-5, atol 1e-5 of the f64 product; times at M 4 and 256
     (weights cold) beside the bound (bytes at 3.35 TB/s, flops at the
     dtype's rate), the plain version (``x @ w (+ b)`` a problem) and
-    ``torch.matmul`` a problem as the library call."""
+    ``torch.matmul`` a problem as the library call. A bf16 width that is
+    not a multiple of 8 runs padded with zero columns
+    (``idn.pad_columns``), as the serving path carries such a head."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(28)
     print(f"invariant_dense at {title}: projection (K, N) | rows "
@@ -2193,6 +2365,9 @@ def check_dense_wide(torch, idn, ref, record, cases=None,
         dt = getattr(torch, dtn)
         ws = [(torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(dt)
               for N in Ns]
+        if dt == torch.bfloat16:
+            ws = [idn.pad_columns(w)[0] for w in ws]
+            Ns = tuple(w.shape[1] for w in ws)
         bs = [torch.randn(N, device=dev, generator=g).to(dt) if bias
               else None for N in Ns]
         probs = list(zip(ws, bs))
@@ -2269,7 +2444,9 @@ RMS_CASES = (("bfloat16", 4096), ("bfloat16", 16384), ("float32", 256),
              ("bfloat16", 1000),
              # slice 17: mixtral-8x22b's, qwen1.5-110b's and
              # mistral-large-123b's widths
-             ("bfloat16", 6144), ("bfloat16", 8192), ("bfloat16", 12288))
+             ("bfloat16", 6144), ("bfloat16", 8192), ("bfloat16", 12288),
+             # slice 20: phi-3-vision-4.2b's and whisper-medium's
+             ("bfloat16", 3072), ("bfloat16", 1024))
 #: the case of the kernels line: minitron-8b's decode step (4 slots)
 RMS_MAIN = ("bfloat16", 4096, 4)
 
@@ -3237,6 +3414,8 @@ _FLASH = dict(plain=("flash_attention_ref", "flash_bwd_dq_ref",
               parts=("flash_fwd", "flash_bwd"), fwd=("flash_fwd",))
 PHI = "phi3.5-moe-42b-a6.6b"
 ZAMBA = "zamba2-1.2b"
+VLM = "phi-3-vision-4.2b"
+WHISPER = "whisper-medium"
 LLMS = {
     "minitron-8b": dict(layers=2, tail=1, params=LLM_N, **_FLASH),
     "rwkv6-3b": dict(layers=8, tail=2, params=RWKV_N,
@@ -3268,6 +3447,16 @@ LLMS = {
                                   r"pass_kernel<true>)"},
                 fwd=("mamba2_fwd", "flash_fwd"),
                 sites=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")),
+    # slice 20: phi-3-vision-4.2b at 24 of 32 layers (576 patches + 2,048
+    # tokens = 2,624 rows through flash at hd 96; remat on == off is held
+    # at reduced size). All 32 peak at 62.57 GB in a fresh process, but
+    # after the earlier phases the allocator's free blocks (34 GiB
+    # reserved, unallocated) left no room for server_mix's 14.25 GiB
+    # (K, N) stack at 32: out of memory. whisper-medium at all 24 + 24
+    # (each encoder block one flash call, each decoder block two:
+    # plan_launches)
+    VLM: dict(layers=24, tail=2, params=VLM_N, remat_off=False, **_FLASH),
+    WHISPER: dict(layers=24, tail=2, params=WHISPER_N, **_FLASH),
 }
 
 
@@ -3290,7 +3479,7 @@ class KernelSet:
 
 #: the archs whose full-width pod runs (``llm_full_width``) repeat over
 #: phases 4-7 and so share one parameter draw (``MemoInit``)
-MEMO_ARCHS = ("minitron-8b", "rwkv6-3b", PHI, ZAMBA)
+MEMO_ARCHS = ("minitron-8b", "rwkv6-3b", PHI, ZAMBA, VLM)
 
 
 class MemoInit:
@@ -3352,9 +3541,14 @@ def plan_launches(arch, cfg, km, chunks, partitioned: bool):
     block as in the masked program); L is the dispatch's least limited
     count (0 on the masked plane); one vmapped call covers a program's
     cohorts. The hybrid family's ``sites`` kernels run once a
-    shared-attention site (outside remat) instead of once a layer."""
+    shared-attention site (outside remat) instead of once a layer. An
+    encoder-decoder counts attention calls: an encoder block one (in the
+    body, the feature extractor), a decoder block two (its self- and
+    cross-attention)."""
     tail = min(cfg.fes_tail_layers, cfg.num_layers)
     body = cfg.num_layers - tail
+    if cfg.family == "audio":
+        body, tail = cfg.encoder_layers + 2 * body, 2 * tail
     per = 2 if cfg.remat else 1
     spec = LLMS[arch]
     sites = [n // cfg.attn_every if cfg.attn_every and n >= cfg.attn_every
@@ -3914,8 +4108,9 @@ def llm_contract(torch, train, arch, tree_mod, cfg=None, label=""):
           "losses")
 
 
-def device_ms_by_range(events, names) -> dict:
-    """{name: (ms, launches)}: the device time (kernels, copies, sets) of
+def device_ms_by_range(events, names, only=None) -> dict:
+    """{name: (ms, launches)}: the device time (kernels, copies, sets; with
+    ``only``, the kernels whose name matches that pattern) of
     a Chrome trace's ``events`` launched inside the profiler ranges
     ``names`` (``obs.timing.annotate``) or by the backward of an op
     recorded inside one: each such op's ``fwdbwd`` flow ends at the
@@ -3956,6 +4151,8 @@ def device_ms_by_range(events, names) -> dict:
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
+        if only and not re.search(only, e.get("name", "")):
+            continue
         at = launch.get(e.get("args", {}).get("correlation"))
         if at is None or at[0] not in spans:
             continue
@@ -3967,13 +4164,16 @@ def device_ms_by_range(events, names) -> dict:
     return out
 
 
-def llm_where_time_goes(torch, train, arch, tmp, extra=(), ranges=()):
+def llm_where_time_goes(torch, train, arch, tmp, extra=(), ranges=(),
+                        only=None):
     """2 full-width rounds of ``arch`` (the config's remat on; ``extra``
     launcher arguments) under the launcher's --profile: device time by
     kernel from the Chrome trace, the arch's kernels' share of it, each
     kernel's passes, and the device's idle share of the training wall
     time; with ``ranges``, the device time of each of those profiler
-    ranges (``device_ms_by_range``) under the key "ranges"."""
+    ranges (``device_ms_by_range``) under the key "ranges", and with
+    ``only`` that of the kernels matching it there, under
+    "ranges_only"."""
     trace_dir = str(Path(tmp) / f"profile_{arch}{len(extra)}")
     argv = [*pod_argv(arch), "--algorithm", "ama_fes", "--rounds", "2",
             "--profile", trace_dir, *extra]
@@ -4012,7 +4212,9 @@ def llm_where_time_goes(torch, train, arch, tmp, extra=(), ranges=()):
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:100]}")
     return dict(wall_ms=dt * 1e3, busy_ms=busy, own_ms=own,
-                ranges=device_ms_by_range(events, ranges) if ranges else {})
+                ranges=device_ms_by_range(events, ranges) if ranges else {},
+                ranges_only=device_ms_by_range(events, ranges, only)
+                if ranges and only else {})
 
 
 # ------------------------------------------------ the moe family (A1) -----
@@ -4227,6 +4429,112 @@ def zamba2_where_time_goes(torch, train, tmp):
     return share
 
 
+# ------------------------------------ the vlm and encoder-decoder (A1) ---
+
+#: the reduced whisper's frames: 100 (a ragged flash tile, and q of 64
+#: tokens against k, v of 100 frames in the cross-attention)
+WHISPER_REDUCED_FRAMES = 100
+
+
+def slice20_pod_paths(torch, train, km, kmods, ref, tree_mod,
+                      main_record) -> dict:
+    """phi-3-vision-4.2b (24 of 32 layers, 2,918,206,464 parameters:
+    LLMS says why) and whisper-medium (all 24 + 24 layers, 812,523,520)
+    at full width, remat
+    on, 3 rounds of 2 cohorts x 2 local steps x 1 x 2,048 tokens (the
+    vlm's 576 patch rows before them, N(0, 1) from the seed, whisper's
+    1,500 frames beside them, zeros, as the launcher's pod batch has
+    them): ama_fes and fedavg on
+    the masked plane through ``pod_main_path`` (``km`` the flash
+    kernels: launches from ``plan_launches``, all on wgmma, server_mix
+    once a round, no plain version on the card, the depth, parameters
+    and peak printed; whisper also ama_fes with remat off, bitwise), then
+    ama_fes on the partitioned plane at p_limited 0.5 with --no-scan
+    (``pod_client_planes``) beside the masked run. Returns the counts
+    summed over the runs."""
+    from repro_torch.configs.registry import get_arch
+    totals = {}
+    for arch in (VLM, WHISPER):
+        cfg = llm_full_width(arch)
+        counts, peak = pod_main_path(torch, train, arch, km, kmods, ref,
+                                     tree_mod, main_record)
+        masked = next(r for r in main_record
+                      if r["run"] == f"llm {arch} ama_fes")
+        more = pod_client_planes(torch, train, arch, km, kmods, ref,
+                                 tree_mod, main_record,
+                                 runs=POD_PLANE_RUNS[:1])
+        part = main_record[-1]
+        check(masked["params"] == LLMS[arch]["params"],
+              f"{arch}: {masked['params']} params, expected "
+              f"{LLMS[arch]['params']}")
+        print(f"{arch} pod path: full width (d {cfg.d_model}, "
+              f"{cfg.num_layers} of {get_arch(arch).num_layers} decoder "
+              "layers"
+              + (f" + {cfg.encoder_layers} encoder layers over "
+                 f"{cfg.encoder_seq} frames" if cfg.encoder_layers else
+                 f", {cfg.num_patches} patches of {cfg.vision_dim}")
+              + f", {cfg.num_heads} heads of {cfg.head_dim}), "
+              f"{masked['params']:,} params; masked ama_fes "
+              f"{masked['tokens_per_s']:,.0f} tokens/s, peak "
+              f"{masked['peak_bytes'] / 1e9:.2f} GB; partitioned p_limited "
+              f"0.5 {part['steady_tokens_per_s']:,.0f} tokens/s over rounds "
+              f"2-{POD_ROUNDS}, peak {part['peak_bytes'] / 1e9:.2f} GB "
+              "(limit 75)")
+        for k in set(counts) | set(more):
+            totals[k] = totals.get(k, 0) + counts.get(k, 0) + more.get(k, 0)
+    return totals
+
+
+def whisper_reduced():
+    return llm_reduced(WHISPER).with_(encoder_seq=WHISPER_REDUCED_FRAMES)
+
+
+def slice20_reduced_on_card(torch, train, km, tree_mod):
+    """The reduced phi-3-vision (16 patches + 64 tokens) and whisper (100
+    frames, 64 tokens) in f32 on the card against the CPU (rtol 1e-4,
+    atol 1e-5) on the masked and partitioned client planes; chunked ==
+    per round and remat on == off, bitwise."""
+    for arch, cfg in ((VLM, llm_reduced(VLM)), (WHISPER, whisper_reduced())):
+        label = (f" ({cfg.encoder_seq} frames)" if cfg.encoder_layers else
+                 f" ({cfg.num_patches} patches)")
+        for plane in ("masked", "partitioned"):
+            llm_card_vs_cpu(torch, train, arch, km, tree_mod, plane, cfg,
+                            label)
+        llm_contract(torch, train, arch, tree_mod, cfg, label)
+        remat_contract(torch, train, arch, km, tree_mod, cfg)
+
+
+def whisper_where_time_goes(torch, train, tmp) -> dict:
+    """2 full-width rounds of whisper-medium under the launcher's
+    --profile (``llm_where_time_goes``: device busy and idle, the flash
+    kernels' share, the top kernels) and, from the same trace, the device
+    time of its three kinds of attention (``encdec``'s profiler ranges:
+    the encoder's, the decoder's self-attention and its cross-attention,
+    each with its backward): all their kernels, and the flash kernels
+    alone. Returns the flash kernels' share of device time by range."""
+    from repro_torch.models import encdec
+    ranges = {encdec.ENC_ATTN: "the encoder's attention",
+              encdec.DEC_ATTN: "the decoder's self-attention",
+              encdec.CROSS_ATTN: "the cross-attention"}
+    prof = llm_where_time_goes(torch, train, WHISPER, tmp,
+                               ranges=tuple(ranges), only=r"flash_")
+    busy = prof["busy_ms"]
+    share = {}
+    for key, label in ranges.items():
+        ms, n = prof["ranges"][key]
+        fms, fn = prof["ranges_only"][key]
+        check(fn > 0, f"whisper profile: no flash kernel in the {key} range")
+        share[label] = fms / busy
+        print(f"  whisper {label} ({key} and its backward): {ms:.1f} ms in "
+              f"{n} launches = {ms / busy:.1%} of device time; its flash "
+              f"kernels {fms:.1f} ms in {fn} launches = {fms / busy:.1%}")
+    print(f"where the time goes, whisper full width, 2 rounds (trace): busy "
+          f"{busy / prof['wall_ms']:.1%} of the wall; flash "
+          f"{prof['own_ms'] / busy:.1%} of device time: "
+          + ", ".join(f"{k} {v:.1%}" for k, v in share.items()))
+    return share
+
+
 # ------------------------------------------------------- serving (A5) -----
 
 #: the serving runs at full width: minitron-8b's CONFIG_SWA (window 4096)
@@ -4239,7 +4547,10 @@ SERVE_DEPTH = {"minitron-8b": 32, "rwkv6-3b": 8,
                PHI: 12, "mixtral-8x22b": 6, "mistral-large-123b": 12,
                "qwen1.5-110b": 11, "llama3-405b": 4,
                # slice 18: all 38 layers (2.24 GB of bf16 weights)
-               ZAMBA: 38}
+               ZAMBA: 38,
+               # slice 20: all 32 layers (7.65 GB) and all 24 + 24
+               # (1.63 GB)
+               VLM: 32, WHISPER: 24}
 #: slice 17's configs at full width, depth cut as SERVE_DEPTH says: the
 #: paged engine over two prompts of 200 tokens and two of 64, 16 new each;
 #: the moe pair also through the loop engine per token, chunked 64 and
@@ -4277,7 +4588,8 @@ class CountSteps:
 
     def __init__(self, tf):
         self.tf, self.calls = tf, dict.fromkeys(SERVE_STEPS, 0)
-        self.real = {n: getattr(tf, n) for n in SERVE_STEPS}
+        self.real = {n: getattr(tf, n) for n in SERVE_STEPS
+                     if hasattr(tf, n)}
 
     def __enter__(self):
         for n, real in self.real.items():
@@ -4325,12 +4637,21 @@ def dense_launches(cfg) -> int:
 
 def decode_bound_ms(cfg, params, tree_mod, slots: int) -> float:
     """The least time of one decode step at ``slots`` requests: every
-    weight read once (the embedding table only at the slots' rows)."""
+    weight read once (the embedding table only at the slots' rows); for
+    the encoder-decoder the decoder's weights and every layer's cross
+    K/V of each slot (the encoder ran once, when the cache was made)."""
+    if cfg.family == "audio":
+        params = {k: v for k, v in params.items()
+                  if k not in ("enc_pos", "encoder", "enc_norm")}
     leaves = tree_mod.leaves(params)
     nbytes = sum(x.numel() * x.element_size() for x in leaves)
     emb = params["embed"]["table"]
     nbytes -= emb.numel() * emb.element_size()
     nbytes += slots * cfg.d_model * emb.element_size()
+    if cfg.family == "audio":
+        nbytes += (2 * slots * cfg.num_layers * cfg.encoder_seq
+                   * cfg.num_kv_heads * cfg.resolved_head_dim
+                   * emb.element_size())
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -4342,7 +4663,13 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     invariant_dense (``dense_launches`` x layers + 1) x steps (dense: 4 a
     layer, wq|wk|wv and w_in|w_gate one launch each; moe: 3 + 3 E / 2),
     invariant_add_rmsnorm 2 layers x steps and
-    invariant_rmsnorm 1 x steps (the first block's norm); for the ssm
+    invariant_rmsnorm 1 x steps (the first block's norm); for the
+    encoder-decoder (audio) family serve_attention and its cross form
+    layers x steps, invariant_dense (6 x layers + 1) x steps (wq|wk|wv,
+    wo, the cross-attention's wq and wo, w_in, w_out; lm_head),
+    invariant_add_rmsnorm 3 layers x steps, invariant_rmsnorm 1 x steps
+    and flash_fwd once an encoder layer (the frames encoded once, when
+    the engine makes its cache); for the ssm
     family rwkv6_fwd layers x decode steps; for the hybrid family
     mamba2_fwd layers x decode steps, and serve_attention once and
     invariant_dense twice (wq|wk|wv, wo) a shared-attention site a step;
@@ -4358,7 +4685,9 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     with CountPlain(ref, ("serve_attention_ref", "rwkv6_scan_ref",
                           "mamba2_scan_ref", "invariant_dense_ref",
                           "invariant_rmsnorm_ref",
-                          "invariant_add_rmsnorm_ref")) \
+                          "invariant_add_rmsnorm_ref",
+                          "serve_cross_attention_ref",
+                          "flash_attention_ref")) \
             as plain, CountSteps(tf) as steps:
         results, summary, dt, engine = serve_mod.serve(
             args, cfg, torch.device("cuda"), params)
@@ -4373,6 +4702,13 @@ def serve_run(torch, serve_mod, tf, kmods, ref, cfg, params, argv, label,
     elif cfg.family == "hybrid":
         want = {"mamba2_fwd": L * decode, "serve_attention": sites * decode,
                 "invariant_dense": 2 * sites * decode}
+    elif cfg.family == "audio":
+        want = {"serve_attention": L * calls,
+                "serve_cross_attention": L * calls,
+                "invariant_dense": (6 * L + 1) * calls,
+                "invariant_add_rmsnorm": 3 * L * calls,
+                "invariant_rmsnorm": calls,
+                "flash_fwd": cfg.encoder_layers}
     else:
         want = {"serve_attention": L * calls,
                 "invariant_dense": (dense_launches(cfg) * L + 1) * calls,
@@ -4899,6 +5235,81 @@ def zamba2_serving(torch, serve_mod, tf, kmods, ref, tree_mod,
     return totals
 
 
+#: slice 20's loop-engine runs: per token twice, then chunked 64 (over
+#: SERVE_FAMILY_LOOP_MIX: a shared prefix of 23 tokens, one chunk with
+#: 41 pad rows)
+SERVE_SLICE20_LOOP = [("loop per token, run 1", ["--engine", "loop",
+                                                 "--prefill-chunk", "0"]),
+                      ("loop per token, run 2", ["--engine", "loop",
+                                                 "--prefill-chunk", "0"]),
+                      ("loop chunked 64", ["--engine", "loop",
+                                           "--prefill-chunk", "64"])]
+
+
+def slice20_serving(torch, serve_mod, tf, ed, kmods, ref, tree_mod,
+                    main_record) -> dict:
+    """phi-3-vision-4.2b at all 32 layers and whisper-medium at all 24 +
+    24, at their published widths (bf16 params from seed 0, made on the
+    card), served (``serve_run``: launches exact, no plain version, peak
+    under 75 GB, tokens/s and the decode bound printed): the vlm by the
+    paged engine twice (SERVE_FAMILY_RUN, the same tokens) and by the
+    loop engine per token twice and chunked 64 (SERVE_FAMILY_LOOP_MIX);
+    whisper by the loop engine per token twice and chunked 64 (its
+    frames encoded once a run, its cross-attention on serve_attention's
+    cross form, its lm_head padded to 51,872 columns), its paged engine
+    refused by name. Every run of an arch serves the first run's tokens.
+    Returns the kernels' launches summed over the runs."""
+    from repro_torch.configs.registry import get_arch
+    totals = {}
+    for arch, steps, runs in (
+            (VLM, tf, [(f"paged, run {i}", SERVE_FAMILY_RUN)
+                       for i in (1, 2)]
+             + [(label, [*run, *SERVE_FAMILY_LOOP_MIX])
+                for label, run in SERVE_SLICE20_LOOP]),
+            (WHISPER, ed, [(label, [*run, *SERVE_FAMILY_LOOP_MIX])
+                           for label, run in SERVE_SLICE20_LOOP])):
+        cfg = serve_config(arch)
+        params, init_s = serve_params(torch, cfg)
+        n = sum(x.numel() for x in tree_mod.leaves(params))
+        print(f"serving {arch}: {cfg.num_layers} of "
+              f"{get_arch(arch).num_layers} decoder layers at its published "
+              f"widths (d {cfg.d_model}, {cfg.num_heads} heads of "
+              f"{cfg.head_dim}, vocabulary {cfg.vocab_size}"
+              + (f", {cfg.encoder_layers} encoder layers over "
+                 f"{cfg.encoder_seq} frames" if cfg.encoder_layers else "")
+              + f"), {n:,} bf16 params made on the card in {init_s:.1f} s")
+        tokens = {}
+        for label, argv in runs:
+            res, engine, counts = serve_run(
+                torch, serve_mod, steps, kmods, ref, cfg, params,
+                [*argv, "--device", "cuda"], label, main_record, tree_mod)
+            del engine
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            tokens[label] = [r["tokens"] for r in res]
+        first = {}
+        for label, tok in tokens.items():
+            key = "paged" if label.startswith("paged") else "loop"
+            first.setdefault(key, tok)
+            check(tok == first[key], f"serving {arch}: {label} served other "
+                  f"tokens than the first {key} run")
+        print(f"serving {arch} full width: every run serves the first "
+              f"run's tokens ({', '.join(tokens)})")
+        if cfg.family == "audio":
+            try:
+                serve_mod.build_engine(serve_mod.build_model(cfg), params,
+                                       serve_mod.parser().parse_args(
+                                           ["--engine", "paged"]))
+            except ValueError as e:
+                check("no paged serving path" in str(e), f"{arch} paged: {e}")
+                print(f"serving {arch} paged: refused ({e})")
+            else:
+                fail("serving: the paged engine took the audio family")
+        del params
+        torch.cuda.empty_cache()
+    return totals
+
+
 def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
             main_record):
     """Phase 4's serving runs (module docstring): the row-invariance probe,
@@ -5075,6 +5486,7 @@ def main() -> None:
     from repro_torch.kernels import server_plane as sp
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train
+    from repro_torch.models import encdec as ed
     from repro_torch.models import transformer as tf
     from repro_torch.utils import tree as tree_mod
     from repro_torch.utils.device import resolve_device
@@ -5083,7 +5495,7 @@ def main() -> None:
     recs = {k: [] for k in {**sp.KERNELS, **fa.KERNELS, **rs.KERNELS,
                             **sa.KERNELS, **idn.KERNELS, **irn.KERNELS,
                             **ms.KERNELS}}
-    flash_rec, rwkv_rec, serve_rec, mamba_rec = [], [], [], []
+    flash_rec, rwkv_rec, serve_rec, mamba_rec, cross_rec = [], [], [], [], []
     main_rec = []
     kmods = (sp, fa, rs, ms)
     zk = KernelSet(ms, fa)        # zamba2's two kernel families
@@ -5103,6 +5515,7 @@ def main() -> None:
     check_mamba2(torch, ms, ref, mamba_rec)
     clock.mark("3, the mamba2 kernels against their plain versions")
     check_serve_attention(torch, sa, ref, serve_rec)
+    check_serve_cross(torch, sa, ref, cross_rec)
     check_invariant_dense(torch, idn, ref, recs["invariant_dense"])
     check_invariant_rmsnorm(torch, irn, ref, recs["invariant_rmsnorm"],
                             recs["invariant_add_rmsnorm"])
@@ -5124,7 +5537,8 @@ def main() -> None:
     fed = federation_scale(torch, sp, tree_mod, main_rec)
     clock.mark("4, scenarios and the federation scale")
     # one draw a full-width config for the pod runs of phases 4-7
-    with MemoInit(tf, [llm_full_width(a) for a in MEMO_ARCHS]) as memo:
+    with MemoInit(tf, [llm_full_width(a) for a in MEMO_ARCHS]) as memo, \
+            MemoInit(ed, [llm_full_width(WHISPER)]):
         llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
                                tree_mod, main_rec)
         llm_planes = pod_client_planes(torch, train, "minitron-8b", fa,
@@ -5142,6 +5556,10 @@ def main() -> None:
         zamba = zamba2_pod_path(torch, train, zk, kmods, ref, tree_mod,
                                 main_rec)
         clock.mark("4, the zamba2 pod path")
+        s20_pod = slice20_pod_paths(torch, train, fa, kmods, ref, tree_mod,
+                                    main_rec)
+        memo.drop(llm_full_width(VLM))        # its last full-width run
+        clock.mark("4, the phi-3-vision and whisper pod paths")
         served, _ = serving(torch, serve_mod, tf, sa, rs, idn, irn,
                             (*kmods, sa, idn, irn), ref, tree_mod, main_rec)
         clock.mark("4, serving")
@@ -5153,9 +5571,14 @@ def main() -> None:
                                  (*kmods, sa, idn, irn), ref, tree_mod,
                                  main_rec)
         clock.mark("4, serving zamba2")
+        s20_served = slice20_serving(torch, serve_mod, tf, ed,
+                                     (*kmods, sa, idn, irn), ref, tree_mod,
+                                     main_rec)
+        clock.mark("4, serving phi-3-vision and whisper")
         launches = {k: sum(run.get(k, 0) for run in (
             launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
-            rwkv_planes, deep, moe_pod, served, families, zamba, zserved))
+            rwkv_planes, deep, moe_pod, served, families, zamba, zserved,
+            s20_pod, s20_served))
             for k in recs}
         fused_vs_plain(torch, train, tree_mod)
         legacy_kernel_vs_plain(torch, train, tree_mod)
@@ -5170,11 +5593,13 @@ def main() -> None:
         llm_partitioned_contract(torch, train, "minitron-8b", tree_mod)
         moe_reduced_on_card(torch, train, fa, tree_mod)
         zamba2_reduced_on_card(torch, train, zk, tree_mod)
+        slice20_reduced_on_card(torch, train, fa, tree_mod)
         with tempfile.TemporaryDirectory() as tmp:
             restart_contract(torch, train, tree_mod, tmp)
             prefetch_and_metrics(torch, train, tree_mod, tmp)
             clock.mark("5-6, the port's contracts and the reduced moe, "
-                       "mixtral, qwen and zamba2 paths")
+                       "mixtral, qwen, zamba2, phi-3-vision and whisper "
+                       "paths")
             where_time_goes(torch, train)
             llm_where_time_goes(torch, train, "minitron-8b", tmp)
             llm_where_time_goes(torch, train, "minitron-8b", tmp,
@@ -5184,6 +5609,7 @@ def main() -> None:
             memo.drop(llm_full_width("rwkv6-3b"))
             moe_where_time_goes(torch, train, fa, tmp)
             zamba2_where_time_goes(torch, train, tmp)
+            whisper_where_time_goes(torch, train, tmp)
     clock.mark("7, profiles")
 
     f32 = "torch.float32"
@@ -5211,6 +5637,8 @@ def main() -> None:
                 # no TPU kernel: XLA einsums of the serving attention
                 # (also :238, :354, :389)
                 "serve_attention": "models/attention.py:166",
+                # no TPU kernel: the XLA einsums of cross_attention_decode
+                "serve_cross_attention": "models/attention.py:200",
                 # no TPU kernel: the XLA dot and reduction of the serving
                 # projections and norms
                 "invariant_dense": "models/layers.py:22",
@@ -5234,6 +5662,7 @@ def main() -> None:
               "flash_bwd_dkdv": "flash_attention_sm90.cu",
               "rwkv6_fwd": "rwkv6_scan.cu", "rwkv6_bwd": "rwkv6_scan.cu",
               "serve_attention": "serve_attention.cu",
+              "serve_cross_attention": "serve_attention.cu",
               "invariant_dense": "invariant_dense.cu",
               "invariant_rmsnorm": "invariant_rmsnorm.cu",
               "invariant_add_rmsnorm": "invariant_rmsnorm.cu",
@@ -5261,6 +5690,10 @@ def main() -> None:
             row = mamba_main[name]
             b, by = row["bound_ms"], row["bound_by"]
             err = max(r[mamba_err[name]] for r in mamba_rec)
+        elif name == "serve_cross_attention":   # whisper's decode
+            row = next(r for r in cross_rec if r["case"] == CROSS_MAIN)
+            b, by = row["bound_ms"], row["bound_by"]
+            err = max(r["err"] for r in cross_rec)
         elif name in sa.KERNELS:   # minitron's decode over its ring
             row = next(r for r in serve_rec if r["case"] == SERVE_MAIN)
             b, by = row["bound_ms"], row["bound_by"]

@@ -7,8 +7,8 @@ on the CPU, with dS rounded once to bf16 (FlashAttention's rounding) or
 carried as two bf16 parts (hi + lo, the kernels' choice), and counts the
 draws in which dq or dk breaks chip_smoke.py's rule (the max error against
 the plain version in f32 at most twice the plain version's own bf16
-error, floor 1e-3 x max|want|). P is rounded once in both, as the
-kernels round it for dV.
+error, floor 1e-3 x max|want|). dV is not emulated (the kernels take P
+into it as two bf16 parts too).
 
     PYTHONPATH=src python scripts/flash_ds_rounding.py [--draws 20]
 """

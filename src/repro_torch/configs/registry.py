@@ -3,9 +3,10 @@
 The port has the paper's own CNN, the dense transformers minitron-8b,
 llama3-405b, mistral-large-123b and qwen1.5-110b, the mixture-of-experts
 transformers phi3.5-moe-42b-a6.6b and mixtral-8x22b, and the RWKV-6
-model rwkv6-3b, and the hybrid zamba2-1.2b (Mamba-2 blocks and one
-shared attention block); the VLM and encoder-decoder families join with
-their models.
+model rwkv6-3b, the hybrid zamba2-1.2b (Mamba-2 blocks and one shared
+attention block), the vision-language phi-3-vision-4.2b (patch
+embeddings projected before the tokens) and the encoder-decoder
+whisper-medium: every model of the JAX package's registry.
 
 Also the config-side door to the environment and scenario registries
 (``repro_torch.env``): ``get_scenario`` / ``scenario_names`` resolve a
@@ -16,8 +17,9 @@ from __future__ import annotations
 
 from repro_torch.configs import (llama3_405b, minitron_8b,
                                  mistral_large_123b, mixtral_8x22b,
-                                 paper_cnn, phi35_moe_42b, qwen15_110b,
-                                 rwkv6_3b, zamba2_1b)
+                                 paper_cnn, phi3_vision_4b, phi35_moe_42b,
+                                 qwen15_110b, rwkv6_3b, whisper_medium,
+                                 zamba2_1b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
@@ -29,6 +31,8 @@ ARCHS: dict[str, ModelConfig] = {
     "llama3-405b": llama3_405b.CONFIG,
     "qwen1.5-110b": qwen15_110b.CONFIG,
     "zamba2-1.2b": zamba2_1b.CONFIG,
+    "phi-3-vision-4.2b": phi3_vision_4b.CONFIG,
+    "whisper-medium": whisper_medium.CONFIG,
     "paper-cnn": paper_cnn.CONFIG,
 }
 

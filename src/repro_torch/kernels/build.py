@@ -25,8 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
-#: B, S, H, Hkv, causal, window, scale of the flash-attention entries
-_GEO = (ctypes.c_int,) * 6 + (ctypes.c_float,)
+#: B, Sq, Skv, H, Hkv, causal, window, scale of the flash-attention
+#: entries
+_GEO = (ctypes.c_int,) * 7 + (ctypes.c_float,)
 #: C entry -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # dtype, prev, stacked, sizes, keep, coefs, out, K, N, stream
@@ -54,22 +55,25 @@ SIGNATURES = {
     # weights, K, stream
     "ama_mix_leaves": (ctypes.c_int, ctypes.c_int, _P, ctypes.c_longlong,
                        _P, _P, ctypes.c_int, _P),
-    # dtype, hd, q, k, v, out, lse, B, S, H, Hkv, causal, window, scale,
-    # stream
+    # dtype, hd, q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, window,
+    # scale, stream
     "flash_fwd": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
                   *_GEO, _P),
-    # dtype, hd, dout, q, k, v, out, lse, dq, delta, B, S, H, Hkv, causal,
-    # window, scale, stream
+    # dtype, hd, dout, q, k, v, out, lse, dq, delta, B, Sq, Skv, H, Hkv,
+    # causal, window, scale, stream
     "flash_bwd_dq": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                      _P, *_GEO, _P),
-    # dtype, hd, dout, q, k, v, lse, delta, dk, dv, B, S, H, Hkv, causal,
-    # window, scale, stream
+    # dtype, hd, dout, q, k, v, lse, delta, dk, dv, B, Sq, Skv, H, Hkv,
+    # causal, window, scale, stream
     "flash_bwd_dkdv": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                        _P, _P, *_GEO, _P),
     # dtype, hd, q, k, v, positions, ck, cv, cpos, table, ring, out, part,
     # count, B, c, H, KH, NB, bs, mb, window, rpw, stream
     "serve_attention": (ctypes.c_int, ctypes.c_int, *(_P,) * 12,
                         *(ctypes.c_int,) * 9, _P),
+    # dtype, hd, q, ck, cv, out, part, count, B, c, H, KH, L, rpw, stream
+    "serve_cross_attention": (ctypes.c_int, ctypes.c_int, *(_P,) * 6,
+                              *(ctypes.c_int,) * 6, _P),
     # dtype, x, M, K, P, problem table (host: w, b, y, N, S each), form,
     # stream
     "invariant_dense": (ctypes.c_int, _P, *(ctypes.c_int,) * 3, _P,

@@ -8,17 +8,20 @@
 // flash_fwd replaces the JAX package's kernels/flash_attention.py:
 // flash_attention (Pallas, src/repro/kernels/flash_attention.py:76):
 // causal (optionally sliding-window, or non-causal) online-softmax
-// attention over q (B, S, H, hd) and k, v (B, S, Hkv, hd), H % Hkv == 0,
-// query head h reading kv head h / (H / Hkv) (Hkv == H is the TPU
-// kernel's head-repeated contract). It also writes lse = m + log(l) (f32,
-// (B, H, S)) for the backward. flash_bwd_dq and flash_bwd_dkdv replace
-// what the TPU path has no kernel for: the XLA autodiff of
+// attention over q (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd), H % Hkv ==
+// 0, query head h reading kv head h / (H / Hkv) (Hkv == H is the TPU
+// kernel's head-repeated contract). Any length: tiles past Sq or Skv are
+// masked, and no row past them is stored. Sq != Skv (cross-attention:
+// every key visible) only where causal and window are 0. It also writes
+// lse = m + log(l) (f32, (B, H, Sq)) for the backward. flash_bwd_dq and
+// flash_bwd_dkdv replace what the TPU path has no kernel for: the XLA
+// autodiff of
 // models/attention.py: chunked_attention (the Pallas kernel has no
 // backward). They are FlashAttention-2's backward split into two passes
 // so that no atomics are needed:
 //   flash_bwd_dq    one block per q tile loops over the kv tiles its rows
 //                   see; its prologue computes D = rowsum(dO * O) for its
-//                   rows and writes it to a (B, H, S) f32 scratch;
+//                   rows and writes it to a (B, H, Sq) f32 scratch;
 //   flash_bwd_dkdv  one block per (kv head, kv tile) loops over the query
 //                   heads of its kv head and the q tiles that see it, and
 //                   accumulates dK and dV; it reads D, so it runs after
@@ -36,7 +39,7 @@
 // dQ = scale * dS K, dK = dS^T (q * scale), dK and dV summed over the
 // query heads of a kv head.
 //
-// Layout: the kernels index the (B, S, H, hd) and (B, S, Hkv, hd) tensors
+// Layout: the kernels index the (B, Sq, H, hd) and (B, Skv, Hkv, hd) tensors
 // directly, so the wrapper folds nothing and copies nothing. Tiles are
 // 64 queries by 64 keys; the kv loop runs from the window's lower edge up
 // to the causal frontier, as the Pallas kernel's does
@@ -69,8 +72,8 @@ constexpr int kP = kTile + 1;      // padded row of a transposed tile
 constexpr int kFlashThreads = 256; // 16 x 16: 4 rows x 4 (or hd/16) cols
 constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF
 
-// Geometry of one (batch, head) of a (B, S, Hx, hd) tensor: element
-// (s, d) sits at base + s * rs + d.
+// Geometry of one (batch, head) of a (B, S, Hx, hd) tensor, S = Sq or
+// Skv: element (s, d) sits at base + s * rs + d.
 struct Rows {
   size_t base;  // offset of (b, 0, h, 0)
   size_t rs;    // Hx * hd
@@ -119,26 +122,27 @@ __device__ __forceinline__ float row_max(float x) {
 }
 
 // query row qp may attend to key kp
-__device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
-                                        int window) {
-  return qp < S && kp < S && (!causal || kp <= qp) &&
+__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Skv,
+                                        int causal, int window) {
+  return qp < Sq && kp < Skv && (!causal || kp <= qp) &&
          (!window || kp > qp - window);
 }
 
-// kv tiles [lo, hi) seen by the q tile starting at q0
-__device__ __forceinline__ void kv_range(int q0, int S, int causal,
+// kv tiles [lo, hi) seen by the q tile starting at q0 (causal or a window
+// only where Sq == Skv)
+__device__ __forceinline__ void kv_range(int q0, int Skv, int causal,
                                          int window, int* lo, int* hi) {
-  const int key_hi = causal ? min(S, q0 + kTile) : S;        // exclusive
+  const int key_hi = causal ? min(Skv, q0 + kTile) : Skv;    // exclusive
   const int key_lo = window ? max(0, q0 - window + 1) : 0;
   *lo = key_lo / kTile;
   *hi = (key_hi + kTile - 1) / kTile;
 }
 
 // q tiles [lo, hi) that see the kv tile starting at k0
-__device__ __forceinline__ void q_range(int k0, int S, int causal,
+__device__ __forceinline__ void q_range(int k0, int Sq, int causal,
                                         int window, int* lo, int* hi) {
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(S, k0 + kTile - 1 + window) : S;  // excl.
+  const int q_hi = window ? min(Sq, k0 + kTile - 1 + window) : Sq;  // excl.
   *lo = q_lo / kTile;
   *hi = (q_hi + kTile - 1) / kTile;
 }
@@ -154,8 +158,8 @@ template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, int n_rep,
-                 int causal, int window, float scale) {
+                 float* __restrict__ lse, int Sq, int Skv, int H,
+                 int n_rep, int causal, int window, float scale) {
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
   float* Qt = smem;              // [HD][kP]  q * scale
@@ -165,9 +169,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int b = bh / H, h = bh % H;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Rows g = rows_of<HD>(b, h, S, H);
-  const Rows gk = rows_of<HD>(b, h / n_rep, S, H / n_rep);
-  load_t<HD>(Qt, q, g, q0, S, scale);
+  const Rows g = rows_of<HD>(b, h, Sq, H);
+  const Rows gk = rows_of<HD>(b, h / n_rep, Skv, H / n_rep);
+  load_t<HD>(Qt, q, g, q0, Sq, scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -178,12 +182,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
   int kt_lo, kt_hi;
-  kv_range(q0, S, causal, window, &kt_lo, &kt_hi);
+  kv_range(q0, Skv, causal, window, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();             // the last tile's Kt, Vr and P are read
-    load_t<HD>(Kt, k, gk, k0, S, 1.f);
-    load_r<HD>(Vr, v, gk, k0, S);
+    load_t<HD>(Kt, k, gk, k0, Skv, 1.f);
+    load_r<HD>(Vr, v, gk, k0, Skv);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -209,7 +213,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mt = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        vis[j] = visible(qp, k0 + tx + 16 * j, S, causal, window);
+        vis[j] = visible(qp, k0 + tx + 16 * j, Sq, Skv, causal, window);
         if (vis[j]) mt = fmaxf(mt, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mt));
@@ -244,12 +248,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * ty + i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       st(out, g.base + qp * g.rs + tx + 16 * c, __fdiv_rn(acc[i][c], den));
-    if (tx == 0) lse[static_cast<size_t>(bh) * S + qp] = m[i] + logf(l[i]);
+    if (tx == 0) lse[static_cast<size_t>(bh) * Sq + qp] = m[i] + logf(l[i]);
   }
 }
 
@@ -265,8 +269,9 @@ __global__ void __launch_bounds__(kFlashThreads)
 flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
                     const float* __restrict__ k, const float* __restrict__ v,
                     const float* __restrict__ out, const float* __restrict__ lse,
-                    float* __restrict__ dq, float* __restrict__ delta, int S,
-                    int H, int n_rep, int causal, int window, float scale) {
+                    float* __restrict__ dq, float* __restrict__ delta,
+                    int Sq, int Skv, int H, int n_rep, int causal,
+                    int window, float scale) {
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
   float* Qt = smem;              // [HD][kP]  q * scale
@@ -277,10 +282,10 @@ flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int b = bh / H, h = bh % H;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Rows g = rows_of<HD>(b, h, S, H);
-  const Rows gk = rows_of<HD>(b, h / n_rep, S, H / n_rep);
-  load_t<HD>(Qt, q, g, q0, S, scale);
-  load_t<HD>(dOt, dout, g, q0, S, 1.f);
+  const Rows g = rows_of<HD>(b, h, Sq, H);
+  const Rows gk = rows_of<HD>(b, h / n_rep, Skv, H / n_rep);
+  load_t<HD>(Qt, q, g, q0, Sq, scale);
+  load_t<HD>(dOt, dout, g, q0, Sq, 1.f);
 
   // prologue: D = rowsum(dO * O) and lse of this thread's four rows
   float D[4], L[4];
@@ -288,7 +293,7 @@ flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * ty + i;
     float part = 0.f;
-    if (qp < S) {
+    if (qp < Sq) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const size_t e = g.base + qp * g.rs + tx + 16 * c;
@@ -296,8 +301,8 @@ flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
       }
     }
     D[i] = row_sum(part);
-    L[i] = qp < S ? lse[static_cast<size_t>(bh) * S + qp] : 0.f;
-    if (qp < S && tx == 0) delta[static_cast<size_t>(bh) * S + qp] = D[i];
+    L[i] = qp < Sq ? lse[static_cast<size_t>(bh) * Sq + qp] : 0.f;
+    if (qp < Sq && tx == 0) delta[static_cast<size_t>(bh) * Sq + qp] = D[i];
   }
 
   float acc[4][NC];
@@ -306,12 +311,12 @@ flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   int kt_lo, kt_hi;
-  kv_range(q0, S, causal, window, &kt_lo, &kt_hi);
+  kv_range(q0, Skv, causal, window, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_t<HD>(Kt, k, gk, k0, S, 1.f);
-    load_t<HD>(Vt, v, gk, k0, S, 1.f);
+    load_t<HD>(Kt, k, gk, k0, Skv, 1.f);
+    load_t<HD>(Vt, v, gk, k0, Skv, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -344,8 +349,9 @@ flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
       const int qp = q0 + 4 * ty + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = visible(qp, k0 + tx + 16 * j, S, causal, window)
-                            ? expf(s[i][j] - L[i]) : 0.f;
+        const float p =
+            visible(qp, k0 + tx + 16 * j, Sq, Skv, causal, window)
+                ? expf(s[i][j] - L[i]) : 0.f;
         dS[(4 * ty + i) * kP + tx + 16 * j] = p * (dp[i][j] - D[i]);
       }
     }
@@ -367,7 +373,7 @@ flash_bwd_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + 4 * ty + i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       st(dq, g.base + qp * g.rs + tx + 16 * c, acc[i][c] * scale);
@@ -387,8 +393,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ 
                       const float* __restrict__ k, const float* __restrict__ v,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int S, int Hkv, int n_rep,
-                      int causal, int window, float scale) {
+                      float* __restrict__ dv, int Sq, int Skv, int Hkv,
+                      int n_rep, int causal, int window, float scale) {
   constexpr int NC = HD / 16;
   extern __shared__ float smem[];
   float* Kt = smem;              // [HD][kP]
@@ -402,9 +408,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ 
   const int bk = blockIdx.x, k0 = blockIdx.y * kTile;
   const int b = bk / Hkv, hk = bk % Hkv, H = Hkv * n_rep;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Rows gk = rows_of<HD>(b, hk, S, Hkv);
-  load_t<HD>(Kt, k, gk, k0, S, 1.f);
-  load_t<HD>(Vt, v, gk, k0, S, 1.f);
+  const Rows gk = rows_of<HD>(b, hk, Skv, Hkv);
+  load_t<HD>(Kt, k, gk, k0, Skv, 1.f);
+  load_t<HD>(Vt, v, gk, k0, Skv, 1.f);
 
   // this thread's keys: k0 + 4 * ty + jj; its columns: tx + 16 * c
   float ak[4][NC], av[4][NC];
@@ -413,18 +419,18 @@ flash_bwd_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ 
 #pragma unroll
     for (int c = 0; c < NC; ++c) ak[jj][c] = av[jj][c] = 0.f;
   int qt_lo, qt_hi;
-  q_range(k0, S, causal, window, &qt_lo, &qt_hi);
+  q_range(k0, Sq, causal, window, &qt_lo, &qt_hi);
   const int nq = qt_hi - qt_lo;
   // the q tiles of every query head of kv head hk, one head after another
   for (int step = 0; step < n_rep * nq; ++step) {
     const int h = hk * n_rep + step / nq, q0 = (qt_lo + step % nq) * kTile;
-    const Rows g = rows_of<HD>(b, h, S, H);
+    const Rows g = rows_of<HD>(b, h, Sq, H);
     __syncthreads();
-    load_t<HD>(Qt, q, g, q0, S, scale);
-    load_t<HD>(dOt, dout, g, q0, S, 1.f);
+    load_t<HD>(Qt, q, g, q0, Sq, scale);
+    load_t<HD>(dOt, dout, g, q0, Sq, 1.f);
     for (int r = threadIdx.x; r < kTile; r += kFlashThreads) {
-      const bool in = q0 + r < S;
-      const size_t e = (static_cast<size_t>(b) * H + h) * S + q0 + r;
+      const bool in = q0 + r < Sq;
+      const size_t e = (static_cast<size_t>(b) * H + h) * Sq + q0 + r;
       Ls[r] = in ? lse[e] : 0.f;
       Ds[r] = in ? delta[e] : 0.f;
     }
@@ -461,7 +467,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = tx + 16 * i;
-        const float p = visible(q0 + r, kp, S, causal, window)
+        const float p = visible(q0 + r, kp, Sq, Skv, causal, window)
                             ? expf(s[jj][i] - Ls[r]) : 0.f;
         Pt[(4 * ty + jj) * kP + r] = p;
         dSt[(4 * ty + jj) * kP + r] = p * (dp[jj][i] - Ds[r]);
@@ -493,7 +499,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ 
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     const int kp = k0 + 4 * ty + jj;
-    if (kp >= S) continue;
+    if (kp >= Skv) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const size_t e = gk.base + kp * gk.rs + tx + 16 * c;
@@ -529,10 +535,11 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   auto kernel = flash_fwd_kernel<HD>;
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, fwd_smem<HD>(), &ready)) return e;
-  kernel<<<grid(G.B * G.H, G.S), kFlashThreads, fwd_smem<HD>(), G.stream>>>(
+  kernel<<<grid(G.B * G.H, G.Sq), kFlashThreads, fwd_smem<HD>(),
+           G.stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, G.S, G.H,
-      G.H / G.Hkv, G.causal, G.window, G.scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, G.Sq,
+      G.Skv, G.H, G.H / G.Hkv, G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
@@ -543,11 +550,12 @@ cudaError_t bwd_dq(const void* dout, const void* q, const void* k,
   auto kernel = flash_bwd_dq_kernel<HD>;
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, dq_smem<HD>(), &ready)) return e;
-  kernel<<<grid(G.B * G.H, G.S), kFlashThreads, dq_smem<HD>(), G.stream>>>(
+  kernel<<<grid(G.B * G.H, G.Sq), kFlashThreads, dq_smem<HD>(),
+           G.stream>>>(
       static_cast<const float*>(dout), static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(out), lse, static_cast<float*>(dq), delta, G.S, G.H,
-      G.H / G.Hkv, G.causal, G.window, G.scale);
+      static_cast<const float*>(out), lse, static_cast<float*>(dq), delta,
+      G.Sq, G.Skv, G.H, G.H / G.Hkv, G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
@@ -558,21 +566,23 @@ cudaError_t bwd_dkdv(const void* dout, const void* q, const void* k,
   auto kernel = flash_bwd_dkdv_kernel<HD>;
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, dkdv_smem<HD>(), &ready)) return e;
-  kernel<<<grid(G.B * G.Hkv, G.S), kFlashThreads, dkdv_smem<HD>(),
+  kernel<<<grid(G.B * G.Hkv, G.Skv), kFlashThreads, dkdv_smem<HD>(),
            G.stream>>>(
       static_cast<const float*>(dout), static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v), lse, delta,
-      static_cast<float*>(dk), static_cast<float*>(dv), G.S, G.Hkv, G.H / G.Hkv,
-      G.causal, G.window, G.scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), G.Sq, G.Skv, G.Hkv,
+      G.H / G.Hkv, G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
 bool valid_geo(int dtype, int hd, const FlashGeo& G) {
   return (dtype == 0 || dtype == 1) && (hd == 64 || hd == 96 || hd == 128) &&
-         G.B >= 1 && G.S >= 1 && G.H >= 1 && G.Hkv >= 1 &&
+         G.B >= 1 && G.Sq >= 1 && G.Skv >= 1 && G.H >= 1 && G.Hkv >= 1 &&
          G.H % G.Hkv == 0 && G.window >= 0 &&
+         (G.Sq == G.Skv || (!G.causal && !G.window)) &&
          static_cast<long long>(G.B) * G.H < (1LL << 31) &&
-         (G.S + kTile - 1) / kTile <= 65535;
+         (G.Sq + kTile - 1) / kTile <= 65535 &&
+         (G.Skv + kTile - 1) / kTile <= 65535;
 }
 
 // f32 on the CUDA cores; hd in {64, 96, 128}
@@ -617,13 +627,14 @@ using repro_torch::flash_bwd_dkdv_sm90;
 using repro_torch::flash_bwd_dq_sm90;
 using repro_torch::flash_fwd_sm90;
 
-// q, out: (B, S, H, hd), k, v: (B, S, Hkv, hd), contiguous in dtype
-// (0 = float32, 1 = bfloat16); lse: (B, H, S) f32.
+// q, out: (B, Sq, H, hd), k, v: (B, Skv, Hkv, hd), contiguous in dtype
+// (0 = float32, 1 = bfloat16); lse: (B, H, Sq) f32. Sq != Skv only with
+// causal and window 0.
 extern "C" int flash_fwd(int dtype, int hd, const void* q, const void* k,
-                         const void* v, void* out, void* lse, int B, int S,
-                         int H, int Hkv, int causal, int window, float scale,
-                         void* stream) {
-  const FlashGeo G{B, S, H, Hkv, causal, window, scale,
+                         const void* v, void* out, void* lse, int B, int Sq,
+                         int Skv, int H, int Hkv, int causal, int window,
+                         float scale, void* stream) {
+  const FlashGeo G{B, Sq, Skv, H, Hkv, causal, window, scale,
                    static_cast<cudaStream_t>(stream)};
   if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
   auto* lse_f = static_cast<float*>(lse);
@@ -632,15 +643,15 @@ extern "C" int flash_fwd(int dtype, int hd, const void* q, const void* k,
                  0, dtype);
 }
 
-// dout, q, out, dq: (B, S, H, hd), k, v: (B, S, Hkv, hd) in dtype; lse,
-// delta: (B, H, S) f32 (delta is written: D = rowsum(dout * out)).
+// dout, q, out, dq: (B, Sq, H, hd), k, v: (B, Skv, Hkv, hd) in dtype;
+// lse, delta: (B, H, Sq) f32 (delta is written: D = rowsum(dout * out)).
 extern "C" int flash_bwd_dq(int dtype, int hd, const void* dout,
                             const void* q, const void* k, const void* v,
                             const void* out, const void* lse, void* dq,
-                            void* delta, int B, int S, int H, int Hkv,
-                            int causal, int window, float scale,
+                            void* delta, int B, int Sq, int Skv, int H,
+                            int Hkv, int causal, int window, float scale,
                             void* stream) {
-  const FlashGeo G{B, S, H, Hkv, causal, window, scale,
+  const FlashGeo G{B, Sq, Skv, H, Hkv, causal, window, scale,
                    static_cast<cudaStream_t>(stream)};
   if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
   const auto* lse_f = static_cast<const float*>(lse);
@@ -652,15 +663,15 @@ extern "C" int flash_bwd_dq(int dtype, int hd, const void* dout,
       1, dtype);
 }
 
-// dout, q: (B, S, H, hd), k, v, dk, dv: (B, S, Hkv, hd) in dtype; lse,
-// delta: (B, H, S) f32 (delta as flash_bwd_dq wrote it).
+// dout, q: (B, Sq, H, hd), k, v, dk, dv: (B, Skv, Hkv, hd) in dtype; lse,
+// delta: (B, H, Sq) f32 (delta as flash_bwd_dq wrote it).
 extern "C" int flash_bwd_dkdv(int dtype, int hd, const void* dout,
                               const void* q, const void* k, const void* v,
                               const void* lse, const void* delta, void* dk,
-                              void* dv, int B, int S, int H, int Hkv,
-                              int causal, int window, float scale,
+                              void* dv, int B, int Sq, int Skv, int H,
+                              int Hkv, int causal, int window, float scale,
                               void* stream) {
-  const FlashGeo G{B, S, H, Hkv, causal, window, scale,
+  const FlashGeo G{B, Sq, Skv, H, Hkv, causal, window, scale,
                    static_cast<cudaStream_t>(stream)};
   if (!valid_geo(dtype, hd, G)) return cudaErrorInvalidValue;
   const auto* lse_f = static_cast<const float*>(lse);

@@ -7,9 +7,10 @@
 
 namespace repro_torch {
 
-// q (B, S, H, hd); k, v (B, S, Hkv, hd), H % Hkv == 0
+// q (B, Sq, H, hd); k, v (B, Skv, Hkv, hd), H % Hkv == 0; Sq != Skv
+// only when causal and window are 0 (cross-attention)
 struct FlashGeo {
-  int B, S, H, Hkv, causal, window;
+  int B, Sq, Skv, H, Hkv, causal, window;
   float scale;
   cudaStream_t stream;
 };

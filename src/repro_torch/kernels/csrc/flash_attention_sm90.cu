@@ -9,11 +9,15 @@
 // models/attention.py: chunked_attention (src/repro/models/attention.py:44).
 // Semantics are flash_attention.cu's (kernels/ref.py: flash_attention_ref,
 // flash_bwd_dq_ref, flash_bwd_dkdv_ref): causal, sliding-window or
-// non-causal online-softmax attention over q (B, S, H, hd) and k, v
-// (B, S, Hkv, hd), H % Hkv == 0, query head h reading kv head
-// h / (H / Hkv) (GQA without repeating kv); the forward writes out and
-// lse = m + log(l) (f32, (B, H, S)); flash_bwd_dq writes D = rowsum(dO *
-// O) and dQ, flash_bwd_dkdv reads D and writes dK and dV at Hkv heads.
+// non-causal online-softmax attention over q (B, Sq, H, hd) and k, v
+// (B, Skv, Hkv, hd), H % Hkv == 0, query head h reading kv head
+// h / (H / Hkv) (GQA without repeating kv), Sq != Skv (cross-attention)
+// only without causal mask or window; the forward writes out and lse =
+// m + log(l) (f32, (B, H, Sq)); flash_bwd_dq writes D = rowsum(dO * O)
+// and dQ, flash_bwd_dkdv reads D and writes dK and dV at Hkv heads. Any
+// length: the TMA fills rows past Sq or Skv with zeros, the tiles that
+// reach past them take the masked path (edge), and every store of out,
+// lse, D, dq, dk and dv is predicated on its row.
 // Every output element is written by one block and summed in a fixed
 // order, so each launch is deterministic. The one atomic is a shared-
 // memory counter that picks which warpgroup refills a freed stage; no
@@ -25,14 +29,17 @@
 // the plain version. The scale multiplies the f32 scores after Q K^T.
 // The online softmax (m, l, the correction) runs in f32 registers, in
 // base 2 (exp2 of s * scale * log2 e). P is rounded to bf16 as the
-// register A operand of P V and of dV = P^T dO, as FlashAttention rounds
-// it. dS is not: dQ = dS K and dK = dS^T Q sum dS with cancellation (a
-// row of dS sums to zero), and one bf16 rounding of dS, FlashAttention's,
-// breaks chip_smoke.py's error rule (2x the plain version's own bf16
-// error) in about 1 of 20 small draws (scripts/flash_ds_rounding.py). So
-// dS goes in as two bf16 parts, hi = bf16(dS) and lo = bf16(dS - hi), two
-// products into the same accumulator (sm90.cuh: pack_a_split): about 16
-// significant bits, for one more product a step.
+// register A operand of the forward's P V, as FlashAttention rounds it.
+// dV = P^T dO takes P as two bf16 parts, hi = bf16(P) and lo = bf16(P -
+// hi): with P rounded once, dV broke chip_smoke.py's error rule (2x the
+// plain version's own bf16 error) at B 1, S 200, 4 heads of 96 (2.19x).
+// Nor is dS rounded once: dQ = dS K and dK = dS^T Q sum dS with
+// cancellation (a row of dS sums to zero), and one bf16 rounding of dS,
+// FlashAttention's, breaks the same rule in about 1 of 20 small draws
+// (scripts/flash_ds_rounding.py). So dS goes in as two bf16 parts too,
+// hi = bf16(dS) and lo = bf16(dS - hi), two products into the same
+// accumulator (sm90.cuh: pack_a_split): about 16 significant bits, for
+// one more product a step.
 //
 // Bound: operations. With n = B * H * (visible query-key pairs) * hd the
 // forward needs 4n flops (Q K^T, P V), flash_bwd_dq 6n (s, dP, dQ) and
@@ -62,8 +69,8 @@
 //     so the short ones fill the tail of the grid.
 // Tiles: forward 128 queries (2 x 64) x 128 keys, 2 products a step; dq
 // 128 queries x 64 keys (dQ, S and dP in registers), 4 products a step
-// (S, dP, dS hi K, dS lo K); dkdv 128 keys (2 x 64) x 64 queries, 5 a
-// step (S^T, dP^T, P^T dO, dS^T hi Q, dS^T lo Q),
+// (S, dP, dS hi K, dS lo K); dkdv 128 keys (2 x 64) x 64 queries, 6 a
+// step (S^T, dP^T, P^T hi dO, P^T lo dO, dS^T hi Q, dS^T lo Q),
 // looping over the H / Hkv query heads of its kv head and their q tiles,
 // dK and dV accumulating in registers. hd in {64, 96, 128}; 96 is padded
 // to two column blocks, whose upper half the TMA fills with zeros.
@@ -97,35 +104,36 @@ struct Head {
   }
 };
 
-// query row qp may attend to key kp
-__device__ __forceinline__ bool visible(int qp, int kp, int S, int causal,
+// query row qp may attend to key kp (rows past Sq are never stored)
+__device__ __forceinline__ bool visible(int qp, int kp, int Skv, int causal,
                                         int window) {
-  return kp < S && (!causal || kp <= qp) && (!window || kp > qp - window);
+  return kp < Skv && (!causal || kp <= qp) && (!window || kp > qp - window);
 }
 
 // some pair of the (q0 + [0, bm)) x (k0 + [0, bn)) block is masked
-__device__ __forceinline__ bool edge(int q0, int bm, int k0, int bn, int S,
-                                     int causal, int window) {
-  return k0 + bn > S || q0 + bm > S || (causal && k0 + bn - 1 > q0) ||
+__device__ __forceinline__ bool edge(int q0, int bm, int k0, int bn, int Sq,
+                                     int Skv, int causal, int window) {
+  return k0 + bn > Skv || q0 + bm > Sq || (causal && k0 + bn - 1 > q0) ||
          (window && k0 <= q0 + bm - 1 - window);
 }
 
-// kv tiles of bn keys [lo, hi) seen by the queries q0 + [0, bm)
-__device__ __forceinline__ void kv_tiles(int q0, int bm, int bn, int S,
+// kv tiles of bn keys [lo, hi) seen by the queries q0 + [0, bm) (causal
+// or a window only where Sq == Skv)
+__device__ __forceinline__ void kv_tiles(int q0, int bm, int bn, int Skv,
                                          int causal, int window, int* lo,
                                          int* hi) {
-  const int key_hi = causal ? min(S, q0 + bm) : S;   // exclusive
+  const int key_hi = causal ? min(Skv, q0 + bm) : Skv;   // exclusive
   const int key_lo = window ? max(0, q0 - window + 1) : 0;
   *lo = key_lo / bn;
   *hi = (key_hi + bn - 1) / bn;
 }
 
 // q tiles of bm queries [lo, hi) that see the keys k0 + [0, bn)
-__device__ __forceinline__ void q_tiles(int k0, int bn, int bm, int S,
+__device__ __forceinline__ void q_tiles(int k0, int bn, int bm, int Sq,
                                         int causal, int window, int* lo,
                                         int* hi) {
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(S, k0 + bn - 1 + window) : S;   // excl.
+  const int q_hi = window ? min(Sq, k0 + bn - 1 + window) : Sq;   // excl.
   *lo = q_lo / bm;
   *hi = (q_hi + bm - 1) / bm;
 }
@@ -201,9 +209,9 @@ struct FwdSmem {
 // correction.
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kFwdN / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
-    int row0, int k0, int q0, int S, int causal, int window, float sl2,
-    int lane) {
-  const bool masked = edge(q0, kFwdM, k0, kFwdN, S, causal, window);
+    int row0, int k0, int q0, int Sq, int Skv, int causal, int window,
+    float sl2, int lane) {
+  const bool masked = edge(q0, kFwdM, k0, kFwdN, Sq, Skv, causal, window);
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int i = 0; i < kFwdN / 2; ++i) {
@@ -211,7 +219,7 @@ __device__ __forceinline__ void softmax_tile(
     float x = s[i] * sl2;
     if (masked &&
         !visible(row0 + 8 * r, k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1),
-                 S, causal, window))
+                 Skv, causal, window))
       x = -INFINITY;
     s[i] = x;
     mx[r] = fmaxf(mx[r], x);
@@ -238,8 +246,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      bf16* __restrict__ out, float* __restrict__ lse, int S,
-                      int H, int n_rep, int causal, int window, float scale) {
+                      bf16* __restrict__ out, float* __restrict__ lse,
+                      int Sq, int Skv, int H, int n_rep, int causal,
+                      int window, float scale) {
   using L = FwdSmem<HD>;
   using Hd = Head<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -254,7 +263,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / n_rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;   // longest first
   int lo, hi;
-  kv_tiles(q0, kFwdM, kFwdN, S, causal, window, &lo, &hi);
+  kv_tiles(q0, kFwdM, kFwdN, Skv, causal, window, &lo, &hi);
   const int n = hi - lo;
 
   const CUtensorMap *mk = &tk, *mv = &tv;
@@ -344,8 +353,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_wait<0>();
   fence_regs(s);
   release(0, true);
-  softmax_tile(s, m, l, corr, row0, lo * kFwdN, q0, S, causal, window, sl2,
-               lane);
+  softmax_tile(s, m, l, corr, row0, lo * kFwdN, q0, Sq, Skv, causal, window,
+               sl2, lane);
 #pragma unroll
   for (int t = 0; t < kFwdN / 16; ++t) pack_a(p[t], s, t);
   for (int it = 1; it < n; ++it) {
@@ -363,8 +372,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();            // the scores are in; P V may still run
     fence_regs(s);
     release(it, true);
-    softmax_tile(s, m, l, corr, row0, (lo + it) * kFwdN, q0, S, causal,
-                 window, sl2, lane);
+    softmax_tile(s, m, l, corr, row0, (lo + it) * kFwdN, q0, Sq, Skv,
+                 causal, window, sl2, lane);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p);
@@ -390,15 +399,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] = quad_sum(l[r]);
     one[r] = 1.f;
     const int row = row0 + 8 * r;
-    if (row < S && (lane & 3) == 0)
-      lse[static_cast<size_t>(bh) * S + row] = m[r] * kLn2 + logf(l[r]);
+    if (row < Sq && (lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * Sq + row] = m[r] * kLn2 + logf(l[r]);
   }
   // out = acc / max(l, 1e-30), divided, not multiplied by a reciprocal
 #pragma unroll
   for (int i = 0; i < Hd::kHDP / 2; ++i)
     o[i] = __fdiv_rn(o[i], fmaxf(l[(i >> 1) & 1], 1e-30f));
-  store_rows<HD>(out, o, row0, S,
-                 (static_cast<size_t>(b) * S * H + h) * HD,
+  store_rows<HD>(out, o, row0, Sq,
+                 (static_cast<size_t>(b) * Sq * H + h) * HD,
                  static_cast<size_t>(H) * HD, one, lane);
 }
 
@@ -430,8 +439,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const bf16* __restrict__ dout,
                          const bf16* __restrict__ out,
                          const float* __restrict__ lse, bf16* __restrict__ dq,
-                         float* __restrict__ delta, int S, int H, int n_rep,
-                         int causal, int window, float scale) {
+                         float* __restrict__ delta, int Sq, int Skv, int H,
+                         int n_rep, int causal, int window, float scale) {
   using L = DqSmem<HD>;
   using Hd = Head<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -449,9 +458,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / n_rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqM;    // longest first
   int lo, hi;
-  kv_tiles(q0, kDqM, kDqN, S, causal, window, &lo, &hi);
+  kv_tiles(q0, kDqM, kDqN, Skv, causal, window, &lo, &hi);
   const int n = hi - lo;
-  const size_t qbase = (static_cast<size_t>(b) * S * H + h) * HD;
+  const size_t qbase = (static_cast<size_t>(b) * Sq * H + h) * HD;
   const size_t qrs = static_cast<size_t>(H) * HD;
 
   const CUtensorMap *mk = &tk, *mv = &tv;
@@ -480,7 +489,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   {
     const int r = tid / 2, half = tid & 1, row = q0 + r;
     float part = 0.f;
-    if (row < S) {
+    if (row < Sq) {
       const size_t e = qbase + static_cast<size_t>(row) * qrs + half * (HD / 2);
       const uint4* pd = reinterpret_cast<const uint4*>(dout + e);
       const uint4* po = reinterpret_cast<const uint4*>(out + e);
@@ -496,10 +505,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     if (half == 0) {
-      const size_t e = static_cast<size_t>(bh) * S + row;
+      const size_t e = static_cast<size_t>(bh) * Sq + row;
       sD[r] = part;
-      sL[r] = row < S ? lse[e] * kLog2e : 0.f;
-      if (row < S) delta[e] = part;
+      sL[r] = row < Sq ? lse[e] * kLog2e : 0.f;
+      if (row < Sq) delta[e] = part;
     }
   }
   __syncthreads();
@@ -545,14 +554,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(dp);
 
     // P = exp(s - lse), dS = P (dP - D), into s
-    const bool masked = edge(q0, kDqM, k0, kDqN, S, causal, window);
+    const bool masked = edge(q0, kDqM, k0, kDqN, Sq, Skv, causal, window);
 #pragma unroll
     for (int i = 0; i < kDqN / 2; ++i) {
       const int r = (i >> 1) & 1;
       float p = exp2_approx(s[i] * sl2 - Lr[r]);
       if (masked &&
           !visible(row0 + 8 * r, k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1),
-                   S, causal, window))
+                   Skv, causal, window))
         p = 0.f;
       s[i] = p * (dp[i] - Dr[r]);
     }
@@ -576,7 +585,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       issue(it + 2);
   }
   const float mul[2] = {scale, scale};
-  store_rows<HD>(dq, acc, row0, S, qbase, qrs, mul, lane);
+  store_rows<HD>(dq, acc, row0, Sq, qbase, qrs, mul, lane);
 }
 
 // --------------------------------------------------------- backward, dK dV
@@ -608,8 +617,8 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int S, int Hkv, int n_rep, int causal, int window,
-                           float scale) {
+                           int Sq, int Skv, int Hkv, int n_rep, int causal,
+                           int window, float scale) {
   using L = DkdvSmem<HD>;
   using Hd = Head<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -627,7 +636,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int bk = blockIdx.x, b = bk / Hkv, hk = bk % Hkv;
   const int k0 = blockIdx.y * kKvN;              // the long ones first
   int lo, hi;
-  q_tiles(k0, kKvN, kKvM, S, causal, window, &lo, &hi);
+  q_tiles(k0, kKvN, kKvM, Sq, causal, window, &lo, &hi);
   const int nq = hi - lo, n = n_rep * nq;       // (head, q tile) steps
 
   // lse (base 2) and D of step i's query rows into this warpgroup's stage
@@ -635,9 +644,9 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_ld = [&](int i) {
     const int h = hk * n_rep + i / nq;
     const int row = (lo + i % nq) * kKvM + wtid % kKvM;
-    const size_t e = (static_cast<size_t>(b) * H + h) * S + row;
+    const size_t e = (static_cast<size_t>(b) * H + h) * Sq + row;
     sLD[(i & 1) * 2 * kKvM + wtid] =
-        row >= S ? 0.f : wtid < kKvM ? lse[e] * kLog2e : delta[e];
+        row >= Sq ? 0.f : wtid < kKvM ? lse[e] * kLog2e : delta[e];
   };
   if (n > 0) load_ld(0);
   if (tid == 0) {
@@ -696,14 +705,14 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // P^T = exp(s - lse) into s, dS^T = P^T (dP^T - D) into dp
     const float* Ls = sLD + st * 2 * kKvM;
     const float* Ds = Ls + kKvM;
-    const bool masked = edge(q0, kKvM, k0, kKvN, S, causal, window);
+    const bool masked = edge(q0, kKvM, k0, kKvN, Sq, Skv, causal, window);
 #pragma unroll
     for (int i = 0; i < kKvM / 2; ++i) {
       const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
       float p = exp2_approx(s[i] * sl2 - Ls[col]);
-      if (masked && (q0 + col >= S ||
-                     !visible(q0 + col, key0 + 8 * ((i >> 1) & 1), S, causal,
-                              window)))
+      if (masked && (q0 + col >= Sq ||
+                     !visible(q0 + col, key0 + 8 * ((i >> 1) & 1), Skv,
+                              causal, window)))
         p = 0.f;
       s[i] = p;
       dp[i] = p * (dp[i] - Ds[col]);
@@ -713,11 +722,12 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < kKvM / 16; ++t) {
-      uint32_t a[4], hi[4], lo[4];
-      pack_a(a, s, t);
-      wgmma_rs<Hd::kHDP, 1>(
-          adv, a, desc(sDO + st * L::kQT + t * 16 * kRow, kKvM * kRow, 1024),
-          1);
+      uint32_t hi[4], lo[4];
+      pack_a_split(hi, lo, s, t);
+      const uint64_t bdo =
+          desc(sDO + st * L::kQT + t * 16 * kRow, kKvM * kRow, 1024);
+      wgmma_rs<Hd::kHDP, 1>(adv, hi, bdo, 1);
+      wgmma_rs<Hd::kHDP, 1>(adv, lo, bdo, 1);
       pack_a_split(hi, lo, dp, t);
       const uint64_t bq =
           desc(sQ + st * L::kQT + t * 16 * kRow, kKvM * kRow, 1024);
@@ -735,11 +745,11 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (wtid == 0 && (atomicAdd(&rel[st], 1u) & 1) && it + 2 < n)
       issue(it + 2);
   }
-  const size_t base = (static_cast<size_t>(b) * S * Hkv + hk) * HD;
+  const size_t base = (static_cast<size_t>(b) * Skv * Hkv + hk) * HD;
   const size_t rs = static_cast<size_t>(Hkv) * HD;
   const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-  store_rows<HD>(dv, adv, key0, S, base, rs, one, lane);
-  store_rows<HD>(dk, adk, key0, S, base, rs, mul, lane);
+  store_rows<HD>(dv, adv, key0, Skv, base, rs, one, lane);
+  store_rows<HD>(dk, adk, key0, Skv, base, rs, mul, lane);
 }
 
 // ------------------------------------------------------------- launchers
@@ -785,14 +795,14 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, smem, &ready)) return e;
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, G.B, G.S, G.H, HD, kFwdM) ||
-      !tensor_map(&mk, k, G.B, G.S, G.Hkv, HD, kFwdN) ||
-      !tensor_map(&mv, v, G.B, G.S, G.Hkv, HD, kFwdN))
+  if (!tensor_map(&mq, q, G.B, G.Sq, G.H, HD, kFwdM) ||
+      !tensor_map(&mk, k, G.B, G.Skv, G.Hkv, HD, kFwdN) ||
+      !tensor_map(&mv, v, G.B, G.Skv, G.Hkv, HD, kFwdN))
     return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(G.B * G.H), tiles(G.S, kFwdM));
+  const dim3 grid(static_cast<unsigned>(G.B * G.H), tiles(G.Sq, kFwdM));
   kernel<<<grid, kThreadsTC, smem, G.stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), lse, G.S, G.H, G.H / G.Hkv,
-      G.causal, G.window, G.scale);
+      mq, mk, mv, static_cast<bf16*>(out), lse, G.Sq, G.Skv, G.H,
+      G.H / G.Hkv, G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
@@ -805,16 +815,16 @@ cudaError_t bwd_dq(const void* dout, const void* q, const void* k,
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, smem, &ready)) return e;
   CUtensorMap mq, mk, mv, mdo;
-  if (!tensor_map(&mq, q, G.B, G.S, G.H, HD, kDqM) ||
-      !tensor_map(&mk, k, G.B, G.S, G.Hkv, HD, kDqN) ||
-      !tensor_map(&mv, v, G.B, G.S, G.Hkv, HD, kDqN) ||
-      !tensor_map(&mdo, dout, G.B, G.S, G.H, HD, kDqM))
+  if (!tensor_map(&mq, q, G.B, G.Sq, G.H, HD, kDqM) ||
+      !tensor_map(&mk, k, G.B, G.Skv, G.Hkv, HD, kDqN) ||
+      !tensor_map(&mv, v, G.B, G.Skv, G.Hkv, HD, kDqN) ||
+      !tensor_map(&mdo, dout, G.B, G.Sq, G.H, HD, kDqM))
     return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(G.B * G.H), tiles(G.S, kDqM));
+  const dim3 grid(static_cast<unsigned>(G.B * G.H), tiles(G.Sq, kDqM));
   kernel<<<grid, kThreadsTC, smem, G.stream>>>(
       mq, mk, mv, mdo, static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(out), lse, static_cast<bf16*>(dq), delta, G.S,
-      G.H, G.H / G.Hkv, G.causal, G.window, G.scale);
+      static_cast<const bf16*>(out), lse, static_cast<bf16*>(dq), delta,
+      G.Sq, G.Skv, G.H, G.H / G.Hkv, G.causal, G.window, G.scale);
   return cudaGetLastError();
 }
 
@@ -827,16 +837,16 @@ cudaError_t bwd_dkdv(const void* dout, const void* q, const void* k,
   static bool ready = false;
   if (cudaError_t e = prepare(kernel, smem, &ready)) return e;
   CUtensorMap mq, mk, mv, mdo;
-  if (!tensor_map(&mq, q, G.B, G.S, G.H, HD, kKvM) ||
-      !tensor_map(&mk, k, G.B, G.S, G.Hkv, HD, kKvN) ||
-      !tensor_map(&mv, v, G.B, G.S, G.Hkv, HD, kKvN) ||
-      !tensor_map(&mdo, dout, G.B, G.S, G.H, HD, kKvM))
+  if (!tensor_map(&mq, q, G.B, G.Sq, G.H, HD, kKvM) ||
+      !tensor_map(&mk, k, G.B, G.Skv, G.Hkv, HD, kKvN) ||
+      !tensor_map(&mv, v, G.B, G.Skv, G.Hkv, HD, kKvN) ||
+      !tensor_map(&mdo, dout, G.B, G.Sq, G.H, HD, kKvM))
     return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(G.B * G.Hkv), tiles(G.S, kKvN));
+  const dim3 grid(static_cast<unsigned>(G.B * G.Hkv), tiles(G.Skv, kKvN));
   kernel<<<grid, kThreadsTC, smem, G.stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), G.S, G.Hkv, G.H / G.Hkv, G.causal, G.window,
-      G.scale);
+      static_cast<bf16*>(dv), G.Sq, G.Skv, G.Hkv, G.H / G.Hkv, G.causal,
+      G.window, G.scale);
   return cudaGetLastError();
 }
 

@@ -66,6 +66,20 @@
 // hd alone: a row of a c-row chunk equals that row computed at c = 1,
 // and a paged pool equals the dense cache it maps, bit for bit.
 //
+// The cross form (serve_cross_attention, the encoder-decoder family's
+// decoder): the JAX package's cross_attention_decode
+// (models/attention.py:200), q rows against a fixed K/V (B, L, KH, hd),
+// the encoder's, read as a dense cache of one L-slot block a row with
+// every slot visible: no positions, no ring, no chunk rows merged in,
+// nothing written. The same kernel with a flag (Args::cross): the slots'
+// positions read as 0 and the rows' as 0, so the mask lets every slot
+// through, and no slot has a chunk row as its source. The reduction
+// order is the self-attention form's, fixed by slot index and hd, so a
+// row of a c-row chunk equals that row at c = 1 bit for bit; pad rows of
+// a chunk compute like any row and the caller drops them. At whisper's
+// shape (L 1500, 16 heads of 64, bf16) it reads 24.6 MB of K/V a layer
+// at B 4: bound by bytes, 7.3 us at 3.35 TB/s.
+//
 // Bound: decode is bound by bytes (the ring read once: B 4, ring 4096, 8
 // kv heads, hd 128 in bf16 is 67.1 MB, 0.020 ms at 3.35 TB/s); a 64-row
 // prefill chunk by its operations (17.2 GFLOP at B 4: half on the tensor
@@ -108,6 +122,7 @@ struct Args {
   float* part;            // (B, KH, c n_rep, spans, hd + 4) when spans > 1
   int* count;             // (B, KH, groups), zero between launches
   int B, c, H, KH, NB, bs, mb, window, spans, groups;
+  int cross;              // 1: every slot visible, no chunk rows merged
 };
 
 template <typename T>
@@ -244,11 +259,12 @@ __global__ void __launch_bounds__(kThreads, RPW == 1 ? 4 : 2)
   const int n_rep = a.H / a.KH, rows_total = a.c * n_rep;
   const int r0 = grp * kRows, R = min(kRows, rows_total - r0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int* pos_b = a.positions + static_cast<size_t>(b) * a.c;
+  const int* pos_b =
+      a.cross ? nullptr : a.positions + static_cast<size_t>(b) * a.c;
   const int* trow = a.table ? a.table + static_cast<size_t>(b) * a.mb
                             : nullptr;
   const int ring = a.ring ? a.ring[b] : a.bs;
-  const int first = pos_b[0] % ring;
+  const int first = a.cross ? 0 : pos_b[0] % ring;
   const int n_slots = a.mb * a.bs;
   const int s0 = span * kSpan, span_n = min(kSpan, n_slots - s0);
   const int tiles = (span_n + kTile - 1) / kTile;
@@ -299,8 +315,8 @@ __global__ void __launch_bounds__(kThreads, RPW == 1 ? 4 : 2)
     const int s = s0 + t;
     int p = -1, src = -1;
     if (t < span_n && (!trow || trow[s / a.bs] > 0)) {
-      p = a.cpos[row_s[t]];
-      if (s < ring) {
+      p = a.cross ? 0 : a.cpos[row_s[t]];
+      if (!a.cross && s < ring) {
         int j = s - first;
         if (j < 0) j += ring;
         if (j < a.c && pos_b[j] < kPadFloor) src = j;
@@ -317,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, RPW == 1 ? 4 : 2)
   for (int k = 0; k < RPW; ++k) {
     const int rl = warp + kWarps * k;
     ri[k] = rl < R ? (r0 + rl) / n_rep : -1;   // -1: no row here
-    pi[k] = rl < R ? pos_b[ri[k]] : 0;
+    pi[k] = rl < R && !a.cross ? pos_b[ri[k]] : 0;
     m[k] = kNegInf;
     l[k] = 0.f;
 #pragma unroll
@@ -630,7 +646,33 @@ extern "C" int serve_attention(int dtype, int hd, const void* q,
                static_cast<const int*>(cpos), static_cast<const int*>(table),
                static_cast<const int*>(ring), out,
                static_cast<float*>(part), static_cast<int*>(count), B, c, H,
-               KH, NB, bs, mb, window, spans, groups};
+               KH, NB, bs, mb, window, spans, groups, 0};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? dispatch<__nv_bfloat16>(hd, rpw, a, st)
+         : dtype == 0 ? dispatch<float>(hd, rpw, a, st)
+                      : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cross form: q, out (B, c, H, hd), pre-scaled q; ck, cv (B, L, KH,
+// hd), the fixed K/V every row sees in full; rpw, part and count as for
+// serve_attention with mb 1 and bs L (spans = ceil(L / 256)).
+extern "C" int serve_cross_attention(int dtype, int hd, const void* q,
+                                     const void* ck, const void* cv,
+                                     void* out, void* part, void* count,
+                                     int B, int c, int H, int KH, int L,
+                                     int rpw, void* stream) {
+  if (B < 1 || c < 1 || KH < 1 || H % KH || L < 1 ||
+      (rpw != 1 && rpw != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int spans = (L + kSpan - 1) / kSpan;
+  const int rows = c * (H / KH);
+  const int groups = (rows + kWarps * rpw - 1) / (kWarps * rpw);
+  if (spans > 1 && (part == nullptr || count == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // no chunk keys: k and v stand in as ck and cv, never read
+  const Args a{q, ck, cv, nullptr, ck, cv, nullptr, nullptr, nullptr, out,
+               static_cast<float*>(part), static_cast<int*>(count), B, c, H,
+               KH, B, L, 1, 0, spans, groups, 1};
   const auto st = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? dispatch<__nv_bfloat16>(hd, rpw, a, st)
          : dtype == 0 ? dispatch<float>(hd, rpw, a, st)

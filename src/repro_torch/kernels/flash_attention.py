@@ -8,17 +8,21 @@ Replaces the JAX package's ``kernels/flash_attention.py: flash_attention``
 The kernels are CUDA C++ for ``sm_90a``:
 
   * ``flash_fwd``      — online-softmax attention; also writes the row
-                         log-sum-exp ``lse`` (B, H, S) f32;
+                         log-sum-exp ``lse`` (B, H, Sq) f32;
   * ``flash_bwd_dq``   — D = rowsum(dO * O) and dQ, one block per q tile;
   * ``flash_bwd_dkdv`` — dK and dV, one block per (kv head, kv tile),
                          looping over the query heads of its kv head,
                          reading D.
 
-Each takes q (B, S, H, hd) and k, v (B, S, Hkv, hd) with H % Hkv == 0:
-query head h reads kv head h // (H // Hkv), as ``repeat_interleave``
+Each takes q (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd) with H % Hkv ==
+0: query head h reads kv head h // (H // Hkv), as ``repeat_interleave``
 of kv would give (grouped-query attention without the copy); dk and dv
 come back at Hkv heads. ``Hkv == H`` is the TPU kernel's contract (kv
-already head-repeated). The C entries dispatch by dtype: bf16 runs on
+already head-repeated). Any length goes: the kernels mask the ragged
+last tile and store no row past Sq or Skv. Sq may differ from Skv only
+without a causal mask or a window (cross-attention, every key visible,
+as the JAX package's encoder-decoder uses it); other combinations are
+refused. The C entries dispatch by dtype: bf16 runs on
 the tensor cores (``csrc/flash_attention_sm90.cu``: wgmma, TMA tile
 loads, P and dS rounded to bf16 as FlashAttention rounds them), f32 on
 the CUDA cores in f32 (``csrc/flash_attention.cu``), since f32 callers
@@ -35,8 +39,8 @@ kernel, or the wrapper raises. Each kernel wrapper counts its launches
 (``flash_fwd.launches``, ...).
 
 ``flash_attention(q, k, v, *, causal=True, window=0, scale=None)`` is
-the differentiable entry, with the TPU kernel's positional signature and
-its shape contract (S a multiple of min(128, S)). It is built from two
+the differentiable entry, with the TPU kernel's positional signature
+(and none of its 128-row blocks: any Sq, Skv >= 1). It is built from two
 ``torch.autograd.Function``s, ``FlashAttention`` and
 ``FlashAttentionBwd``, each with a ``vmap`` rule: the client plane runs
 ``vmap(grad_and_value(loss))`` over the cohorts, and a ctypes kernel
@@ -64,27 +68,29 @@ __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
 HEAD_DIMS = (64, 96, 128)
 
 
-def _check_seq(S: int) -> None:
-    """The TPU kernel's shape contract (its 128-row blocks)."""
-    if S < 1 or S % min(128, S):
-        raise ValueError(f"flash attention takes S a multiple of "
-                         f"min(128, S) (its 128-row blocks), got S={S}")
-
-
-def _geometry(q, k, v):
-    """(B, S, H, Hkv, hd) of contiguous f32/bf16 q (B, S, H, hd) and k, v
-    (B, S, Hkv, hd), H a multiple of Hkv."""
-    B, S, H, hd = q.shape
-    Hkv = k.shape[2] if k.dim() == 4 else H    # else _check refuses k
+def _geometry(q, k, v, causal, window):
+    """(B, Sq, Skv, H, Hkv, hd) of contiguous f32/bf16 q (B, Sq, H, hd)
+    and k, v (B, Skv, Hkv, hd), H a multiple of Hkv, Sq, Skv >= 1; Sq !=
+    Skv only where ``causal`` and ``window`` are off."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1] if k.dim() == 4 else Sq   # else _check refuses k
+    Hkv = k.shape[2] if k.dim() == 4 else H
     dev = q.device
-    _check("q", q, (B, S, H, hd), tuple(_DTYPE_CODE), dev)
+    _check("q", q, (B, Sq, H, hd), tuple(_DTYPE_CODE), dev)
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"k has {Hkv} heads, which must divide q's {H} "
                          f"(shape {tuple(k.shape)})")
-    _check("k", k, (B, S, Hkv, hd), (q.dtype,), dev)
-    _check("v", v, (B, S, Hkv, hd), (q.dtype,), dev)
-    _check_seq(S)
-    return B, S, H, Hkv, hd
+    _check("k", k, (B, Skv, Hkv, hd), (q.dtype,), dev)
+    _check("v", v, (B, Skv, Hkv, hd), (q.dtype,), dev)
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"flash attention takes Sq, Skv >= 1, got "
+                         f"{Sq}, {Skv}")
+    if Sq != Skv and (causal or window):
+        raise ValueError(f"q of {Sq} rows against k, v of {Skv} "
+                         f"(cross-attention) takes no causal mask and no "
+                         f"window, got causal={bool(causal)}, "
+                         f"window={window}")
+    return B, Sq, Skv, H, Hkv, hd
 
 
 def _args(causal, window, scale, hd):
@@ -101,19 +107,20 @@ def _launch_checks(hd):
 
 
 def flash_fwd(q, k, v, *, causal=True, window=0, scale=None):
-    """q: (B, S, H, hd), k/v: (B, S, Hkv, hd), f32/bf16. Returns (out
-    (B, S, H, hd) in q's dtype, lse (B, H, S) f32)."""
-    B, S, H, Hkv, hd = _geometry(q, k, v)
+    """q: (B, Sq, H, hd), k/v: (B, Skv, Hkv, hd), f32/bf16. Returns (out
+    (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) f32)."""
+    B, Sq, Skv, H, Hkv, hd = _geometry(q, k, v, causal, window)
     if not _kernel_device(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     _launch_checks(hd)
     c, w, sc = _args(causal, window, scale, hd)
     out = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = build.load().flash_fwd(
         _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-        _ptr(lse), B, S, H, Hkv, c, w, ctypes.c_float(sc), _stream(q.device))
+        _ptr(lse), B, Sq, Skv, H, Hkv, c, w, ctypes.c_float(sc),
+        _stream(q.device))
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
@@ -125,25 +132,25 @@ def _check_rows(name, x, B, H, S, dev):
 
 def flash_bwd_dq(dout, q, k, v, out, lse, *, causal=True, window=0,
                  scale=None):
-    """dout/out: (B, S, H, hd) in q's dtype; lse: (B, H, S) f32 from the
-    forward. Returns (dq in q's dtype, D = rowsum(dout * out) (B, H, S)
+    """dout/out: (B, Sq, H, hd) in q's dtype; lse: (B, H, Sq) f32 from the
+    forward. Returns (dq in q's dtype, D = rowsum(dout * out) (B, H, Sq)
     f32, which ``flash_bwd_dkdv`` takes)."""
-    B, S, H, Hkv, hd = _geometry(q, k, v)
+    B, Sq, Skv, H, Hkv, hd = _geometry(q, k, v, causal, window)
     dev = q.device
-    _check("dout", dout, (B, S, H, hd), (q.dtype,), dev)
-    _check("out", out, (B, S, H, hd), (q.dtype,), dev)
-    _check_rows("lse", lse, B, H, S, dev)
+    _check("dout", dout, (B, Sq, H, hd), (q.dtype,), dev)
+    _check("out", out, (B, Sq, H, hd), (q.dtype,), dev)
+    _check_rows("lse", lse, B, H, Sq, dev)
     if not _kernel_device(q):
         return ref.flash_bwd_dq_ref(dout, q, k, v, out, lse, causal=causal,
                                     window=window, scale=scale)
     _launch_checks(hd)
     c, w, sc = _args(causal, window, scale, hd)
     dq = torch.empty_like(q)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     err = build.load().flash_bwd_dq(
         _DTYPE_CODE[q.dtype], hd, _ptr(dout), _ptr(q), _ptr(k), _ptr(v),
-        _ptr(out), _ptr(lse), _ptr(dq), _ptr(delta), B, S, H, Hkv, c, w,
-        ctypes.c_float(sc), _stream(dev))
+        _ptr(out), _ptr(lse), _ptr(dq), _ptr(delta), B, Sq, Skv, H, Hkv, c,
+        w, ctypes.c_float(sc), _stream(dev))
     _raise_on(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq, delta
@@ -151,14 +158,14 @@ def flash_bwd_dq(dout, q, k, v, out, lse, *, causal=True, window=0,
 
 def flash_bwd_dkdv(dout, q, k, v, lse, delta, *, causal=True, window=0,
                    scale=None):
-    """dout: (B, S, H, hd) in q's dtype; lse, delta: (B, H, S) f32 (delta
-    from ``flash_bwd_dq``). Returns (dk, dv) (B, S, Hkv, hd) in k's and
-    v's dtype, summed over the query heads of each kv head."""
-    B, S, H, Hkv, hd = _geometry(q, k, v)
+    """dout: (B, Sq, H, hd) in q's dtype; lse, delta: (B, H, Sq) f32
+    (delta from ``flash_bwd_dq``). Returns (dk, dv) (B, Skv, Hkv, hd) in
+    k's and v's dtype, summed over the query heads of each kv head."""
+    B, Sq, Skv, H, Hkv, hd = _geometry(q, k, v, causal, window)
     dev = q.device
-    _check("dout", dout, (B, S, H, hd), (q.dtype,), dev)
-    _check_rows("lse", lse, B, H, S, dev)
-    _check_rows("delta", delta, B, H, S, dev)
+    _check("dout", dout, (B, Sq, H, hd), (q.dtype,), dev)
+    _check_rows("lse", lse, B, H, Sq, dev)
+    _check_rows("delta", delta, B, H, Sq, dev)
     if not _kernel_device(q):
         return ref.flash_bwd_dkdv_ref(dout, q, k, v, lse, delta,
                                       causal=causal, window=window,
@@ -168,8 +175,8 @@ def flash_bwd_dkdv(dout, q, k, v, lse, delta, *, causal=True, window=0,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = build.load().flash_bwd_dkdv(
         _DTYPE_CODE[q.dtype], hd, _ptr(dout), _ptr(q), _ptr(k), _ptr(v),
-        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, S, H, Hkv, c, w,
-        ctypes.c_float(sc), _stream(dev))
+        _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), B, Sq, Skv, H, Hkv, c,
+        w, ctypes.c_float(sc), _stream(dev))
     _raise_on(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
     return dk, dv
@@ -267,12 +274,13 @@ class FlashAttentionBwd(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """Differentiable flash attention. q: (B, S, H, hd), k/v: (B, S, Hkv,
-    hd) f32/bf16, H a multiple of Hkv (Hkv == H: kv already
-    head-repeated, the TPU kernel's contract), S a multiple of min(128,
-    S); ``scale=None`` is hd**-0.5 (the TPU kernel's semantics). Returns
-    out (B, S, H, hd) in q's dtype."""
-    _geometry(q, k, v)
+    """Differentiable flash attention. q: (B, Sq, H, hd), k/v: (B, Skv,
+    Hkv, hd) f32/bf16, H a multiple of Hkv (Hkv == H: kv already
+    head-repeated, the TPU kernel's contract), any Sq, Skv >= 1, Sq !=
+    Skv only with ``causal`` False and ``window`` 0 (cross-attention);
+    ``scale=None`` is hd**-0.5 (the TPU kernel's semantics). Returns out
+    (B, Sq, H, hd) in q's dtype."""
+    _geometry(q, k, v, causal, window)
     out, _ = FlashAttention.apply(q.contiguous(), k.contiguous(),
                                   v.contiguous(), bool(causal), int(window),
                                   scale)

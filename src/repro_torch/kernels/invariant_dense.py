@@ -16,12 +16,19 @@ that row of a 4-row decode step bit for bit, which ``torch.matmul``
 (cuBLAS picks its tiling and split of K by M) does not give. M picks only
 the kernel's form (``form``: how many 64-row tiles a block carries).
 
-Only the transformer families' serving steps call it: the attention's
-wq|wk|wv as one group and wo, the MLP's w_in|w_gate as one group and
-w_out, and ``lm_head``: 4 launches a layer and 1 a step; a moe block
-(``models/moe.py: moe_serve``) the f32 router, each two experts'
-w_in|w_gate and each expert's w_out in place of the MLP. Training keeps
-``layers.dense``.
+The bf16 kernel reads the weight's rows 16 bytes at a time (by TMA), so
+N must be a multiple of 8 there: a head whose N is not (whisper's
+lm_head, 1024 x 51,865) is carried in a copy padded once with zero
+columns when serving starts (``pad_columns``; the caller drops the
+extra outputs), never padded per call.
+
+Only the serving steps call it: the attention's wq|wk|wv as one group
+and wo, the MLP's w_in|w_gate as one group and w_out, and ``lm_head``: 4
+launches a layer and 1 a step; a moe block (``models/moe.py:
+moe_serve``) the f32 router, each two experts' w_in|w_gate and each
+expert's w_out in place of the MLP; an encoder-decoder block
+(``models/encdec.py``) also the cross-attention's wq and wo, and a
+plain MLP's w_in alone: 6 a layer. Training keeps ``layers.dense``.
 
 Dispatch is by device: a CPU tensor takes the plain version
 (``ref.invariant_dense_ref``: ``x @ w + b``, the bits of
@@ -42,7 +49,7 @@ from repro_torch.kernels._launch import (_DTYPE_CODE, _check,
                                          _stream)
 
 __all__ = ["invariant_dense", "invariant_dense_group", "split_k", "form",
-           "KERNELS", "reset_counts"]
+           "pad_columns", "KERNELS", "reset_counts"]
 
 #: the bf16 kernel's n tile (the wgmma n width) and its K step
 #: (csrc/invariant_dense.cu)
@@ -160,6 +167,20 @@ def invariant_dense_group(x, problems):
     of the same x (their K and dtype x's) in one launch; see the module
     docstring."""
     return _dense(x, tuple(problems))
+
+
+def pad_columns(w, b=None, multiple: int = 8):
+    """(w, b) with N padded by zero columns (and zero bias) to a
+    multiple of ``multiple``; the same tensors when N already is one.
+    The first N outputs are the unpadded problem's (each summed over K in
+    an order fixed by K and the padded N, whatever M); the extra ones are
+    0 (or the zero bias), for the caller to drop."""
+    N = w.shape[-1]
+    pad = -N % multiple
+    if pad == 0:
+        return w, b
+    wp = torch.nn.functional.pad(w, (0, pad)).contiguous()
+    return wp, None if b is None else torch.nn.functional.pad(b, (0, pad))
 
 
 #: kernel name -> its wrapper (each carries a ``launches`` count; a group

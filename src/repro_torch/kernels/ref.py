@@ -255,13 +255,16 @@ def server_async_math(prev, stacked, qsum, qgamma, sizes, delayed, delays,
 NEG_INF = -1e30
 
 
-def attention_mask(S: int, causal: bool, window: int, device):
-    """(S, S) bool, True where query row i may attend to key j: j <= i
-    when causal, j > i - window when windowed (the Pallas kernel's
-    masks)."""
+def attention_mask(S: int, causal: bool, window: int, device,
+                   Skv: int | None = None):
+    """(S, Skv) bool (Skv defaults to S), True where query row i may
+    attend to key j: j <= i when causal, j > i - window when windowed
+    (the Pallas kernel's masks); every pair when neither (the
+    cross-attention of S queries against Skv keys)."""
+    Skv = S if Skv is None else Skv
     qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(S, device=device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=device)
     if causal:
         mask = kpos <= qpos
     if window:
@@ -277,27 +280,32 @@ def _repeat_kv(x, H):
 
 
 def _sum_groups(g, Hkv):
-    """A gradient (B, S, H, hd) f32 of repeated kv summed back to Hkv
+    """A gradient (B, Skv, H, hd) f32 of repeated kv summed back to Hkv
     heads."""
     B, S, H, hd = g.shape
     return g if Hkv == H else g.reshape(B, S, Hkv, H // Hkv, hd).sum(3)
 
 
 def _scores(q, k, causal, window, scale):
-    """Masked f32 scores (B, H, S, S) and the mask; k at q's heads."""
-    S, hd = q.shape[1], q.shape[-1]
+    """Masked f32 scores (B, H, Sq, Skv) and the mask; k at q's heads."""
+    Sq, Skv, hd = q.shape[1], k.shape[1], q.shape[-1]
+    if Sq != Skv and (causal or window):
+        raise ValueError(f"q of {Sq} rows against k, v of {Skv} "
+                         "(cross-attention) takes no causal mask and no "
+                         "window")
     scale = hd ** -0.5 if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = attention_mask(S, causal, window, q.device)
+    mask = attention_mask(Sq, causal, window, q.device, Skv)
     return torch.where(mask, s, NEG_INF), mask, scale
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """Plain softmax attention. q: (B, S, H, hd), k/v: (B, S, Hkv, hd),
-    H a multiple of Hkv (kv repeated here to H heads; Hkv == H is the TPU
-    kernel's head-repeated contract); ``scale=None`` is hd**-0.5. Returns
-    (out (B, S, H, hd) in q's dtype, lse (B, H, S) f32, the log-sum-exp
-    of each row's scaled, masked scores)."""
+    """Plain softmax attention. q: (B, Sq, H, hd), k/v: (B, Skv, Hkv,
+    hd), H a multiple of Hkv (kv repeated here to H heads; Hkv == H is
+    the TPU kernel's head-repeated contract), Sq != Skv only without a
+    causal mask or a window; ``scale=None`` is hd**-0.5. Returns (out
+    (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) f32, the log-sum-exp of
+    each row's scaled, masked scores)."""
     H = q.shape[2]
     s, _, _ = _scores(q, _repeat_kv(k, H), causal, window, scale)
     p = torch.softmax(s, dim=-1)
@@ -308,7 +316,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
 def flash_bwd_dq_ref(dout, q, k, v, out, lse, *, causal=True, window=0,
                      scale=None):
     """The plain version of the ``flash_bwd_dq`` kernel: D = rowsum(dO *
-    O) (B, H, S) f32 and dQ = scale * dS K with P = exp(s - lse), dP =
+    O) (B, H, Sq) f32 and dQ = scale * dS K with P = exp(s - lse), dP =
     dO V^T, dS = P * (dP - D); k/v at Hkv heads as in
     ``flash_attention_ref``. Returns (dq in q's dtype, D)."""
     H = q.shape[2]
@@ -328,7 +336,7 @@ def flash_bwd_dkdv_ref(dout, q, k, v, lse, delta, *, causal=True, window=0,
     """The plain version of the ``flash_bwd_dkdv`` kernel, given D from
     the dQ pass: dV = P^T dO and dK = scale * dS^T Q, at H heads, then
     summed in f32 over the query heads of each kv head. Returns (dk, dv)
-    (B, S, Hkv, hd) in the dtypes of k and v."""
+    (B, Skv, Hkv, hd) in the dtypes of k and v."""
     H, Hkv = q.shape[2], k.shape[2]
     s, mask, scale = _scores(q, _repeat_kv(k, H), causal, window, scale)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
@@ -452,6 +460,31 @@ def serve_attention_ref(q, k, v, positions, cache_k, cache_v, cache_pos,
         p = torch.exp(s - s.amax(1, keepdim=True))
         l = _last_of_scan(p, 1)                          # (B, KH, rep)
         acc = _last_of_scan(p[..., None] * vi[:, :, :, None, :], 1)
+        out.append((acc / l[..., None]).reshape(B, H, hd))
+    return torch.stack(out, 1).to(q.dtype)
+
+
+def serve_cross_attention_ref(q, enc_k, enc_v):
+    """The plain version of the ``serve_cross_attention`` kernel (the
+    JAX package's ``cross_attention_decode`` after its projection):
+    q (B, c, H, hd), pre-scaled by hd**-0.5, against a fixed K/V
+    (B, L, KH, hd), H a multiple of KH (query head h reads kv head
+    h // (H // KH)); every key is visible to every row, no cache is read
+    or written. Scores q.k in f32, softmax over the L keys, sum of a.v in
+    f32, cast to q's dtype, each query row on its own and every sum a
+    sequential scan (``_last_of_scan``), as ``serve_attention_ref``
+    does: a row of a c-row chunk equals that row at c = 1 bit for bit.
+    Returns (B, c, H, hd)."""
+    B, c, H, hd = q.shape
+    KH = enc_k.shape[2]
+    k, v = enc_k.float(), enc_v.float()
+    out = []
+    for i in range(c):
+        qi = q[:, i].float().reshape(B, 1, KH, H // KH, hd)
+        s = _last_of_scan(qi * k[:, :, :, None, :], -1)   # (B, L, KH, rep)
+        p = torch.exp(s - s.amax(1, keepdim=True))
+        l = _last_of_scan(p, 1)                          # (B, KH, rep)
+        acc = _last_of_scan(p[..., None] * v[:, :, :, None, :], 1)
         out.append((acc / l[..., None]).reshape(B, H, hd))
     return torch.stack(out, 1).to(q.dtype)
 

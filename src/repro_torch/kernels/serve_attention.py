@@ -24,11 +24,19 @@ table=None, ring_len=None, *, window=0)``: see
 ``ref.serve_attention_ref`` for the semantics. The cache is read as it
 was before the chunk: the caller writes the chunk's k, v and positions
 afterwards (``models/attention.py``).
+``serve_cross_attention(q, enc_k, enc_v)`` is the cross form (the
+encoder-decoder family's decoder; JAX's ``cross_attention_decode``,
+``models/attention.py:200``, after its projection): the same kernel
+with a flag, the query rows against a fixed K/V (B, L, KH, hd) with
+every key visible, nothing merged in and nothing written, in the same
+reduction order (a row of a c-row chunk equals that row at c = 1 bit
+for bit); see ``ref.serve_cross_attention_ref``.
 
 Dispatch is by device: a CPU tensor takes the plain version
 (``ref.serve_attention_ref``, the same signature); a CUDA tensor
-launches the kernel, or the wrapper raises. The wrapper counts its
-launches (``serve_attention.launches``).
+launches the kernel, or the wrapper raises. Each wrapper counts its
+launches (``serve_attention.launches``,
+``serve_cross_attention.launches``).
 """
 from __future__ import annotations
 
@@ -42,7 +50,8 @@ from repro_torch.kernels._launch import (_DTYPE_CODE, _check, _counters,
                                          _kernel_device, _ptr, _raise_on,
                                          _stream)
 
-__all__ = ["serve_attention", "KERNELS", "reset_counts", "HEAD_DIMS"]
+__all__ = ["serve_attention", "serve_cross_attention", "KERNELS",
+           "reset_counts", "HEAD_DIMS"]
 
 #: head dims the CUDA kernel is instantiated for
 HEAD_DIMS = (32, 64, 96, 128)
@@ -132,23 +141,9 @@ def serve_attention(q, k, v, positions, cache_k, cache_v, cache_pos,
         return ref.serve_attention_ref(q, k, v, positions, cache_k, cache_v,
                                        cache_pos, table, ring_len,
                                        window=int(window))
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the serve_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {hd}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, cache_k, cache_v)):
-        raise ValueError("serve_attention reads its rows 16 bytes at a "
-                         "time: q, k, v, cache_k and cache_v must start on "
-                         "a 16-byte boundary")
+    _launch_checks(hd, q, k, v, cache_k, cache_v)
     out = torch.empty_like(q)
-    rows = c * (H // KH)
-    rpw = 1 if rows <= WARPS else 8
-    spans = -(-mb * bs // SPAN)
-    groups = -(-rows // (WARPS * rpw))
-    part = cnt = None       # held here until the launch is enqueued
-    if spans > 1:
-        cnt = _counters(q.device, B * KH * groups)
-        part = torch.empty((B, KH, rows, spans, hd + 4), dtype=torch.float32,
-                           device=q.device)
+    rpw, part, cnt = _scratch(q, KH, mb * bs)  # held until enqueued
     null = ctypes.c_void_p(None)
     err = build.load().serve_attention(
         _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(k), _ptr(v), _ptr(positions),
@@ -163,11 +158,72 @@ def serve_attention(q, k, v, positions, cache_k, cache_v, cache_pos,
     return out
 
 
+def _launch_checks(hd, *operands):
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the serve_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    if any(t.data_ptr() % 16 for t in operands):
+        raise ValueError("serve_attention reads its rows 16 bytes at a "
+                         "time: q, k, v and the cache (or the encoder's "
+                         "K/V) must start on a 16-byte boundary")
+
+
+def _scratch(q, KH, n_slots):
+    """(rpw, part, count) of a launch over ``n_slots`` logical slots: the
+    query rows a warp, and the spans' f32 partials and their counters
+    (None when the slots fit one span)."""
+    B, c, H, hd = q.shape
+    rows = c * (H // KH)
+    rpw = 1 if rows <= WARPS else 8
+    spans = -(-n_slots // SPAN)
+    if spans == 1:
+        return rpw, None, None
+    groups = -(-rows // (WARPS * rpw))
+    return (rpw, torch.empty((B, KH, rows, spans, hd + 4),
+                             dtype=torch.float32, device=q.device),
+            _counters(q.device, B * KH * groups))
+
+
+def serve_cross_attention(q, enc_k, enc_v):
+    """q: (B, c, H, hd) pre-scaled; enc_k/enc_v: (B, L, KH, hd), H a
+    multiple of KH, every key visible to every row. Returns (B, c, H,
+    hd) in q's dtype."""
+    B, c, H, hd = q.shape
+    KH = enc_k.shape[2] if enc_k.dim() == 4 else H   # else _check refuses
+    L = enc_k.shape[1] if enc_k.dim() == 4 else 0
+    dev = q.device
+    _check("q", q, (B, c, H, hd), tuple(_DTYPE_CODE), dev)
+    if KH < 1 or H % KH:
+        raise ValueError(f"enc_k has {KH} heads, which must divide q's {H} "
+                         f"(shape {tuple(enc_k.shape)})")
+    _check("enc_k", enc_k, (B, L, KH, hd), (q.dtype,), dev)
+    _check("enc_v", enc_v, (B, L, KH, hd), (q.dtype,), dev)
+    if L < 1:
+        raise ValueError("cross-attention takes at least one key")
+    if not _kernel_device(q):
+        return ref.serve_cross_attention_ref(q, enc_k, enc_v)
+    _launch_checks(hd, q, enc_k, enc_v)
+    out = torch.empty_like(q)
+    rpw, part, cnt = _scratch(q, KH, L)
+    null = ctypes.c_void_p(None)
+    err = build.load().serve_cross_attention(
+        _DTYPE_CODE[q.dtype], hd, _ptr(q), _ptr(enc_k), _ptr(enc_v),
+        _ptr(out), null if part is None else _ptr(part),
+        null if cnt is None else _ptr(cnt), B, c, H, KH, L, rpw,
+        _stream(dev))
+    _raise_on(err, "serve_cross_attention")
+    serve_cross_attention.launches += 1
+    return out
+
+
 #: kernel name -> its wrapper (each carries a ``launches`` count)
-KERNELS = {"serve_attention": serve_attention}
-serve_attention.launches = 0
+KERNELS = {"serve_attention": serve_attention,
+           "serve_cross_attention": serve_cross_attention}
+for _fn in KERNELS.values():
+    _fn.launches = 0
 
 
 def reset_counts() -> None:
-    """Zero the launch count of the serving-attention kernel."""
-    serve_attention.launches = 0
+    """Zero the launch counts of the serving-attention kernel's forms."""
+    for fn in KERNELS.values():
+        fn.launches = 0

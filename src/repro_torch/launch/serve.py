@@ -9,6 +9,14 @@ the JAX package's ``launch/serve.py``). Runs on the GPU unless
       --max-batch-tokens 256 --metrics-out serve.jsonl
   python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced \
       --device cpu            # the loop engine only (recurrent state)
+  python -m repro_torch.launch.serve --arch whisper-medium --reduced \
+      --device cpu --prefill-chunk 8   # the loop engine only, as in JAX
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --reduced \
+      --device cpu --engine paged      # tokens only, as the dense family
+
+whisper-medium's batch is encoded once from zero frame embeddings (the
+frontend is a stub) and served with ``lm_head`` padded to 51,872
+columns (``encdec.serve_params``, applied by the engine once).
 
 Engines (``repro_torch.serve``):
   loop   lockstep per-token decode with per-request prompt lengths

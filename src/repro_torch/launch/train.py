@@ -192,16 +192,29 @@ def paper_scale(args, fl: FLConfig, device):
 def _pod_batch(cfg: ModelConfig, fl: FLConfig, args):
     """{"tokens": (C, steps, b, S) int32}: C x steps x b Markov token
     streams of S + 1 tokens over C topics (the last token is dropped, as
-    in the JAX package)."""
+    in the JAX package). The audio family adds ``frame_emb`` (C, steps,
+    b, encoder_seq, d_model), zeros in the model dtype as JAX's pod batch
+    has them (the frontend is a stub; ``enc_pos`` is added to them). The
+    vlm family adds ``patch_emb`` (C, steps, b, num_patches, vision_dim)
+    in the model dtype, drawn N(0, 1) from the seed where JAX's pod batch
+    has zeros: zero patches stay zero rows through every block, and
+    RMSNorm's backward at a zero row scales the gradient by rsqrt(eps) =
+    1000 a layer, so at the config's 32 layers the gradient overflows to
+    NaN, in the JAX package as in the port (f32 or bf16)."""
     C, steps, b, S = fl.cohorts, fl.local_steps, args.batch, args.seq
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"the pod batch of the {cfg.family!r} family (patch / frame "
-            "embeddings) comes with that family's slice")
     data = make_lm_tokens(C * steps * b, S + 1, cfg.vocab_size,
                           n_topics=C, seed=fl.seed)
-    return {"tokens": np.ascontiguousarray(
+    batch = {"tokens": np.ascontiguousarray(
         data["tokens"][:, :S].reshape(C, steps, b, S))}
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        pe = np.random.RandomState(fl.seed).standard_normal(
+            (C, steps, b, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+        batch["patch_emb"] = torch.from_numpy(pe).to(dtype)
+    if cfg.family == "audio":
+        batch["frame_emb"] = torch.zeros(
+            (C, steps, b, cfg.encoder_seq, cfg.d_model), dtype=dtype)
+    return batch
 
 
 def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):

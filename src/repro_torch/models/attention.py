@@ -1,8 +1,10 @@
 """Attention: GQA + RoPE + optional sliding window, on the flash kernel.
 
 The port of the JAX package's ``models/attention.py`` for full-sequence
-self-attention (train): ``attn_init``, ``_split_heads`` and
-``attention_fwd``. The JAX model repeats kv to the query heads
+attention (train): ``attn_init``, ``_split_heads`` and ``attention_fwd``
+(self-attention, the encoder's non-causal attention, and
+cross-attention from ``kv_x``: q of x against k, v of the encoder's
+output, Sq != Skv, no RoPE). The JAX model repeats kv to the query heads
 (``_repeat_kv``) and runs the XLA ``chunked_attention``; the port hands
 ``kernels.flash_attention`` the kv heads as they are (its kernels read
 kv head h // n_rep for query head h: the same math without the copy and
@@ -26,7 +28,12 @@ equals the per-token loop and paged equals dense, bit for bit. The JAX
 functions return new caches; the port writes the chunk's k, v and
 positions into the cache or pool IN PLACE (after the kernel has read it)
 and returns the same tensors, as JAX's engines donate them.
-Cross-attention waits for the encoder-decoder family.
+``cross_attention_decode`` (the encoder-decoder family's decoder, at
+decode and at a prefill chunk alike) projects the rows' q on the
+row-invariant GEMM and attends to the encoder's precomputed K/V through
+``kernels.serve_attention.serve_cross_attention`` (every key visible,
+nothing written), so its chunk rows too equal the per-token rows bit for
+bit.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 # the pad sentinels of a prefill chunk (PAD_POS for the engines' pad rows)
 from repro_torch.kernels.ref import PAD_FLOOR, PAD_POS  # noqa: F401
-from repro_torch.kernels.serve_attention import serve_attention
+from repro_torch.kernels.serve_attention import (serve_attention,
+                                                 serve_cross_attention)
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        dense_serve, dense_serve_group)
 
@@ -57,10 +65,15 @@ def _split_heads(x, n_heads: int, hd: int):
     return x.reshape(*x.shape[:-1], n_heads, hd)
 
 
-def attention_fwd(p, cfg, x, positions, *, causal=True, window=None):
-    """Full-sequence self-attention (train). x: (B, S, d); positions:
-    (B, S), the aligned 0..S-1 of ``transformer.embed_inputs`` (the
-    kernel masks by row and column index, which equal those positions).
+def attention_fwd(p, cfg, x, positions, *, causal=True, kv_x=None,
+                  kv_positions=None, window=None):
+    """Full-sequence attention (train / prefill / encoder / cross). x:
+    (B, S, d); positions: (B, S), the aligned 0..S-1 of
+    ``transformer.embed_inputs`` (the kernel masks by row and column
+    index, which equal those positions). ``kv_x`` (B, Skv, d), the
+    source of k and v for cross-attention (x by default), with
+    ``kv_positions`` (B, Skv); RoPE applies only where ``causal`` or
+    ``kv_x`` is None (self-attention), as in JAX.
 
     q is scaled by hd**-0.5 in the model dtype before the kernel, which
     then runs with scale 1.0: the JAX model's ``chunked_attention``
@@ -68,11 +81,14 @@ def attention_fwd(p, cfg, x, positions, *, causal=True, window=None):
     bf16 model rounds at the same place in both packages.
     """
     hd = cfg.resolved_head_dim
+    kv_src = x if kv_x is None else kv_x
+    kv_pos = positions if kv_positions is None else kv_positions
     q = _split_heads(dense(p["wq"], x), cfg.num_heads, hd)
-    k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads, hd)
-    v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(dense(p["wk"], kv_src), cfg.num_kv_heads, hd)
+    v = _split_heads(dense(p["wv"], kv_src), cfg.num_kv_heads, hd)
+    if causal or kv_x is None:           # RoPE only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
     w = cfg.sliding_window if window is None else window
     out = flash_attention(q * hd ** -0.5, k, v, causal=causal, window=w,
                           scale=1.0)
@@ -164,6 +180,19 @@ def attention_prefill(p, cfg, x, cache, positions):
     cache["v"][bidx, slots] = v_w
     cache["pos"][bidx, slots] = p_w
     return _out(p, cfg, out), cache
+
+
+def cross_attention_decode(p, cfg, x, enc_k, enc_v):
+    """Cross-attention against precomputed encoder K/V (B, L, KH, hd),
+    computed once at the start of decode (``encdec.init_decode_cache``).
+    x: (B, c, d), c = 1 at decode, a whole prompt chunk at prefill (pad
+    rows compute like any row; the caller drops them). No RoPE; q
+    pre-scaled by hd**-0.5 in the model dtype, as JAX scales it; wq and
+    wo on the row-invariant GEMM. Returns (B, c, d)."""
+    hd = cfg.resolved_head_dim
+    q = _split_heads(dense_serve(p["wq"], x), cfg.num_heads, hd)
+    out = serve_cross_attention((q * hd ** -0.5).contiguous(), enc_k, enc_v)
+    return _out(p, cfg, out)
 
 
 # ----------------------------------------------------------- paged KV ------

@@ -1,6 +1,6 @@
-"""The decoder stack of the dense, moe, ssm (RWKV-6) and hybrid (Zamba2)
-families (the port of the JAX package's ``models/transformer.py`` for
-``family`` "dense", "moe", "ssm" and "hybrid"). A block with
+"""The decoder stack of the dense, moe, ssm (RWKV-6), hybrid (Zamba2) and
+vlm (phi-3-vision) families (the port of the JAX package's
+``models/transformer.py``). A block with
 ``cfg.num_experts`` carries ``moe`` (``models/moe.py``) where a dense
 block carries ``mlp``, as in JAX: its aux loss flows into ``loss_fn``'s
 ``0.01 * aux``. A hybrid block is a Mamba-2 block (``models/mamba2.py``)
@@ -9,7 +9,13 @@ behind one RMSNorm; the stack applies ONE shared attention block
 after every group of ``cfg.attn_every`` blocks, for the body and, in
 training, the tail, exactly where JAX's ``_scan_blocks`` does; the
 shared attention is not under remat (JAX checkpoints the block, not the
-group).
+group). The vlm family is the dense stack behind ``vision_proj``: the
+batch's precomputed patch embeddings (B, num_patches, vision_dim),
+projected to d_model, go before the token embeddings, positions 0..S-1
+run over both, and the loss is taken on the text segment only; it
+serves as the dense family does, on tokens alone (JAX's ``prefill`` and
+``decode_step`` take no patches). The encoder-decoder (audio) family is
+``models/encdec.py``.
 
 The stack is split into BODY and TAIL block groups so the paper's FES
 scheme (feature extractor = embed + body; classifier = tail + final norm
@@ -23,9 +29,7 @@ block's input (and its parameters, which are alive anyway) between the
 forward and the backward, and the backward runs the block again to take
 its vector-Jacobian product. That changes memory, not values: the loss
 and every gradient are bitwise those of the stack without remat, on the
-CPU and, with the deterministic kernels, on the card. The vlm and audio
-families raise NotImplementedError: they come with later slices of the
-port.
+CPU and, with the deterministic kernels, on the card.
 
 Serving: ``init_decode_cache``, ``decode_step`` (every family),
 ``prefill`` (chunked prefill of the dense family: one call a prompt
@@ -65,9 +69,6 @@ from repro_torch.models.layers import (add_rmsnorm_serve,
 from repro_torch.obs.timing import annotate
 from repro_torch.utils.tree import leaves, tree_map, unflatten
 
-#: family -> the slice of the port that brings it
-_LATER = {"vlm": "the VLM slice", "audio": "the encoder-decoder slice"}
-
 #: the profiler's name (``obs.timing.annotate``) of a shared-attention
 #: site of the hybrid family in training
 SHARED_ATTN = "shared_attention"
@@ -75,10 +76,12 @@ SHARED_ATTN = "shared_attention"
 
 def check_family(cfg) -> None:
     family = cfg.family
-    if family not in ("dense", "moe", "ssm", "hybrid"):
+    if family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+        where = ("; the audio family is models/encdec.py"
+                 if family == "audio" else "")
         raise NotImplementedError(
-            f"model family {family!r} ({cfg.name}) is not ported yet: it "
-            f"comes with {_LATER.get(family, 'a later slice')}")
+            f"model family {family!r} ({cfg.name}) has no decoder stack "
+            f"in models/transformer.py{where}")
 
 
 # ------------------------------------------------------------- blocks ------
@@ -245,6 +248,9 @@ def init_params(cfg, gen: torch.Generator, device=None) -> dict:
                          num_kv_heads=cfg.num_kv_heads or 32)
         params["shared_attn"] = {"attn": attn.attn_init(gen, acfg, dtype),
                                  "ln": rmsnorm_init(cfg.d_model, dtype)}
+    if cfg.family == "vlm":
+        params["vision_proj"] = dense_init(
+            gen, cfg.vision_dim or cfg.d_model, cfg.d_model, dtype)
     return tree_map(lambda x: x.to(device), params)
 
 
@@ -252,8 +258,12 @@ def init_params(cfg, gen: torch.Generator, device=None) -> dict:
 
 def embed_inputs(params, cfg, batch):
     """Returns (x, positions): the token embeddings and the aligned
-    positions 0..S-1."""
+    positions 0..S-1. The vlm family puts ``vision_proj`` of the batch's
+    ``patch_emb`` (cast to the model dtype) before the tokens."""
     x = embedding(params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        pe = dense(params["vision_proj"], batch["patch_emb"].to(x.dtype))
+        x = torch.cat([pe, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -281,9 +291,12 @@ def forward(params, cfg, batch):
 
 def loss_fn(params, cfg, batch):
     """Next-token CE (+ 0.01 x the aux loss), chunked over the sequence
-    so the logits never form at (B, S, V)."""
+    so the logits never form at (B, S, V). The vlm family's loss is on
+    the text segment only."""
     x, aux = hidden_states(params, cfg, batch)
     tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        x = x[:, -tokens.shape[1]:, :]
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                        dim=1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:]),

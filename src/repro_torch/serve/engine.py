@@ -7,7 +7,9 @@ left and its last sampled token afterwards, so padded positions never
 enter the KV cache. With ``prefill_chunk > 0`` (and a model exposing
 ``prefill``) the shared prompt prefix [0, min_len-1) is prefilled in
 chunks, one call a chunk instead of one a token, bit-identically to the
-per-token path.
+per-token path. The audio family's cache is built from zero frame
+embeddings (the frontend is a stub, as in JAX): the encoder runs once
+when a batch starts, and every decoder layer's cross K/V with it.
 
 ``PagedEngine`` is the production plane: requests are admitted by the
 FIFO token-budget ``Scheduler`` into fixed decode slots in WAVES (every
@@ -27,7 +29,9 @@ the host once a burst (JAX: one ``lax.scan`` of n steps).
 Every latency span closes after a device sync (the host read of a step's
 argmax, or an explicit synchronize), as ``obs.timing.sync_time`` does,
 so per-request latency percentiles are honest. The engines run under
-``torch.no_grad`` on the params' device.
+``torch.no_grad`` on the params' device, on ``model.serve_params`` of
+the params they are given (made once, when the engine is built: the
+audio family's padded ``lm_head``).
 """
 from __future__ import annotations
 
@@ -85,7 +89,7 @@ class LoopEngine:
     chunked prefill of the shared prefix)."""
 
     def __init__(self, model, params, prefill_chunk: int = 0):
-        self.model, self.params = model, params
+        self.model, self.params = model, model.serve_params(params)
         self.device = leaves(params)[0].device
         self.prefill_chunk = int(prefill_chunk) \
             if model.prefill is not None else 0
@@ -93,6 +97,15 @@ class LoopEngine:
 
     def _ids(self, a):
         return torch.tensor(a, dtype=torch.int32, device=self.device)
+
+    def _init_cache(self, B: int, max_len: int):
+        model, cfg = self.model, self.model.cfg
+        if cfg.family == "audio":
+            fe = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                             dtype=getattr(torch, cfg.dtype),
+                             device=self.device)
+            return model.init_decode_cache(self.params, fe, max_len)
+        return model.init_decode_cache(self.params, B, max_len)
 
     @torch.no_grad()
     def run(self, requests: list[Request]) -> list[dict]:
@@ -105,7 +118,7 @@ class LoopEngine:
             r.generated = []
         lens = [r.prompt_len for r in reqs]
         max_len = max(r.prompt_len + r.max_new for r in reqs) + 1
-        cache = model.init_decode_cache(params, B, max_len)
+        cache = self._init_cache(B, max_len)
 
         t0 = 0
         if self.prefill_chunk:
@@ -155,7 +168,9 @@ class LoopEngine:
 
 class PagedEngine:
     """Continuous batching over a shared paged KV pool (attention
-    families only: the ssm family has recurrent state, not a KV ring)."""
+    families only: the ssm and hybrid families have recurrent state, not
+    a KV ring, and the audio family, as in JAX, serves by the loop
+    engine)."""
 
     _MAX_BURST = 32
 
@@ -166,7 +181,7 @@ class PagedEngine:
             raise ValueError(
                 f"family {model.cfg.family!r} has no paged serving path "
                 f"(use LoopEngine)")
-        self.model, self.params = model, params
+        self.model, self.params = model, model.serve_params(params)
         self.device = leaves(params)[0].device
         self.max_slots = int(max_slots)
         self.block_size = int(block_size)

@@ -28,6 +28,7 @@ from repro_torch.configs.base import reduced as treduced
 from repro_torch.configs.registry import ARCHS as TARCHS
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.serve_attention import serve_cross_attention
 from repro_torch.models import attention as tattn
 from repro_torch.utils.tree import params_from_numpy
 
@@ -176,24 +177,112 @@ def test_autograd_function_under_vmap_matches_autograd_of_plain_math(
 
 
 def test_flash_attention_keeps_the_tpu_kernels_contract():
-    """The positional signature of the TPU kernel, its default scale and
-    its shape contract: S a multiple of min(128, S)."""
+    """The positional signature of the TPU kernel and its default scale;
+    not its 128-row blocks: any S goes (100, 200, 130 here), and q may
+    have another length than k and v only without a causal mask or a
+    window (cross-attention), which every wrapper refuses otherwise."""
     pos = [n for n, p in inspect.signature(jflash).parameters.items()
            if p.kind == p.POSITIONAL_OR_KEYWORD]
     assert [n for n, p in inspect.signature(tfa.flash_attention)
             .parameters.items() if p.kind == p.POSITIONAL_OR_KEYWORD] == pos
-    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 1, 100, 2, 64))
-    out = tfa.flash_attention(q, k, v)          # S <= 128: one block
-    want, _ = tref.flash_attention_ref(q, k, v, scale=64 ** -0.5)
-    assert torch.equal(out, want)
-    for S in (200, 130):
+    for S in (100, 200, 130):
         q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, S, 2, 64))
-        with pytest.raises(ValueError, match="multiple of"):
-            tfa.flash_attention(q, k, v)
-        with pytest.raises(ValueError, match="multiple of"):
-            tfa.flash_fwd(q, k, v)
+        out = tfa.flash_attention(q, k, v)
+        want, _ = tref.flash_attention_ref(q, k, v, scale=64 ** -0.5)
+        assert torch.equal(out, want)
+        assert torch.equal(tfa.flash_fwd(q, k, v)[0], want)
+    out = tfa.flash_attention(q, k[:, :128], v[:, :128], causal=False)
+    assert out.shape == q.shape
+    for kw in (dict(), dict(causal=False, window=16)):
+        with pytest.raises(ValueError, match="cross-attention"):
+            tfa.flash_attention(q, k[:, :128], v[:, :128], **kw)
+        with pytest.raises(ValueError, match="cross-attention"):
+            tfa.flash_fwd(q, k[:, :128], v[:, :128], **kw)
     with pytest.raises(ValueError):
-        tfa.flash_attention(q, k[:, :128], v)
+        tfa.flash_attention(q, k[:, :128], v, causal=False)
+
+
+#: (Sq, Skv, causal, window, H, Hkv): ragged self-attention (no multiple
+#: of 128 or of the kernels' tiles) and cross-attention (Sq != Skv, GQA)
+RAGGED = [(200, 200, True, 0, 2, 2), (130, 130, False, 0, 2, 2),
+          (150, 150, True, 48, 4, 2), (40, 100, False, 0, 2, 2),
+          (1, 100, False, 0, 4, 2), (129, 64, False, 0, 2, 1)]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,H,Hkv", RAGGED)
+def test_plain_versions_at_any_length_match_jax_chunked_attention(
+        Sq, Skv, causal, window, H, Hkv):
+    """The plain forward and backward at ragged S and at Sq != Skv
+    against the JAX model's own ``chunked_attention`` (kv repeated to H
+    heads with ``jnp.repeat``, chunks of 64 with its padded tail) and
+    ``jax.vjp`` of it, f32."""
+    hd = 64
+    rng = np.random.RandomState(Sq + Skv)
+    q = rng.randn(2, Sq, H, hd).astype(np.float32)
+    k, v = (rng.randn(2, Skv, Hkv, hd).astype(np.float32) for _ in "kv")
+    dout = rng.randn(*q.shape).astype(np.float32)
+    qp = np.broadcast_to(np.arange(Sq, dtype=np.int32), (2, Sq))
+    kp = np.broadcast_to(np.arange(Skv, dtype=np.int32), (2, Skv))
+
+    def jfn(a, b, c):
+        b, c = (jnp.repeat(x, H // Hkv, axis=2) for x in (b, c))
+        return jattn.chunked_attention(a, b, c, jnp.asarray(qp),
+                                       jnp.asarray(kp), causal=causal,
+                                       window=window, chunk=64)
+
+    want, vjp = jax.vjp(jfn, q, k, v)
+    jgrads = vjp(jnp.asarray(dout))
+    t = [torch.from_numpy(x) for x in (dout, q, k, v)]
+    out, lse = tref.flash_attention_ref(*t[1:], causal=causal, window=window)
+    assert lse.shape == (2, H, Sq)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **F32_TOL)
+    dq, delta = tref.flash_bwd_dq_ref(t[0], *t[1:], out, lse, causal=causal,
+                                      window=window)
+    dk, dv = tref.flash_bwd_dkdv_ref(t[0], *t[1:], lse, delta,
+                                     causal=causal, window=window)
+    assert dk.shape == dv.shape == (2, Skv, Hkv, hd)
+    for name, a, b in zip("qkv", (dq, dk, dv), jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **_grad_tol(np.asarray(b)))
+    # the differentiable entry and its vmap rule at these lengths
+    got = vmap(lambda a, b, c: tfa.flash_attention(
+        a, b, c, causal=causal, window=window))(*(x[None] for x in t[1:]))
+    assert torch.equal(got[0], out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_plain_version_matches_jax_cross_attention_decode(dtype):
+    """``attention.cross_attention_decode`` (wq, then the plain version
+    of serve_attention's cross form, then wo) against JAX's at the
+    reduced whisper config (4 query heads over 2 kv heads, 100 encoder
+    keys), at c = 1 and at a chunk of 6; the chunk's rows equal the
+    c = 1 rows bit for bit."""
+    kw = dict(dtype=dtype)
+    jcfg = jreduced(JARCHS["whisper-medium"], **kw)
+    tcfg = treduced(TARCHS["whisper-medium"], **kw)
+    jp = jattn.attn_init(jax.random.PRNGKey(3), jcfg, jnp.dtype(dtype))
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 6, jcfg.d_model).astype(np.float32)
+    ek, ev = (rng.randn(2, 100, 2, 64).astype(np.float32) for _ in "kv")
+    jx, jk, jv = (jnp.asarray(a, dtype) for a in (x, ek, ev))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tx, tk, tv = (params_from_numpy(np.asarray(a)) for a in (jx, jk, jv))
+    tol = F32_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    rows = []
+    for i in range(6):
+        want = jattn.cross_attention_decode(jp, jcfg, jx[:, i:i + 1], jk, jv)
+        got = tattn.cross_attention_decode(
+            tp, tcfg, tx[:, i:i + 1].contiguous(), tk, tv)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+        rows.append(got)
+    chunk = tattn.cross_attention_decode(tp, tcfg, tx, tk, tv)
+    assert torch.equal(chunk, torch.cat(rows, 1))
+    q = torch.from_numpy(rng.randn(2, 6, 4, 64).astype(np.float32))
+    with pytest.raises(ValueError, match="divide"):
+        serve_cross_attention(q, tk[:, :, :1].repeat(1, 1, 3, 1),
+                              tv[:, :, :1].repeat(1, 1, 3, 1))
 
 
 @pytest.mark.parametrize("window", [0, 16])

@@ -11,7 +11,8 @@ the f32 router) flattened as JAX's server plane flattens them; chunked
 ``prefill`` / the paged pair; paged == dense and chunked == per token
 bitwise; the served tokens equal JAX's engines'; a JAX round-state
 checkpoint of a moe tree served through the port; both launchers for all
-five configs; the vlm and audio families still refused, and the hybrid
+five configs; the vlm and audio configs accepted (their own tests:
+tests/test_torch_vlm.py, tests/test_torch_encdec.py), and the hybrid
 config accepted (its own tests: tests/test_torch_hybrid.py).
 """
 import dataclasses
@@ -457,12 +458,25 @@ def test_launchers_run_the_arch_on_the_cpu(arch, capsys):
                                          ("whisper-medium", "audio")])
 def test_later_families_are_still_refused(arch, family):
     """The JAX package's vlm and audio configs, copied field by field
-    into the port's ModelConfig, are refused by name."""
+    into the port's ModelConfig, equal the port's own and build a model
+    (the last two families, ported with their slice): the vlm on the
+    decoder stack, with chunked prefill and the paged path; the audio
+    family on ``models/encdec.py``, which the decoder stack still refuses
+    by name, with chunked prefill and no paged path (as in JAX). A
+    family the port does not know is refused by name."""
     cfg = TModelConfig(**dataclasses.asdict(JARCHS[arch]))
-    assert cfg.family == family
+    assert cfg.family == family and cfg == TARCHS[arch]
+    model = tbuild(cfg)
+    assert model.prefill is not None
+    assert (model.init_paged_pool is not None) == (family == "vlm")
+    if family == "audio":
+        with pytest.raises(NotImplementedError, match="encdec"):
+            ttf.check_family(cfg)
+    else:
+        ttf.check_family(cfg)
     for fn in (ttf.check_family, tbuild):
-        with pytest.raises(NotImplementedError, match=family):
-            fn(cfg)
+        with pytest.raises(NotImplementedError, match="'bogus'"):
+            fn(cfg.with_(family="bogus"))
 
 
 def test_hybrid_config_is_accepted_and_equals_jax():

@@ -239,7 +239,34 @@ def test_flash_kernels_match_plain_on_card_gqa(dt, hd, causal, window, B, S,
     _check_flash_on_card(dt, hd, causal, window, B, S, H, Hkv)
 
 
-def _check_flash_on_card(dt, hd, causal, window, B, S, H, Hkv):
+#: (dtype, hd, causal, window, B, Sq, Skv, H, Hkv): any length and
+#: cross-attention (Sq != Skv), both designs: ragged S 129 and 200, the
+#: vlm's 2,624 rows at hd 96, whisper's encoder (1,500, non-causal), its
+#: cross-attention at test size and a single query row
+FLASH_ANY_CASES = [("bfloat16", 64, True, 0, 1, 129, 129, 2, 2),
+                   ("float32", 64, True, 0, 1, 200, 200, 2, 1),
+                   ("bfloat16", 96, True, 0, 1, 2624, 2624, 2, 2),
+                   ("bfloat16", 64, False, 0, 1, 1500, 1500, 2, 2),
+                   ("float32", 64, False, 0, 1, 1500, 1500, 2, 2),
+                   ("bfloat16", 64, False, 0, 2, 200, 1500, 4, 2),
+                   ("float32", 64, False, 0, 2, 129, 300, 2, 2),
+                   ("bfloat16", 64, False, 0, 1, 1, 1500, 2, 2),
+                   ("float32", 96, False, 0, 1, 1, 100, 2, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,hd,causal,window,B,Sq,Skv,H,Hkv",
+                         FLASH_ANY_CASES)
+def test_flash_kernels_match_plain_on_card_any_length(dt, hd, causal,
+                                                      window, B, Sq, Skv, H,
+                                                      Hkv):
+    """The three kernels at ragged lengths and with q against k, v of
+    another length: outputs within FlashAttention's rule, dk and dv at
+    Skv rows, nothing stored past either length."""
+    _check_flash_on_card(dt, hd, causal, window, B, Sq, H, Hkv, Skv)
+
+
+def _check_flash_on_card(dt, hd, causal, window, B, S, H, Hkv, Skv=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import flash_attention as tfa
@@ -247,8 +274,10 @@ def _check_flash_on_card(dt, hd, causal, window, B, S, H, Hkv):
     design = {"bfloat16": "wgmma", "float32": "cuda_cores"}[dt]
     dev, dt = torch.device("cuda"), getattr(torch, dt)
     g = torch.Generator(device=dev).manual_seed(3)
-    q, k, v, dout = (torch.randn(B, S, h, hd, device=dev, generator=g)
-                     .to(dt) for h in (H, Hkv, Hkv, H))
+    Skv = S if Skv is None else Skv
+    q, k, v, dout = (torch.randn(B, n, h, hd, device=dev, generator=g)
+                     .to(dt) for n, h in ((S, H), (Skv, Hkv), (Skv, Hkv),
+                                          (S, H)))
     kw = dict(causal=causal, window=window)
     tfa.reset_counts()
     before = tfa.design_launches()
@@ -283,11 +312,13 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.kernels import flash_attention as tfa
     dev = torch.device("cuda")
-    for S, hd, dt in ((200, 64, torch.bfloat16), (128, 80, torch.bfloat16),
-                      (128, 64, torch.float16)):
+    for S, hd, dt in ((128, 80, torch.bfloat16), (128, 64, torch.float16)):
         x = torch.zeros(1, S, 2, hd, device=dev, dtype=dt)
         with pytest.raises((ValueError, TypeError)):
             tfa.flash_attention(x, x, x)
+    x = torch.zeros(1, 200, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cross-attention"):
+        tfa.flash_attention(x, x[:, :128], x[:, :128])   # causal, Sq != Skv
     q = torch.zeros(1, 128, 6, 64, device=dev, dtype=torch.bfloat16)
     kv = torch.zeros(1, 128, 4, 64, device=dev, dtype=torch.bfloat16)
     for fn in (tfa.flash_attention, tfa.flash_fwd):
@@ -940,6 +971,81 @@ def test_serve_attention_masked_null_block_never_reaches_a_row(dt):
     assert torch.isfinite(got).all()
     assert torch.equal(got, tsa.serve_attention(*chunk, pk, pv, ppos, table,
                                                 ring))
+
+
+#: (dtype, B, c, H, KH, hd, L): serve_attention's cross form at decode
+#: and at chunks of 8 and 64 rows, over whisper's 1,500 encoder keys (six
+#: spans) and over one span, GQA
+CROSS_CASES = [("bfloat16", 4, 1, 16, 16, 64, 1500),
+               ("bfloat16", 2, 8, 16, 16, 64, 1500),
+               ("float32", 2, 64, 4, 2, 64, 1500),
+               ("bfloat16", 1, 5, 8, 4, 128, 200),
+               ("float32", 3, 1, 6, 2, 96, 700)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,B,c,H,KH,hd,L", CROSS_CASES)
+def test_serve_cross_attention_matches_plain_on_card(dt, B, c, H, KH, hd,
+                                                     L):
+    """The cross form against its plain version under the self form's
+    rule, every row of a chunk bitwise that row at c = 1, one launch a
+    call on its own count; the self form's count untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import serve_attention as tsa
+    dev, dtype = torch.device("cuda"), getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(L + c)
+    q = (torch.randn(B, c, H, hd, device=dev, generator=g)
+         * hd ** -0.5).to(dtype)
+    ek, ev = (torch.randn(B, L, KH, hd, device=dev, generator=g).to(dtype)
+              for _ in "kv")
+    tsa.reset_counts()
+    got = tsa.serve_cross_attention(q, ek, ev)
+    assert (tsa.serve_cross_attention.launches,
+            tsa.serve_attention.launches) == (1, 0)
+    want = tref.serve_cross_attention_ref(q, ek, ev)
+    want32 = tref.serve_cross_attention_ref(q.float(), ek.float(),
+                                            ev.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want32, rtol=1e-5, atol=1e-5)
+    else:
+        err = float((got.float() - want32).abs().max())
+        own = float((want.float() - want32).abs().max())
+        assert err <= max(2 * own, 1e-3 * float(want32.abs().max()))
+    for i in range(c):
+        one = tsa.serve_cross_attention(q[:, i:i + 1].contiguous(), ek, ev)
+        assert torch.equal(got[:, i], one[:, 0]), i
+
+
+@pytest.mark.gpu
+def test_invariant_dense_padded_head_on_card():
+    """whisper's lm_head (1024 x 51,865 bf16): refused as it is (its
+    rows are not 16-byte multiples), carried padded to 51,872 zero
+    columns by ``pad_columns``; the first 51,865 outputs within twice
+    cuBLAS's error of the unpadded product, the rest exactly 0, and
+    every row bitwise across M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.kernels import invariant_dense as tid
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    K, N = 1024, 51865
+    x = torch.randn(65, K, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tid.invariant_dense(x, w)
+    wp, _ = tid.pad_columns(w)
+    assert wp.shape == (K, 51872) and tid.pad_columns(wp)[0] is wp
+    full = tid.invariant_dense(x, wp)
+    assert not full[:, N:].any()
+    for M in (1, 4, 64):
+        assert torch.equal(tid.invariant_dense(x[:M].contiguous(), wp),
+                           full[:M]), M
+    ref32 = x.float() @ w.float()
+    err = float((full[:, :N].float() - ref32).abs().max())
+    lib = float(((x @ w).float() - ref32).abs().max())
+    assert err <= max(2 * lib, float(_ulp_bf16(ref32.abs().max())))
 
 
 #: (K, N): a tile without a split, a ragged last n tile, minitron's wk/wv

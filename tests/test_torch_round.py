@@ -163,8 +163,9 @@ def test_unported_options_are_refused():
     unknown client plane raises ValueError, as in the JAX package. The
     refusals that remain still raise: an unknown client_reduce, the
     JAX-only Pallas interpreter plane, an unknown algorithm and a model
-    family of a later slice (client_reduce="force", use_kernel and
-    extended_metrics are ported: tests/test_torch_legacy.py)."""
+    family the port does not know (every family of the JAX package is
+    ported; client_reduce="force", use_kernel and extended_metrics are
+    ported: tests/test_torch_legacy.py)."""
     model = tbuild(TARCHS["paper-cnn"])
     assert callable(make_round_step(model, TFL(client_plane="partitioned")))
     assert callable(make_round_step(model, TFL(fes_static=True)))
@@ -176,5 +177,5 @@ def test_unported_options_are_refused():
         tstrategies.resolve(TFL(server_plane="interpret"))
     with pytest.raises(KeyError):
         tstrategies.resolve(TFL(algorithm="scaffold"))
-    with pytest.raises(NotImplementedError, match="vlm"):
-        tbuild(TARCHS["minitron-8b"].with_(family="vlm"))
+    with pytest.raises(NotImplementedError, match="bogus"):
+        tbuild(TARCHS["minitron-8b"].with_(family="bogus"))
