@@ -226,6 +226,22 @@ with the device time of its encoder's, decoder's and cross-attention's
 profiler ranges and of the flash kernels in each
 (``whisper_where_time_goes``). The kernels line gains
 ``serve_cross_attention``.
+Slice 21, the sharded client axis (phase 8, after minitron-8b's pod
+path, the parent's reserved memory printed first): (a) W = 1 over NCCL
+in this process, minitron-8b at full width as its pod path ran it,
+rows gathered (``--client-reduce off``) over a one-rank group: params
+and losses bitwise the meshless run, the ``collective`` span printed
+(``sharded_nccl_w1``); (b) W = 2 ranks sharing the card over gloo, one
+spawn running the paper CNN at K 50, m 10 for 5 rounds under ama_fes,
+async_ama (max_delay 3), fedavg, fedprox and fedopt, each "off" and
+"auto": "off" bitwise the one-process run whose client plane runs the
+same two cohort blocks (``BlockedPlane``: cuBLAS and cuDNN give a
+cohort's rows other bits in a call of 5 cohorts than of 10) and within
+the pre-reduced axis' tolerance of the plain one, "auto" within that
+tolerance (fedopt at FEDOPT_RUN_TOL), both ranks bitwise the same state;
+(c) W = 2 over NCCL, one card a rank, where the machine has two cards,
+else a line saying why not (``sharded_runs``). The children's launches
+join the kernels line.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -3680,7 +3696,8 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
     dtype groups, no other kernel of ``kmods`` (the kernel modules, the
     server plane's first) and no plain version on the card. Then ama_fes
     again with remat off (``remat_off_vs_on``). Returns the counts summed
-    over the runs and the ama_fes run's peak memory. (zamba2 skips the
+    over the runs and the ama_fes run's (params copied to the CPU, or None
+    without the remat-off run; losses; peak memory). (zamba2 skips the
     remat-off run at full width: its 38 layers' activations; phase 5 holds
     remat on == off at reduced size.)"""
     spec = LLMS[arch]
@@ -3776,7 +3793,7 @@ def pod_main_path(torch, train, arch, km, kmods, ref, tree_mod,
         torch.cuda.empty_cache()
     if spec.get("remat_off", True):
         remat_off_vs_on(torch, train, arch, tree_mod, *kept, main_record)
-    return totals, kept[2]
+    return totals, kept
 
 
 def remat_off_vs_on(torch, train, arch, tree_mod, params_on, loss_on,
@@ -4330,8 +4347,8 @@ def zamba2_pod_path(torch, train, km, kmods, ref, tree_mod, main_record):
     counts summed over the runs."""
     import numpy as np
     cfg = llm_full_width(ZAMBA)
-    counts, peak = pod_main_path(torch, train, ZAMBA, km, kmods, ref,
-                                 tree_mod, main_record)
+    counts, (_, _, peak) = pod_main_path(torch, train, ZAMBA, km, kmods,
+                                         ref, tree_mod, main_record)
     more = pod_client_planes(torch, train, ZAMBA, km, kmods, ref, tree_mod,
                              main_record,
                              runs=[("masked p_limited 0.5", "masked", 0.5)])
@@ -4456,8 +4473,9 @@ def slice20_pod_paths(torch, train, km, kmods, ref, tree_mod,
     totals = {}
     for arch in (VLM, WHISPER):
         cfg = llm_full_width(arch)
-        counts, peak = pod_main_path(torch, train, arch, km, kmods, ref,
-                                     tree_mod, main_record)
+        counts, (_, _, peak) = pod_main_path(torch, train, arch, km,
+                                             kmods, ref, tree_mod,
+                                             main_record)
         masked = next(r for r in main_record
                       if r["run"] == f"llm {arch} ama_fes")
         more = pod_client_planes(torch, train, arch, km, kmods, ref,
@@ -5392,6 +5410,314 @@ def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
 #: a mangled template argument: float, int8 (signed char), bf16, a
 #: back-reference (only bf16 repeats among the kernels' arguments), an
 #: integer or bool literal
+# ------------------------------------------------ the sharded client axis --
+
+#: slice 21: the paper CNN at its own cohort size (K 50, m 10: client
+#: width 2 at W 2; quickstart's m 5 would give 1) for SHARD_ROUNDS rounds,
+#: each algorithm under both client-axis routes
+SHARD_ROUNDS = 5
+SHARD_RUNS = [("ama_fes", []), ("async_ama", ["--max-delay", "3",
+                                              "--p-delay", "0.3"]),
+              ("fedavg", []), ("fedprox", []), ("fedopt", [])]
+#: the port's tolerance for the pre-reduced axis against the fused plane
+#: (tests/test_torch_legacy.py); fedopt's server Adam amplifies a
+#: last-bit difference by up to lr / tau = 100
+AUTO_TOL = dict(rtol=5e-4, atol=1e-5)
+FEDOPT_RUN_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def shard_argv(algo, extra, mode):
+    return ["--algorithm", algo, *extra, "--clients", "50",
+            "--clients-per-round", "10", "--p-limited", "0.25",
+            "--n-train", "1500", "--rounds", str(SHARD_ROUNDS),
+            "--eval-every", str(SHARD_ROUNDS), "--client-reduce", mode]
+
+
+class BlockedPlane:
+    """While installed, the round's masked client plane runs each block
+    of ``blocks`` contiguous cohorts in a call of its own and
+    concatenates the rows: one process computing the rows as the ranks
+    of a mesh of client width ``blocks`` do. cuBLAS's batched GEMMs and
+    cuDNN's grouped convolutions give a cohort's rows other bits in a
+    call of 5 cohorts than in one of 10, so this, not the plain one-call
+    run, is what the sharded run must equal bitwise."""
+
+    def __init__(self, torch, blocks):
+        from repro_torch.core import round as rnd
+        self.torch, self.rnd, self.blocks = torch, rnd, blocks
+
+    def __enter__(self):
+        torch, blocks = self.torch, self.blocks
+        from repro_torch.utils.tree import tree_map
+        self.real = real = self.rnd.make_local_train
+
+        def make(model, fl, strategy=None):
+            plane = real(model, fl, strategy)
+
+            def local_train(g, batch, limited):
+                n = limited.shape[0] // blocks
+                outs = [plane(g, {k: v[i * n:(i + 1) * n]
+                                  for k, v in batch.items()},
+                              limited[i * n:(i + 1) * n])
+                        for i in range(blocks)]
+                return (tree_map(lambda *xs: torch.cat(xs),
+                                 *[o[0] for o in outs]),
+                        torch.cat([o[1] for o in outs]))
+            return local_train
+        self.rnd.make_local_train = make
+        return self
+
+    def __exit__(self, *exc):
+        self.rnd.make_local_train = self.real
+
+
+def shard_child(rank, world, store, out, backend, cases):
+    """One rank of phase 8 (spawned): joins the group over ``store``, runs
+    ``cases`` [(label, argv)] through the launcher, each with the kernels'
+    counts set to 0 just before and read just after, and writes its
+    losses, accuracy, launches and collective span and bytes
+    (``{out}/{label}_r{rank}.json``) and, for the CNN, its state
+    (``.npz``); a pod run checks instead that every rank holds bitwise
+    the same params (a gather of each leaf). Ranks that share a card see
+    only it (the first visible one), so the backend rule picks gloo."""
+    if backend == "gloo":
+        os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.io import save
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import server_plane as sp
+    from repro_torch.launch import train
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.tree import leaves
+    dev = resolve_device("cuda")
+    build.load()
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world, **kw)
+    try:
+        for label, argv in cases:
+            for m in (sp, fa):
+                m.reset_counts()
+            with KeepRunner(train) as kr:
+                res = train.main(argv)
+            counts = {k: fn.launches for m in (sp, fa)
+                      for k, fn in m.KERNELS.items()}
+            rec = {"launches": counts, "device": str(dev)}
+            if "--pod" in argv:
+                state, metrics, _ = res
+                runner = kr.runners[-1]
+                rec.update(loss=[float(x) for x in metrics["loss"]],
+                           acc=[], replicas_equal=all(
+                               bool(torch.equal(g[0], g[1]))
+                               for g in (_gather_rows(dist, world, x)
+                                         for x in leaves(state["params"]))))
+            else:
+                sim, hist = res
+                state, runner = sim.state, sim.runner
+                rec.update(loss=hist.train_loss, acc=hist.test_acc)
+                save(f"{out}/{label}_r{rank}.npz", state)
+            rec.update(collective=runner.timer.summary().get("collective",
+                                                             {}),
+                       bytes=runner.collective.bytes_in)
+            with open(f"{out}/{label}_r{rank}.json", "w") as f:
+                json.dump(rec, f)
+            print(f"rank {rank} on {dev} ({backend}) {label}: launches "
+                  f"{ {k: v for k, v in counts.items() if v} }, collective "
+                  f"{rec['collective']}, {rec['bytes']:,} bytes in",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _gather_rows(dist, world, x):
+    parts = [x.new_empty(x.shape) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous())
+    return parts
+
+
+def _trees_equal(torch, tree_mod, a, b) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        tree_mod.flatten(a), tree_mod.flatten(b), strict=True))
+
+
+def _states_close(torch, tree_mod, a, b, tol) -> float:
+    """Largest |a - b| over every leaf; fails beyond ``tol``."""
+    worst = 0.0
+    for (k, x), (_, y) in zip(tree_mod.flatten(a), tree_mod.flatten(b),
+                              strict=True):
+        x, y = x.float(), y.float()
+        worst = max(worst, float((x - y).abs().max()))
+        check(bool(torch.allclose(x, y, **tol)),
+              f"{k}: differs beyond {tol} (max |diff| {worst:.3e})")
+    return worst
+
+
+def sharded_nccl_w1(torch, train, tree_mod, kept, tmp, main_record):
+    """(a) W = 1 over NCCL in this process: minitron-8b at full width (2
+    layers), C 2, POD_ROUNDS rounds of ama_fes with the rows gathered
+    (``--client-reduce off``) over a one-rank group on a ``file://``
+    store: losses and final params bitwise the meshless ama_fes run of
+    ``pod_main_path`` (``kept``). Returns its launches."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import server_plane as sp
+    params_on, loss_on, _ = kept
+    argv = [*pod_argv("minitron-8b"), "--algorithm", "ama_fes", "--rounds",
+            str(POD_ROUNDS), "--client-reduce", "off"]
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_WORLD_SIZE="1")
+    os.environ.update(env)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store_a",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for m in (sp, fa):
+            m.reset_counts()
+        with KeepRunner(train) as kr:
+            state, metrics, dt = run_pod(torch, train, argv,
+                                         llm_full_width("minitron-8b"))
+        counts = {k: fn.launches for m in (sp, fa)
+                  for k, fn in m.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    runner = kr.runners[-1]
+    span = runner.timer.summary().get("collective", {})
+    params = tree_mod.leaves(state["params"])
+    same = all(torch.equal(x.cpu(), y)
+               for x, y in zip(params, params_on, strict=True))
+    loss = [float(x) for x in metrics["loss"]]
+    nbytes = sum(x.numel() * x.element_size() for x in params)
+    del state, params
+    torch.cuda.empty_cache()
+    print(f"sharded (a) minitron-8b W 1 over NCCL, C {POD_C}, {POD_ROUNDS} "
+          f"rounds, rows gathered: params and losses bitwise the meshless "
+          f"run: {same and loss == list(loss_on)}; collective span {span} "
+          f"(a gather of {POD_C} x {nbytes:,} bytes and of the losses a "
+          f"round; {runner.collective.bytes_in:,} bytes from other ranks); "
+          f"{dt:.3f} s; peak {peak / 1e9:.2f} GB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    check(same, "sharded (a): params differ from the meshless run")
+    check(loss == [float(x) for x in loss_on],
+          f"sharded (a): losses {loss} against {list(loss_on)}")
+    check(span.get("calls", 0) == 2 * POD_ROUNDS,
+          f"sharded (a): {span} collective spans, expected a gather of the "
+          "rows and one of the losses a round")
+    main_record.append(dict(run="sharded (a) minitron-8b W 1 nccl",
+                            seconds=dt, collective=span, peak_bytes=peak,
+                            row_bytes=nbytes))
+    return counts
+
+
+def sharded_runs(torch, train, tree_mod, tmp, kept_loss, main_record):
+    """(b) W = 2 ranks sharing the card over gloo (one spawn of two
+    processes running every case): the paper CNN at K 50, m 10 (5 cohorts
+    a rank), SHARD_ROUNDS rounds of each of SHARD_RUNS under "off" (the
+    rows gathered before the server kernel) and "auto" (the pre-reduced
+    axis, a rank-ordered sum), against this process's one-rank runs:
+    "off" bitwise the blocked one-process run (``BlockedPlane``) and
+    within AUTO_TOL of the plain one, "auto" within AUTO_TOL of the plain
+    one (fedopt at FEDOPT_RUN_TOL), both ranks bitwise the same state.
+    (c) W = 2 over NCCL, one card a rank, where there are two cards:
+    minitron-8b as in (a), one cohort a card, the ranks bitwise the same
+    params and falling losses (one cohort a call is not bitwise two a
+    call on the card; ``kept_loss``, the meshless losses, is printed
+    beside). Returns the children's launches."""
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint.io import restore_state
+    out = os.path.join(tmp, "shard")
+    os.makedirs(out, exist_ok=True)
+    cases = [(f"{algo}-{mode}", shard_argv(algo, extra, mode))
+             for algo, extra in SHARD_RUNS for mode in ("off", "auto")]
+    t0 = time.perf_counter()
+    mp.start_processes(shard_child, args=(2, os.path.join(out, "store"),
+                                          out, "gloo", cases),
+                       nprocs=2, start_method="spawn")
+    wall = time.perf_counter() - t0
+    launches: dict = {}
+    for algo, extra in SHARD_RUNS:
+        one, one_hist, _ = run_train(torch, train,
+                                     shard_argv(algo, extra, "off"))
+        with BlockedPlane(torch, 2):
+            blocked, blocked_hist, _ = run_train(
+                torch, train, shard_argv(algo, extra, "off"))
+        tol = FEDOPT_RUN_TOL if algo == "fedopt" else AUTO_TOL
+        for mode in ("off", "auto"):
+            states, info = [], []
+            for rank in (0, 1):
+                tag = os.path.join(out, f"{algo}-{mode}_r{rank}")
+                states.append(restore_state(tag + ".npz", one.state))
+                with open(tag + ".json") as f:
+                    info.append(json.load(f))
+                for k, v in info[-1]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            check(_trees_equal(torch, tree_mod, states[0], states[1]),
+                  f"sharded (b) {algo} {mode}: the ranks' states differ")
+            check(all(i["device"] == "cuda:0" for i in info),
+                  f"sharded (b): ranks on {[i['device'] for i in info]}")
+            worst = _states_close(torch, tree_mod, states[0], one.state,
+                                  tol)
+            exact = _trees_equal(torch, tree_mod, states[0], one.state)
+            line = (f"sharded (b) CNN {algo} {mode}, W 2 over gloo on one "
+                    f"card, K 50, m 10, {SHARD_ROUNDS} rounds: max |diff| "
+                    f"{worst:.3e} against one process (bitwise {exact}), ")
+            if mode == "off":
+                same = _trees_equal(torch, tree_mod, states[0],
+                                     blocked.state)
+                check(same, f"sharded (b) {algo} off: not bitwise the "
+                      "blocked one-process run")
+                check(info[0]["loss"] == blocked_hist.train_loss,
+                      f"sharded (b) {algo} off: losses differ from the "
+                      "blocked one-process run")
+                line += "bitwise the blocked one-process run, "
+            acc = info[0]["acc"][-1]
+            line += (f"accuracy {acc:.4f} (one process "
+                     f"{one_hist.test_acc[-1]:.4f}); collective "
+                     f"{info[0]['collective']}, {info[0]['bytes']:,} bytes "
+                     "into rank 0")
+            print(line)
+            main_record.append(dict(run=f"sharded (b) {algo} {mode}",
+                                    collective=info[0]["collective"],
+                                    bytes_in=info[0]["bytes"],
+                                    max_diff=worst, bitwise=exact))
+    print(f"sharded (b): the two ranks' spawn took {wall:.1f} s")
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"sharded (c) W 2 over NCCL, one card a rank: not run, the "
+              f"machine has {n} card")
+        return launches
+    argv = [*pod_argv("minitron-8b"), "--algorithm", "ama_fes", "--rounds",
+            str(POD_ROUNDS), "--client-reduce", "off"]
+    mp.start_processes(shard_child, args=(2, os.path.join(out, "store_c"),
+                                          out, "nccl", [("pod", argv)]),
+                       nprocs=2, start_method="spawn")
+    info = []
+    for rank in (0, 1):
+        with open(os.path.join(out, f"pod_r{rank}.json")) as f:
+            info.append(json.load(f))
+        for k, v in info[-1]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    loss = info[0]["loss"]
+    print(f"sharded (c) minitron-8b W 2 over NCCL on {info[0]['device']} "
+          f"and {info[1]['device']}, one cohort a card: losses {loss} "
+          f"(meshless {[float(x) for x in kept_loss]}); collective "
+          f"{info[0]['collective']}, {info[0]['bytes']:,} bytes into rank 0")
+    check(all(i["replicas_equal"] for i in info),
+          "sharded (c): the ranks' params differ")
+    check(info[0]["loss"] == info[1]["loss"] and all(
+        math.isfinite(x) for x in loss) and loss[-1] < loss[0],
+          f"sharded (c): losses {info[0]['loss']} / {info[1]['loss']}")
+    return launches
+
+
 _TARG = r"f|a|13__nv_bfloat16|S\d*_|L[ib]\d+E"
 
 
@@ -5539,12 +5865,26 @@ def main() -> None:
     # one draw a full-width config for the pod runs of phases 4-7
     with MemoInit(tf, [llm_full_width(a) for a in MEMO_ARCHS]) as memo, \
             MemoInit(ed, [llm_full_width(WHISPER)]):
-        llm, _ = pod_main_path(torch, train, "minitron-8b", fa, kmods, ref,
-                               tree_mod, main_rec)
+        llm, kept = pod_main_path(torch, train, "minitron-8b", fa, kmods,
+                                  ref, tree_mod, main_rec)
+        clock.mark("4, the minitron-8b pod path")
+        # slice 21: the sharded client axis, (a) beside the meshless run
+        # it must equal, then (b) and (c)
+        torch.cuda.empty_cache()
+        print(f"sharded: this process holds "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+        with tempfile.TemporaryDirectory() as tmp:
+            shard_a = sharded_nccl_w1(torch, train, tree_mod, kept, tmp,
+                                      main_rec)
+            shard_b = sharded_runs(torch, train, tree_mod, tmp, kept[1],
+                                   main_rec)
+        del kept
+        clock.mark("8, the sharded client axis")
         llm_planes = pod_client_planes(torch, train, "minitron-8b", fa,
                                        kmods, ref, tree_mod, main_rec)
-        rwkv, peak_at_8 = pod_main_path(torch, train, "rwkv6-3b", rs, kmods,
-                                        ref, tree_mod, main_rec)
+        rwkv, (_, _, peak_at_8) = pod_main_path(torch, train, "rwkv6-3b",
+                                                rs, kmods, ref, tree_mod,
+                                                main_rec)
         rwkv_planes = pod_client_planes(torch, train, "rwkv6-3b", rs, kmods,
                                         ref, tree_mod, main_rec)
         deep = rwkv6_deep(torch, train, rs, kmods, tree_mod, peak_at_8,
@@ -5578,7 +5918,7 @@ def main() -> None:
         launches = {k: sum(run.get(k, 0) for run in (
             launches, legacy, part, static, scen, fed, llm, llm_planes, rwkv,
             rwkv_planes, deep, moe_pod, served, families, zamba, zserved,
-            s20_pod, s20_served))
+            s20_pod, s20_served, shard_a, shard_b))
             for k in recs}
         fused_vs_plain(torch, train, tree_mod)
         legacy_kernel_vs_plain(torch, train, tree_mod)

@@ -9,7 +9,11 @@ are atomic (a private temp file, then a rename), so a checkpoint taken
 mid-run is never half-written. ``save_state``/``restore_state`` round
 trip the whole round carry (global params, ``t``, and the aux state:
 async-AMA ring buffer, fedopt moments and step, comm residuals) bit for
-bit, which is what makes ``--resume`` continue exactly.
+bit, which is what makes ``--resume`` continue exactly. Under a mesh
+(``launch.mesh.FLMesh``) the round state is replicated on every rank:
+``save_state`` writes it on rank 0 and every rank waits at a barrier
+for the file, and every rank reads ``--resume``, so a checkpoint taken
+at one world size resumes at any other.
 """
 from __future__ import annotations
 
@@ -106,12 +110,16 @@ def restore_params(path: str, like_params):
     return restore(path, like_params)
 
 
-def save_state(path: str, state: dict) -> None:
-    """Checkpoint a full round state ``{params, t, aux}``."""
+def save_state(path: str, state: dict, mesh=None) -> None:
+    """Checkpoint a full round state ``{params, t, aux}``; under ``mesh``
+    rank 0 writes it and every rank returns once it is written."""
     missing = {"params", "t"} - set(state)
     if missing:
         raise ValueError(f"round state missing keys: {sorted(missing)}")
-    save(path, state)
+    if mesh is None or mesh.writer:
+        save(path, state)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def restore_state(path: str, like_state: dict) -> dict:

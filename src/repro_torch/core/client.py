@@ -30,6 +30,11 @@ The step loop is a Python loop over the staged steps. The batch may be
 any dict of (C, steps, b, ...) tensors: the paper CNN's images and
 labels, or the pod path's LLM tokens.
 
+Under a mesh (``launch.mesh``) the masked plane runs over the rank's
+cohort block only: the round hands it that block of the batch and of
+``limited`` (``sharding.ctx.constrain_leading``), so the FES mask and
+the strategy's per-cohort hooks see the rank's slice of the schedule.
+
 The local SGD update ``p - lr * g`` runs in f32 and returns in the
 params' dtype, as in the JAX package. For memory it is computed in
 column slices of at most ``SGD_SLICE`` elements, with in-place f32 ops:

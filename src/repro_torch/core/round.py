@@ -20,10 +20,22 @@ error-feedback residual rides the carry as ``aux["comm"]``, and the
 server consumes the payload in-kernel (``compressed_server_update``) or,
 for strategies without that hook, densified.
 
-``fl.client_reduce == "force"`` pre-reduces the stacked client axis
-(``reduced_server_update``: one weighted contraction, then the server
-math on (N,) sums); "auto" stays off on one GPU, as the JAX package's
-does on a one-device mesh. ``fl.extended_metrics`` adds the telemetry
+Under a mesh (``launch.mesh.FLMesh``, made active by ``ChunkRunner``)
+the client axis is split over the ranks, as the JAX package splits it
+over the mesh's "client" axis: a rank trains its own cohort block
+(``sharding.ctx.constrain_leading`` of the schedule; the batch arrives
+as that block), then either all-gathers the blocks into the (C, ...)
+stack before the fused server plane (``gather_leading``; the same bits
+as one process given the same rows) or pre-reduces them
+(``fl.client_reduce``: "force" always, "auto" when the client width is
+above 1, as in the JAX package; ``reduced_server_update``: each rank's
+weighted partial, summed across ranks in rank order by
+``sharding.ctx.reduce_leading``, then the server math on (N,) sums).
+Without a mesh, or at client width 1, "auto" stays off. The per-cohort
+losses are gathered in cohort order before their mean. Every rank runs
+the same server update on the same inputs and keeps the same state.
+``check_sharded`` refuses the options whose sharded form is not ported.
+``fl.extended_metrics`` adds the telemetry
 series of ``repro_torch.obs.metrics.round_metrics`` to each round's
 metrics. They only read the round's tensors (eager PyTorch has no
 cross-op fusion to perturb), so the params stream is bitwise the same
@@ -42,6 +54,7 @@ from repro_torch.core import strategies
 from repro_torch.core.client import (make_fes_local_train, make_local_train,
                                      make_partitioned_local_train)
 from repro_torch.obs.metrics import payload_bytes, round_metrics
+from repro_torch.sharding import ctx
 
 CLIENT_REDUCE = ("auto", "off", "force")
 
@@ -58,6 +71,23 @@ def check_supported(fl: FLConfig) -> None:
     if fl.client_reduce not in CLIENT_REDUCE:
         raise ValueError(f"unknown client_reduce {fl.client_reduce!r}; "
                          f"expected one of {CLIENT_REDUCE}")
+
+
+def check_sharded(fl: FLConfig, mesh, virtual: bool = False) -> None:
+    """Refuse the options that have no sharded form yet when ``mesh``
+    splits the client axis (client width > 1)."""
+    if mesh is None or mesh.client == 1:
+        return
+    off = [name for name, on in (
+        (f"the comm plane ({fl.comm_plane!r})", fl.comm_plane != "none"),
+        ("the partitioned client plane", fl.client_plane == "partitioned"),
+        ("the fes_static client plane", fl.fes_static),
+        ("a virtual population", virtual)) if on]
+    if off:
+        raise ValueError(
+            f"{' and '.join(off)} cannot run with the client axis split "
+            f"over {mesh.client} client shards yet; run it on one rank "
+            "(without torchrun) or at client width 1")
 
 
 def as_scan_scheds(sb: dict, device) -> dict:
@@ -128,11 +158,17 @@ def make_round_step(model, fl: FLConfig, strategy=None):
     comm_plane = comm.resolve(fl)
 
     extended = fl.extended_metrics
-    force_reduce = fl.client_reduce == "force"
 
     def round_step(state, batch, sched):
         t, prev_global = state["t"], state["params"]
-        client_params, losses = local_train(prev_global, batch, sched)
+        C = sched["limited"].shape[0]
+        client_params, losses = local_train(
+            prev_global, batch, ctx.constrain_leading(sched, C))
+        sharded = ctx.axis_size("client") > 1
+        reduce = ctx.pre_reduced(fl, ctx.active_mesh())
+        if not reduce:
+            client_params = ctx.gather_leading(client_params)
+        local = reduce and sharded     # client_params: the rank's block
         srv_aux, new_res, out = state["aux"], None, NotImplemented
         groups = None
         if comm_plane is not None:
@@ -141,11 +177,14 @@ def make_round_step(model, fl: FLConfig, strategy=None):
             srv_aux = {k: v for k, v in state["aux"].items() if k != "comm"}
             groups, new_res = comm_plane.compress(
                 t, prev_global, client_params, state["aux"].get("comm", {}))
-        if force_reduce:
+        if reduce:
             cp = (comm_plane.reconstruct(prev_global, groups)
                   if comm_plane is not None else client_params)
             out = strategy.reduced_server_update(t, prev_global, cp, sched,
                                                  srv_aux)
+            if out is NotImplemented and local:
+                client_params = ctx.gather_leading(client_params)
+                local = False
         if out is NotImplemented and comm_plane is not None:
             out = strategy.compressed_server_update(t, prev_global, groups,
                                                     sched, srv_aux)
@@ -157,14 +196,15 @@ def make_round_step(model, fl: FLConfig, strategy=None):
         new_params, aux = out
         if new_res:
             aux = {**aux, "comm": new_res}
-        metrics = {"loss": losses.mean(),
+        metrics = {"loss": ctx.gather_leading(losses).mean(),
                    "n_on_time": (~sched["delayed"]).sum(dtype=torch.int32)}
         if extended:
             metrics.update(round_metrics(
                 fl, strategy, t, prev_global, client_params, new_params,
                 sched, state["aux"], payload=payload_bytes(prev_global),
                 payload_compressed=(comm_plane.payload_bytes(prev_global)
-                                    if comm_plane is not None else None)))
+                                    if comm_plane is not None else None),
+                shard_sum=ctx.sum_shards if local else None))
         return {"params": new_params, "t": t + 1, "aux": aux}, metrics
 
     return round_step

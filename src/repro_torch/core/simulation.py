@@ -15,4 +15,7 @@ class FederatedSimulation(SimulationEngine):
     """The paper's §V experiment: ``run`` goes through the chunked
     engine (``use_scan=False`` for the bit-identical per-round run);
     ``save``/``resume`` checkpoint the full round state, ``run_round``
-    runs one round."""
+    runs one round. ``mesh=launch.mesh.engine_mesh(m)`` splits each
+    round's m cohorts over the ranks of a ``torchrun`` launch, as the
+    JAX package's ``FederatedSimulation(..., mesh=)`` shards them over
+    its devices."""

@@ -14,7 +14,7 @@ from repro_torch.core.strategies.base import ServerStrategy, register
 from repro_torch.kernels.ref import ALPHA_UNNORM, _norm_weights, _seq_sum
 from repro_torch.kernels.server_plane import (device_vector,
                                               server_async_tree)
-from repro_torch.utils.reduce import reduce_leading
+from repro_torch.sharding.ctx import reduce_leading
 from repro_torch.utils.tree import tree_map
 
 

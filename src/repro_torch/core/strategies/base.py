@@ -28,7 +28,8 @@ The paper's contribution is the server aggregation rule; everything else
     ``fused_server_update``;
   * ``reduced_server_update(t, prev_global, client_params, sched, aux)``
     — the update with the client axis pre-reduced by one weighted
-    contraction (``fl.client_reduce == "force"``);
+    contraction (``fl.client_reduce``: "force", or "auto" when a mesh
+    splits the client axis);
   * ``mix_coefficient(t, sched, aux)`` — the effective previous-model
     mix coefficient, the telemetry's ``alpha_eff``.
 
@@ -41,7 +42,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.kernels.ref import _norm_weights
-from repro_torch.utils.reduce import reduce_leading
+from repro_torch.sharding.ctx import reduce_leading
 from repro_torch.utils.tree import tree_map
 
 SERVER_PLANES = ("fused", "ref", "legacy")
@@ -105,10 +106,11 @@ class ServerStrategy:
         """The server update with the stacked client axis pre-reduced:
         every built-in rule consumes ``client_params`` only through
         weighted sums over the client axis, so one contraction
-        (``utils.reduce.reduce_leading``) comes first and the server
-        math runs on (N,) sums. allclose to the fused plane, not bitwise
-        (another summation order). ``NotImplemented`` (this default)
-        keeps the fused plane."""
+        (``sharding.ctx.reduce_leading``: under a mesh each rank's
+        partial, summed across ranks in rank order) comes first and the
+        server math runs on (N,) sums. allclose to the fused plane, not
+        bitwise (another summation order). ``NotImplemented`` (this
+        default) keeps the fused plane."""
         del t, prev_global, client_params, sched, aux_state
         return NotImplemented
 

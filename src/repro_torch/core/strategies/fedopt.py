@@ -20,7 +20,7 @@ from repro_torch.core.strategies.base import ServerStrategy, register
 from repro_torch.kernels.ops import ama_mix_tree
 from repro_torch.kernels.ref import _norm_weights
 from repro_torch.kernels.server_plane import device_vector, server_adam_tree
-from repro_torch.utils.reduce import reduce_leading
+from repro_torch.sharding.ctx import reduce_leading
 from repro_torch.utils.tree import leaves, tree_map
 
 

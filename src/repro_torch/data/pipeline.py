@@ -13,7 +13,9 @@ round t's batch indices are a pure function of (seed, t, selected[t]) —
 its own, and to the JAX package's staging of the same round.
 
 ``ChunkPrefetcher`` stages chunk k+1 on a host thread while chunk k runs
-on the card.
+on the card. Under a mesh each rank stages only its own cohort block
+(``stage_chunk(..., cohorts=)``), so its host gather and its
+host-to-device copy are C / client of the whole.
 """
 from __future__ import annotations
 
@@ -142,17 +144,24 @@ def stage_round_indices(clients, selected: np.ndarray, seed: int, t: int,
 
 
 def stage_chunk(data: dict, clients, selected: np.ndarray, seed: int,
-                t0: int, steps: int, batch_size: int) -> dict:
+                t0: int, steps: int, batch_size: int,
+                cohorts: slice | None = None) -> dict:
     """Stage a whole chunk of rounds with ONE gather per data field.
 
     selected: (n_rounds, C) client indices (``Environment.batch`` rows).
     Returns {field: (n_rounds, C, steps, batch, ...)} numpy arrays. Row i
-    is bit-identical to staging round ``t0 + i`` alone.
+    is bit-identical to staging round ``t0 + i`` alone. ``cohorts`` (a
+    rank's block of the C slots) gathers only those cohorts' samples:
+    the indices of every cohort are still drawn, in order, from the
+    round's one stream, so the block is bitwise the same rows of the
+    full staging.
     """
     selected = np.asarray(selected)
     idx = np.stack([stage_round_indices(clients, selected[i], seed, t0 + i,
                                         steps, batch_size)
                     for i in range(selected.shape[0])])
+    if cohorts is not None:
+        idx = idx[:, cohorts]
     return {k: v[idx] for k, v in data.items()}
 
 

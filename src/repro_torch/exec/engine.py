@@ -19,6 +19,14 @@
     the telemetry hooks (``obs.timing.PhaseTimes`` phases, an optional
     ``obs.log.MetricsLogger``) and the ``History`` stability metrics.
 
+Both take a ``mesh`` (``launch.mesh.engine_mesh``), as the JAX
+engine's do: the runner dispatches under it (``sharding.ctx.use``), so
+the round splits the client axis over the ranks; it copies only the
+rank's cohort block of a batch to the device. The simulation engine
+stages only those cohorts (every rank computes the whole schedule from
+the seed), and only rank 0 evaluates, logs and writes checkpoints.
+Without a mesh (or with the degenerate one) nothing changes.
+
 The server rule is a ``ServerStrategy`` and the world an
 ``Environment``; the engine owns only data movement, chunking and
 evaluation.
@@ -34,12 +42,14 @@ from repro_torch import env as env_mod
 from repro_torch.checkpoint.io import restore_state, save_state
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
-from repro_torch.core.round import as_scan_scheds, init_state, make_train_loop
+from repro_torch.core.round import (as_scan_scheds, check_sharded,
+                                   init_state, make_train_loop)
 from repro_torch.data.pipeline import (ChunkPrefetcher, partition_plan,
                                       stage_chunk)
 from repro_torch.exec.evals import Evaluator
 from repro_torch.obs.metrics import payload_bytes, stability_stats
 from repro_torch.obs.timing import PhaseTimes, annotate
+from repro_torch.sharding import ctx
 from repro_torch.utils.device import resolve_device
 
 
@@ -82,12 +92,21 @@ class ChunkRunner:
     ``limited_split`` (None off the partitioned plane) counts, over the
     chunks run, the limited cohort-rounds that ran the limited program
     and those that overflowed to the masked one (the chunk's limited
-    width is its least limited count; a 1-round chunk has none)."""
+    width is its least limited count; a 1-round chunk has none).
+
+    ``mesh`` (a ``launch.mesh.FLMesh``) splits the client axis over its
+    ranks: a batch given with all C cohorts is cut to the rank's block
+    before it is copied to the device, and ``collective`` counts the
+    bytes the round's collectives brought this rank (their seconds are
+    the timer's "collective" phase)."""
 
     def __init__(self, model, fl: FLConfig, strategy=None, *,
                  per_round_batch: bool = True, use_scan: bool = True,
-                 device=None, timer=None):
+                 device=None, timer=None, mesh=None):
+        check_sharded(fl, mesh)
         self.fl = fl
+        self.mesh = mesh
+        self.collective = ctx.CollectiveStats()
         self.device = resolve_device(device)
         self.per_round_batch = per_round_batch
         self.use_scan = use_scan
@@ -104,7 +123,8 @@ class ChunkRunner:
         phase = ("compile" if n not in self._seen
                  else ("scan_dispatch" if n > 1 else "round_dispatch"))
         self._seen.add(n)
-        with self.timer.phase(phase) as span, annotate(f"train_chunk_n{n}"):
+        with self.timer.phase(phase) as span, annotate(f"train_chunk_n{n}"), \
+                ctx.use(self.mesh, self.timer, self.collective):
             out = self._loop(state, batch, scheds)
             span.sync(out)
         return out
@@ -113,7 +133,8 @@ class ChunkRunner:
                   scan_ok: bool = True):
         """(state, batch, Environment.batch dict) -> (state, metrics).
         ``batch`` leaves (numpy or tensors) are (n, C, steps, b, ...) when
-        ``per_round_batch``, else (C, steps, b, ...); metrics come back as
+        ``per_round_batch``, else (C, steps, b, ...), with all C cohorts
+        or, under a mesh, the rank's block of them; metrics come back as
         numpy arrays with a leading (n,) axis. ``scan_ok=False`` runs the
         chunk one round at a time."""
         if (self.limited_split is not None
@@ -127,6 +148,9 @@ class ChunkRunner:
             self.limited_split["overflow"] += (
                 int(np.sum(sched_batch["limited"])) - n_lim)
         scheds = as_scan_scheds(sched_batch, self.device)
+        with ctx.use(self.mesh):
+            batch = ctx.constrain_leading(batch, scheds["limited"].shape[1],
+                                          dim=int(self.per_round_batch))
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         n = scheds["limited"].shape[0]
@@ -153,12 +177,17 @@ class SimulationEngine:
     ``list[ClientDataset]`` or a ``data.pipeline.VirtualClientShards``
     (a million-client population, nothing O(K) on the host). ``logger``
     (an ``obs.log.MetricsLogger``) receives the header, the per-round
-    rows, the eval points and the phase summary."""
+    rows, the eval points and the phase summary. Under ``mesh`` each
+    rank stages its own cohort block, and only rank 0 evaluates (other
+    ranks' ``History`` has the train losses only), logs and writes."""
 
     def __init__(self, model, fl: FLConfig, clients, test_data,
-                 use_scan: bool = True, device=None, logger=None):
+                 use_scan: bool = True, device=None, logger=None,
+                 mesh=None):
         self.model = model
         self.fl = fl
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.writer
         self.device = resolve_device(device)
         # clients: a dense list[ClientDataset] OR a VirtualClientShards
         # (streamed K-free staging: client shards are arithmetic views of
@@ -172,14 +201,18 @@ class SimulationEngine:
             fl, data_sizes=(clients.client_sizes if self._streamed else
                             np.array([len(c) for c in clients],
                                      np.float32)))
+        check_sharded(fl, mesh, virtual=self._streamed or self.env.virtual)
         self.strategy = strategies.resolve(fl)
         # one PhaseTimes spans the runner, the data plane, evaluation and
         # checkpoints
         self.timer = PhaseTimes()
-        self.logger = logger
+        self.logger = logger if self.writer else None
         self.runner = ChunkRunner(model, fl, self.strategy,
                                   use_scan=use_scan, device=self.device,
-                                  timer=self.timer)
+                                  timer=self.timer, mesh=mesh)
+        # this rank's cohort slots (all of them without a split)
+        self._block = (mesh.cohorts(fl.clients_per_round)
+                       if mesh is not None and mesh.client > 1 else None)
         self._evaluator = Evaluator(model, test_data, device=self.device)
         self.data = clients.data if self._streamed else clients[0].data
         if not self._streamed and any(c.data is not self.data
@@ -206,9 +239,10 @@ class SimulationEngine:
 
     def save(self, path: str) -> None:
         """Checkpoint the whole round state (params, round index, aux:
-        ring buffer, fedopt moments, comm residuals)."""
+        ring buffer, fedopt moments, comm residuals); under a mesh rank 0
+        writes the replicated state and every rank waits for it."""
         with self.timer.phase("checkpoint"):
-            save_state(path, self.state)
+            save_state(path, self.state, mesh=self.mesh)
 
     def resume(self, path: str) -> None:
         """Restore {params, t, aux} onto this engine's device. Staging,
@@ -229,7 +263,8 @@ class SimulationEngine:
             sb = self.env.batch(t0, n)
             batch = stage_chunk(self.data, self.clients, sb["selected"],
                                 self.fl.seed, t0, self._steps_per_round(),
-                                self.fl.local_batch_size)
+                                self.fl.local_batch_size,
+                                cohorts=self._block)
         return sb, batch
 
     def run_round(self) -> float:
@@ -252,7 +287,8 @@ class SimulationEngine:
         if self.logger is not None:
             self.logger.header(self.fl, payload=payload_bytes(self.params),
                                resumed_at=t0 if t0 else None,
-                               extra={"device": str(self.device)})
+                               extra={"device": str(self.device)},
+                               mesh=self.mesh)
         # chunk boundaries sit on ABSOLUTE multiples of eval_every, so a
         # resumed run evaluates at the same global rounds as the
         # uninterrupted run it continues
@@ -272,7 +308,8 @@ class SimulationEngine:
                 hist.train_loss.extend(float(x) for x in metrics["loss"])
                 if self.logger is not None:
                     self.logger.rounds(t, metrics)
-                if (t + n) % eval_every == 0:    # partial chunks: no eval
+                if (t + n) % eval_every == 0 and self.writer:
+                    # partial chunks: no eval
                     acc, loss = self.evaluate()
                     hist.test_acc.append(acc)
                     hist.test_loss.append(loss)

@@ -45,6 +45,17 @@ both (``--no-scan`` on the pod path gives the exact per-round split).
 ``FLConfig(fes_static=True)`` (through ``paper_scale`` / ``pod_scale``)
 trains every cohort classifier-only.
 
+Under ``torchrun --standalone --nproc-per-node W`` both scales split each
+round's cohorts over the W ranks (``launch.mesh.engine_mesh``: client
+width = the widest divisor of W and the cohort count, the JAX package's
+rule), NCCL when each rank has a card of its own, gloo when they share
+one or run with ``--device cpu``. Each rank trains and stages its own
+cohort block; the rows are all-gathered before the server kernel, or
+with ``--client-reduce`` pre-reduced ("auto": when the client width is
+above 1). Every rank keeps the same server state; rank 0 prints,
+evaluates and writes ``--checkpoint``, ``--metrics-out`` and
+``--profile``. The launcher takes no flag for it: W comes from torchrun.
+
 ``--env`` takes any registered environment (bernoulli, gilbert_elliott,
 bandwidth, trace and their aliases); ``--scenario`` applies a named
 environment + knob binding after the other flags (an explicit
@@ -75,6 +86,7 @@ Examples:
   python -m repro_torch.launch.train --arch minitron-8b --pod --reduced --rounds 2 --device cpu
   python -m repro_torch.launch.train --arch rwkv6-3b --pod --reduced --client-plane partitioned --no-scan
   python -m repro_torch.launch.train --arch zamba2-1.2b --pod --reduced --rounds 2 --device cpu
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --clients 50 --clients-per-round 10 --device cpu
 """
 from __future__ import annotations
 
@@ -82,6 +94,7 @@ import argparse
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import env as env_mod
 from repro_torch.checkpoint.io import restore_state, save_state
@@ -98,11 +111,36 @@ from repro_torch.data.pipeline import VirtualClientShards, build_clients
 from repro_torch.data.synth import make_image_classification, make_lm_tokens
 from repro_torch.env.virtual import is_virtual
 from repro_torch.exec.engine import ChunkRunner
+from repro_torch.launch.mesh import engine_mesh
 from repro_torch.models.api import build_model
 from repro_torch.obs.log import MetricsLogger
 from repro_torch.obs.metrics import payload_bytes
 from repro_torch.obs.timing import profile_trace, sync_time
+from repro_torch.sharding import ctx
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import leaves as tree_leaves
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on ranks other than 0."""
+
+
+def _mesh_line(fl: FLConfig, mesh, params, strategy, C: int) -> str:
+    """The run's mesh, the client axis' route and its bytes a round
+    ("" without a process group)."""
+    if mesh.group is None:
+        return ""
+    reduced = ctx.pre_reduced(fl, mesh)
+    queue = strategy.init_state(params).get("queue")
+    R = 1 + queue["gamma"].shape[0] if reduced and queue else 1
+    n = sum(x.numel() for x in tree_leaves(params))
+    nbytes = ctx.round_bytes(mesh, C, payload_bytes(params), n, R, reduced)
+    route = ("pre-reduced (a rank-ordered sum of f32 partials)" if reduced
+             else "gathered before the server kernel")
+    return (f"{mesh.describe()}; rank {mesh.rank} trains cohorts "
+            f"{mesh.cohorts(C).start}..{mesh.cohorts(C).stop - 1} of {C}; "
+            f"client axis {route} (client_reduce {fl.client_reduce}): "
+            f"{nbytes:,} bytes a round received per rank")
 
 
 def _print_phases(timer) -> None:
@@ -135,7 +173,9 @@ def _shards(clients) -> str:
 
 
 def paper_scale(args, fl: FLConfig, device):
-    """Run the §V experiment; returns (simulation, History)."""
+    """Run the §V experiment; returns (simulation, History). Under
+    torchrun the cohorts split over the ranks (``engine_mesh``); only
+    rank 0 evaluates, prints and writes."""
     model = build_model(get_arch(args.arch))
     train, test = make_image_classification(
         n_train=args.n_train, n_test=400, seed=fl.seed)
@@ -151,38 +191,46 @@ def paper_scale(args, fl: FLConfig, device):
         clients = build_clients(
             train,
             shard_partition(train["label"], fl.num_clients, seed=fl.seed))
-    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
+    mesh = engine_mesh(fl.clients_per_round, device)
+    say = print if mesh.writer else _quiet
+    logger = (MetricsLogger(args.metrics_out)
+              if args.metrics_out and mesh.writer else None)
     sim = FederatedSimulation(model, fl, clients, test,
                               use_scan=not args.no_scan, device=device,
-                              logger=logger)
+                              logger=logger, mesh=mesh)
     n_clf, n_all = count_trainable(sim.params, model.fes_mask(sim.params))
-    print(f"{args.arch} on {device}: {n_all} params ({n_clf} in the FES "
-          f"classifier); {fl.algorithm} -> "
-          f"{type(sim.strategy).__name__}, server plane {fl.server_plane}"
-          f"{' (ama_mix kernel)' if fl.use_kernel else ''}, "
-          f"client plane {_client_plane(fl)}, comm plane {fl.comm_plane}, "
-          f"env {fl.env}, population "
-          f"{'virtual' if sim.env.virtual else 'dense'} of {fl.num_clients}"
-          f"{_shards(clients)}")
+    say(f"{args.arch} on {device}: {n_all} params ({n_clf} in the FES "
+        f"classifier); {fl.algorithm} -> "
+        f"{type(sim.strategy).__name__}, server plane {fl.server_plane}"
+        f"{' (ama_mix kernel)' if fl.use_kernel else ''}, "
+        f"client plane {_client_plane(fl)}, comm plane {fl.comm_plane}, "
+        f"env {fl.env}, population "
+        f"{'virtual' if sim.env.virtual else 'dense'} of {fl.num_clients}"
+        f"{_shards(clients)}")
+    line = _mesh_line(fl, mesh, sim.params, sim.strategy,
+                      fl.clients_per_round)
+    if line:
+        say(line)
     if args.resume:
         sim.resume(args.resume)
-        print(f"resumed {args.resume} at round {sim.t}")
+        say(f"resumed {args.resume} at round {sim.t}")
     try:
-        with profile_trace(args.profile):
+        with profile_trace(args.profile if mesh.writer else None):
             hist = sim.run(rounds=args.rounds, eval_every=args.eval_every,
-                           verbose=True)
+                           verbose=mesh.writer)
     finally:
         if logger is not None:
             logger.close()
-    print(f"final: acc={hist.final_accuracy():.4f} "
-          f"stability_var={hist.stability_variance():.3f}")
-    _print_limited_split(sim.runner)
-    _print_phases(sim.timer)
+    say(f"final: acc={hist.final_accuracy():.4f} "
+        f"stability_var={hist.stability_variance():.3f}")
+    if mesh.writer:
+        _print_limited_split(sim.runner)
+        _print_phases(sim.timer)
     if args.checkpoint:
         sim.save(args.checkpoint)
-        print(f"saved {args.checkpoint} (full round state, t={sim.t})")
+        say(f"saved {args.checkpoint} (full round state, t={sim.t})")
     if args.profile:
-        print(f"profile -> {args.profile}/trace.json")
+        say(f"profile -> {args.profile}/trace.json")
     if logger is not None:
         print(f"metrics -> {args.metrics_out} "
               f"(python -m repro_torch.obs.report {args.metrics_out})")
@@ -222,7 +270,10 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
     (per round with ``args.no_scan``). ``cfg`` overrides ``--arch`` /
     ``--reduced`` (a depth-cut full-width config, say). Returns (state,
     metrics {"loss", "n_on_time"} as numpy (rounds,), the training
-    seconds closed by a device sync)."""
+    seconds closed by a device sync). Under torchrun the cohorts split
+    over the ranks (``engine_mesh``), each rank copying only its block
+    of the batch to its device; every rank reads ``--resume``, and rank
+    0 prints and writes."""
     if cfg is None:
         cfg = get_arch(args.arch)
         if args.reduced:
@@ -231,35 +282,42 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
     # the stacked client axis is the cohort count: align the config so
     # comm-plane residual state (sized by fl.clients_per_round) matches
     fl = fl.with_(clients_per_round=fl.cohorts)
+    C = fl.cohorts
+    mesh = engine_mesh(C, device)
+    say = print if mesh.writer else _quiet
     strategy = strategies.resolve(fl)
     state = init_state(model, fl, torch.Generator().manual_seed(fl.seed),
                        device, strategy)
     if args.resume:
         state = restore_state(args.resume, state)
-        print(f"resumed {args.resume} at round {int(state['t'])}")
-    C = fl.cohorts
+        say(f"resumed {args.resume} at round {int(state['t'])}")
     environment = env_mod.resolve(fl.with_(num_clients=C,
                                            clients_per_round=C))
     batch = _pod_batch(cfg, fl, args)
     runner = ChunkRunner(model, fl, strategy, per_round_batch=False,
-                         use_scan=not args.no_scan, device=device)
+                         use_scan=not args.no_scan, device=device, mesh=mesh)
     n_clf, n_all = count_trainable(state["params"],
                                    model.fes_mask(state["params"]))
     S = batch["tokens"].shape[-1]
-    print(f"{cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on "
-          f"{device}: {n_all} params ({n_clf} in the FES classifier); "
-          f"{fl.algorithm} -> {type(strategy).__name__}, client plane "
-          f"{_client_plane(fl)}, {C} cohorts x {fl.local_steps} local steps "
-          f"x batch {args.batch} x seq {S}")
-    logger = MetricsLogger(args.metrics_out) if args.metrics_out else None
+    say(f"{cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on "
+        f"{device}: {n_all} params ({n_clf} in the FES classifier); "
+        f"{fl.algorithm} -> {type(strategy).__name__}, client plane "
+        f"{_client_plane(fl)}, {C} cohorts x {fl.local_steps} local steps "
+        f"x batch {args.batch} x seq {S}")
+    line = _mesh_line(fl, mesh, state["params"], strategy, C)
+    if line:
+        say(line)
+    logger = (MetricsLogger(args.metrics_out)
+              if args.metrics_out and mesh.writer else None)
     if logger is not None:
         logger.header(fl, payload=payload_bytes(state["params"]),
                       resumed_at=int(state["t"]) or None,
-                      extra={"device": str(device), "arch": cfg.name})
+                      extra={"device": str(device), "arch": cfg.name},
+                      mesh=mesh)
     t_start = int(state["t"])
     rows, dt = [], 0.0
     try:
-        with profile_trace(args.profile):
+        with profile_trace(args.profile if mesh.writer else None):
             if args.no_scan:
                 for r in range(args.rounds):
                     tr, (state, m) = sync_time(
@@ -269,9 +327,9 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
                     rows.append(m)
                     if logger is not None:
                         logger.rounds(t_start + r, m)
-                    print(f"round {r}: loss={float(m['loss'][0]):.4f} "
-                          f"on_time={int(m['n_on_time'][0])}/{C} "
-                          f"({tr:.2f}s)")
+                    say(f"round {r}: loss={float(m['loss'][0]):.4f} "
+                        f"on_time={int(m['n_on_time'][0])}/{C} "
+                        f"({tr:.2f}s)")
             else:
                 dt, (state, m) = sync_time(
                     runner.run_chunk, state, batch,
@@ -280,25 +338,26 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
                 if logger is not None:
                     logger.rounds(t_start, m)
                 for r in range(args.rounds):
-                    print(f"round {r}: loss={m['loss'][r]:.4f} "
-                          f"on_time={int(m['n_on_time'][r])}/{C}")
+                    say(f"round {r}: loss={m['loss'][r]:.4f} "
+                        f"on_time={int(m['n_on_time'][r])}/{C}")
     finally:
         if logger is not None:
             logger.phases(runner.timer)
             logger.close()
     metrics = {k: np.concatenate([m[k] for m in rows]) for k in rows[0]}
     engine = "per-round loop" if args.no_scan else "one chunk"
-    print(f"{args.rounds} rounds ({engine}): {dt:.2f}s total "
-          f"({dt / args.rounds * 1e3:.1f} ms/round, first-call set-up "
-          "included)")
-    _print_limited_split(runner)
-    _print_phases(runner.timer)
+    say(f"{args.rounds} rounds ({engine}): {dt:.2f}s total "
+        f"({dt / args.rounds * 1e3:.1f} ms/round, first-call set-up "
+        "included)")
+    if mesh.writer:
+        _print_limited_split(runner)
+        _print_phases(runner.timer)
     if args.checkpoint:
-        save_state(args.checkpoint, state)
-        print(f"saved {args.checkpoint} (full round state, "
-              f"t={int(state['t'])})")
+        save_state(args.checkpoint, state, mesh=mesh)
+        say(f"saved {args.checkpoint} (full round state, "
+            f"t={int(state['t'])})")
     if args.metrics_out:
-        print(f"metrics -> {args.metrics_out}")
+        say(f"metrics -> {args.metrics_out}")
     return state, metrics, dt
 
 
@@ -350,7 +409,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--client-reduce", default="auto",
                     choices=("auto", "off", "force"),
                     help="pre-reduce the stacked client axis before the "
-                         "server update ('auto' is off on one GPU)")
+                         "server update: 'auto' when torchrun's ranks "
+                         "split it (client width above 1, the JAX rule), "
+                         "'off' gathers the rows for the server kernel, "
+                         "'force' always")
     ap.add_argument("--client-plane", default="masked",
                     choices=("masked", "partitioned"),
                     help="mixed-cohort client execution: one masked "
@@ -447,9 +509,14 @@ def main(argv=None):
         strategies.resolve(fl)
     except ValueError as e:
         ap.error(str(e))
-    if args.pod:
-        return pod_scale(args, fl, device)
-    return paper_scale(args, fl, device)
+    ours = not dist.is_initialized()     # engine_mesh may start a group
+    try:
+        if args.pod:
+            return pod_scale(args, fl, device)
+        return paper_scale(args, fl, device)
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

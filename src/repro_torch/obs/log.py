@@ -17,6 +17,11 @@ One run = one JSONL file (``--metrics-out``):
   {"kind": "phases", "phases": {"stage": {"seconds": ..., "calls": ...},
    "compile": ..., "scan_dispatch": ..., "eval": ..., "checkpoint": ...}}
 
+Under a mesh only rank 0 keeps a logger (the engine and the launcher
+drop the others), so one file describes the run whatever its world
+size; its header's provenance names the world size, the client width
+and the collectives' backend.
+
 The serving rows ("serve" per request, "serve_summary" per run) are
 written by ``launch.serve --metrics-out`` and validated as in the JAX
 package.
@@ -89,11 +94,11 @@ class MetricsLogger:
             self.rows.append(row)
 
     def header(self, fl=None, *, payload: int | None = None,
-               resumed_at: int | None = None, extra: dict | None = None
-               ) -> None:
+               resumed_at: int | None = None, extra: dict | None = None,
+               mesh=None) -> None:
         """The one-per-file header row (idempotent: later calls no-op,
         so engine re-entry across run() calls appends rounds, not
-        headers)."""
+        headers); ``mesh`` goes into the provenance."""
         if self._header_done:
             return
         self._header_done = True
@@ -101,7 +106,7 @@ class MetricsLogger:
         cfg = (dataclasses.asdict(fl) if dataclasses.is_dataclass(fl)
                else dict(fl or {}))
         self._emit({"kind": "header", "schema": SCHEMA_VERSION,
-                    "provenance": provenance(), "config": cfg,
+                    "provenance": provenance(mesh), "config": cfg,
                     "payload_bytes": payload, "resumed_at": resumed_at,
                     **(extra or {})})
 

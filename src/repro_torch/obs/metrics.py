@@ -32,15 +32,17 @@ def payload_bytes(params) -> int:
     return int(sum(x.numel() * x.element_size() for x in leaves(params)))
 
 
-def _global_norm(tree):
-    """f32 l2 norm over every element of every leaf."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def _global_norm(tree, shard_sum=None):
+    """f32 l2 norm over every element of every leaf; ``shard_sum`` adds
+    the squares of every rank's block first (a tree of cohort blocks)."""
+    sq = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
+    return torch.sqrt(sq if shard_sum is None else shard_sum(sq))
 
 
 def round_metrics(fl, strategy, t, prev_global, client_params, new_params,
                   sched, aux_state, *, payload: int,
-                  payload_compressed: int | None = None) -> dict:
+                  payload_compressed: int | None = None,
+                  shard_sum=None) -> dict:
     """The extended per-round metric dict, device tensors of fixed
     shapes:
 
@@ -54,6 +56,11 @@ def round_metrics(fl, strategy, t, prev_global, client_params, new_params,
     * wire: ``bytes_on_wire`` = on-time uploads x ``payload``;
       ``bytes_on_wire_compressed`` the same count x the comm plane's
       actual bytes; ``compression_ratio`` dense / compressed.
+
+    Under a mesh whose pre-reduced client axis leaves each rank its own
+    cohort block, ``client_params`` is that block and ``shard_sum``
+    (``sharding.ctx.sum_shards``) sums ``delta_norm``'s squares across
+    the ranks.
     """
     delayed = sched["delayed"].float()
     delays = sched["delays"].float()
@@ -77,7 +84,7 @@ def round_metrics(fl, strategy, t, prev_global, client_params, new_params,
         "mean_delay": mean_delay,
         "stale_hist": stale_hist,
         "alpha_eff": strategy.mix_coefficient(t, sched, aux_state).float(),
-        "delta_norm": _global_norm(deltas),
+        "delta_norm": _global_norm(deltas, shard_sum),
         "update_norm": _global_norm(step),
         "bytes_on_wire": n_on_time * float(payload),
         "bytes_on_wire_compressed": n_on_time * float(

@@ -32,12 +32,18 @@ def git_sha(cwd: str | None = None) -> str:
         return ""
 
 
-def provenance() -> dict:
+def provenance(mesh=None) -> dict:
     """Environment fingerprint of the producing process. ``backend`` is
     "cuda" when a CUDA device is visible (the port's default device),
-    else "cpu"; ``device_name`` is the card's name or null."""
+    else "cpu"; ``device_name`` is the card's name or null. ``mesh`` (a
+    ``launch.mesh.FLMesh``) adds the world size, the client width and
+    the collectives' backend ("none" without a process group)."""
     cuda = torch.cuda.is_available()
+    mesh_keys = {} if mesh is None else {
+        "world_size": mesh.world, "client_width": mesh.client,
+        "dist_backend": mesh.backend}
     return {
+        **mesh_keys,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "backend": "cuda" if cuda else "cpu",

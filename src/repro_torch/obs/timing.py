@@ -7,8 +7,10 @@ span with a CUDA synchronize when the span's outputs hold CUDA tensors,
 so a phase's seconds are the seconds the card spent.
 
 ``PhaseTimes`` accumulates named phases (stage / compile / scan_dispatch
-/ round_dispatch / eval / checkpoint) across a run; the engine carries
-one and the ``MetricsLogger`` writes its summary. "compile" is the wall
+/ round_dispatch / eval / checkpoint, and under a mesh "collective",
+the round's cross-rank gathers and sums, inside the dispatch phases and
+opened and closed by a device sync: ``sharding.ctx``) across a run; the
+engine carries one and the ``MetricsLogger`` writes its summary. "compile" is the wall
 time of the first dispatch of a chunk length (in the port: the kernel
 library's build and load, and cuDNN's set-up, with the first
 execution); later dispatches book under their own phase.

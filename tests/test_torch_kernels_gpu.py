@@ -1330,3 +1330,141 @@ def test_invariant_add_rmsnorm_rows_bitwise_across_m_on_card(dt, d):
     warps, vpt, vec = tin.plan(d, dtype)
     assert vec == (d % (16 // x.element_size()) == 0)
     assert warps * 32 * vpt * (16 // x.element_size()) >= d
+
+
+# ---------------------------------------------------------------------------
+# the sharded client axis (launch/mesh.py, sharding/ctx.py) on the card
+# ---------------------------------------------------------------------------
+
+SHARD_ARGV = ["--clients", "20", "--clients-per-round", "4", "--n-train",
+              "400", "--rounds", "3", "--eval-every", "3"]
+SHARD_CASES = [("ama_fes", []), ("async_ama", ["--max-delay", "2",
+                                               "--p-delay", "0.4"])]
+
+
+def _shard_rank(rank, store, out, cases):
+    """One of two gloo ranks sharing the first visible card."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.io import save
+    from repro_torch.launch import train
+    os.environ.update(
+        WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
+        LOCAL_WORLD_SIZE="2", CUDA_VISIBLE_DEVICES=os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        for label, argv in cases:
+            sim, hist = train.main(argv)
+            save(f"{out}/{label}_r{rank}.npz", sim.state)
+            with open(f"{out}/{label}_r{rank}.json", "w") as f:
+                json.dump({"loss": hist.train_loss}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _blocked(blocks):
+    """The round's masked client plane run in ``blocks`` contiguous cohort
+    blocks, one call each, the rows concatenated: one process computing
+    the rows as the ranks do (cuBLAS and cuDNN give a cohort's rows other
+    bits in a call of another cohort count)."""
+    from repro_torch.core import round as rnd
+    from repro_torch.utils.tree import tree_map
+    real = rnd.make_local_train
+
+    def make(model, fl, strategy=None):
+        plane = real(model, fl, strategy)
+
+        def local_train(g, batch, limited):
+            n = limited.shape[0] // blocks
+            outs = [plane(g, {k: v[i * n:(i + 1) * n]
+                              for k, v in batch.items()},
+                          limited[i * n:(i + 1) * n])
+                    for i in range(blocks)]
+            return (tree_map(lambda *xs: torch.cat(xs),
+                             *[o[0] for o in outs]),
+                    torch.cat([o[1] for o in outs]))
+        return local_train
+    return real, make
+
+
+def _flat_equal(a, b):
+    from repro_torch.utils.tree import flatten
+    return all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(flatten(a), flatten(b), strict=True))
+
+
+@pytest.mark.gpu
+def test_sharded_w1_over_nccl_is_bitwise_the_meshless_pod_run(tmp_path,
+                                                              monkeypatch):
+    """W = 1 over NCCL (a one-rank group on a file store): the reduced
+    minitron-8b pod path with the rows gathered is bitwise the run
+    without a mesh, and books its collective span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    argv = ["--arch", "minitron-8b", "--pod", "--reduced", "--rounds", "2",
+            "--client-reduce", "off"]
+    state0, m0, _ = train.main(argv)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/s",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        state1, m1, _ = train.main(argv)
+    finally:
+        dist.destroy_process_group()
+    assert _flat_equal(state0, state1)
+    assert m0["loss"].tolist() == m1["loss"].tolist()
+
+
+@pytest.mark.gpu
+def test_sharded_w2_over_gloo_on_one_card(tmp_path):
+    """Two gloo ranks sharing the card, the paper CNN at m 4 (2 cohorts a
+    rank): "off" bitwise the one-process run computed in the ranks' two
+    cohort blocks, "auto" within the pre-reduced axis' tolerance of the
+    one-process run, both ranks bitwise the same state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint.io import restore_state
+    from repro_torch.core import round as rnd
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import flatten
+    cases = [(f"{a}-{mode}", ["--algorithm", a, *x, *SHARD_ARGV,
+                              "--client-reduce", mode])
+             for a, x in SHARD_CASES for mode in ("off", "auto")]
+    mp.start_processes(_shard_rank, args=(str(tmp_path / "s"), tmp_path,
+                                          cases),
+                       nprocs=2, start_method="spawn")
+    real, make = _blocked(2)
+    for a, x in SHARD_CASES:
+        argv = ["--algorithm", a, *x, *SHARD_ARGV, "--client-reduce", "off"]
+        one, _ = train.main(argv)
+        rnd.make_local_train = make
+        try:
+            blocked, bhist = train.main(argv)
+        finally:
+            rnd.make_local_train = real
+        for mode in ("off", "auto"):
+            s = [restore_state(str(tmp_path / f"{a}-{mode}_r{r}.npz"),
+                               one.state) for r in (0, 1)]
+            assert _flat_equal(s[0], s[1])
+            if mode == "off":
+                assert _flat_equal(s[0], blocked.state)
+                with open(tmp_path / f"{a}-off_r0.json") as f:
+                    assert json.load(f)["loss"] == bhist.train_loss
+            for (k, g), (_, w) in zip(flatten(s[0]), flatten(one.state)):
+                torch.testing.assert_close(g.float(), w.float(), rtol=5e-4,
+                                           atol=1e-5, msg=k)
