@@ -242,6 +242,32 @@ tolerance (fedopt at FEDOPT_RUN_TOL), both ranks bitwise the same state;
 (c) W = 2 over NCCL, one card a rank, where the machine has two cards,
 else a line saying why not (``sharded_runs``). The children's launches
 join the kernels line.
+Slice 22, the rest of the sharded client axis (phase 8 (b) gains, in the
+same spawn): ama_fes under the q8, bf16 and topk comm planes, each
+"off" (each rank compresses its rows against its block of the
+error-feedback residual; the payload is gathered compressed and the
+server consumes it in server_mix_delta or server_mix_scatter, launched
+every round) and "auto" (each rank's rows reconstructed and pre-reduced);
+async_ama over a densified bf16 payload "off" (server_async); the
+partitioned plane at p_limited 0.5, a chunk a round, "off" and "auto"
+(each rank plans its own block); fes_static "off" (set through
+FLConfig, as ``fes_static_cnn`` sets it); a virtual population of 10^6
+clients "off". ``BlockedPlane`` runs the masked and fes_static planes
+block by block, the partitioned plane planned and run per block and
+the pre-reduced contraction block by block, its partials added in
+block order; "off" is bitwise it and "auto" bitwise it under
+``--client-reduce force`` (every case, slice 21's too), the limited
+split included; every case's bytes into rank 0 are the launcher's
+reckoning (``train.reckoned_bytes``; the compressed payload under
+"off") plus 20 bytes of losses a round; against the plain run a comm
+residual is reported, not held (a last-bit difference of a row moves
+the quantizer's output by a quantum), and q8's state too (its
+stochastic rounding). (c) adds minitron-8b partitioned. In phase 3
+rwkv6's two passes a call are traced in a process of their own
+(``rwkv6_kernels_fresh``), as mamba2's are: late in phase 3 five
+sessions in a row held both launches of rwkv6_fwd at S = 1 and only the
+second kernel's record; and ``device_kernels`` takes again a trace that
+lost a launch's device record, as it takes again an empty one.
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports
 nothing of JAX.
@@ -758,12 +784,18 @@ def check_server_mix_delta(torch, sp, ref, record):
 
 
 #: profiler sessions ``device_kernels`` opens before it takes a trace
-#: with no device activity at all as the answer
-TRACE_TRIES = 3
+#: with no device activity, or one that lost a launch's device record,
+#: as the answer
+TRACE_TRIES = 5
+
+#: host calls that each put one record on the device's timeline
+TRACE_LAUNCH = re.compile(
+    r"cu(da)?(LaunchKernel|LaunchCooperativeKernel|Memcpy|Memset)")
 
 #: every ``device_kernels`` call: (its caller's label, the profiler
-#: sessions it opened, how many of them traced no device activity),
-#: summed up in one line at the end of the run
+#: sessions it opened, how many of them traced no device activity or
+#: lost a launch's device record), summed up in one line at the end of
+#: the run
 TRACE_LOG: list = []
 
 
@@ -783,8 +815,14 @@ def device_events(torch, fn, label: str) -> list[tuple[str, float]]:
     has returned one with the call's only kernel missing, from a call
     whose output had just matched its plain version. A trace that holds
     any device event is the answer as it stands, so an extra or a
-    missing kernel beside another still fails the caller's check.
-    ``label`` names the call in ``TRACE_LOG``."""
+    missing kernel beside another still fails the caller's check, unless
+    the trace lost a record: a launch the host made (``TRACE_LAUNCH``,
+    a runtime event the profiler records on the host's side) whose
+    correlation id no device event carries. Such a trace is taken again
+    too: after the CUDA graphs of ``device_ms`` a session has held both
+    of rwkv6's launches at S = 1 and neither of their kernels, and the
+    next one only the second. ``label`` names the call in
+    ``TRACE_LOG``."""
     from torch.profiler import ProfilerActivity, profile, schedule
     empty = 0
     for attempt in range(1, TRACE_TRIES + 1):
@@ -801,24 +839,33 @@ def device_events(torch, fn, label: str) -> list[tuple[str, float]]:
                     torch.cuda.synchronize()
                     prof.step()
             events = json.loads(path.read_text())["traceEvents"]
-        names = [(e["name"], float(e.get("dur", 0.0))) for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        if names:
+        device = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        names = [(e["name"], float(e.get("dur", 0.0))) for e in device]
+        lost = ({e.get("args", {}).get("correlation") for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and TRACE_LAUNCH.match(e.get("name", ""))}
+                - {e.get("args", {}).get("correlation") for e in device})
+        if names and not lost:
             break
         empty += 1
         print(f"  device_kernels: profiler session {attempt} of "
-              f"{TRACE_TRIES} ({label}) traced no device activity")
+              f"{TRACE_TRIES} ({label}) traced "
+              + (f"{len(lost)} launches without their device records"
+                 if names else "no device activity"))
     TRACE_LOG.append((label, attempt, empty))
     return names
 
 
 def trace_summary() -> str:
     """The one line on the profiler sessions ``device_kernels`` opened:
-    how many met no device activity, and which call each came from."""
+    how many met no device activity or lost a launch's device record,
+    and which call each came from."""
     met = [(label, n) for label, _, n in TRACE_LOG if n]
     return (f"device_kernels: {len(TRACE_LOG)} calls, "
             f"{sum(s for _, s, _ in TRACE_LOG)} profiler sessions, "
-            f"{sum(n for _, n in met)} of them with no device activity"
+            f"{sum(n for _, n in met)} of them with no device activity or "
+            "a launch without its device record"
             + (f": {met}" if met else ""))
 
 
@@ -1429,6 +1476,7 @@ def check_rwkv6(torch, rs, ref, record):
     the plain version (no single library call computes the recurrence)."""
     g = torch.Generator(device=torch.device("cuda")).manual_seed(8)
     names = ("y", "s_final", "states", "dr", "dk", "dv", "dw", "du", "ds0")
+    traced = rwkv6_kernels_fresh()
     print("rwkv6: B, S, H, hd, case | max |kernel - plain| / (1 + max "
           "|plain|) over y, s_final, states / dr, dk, dv, dw, du, ds0 "
           "(limit 1e-5) | max |kernel - plain| fwd / bwd")
@@ -1461,7 +1509,7 @@ def check_rwkv6(torch, rs, ref, record):
         rec = dict(case=case, err_fwd=max(abss[:3]), err_bwd=max(abss[3:]))
         if case in (RWKV_MAIN, RWKV_DECODE):
             rec.update(time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0,
-                                  dy, ds, want[2]))
+                                  dy, ds, want[2], traced[label]))
         record.append(rec)
         del r, k, v, w, u, s0, dy, ds, got, want
         torch.cuda.empty_cache()
@@ -1477,7 +1525,50 @@ def check_rwkv6(torch, rs, ref, record):
         fail("rwkv6_scan took S=200, which the TPU kernel refuses")
 
 
-def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
+def rwkv6_traced(torch, rs) -> dict:
+    """{case label: {wrapper: the device kernels one call of it runs}}
+    for rwkv6_fwd and rwkv6_bwd at the timed shapes (RWKV_MAIN,
+    RWKV_DECODE), from profiler traces of this process
+    (``device_kernels``)."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(8)
+    out = {}
+    for B, S, H, hd, decay, label in (RWKV_MAIN, RWKV_DECODE):
+        r, k, v, w, u, s0, dy, ds = rwkv6_inputs(torch, g, B, S, H, hd,
+                                                 decay)
+        states = rs.rwkv6_fwd(r, k, v, w, u, s0)[2]
+        out[label] = {
+            "rwkv6_fwd": device_kernels(
+                torch, lambda: rs.rwkv6_fwd(r, k, v, w, u, s0), "rwkv6_fwd"),
+            "rwkv6_bwd": device_kernels(
+                torch, lambda: rs.rwkv6_bwd(dy, ds, r, k, v, w, u, states),
+                "rwkv6_bwd")}
+    return out
+
+
+def rwkv6_kernels_fresh() -> dict:
+    """``rwkv6_traced`` in a process of its own, as
+    ``mamba2_kernels_fresh``: in this process, after phase 3's earlier
+    checks, five sessions in a row around one rwkv6_fwd call at S = 1
+    held both of its launches and only the second kernel's record.
+    Prints that process's ``trace_summary`` and returns its result."""
+    code = ("import json, sys; sys.path[:0] = ['src', '.']; import torch; "
+            "import chip_smoke as cs; "
+            "from repro_torch.kernels import rwkv6_scan as rs; "
+            "got = cs.rwkv6_traced(torch, rs); "
+            "print('  fresh process: ' + cs.trace_summary()); "
+            "print('RWKV6-KERNELS ' + json.dumps(got))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    out = proc.stdout.splitlines()
+    print("\n".join(x for x in out if not x.startswith("RWKV6-KERNELS ")))
+    check(proc.returncode == 0, "rwkv6: the traces of one call failed "
+          f"({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(next(x for x in out if x.startswith(
+        "RWKV6-KERNELS "))[len("RWKV6-KERNELS "):])
+
+
+def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states,
+               traced):
     """Device times of both kernels and their plain versions at one
     shape, with each kernel's bound: the bytes and flops of the function
     it computes, not of its design (the states the forward saves every
@@ -1493,7 +1584,8 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
     and pass 2 r, k, v, w, u, states -> y; backward, pass 1 r, k, v, w,
     dy, d(s_final) -> the adjoint at every boundary, du, ds0 and pass 2
     r, k, v, w, dy, u, states, the adjoints -> dr, dk, dv, dw. Each call
-    runs exactly two device kernels (a profiler trace of one call)."""
+    runs exactly two device kernels (``traced``: a profiler trace of one
+    call, ``rwkv6_kernels_fresh``)."""
     B, S, H, hd = case[:4]
     E, BH, nu = B * S * H * hd, B * H, u.numel()
     mat, steps = BH * hd * hd, BH * S
@@ -1518,7 +1610,7 @@ def time_rwkv6(torch, rs, ref, case, r, k, v, w, u, s0, dy, ds, states):
           "recurrence)")
     out = {}
     for name, fn in kernels.items():
-        launched = device_kernels(torch, fn, name)
+        launched = traced[name]
         passes = sorted(m.group(0) for n in launched
                         if (m := re.search(r"\w+_kernel", n)))
         check(len(launched) == 2 and passes == [f"{name}_scan_kernel",
@@ -2629,10 +2721,22 @@ QUICKSTART = ["--clients", "20", "--clients-per-round", "5", "--p-limited",
 MODERATE_30 = ["--p-delay", "0.3", "--max-delay", "10"]
 
 
-def run_train(torch, train, argv):
+def launch_train(train, argv, fl_over=None):
+    """``train.main(argv)``; ``fl_over`` sets FLConfig fields that no
+    flag sets (``fes_static``) as the launcher's callers set them,
+    through ``paper_scale``."""
+    if not fl_over:
+        return train.main(argv)
+    from repro_torch.utils.device import resolve_device
+    args = train.parser().parse_args(argv)
+    return train.paper_scale(args, train.fl_config(args).with_(**fl_over),
+                             resolve_device(args.device))
+
+
+def run_train(torch, train, argv, fl_over=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim, hist = train.main(argv)
+    sim, hist = launch_train(train, argv, fl_over)
     torch.cuda.synchronize()
     return sim, hist, time.perf_counter() - t0
 
@@ -5414,11 +5518,36 @@ def serving(torch, serve_mod, tf, sa, rs, idn, irn, kmods, ref, tree_mod,
 
 #: slice 21: the paper CNN at its own cohort size (K 50, m 10: client
 #: width 2 at W 2; quickstart's m 5 would give 1) for SHARD_ROUNDS rounds,
-#: each algorithm under both client-axis routes
+#: each algorithm under both client-axis routes; slice 22: the options the
+#: mesh refused before, ama_fes under the q8, bf16 and topk comm planes
+#: (both routes), async_ama over a densified bf16 payload, the
+#: partitioned plane (both routes; p_limited 0.5, a chunk a round, so
+#: each rank's block has limited cohorts to plan), fes_static (set through
+#: FLConfig) and a virtual population of 10^6 clients.
+#: (label, algorithm, extra flags, routes, FLConfig fields)
 SHARD_ROUNDS = 5
-SHARD_RUNS = [("ama_fes", []), ("async_ama", ["--max-delay", "3",
-                                              "--p-delay", "0.3"]),
-              ("fedavg", []), ("fedprox", []), ("fedopt", [])]
+BOTH = ("off", "auto")
+DELAYS = ["--max-delay", "3", "--p-delay", "0.3"]
+SHARD_RUNS = [
+    ("ama_fes", "ama_fes", [], BOTH, {}),
+    ("async_ama", "async_ama", DELAYS, BOTH, {}),
+    ("fedavg", "fedavg", [], BOTH, {}),
+    ("fedprox", "fedprox", [], BOTH, {}),
+    ("fedopt", "fedopt", [], BOTH, {}),
+    ("ama_fes q8", "ama_fes", ["--comm-plane", "q8"], BOTH, {}),
+    ("ama_fes bf16", "ama_fes", ["--comm-plane", "bf16"], BOTH, {}),
+    ("ama_fes topk", "ama_fes", ["--comm-plane", "topk"], BOTH, {}),
+    ("async_ama bf16", "async_ama", [*DELAYS, "--comm-plane", "bf16"],
+     ("off",), {}),
+    ("ama_fes partitioned", "ama_fes", ["--client-plane", "partitioned",
+                                        "--p-limited", "0.5",
+                                        "--eval-every", "1"], BOTH, {}),
+    ("ama_fes fes_static", "ama_fes", [], ("off",), {"fes_static": True}),
+    ("ama_fes virtual", "ama_fes", ["--clients", "1000000", "--population",
+                                    "virtual"], ("off",), {})]
+#: the server kernel an "off" comm run consumes its payload in
+PAYLOAD_KERNEL = {"q8": "server_mix_delta", "bf16": "server_mix_delta",
+                  "topk": "server_mix_scatter"}
 #: the port's tolerance for the pre-reduced axis against the fused plane
 #: (tests/test_torch_legacy.py); fedopt's server Adam amplifies a
 #: last-bit difference by up to lr / tau = 100
@@ -5427,56 +5556,156 @@ FEDOPT_RUN_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 def shard_argv(algo, extra, mode):
-    return ["--algorithm", algo, *extra, "--clients", "50",
+    """The case's flags; ``extra`` comes last, so it overrides."""
+    return ["--algorithm", algo, "--clients", "50",
             "--clients-per-round", "10", "--p-limited", "0.25",
             "--n-train", "1500", "--rounds", str(SHARD_ROUNDS),
-            "--eval-every", str(SHARD_ROUNDS), "--client-reduce", mode]
+            "--eval-every", str(SHARD_ROUNDS), "--client-reduce", mode,
+            *extra]
 
 
 class BlockedPlane:
-    """While installed, the round's masked client plane runs each block
-    of ``blocks`` contiguous cohorts in a call of its own and
-    concatenates the rows: one process computing the rows as the ranks
-    of a mesh of client width ``blocks`` do. cuBLAS's batched GEMMs and
+    """While installed, one process computes the rows as the ranks of a
+    mesh of client width ``blocks`` do: the masked and ``fes_static``
+    client planes run each block of contiguous cohorts in a call of its
+    own, and the partitioned plane plans each block on its own
+    (``partition_plan`` of the block, as a rank plans its block) and runs
+    each block's two programs in calls of their own; the rows are
+    concatenated in cohort order; the pre-reduced contraction
+    (``sharding.ctx.reduce_leading``, under ``--client-reduce force``)
+    contracts each block on its own and adds the partials in block
+    order, as ``shard_sum`` adds the ranks'. cuBLAS's batched GEMMs and
     cuDNN's grouped convolutions give a cohort's rows other bits in a
     call of 5 cohorts than in one of 10, so this, not the plain one-call
-    run, is what the sharded run must equal bitwise."""
+    run, is what the sharded run must equal bitwise ("off" this with the
+    rows gathered, "auto" this under "force"). The blocks' plans travel
+    in the schedule as one plan whose program rows are the blocks' in
+    turn (slots as in the whole round, ``part_src_row`` within the
+    block), so the launcher's count of limited cohort-rounds is the
+    ranks' sum."""
+
+    PLANES = ("make_local_train", "make_fes_local_train",
+              "make_partitioned_local_train")
 
     def __init__(self, torch, blocks):
         from repro_torch.core import round as rnd
-        self.torch, self.rnd, self.blocks = torch, rnd, blocks
+        from repro_torch.exec import engine
+        from repro_torch.sharding import ctx
+        self.torch, self.rnd, self.engine = torch, rnd, engine
+        self.blocks = blocks
+        # every module that calls the contraction by its own name
+        self.reducers = [m for name, m in sorted(sys.modules.items())
+                         if name.startswith("repro_torch.") and getattr(
+                             m, "reduce_leading", None) is ctx.reduce_leading]
+        self.real_reduce = ctx.reduce_leading
 
-    def __enter__(self):
-        torch, blocks = self.torch, self.blocks
+    def _cat(self, outs):
         from repro_torch.utils.tree import tree_map
-        self.real = real = self.rnd.make_local_train
+        cat = self.torch.cat
+        return (tree_map(lambda *xs: cat(xs), *[o[0] for o in outs]),
+                cat([o[1] for o in outs]))
+
+    def _per_block(self, real):
+        blocks, cat = self.blocks, self._cat
+
+        def make(*a):
+            plane = real(*a)
+
+            def local_train(g, batch, limited):
+                n = limited.shape[0] // blocks
+                return cat([plane(g, {k: v[i * n:(i + 1) * n]
+                                      for k, v in batch.items()},
+                                  limited[i * n:(i + 1) * n])
+                            for i in range(blocks)])
+            return local_train
+        return make
+
+    def _plan(self, real):
+        import numpy as np
+        blocks = self.blocks
+
+        def plan(limited):
+            n = limited.shape[1] // blocks
+            ps = [real(limited[:, i * n:(i + 1) * n]) for i in range(blocks)]
+            out = {k: np.concatenate([p[k] + i * n for i, p in
+                                      enumerate(ps)], axis=1)
+                   for k in ("part_full_idx", "part_lim_idx")}
+            out.update({k: np.concatenate([p[k] for p in ps], axis=1)
+                        for k in ("part_src_row", "part_from_lim")})
+            return out
+        return plan
+
+    def _reduce(self, real):
+        from repro_torch.utils.tree import tree_map
+        blocks = self.blocks
+
+        def reduce_leading(tree, weights):
+            n = weights.shape[0] // blocks
+            out = None
+            for i in range(blocks):
+                sl = slice(i * n, (i + 1) * n)
+                part = real(tree_map(lambda x: x[sl].clone() if x.ndim
+                                     else x, tree), weights[sl])
+                out = part if out is None else tree_map(
+                    lambda a, b: a + b if a.ndim else a, out, part)
+            return out
+        return reduce_leading
+
+    def _partitioned(self, real):
+        blocks, cat = self.blocks, self._cat
 
         def make(model, fl, strategy=None):
             plane = real(model, fl, strategy)
 
-            def local_train(g, batch, limited):
-                n = limited.shape[0] // blocks
-                outs = [plane(g, {k: v[i * n:(i + 1) * n]
-                                  for k, v in batch.items()},
-                              limited[i * n:(i + 1) * n])
-                        for i in range(blocks)]
-                return (tree_map(lambda *xs: torch.cat(xs),
-                                 *[o[0] for o in outs]),
-                        torch.cat([o[1] for o in outs]))
+            def local_train(g, batch, sched):
+                n = sched["limited"].shape[0] // blocks
+                full, lim = sched["part_full_idx"], sched["part_lim_idx"]
+                outs, fo, lo = [], 0, 0
+                for i in range(blocks):
+                    sl = slice(i * n, (i + 1) * n)
+                    u = int(((full >= i * n) & (full < (i + 1) * n)).sum())
+                    sub = {"limited": sched["limited"][sl],
+                           "part_full_idx": full[fo:fo + u] - i * n,
+                           "part_lim_idx": lim[lo:lo + n - u] - i * n,
+                           "part_src_row": sched["part_src_row"][sl],
+                           "part_from_lim": sched["part_from_lim"][sl]}
+                    fo, lo = fo + u, lo + n - u
+                    outs.append(plane(g, {k: v[sl] for k, v in batch.items()},
+                                      sub))
+                return cat(outs)
             return local_train
-        self.rnd.make_local_train = make
+        return make
+
+    def __enter__(self):
+        rnd, engine = self.rnd, self.engine
+        self.real = {k: getattr(rnd, k) for k in self.PLANES}
+        self.real_plan = engine.partition_plan
+        rnd.make_local_train = self._per_block(self.real["make_local_train"])
+        rnd.make_fes_local_train = self._per_block(
+            self.real["make_fes_local_train"])
+        rnd.make_partitioned_local_train = self._partitioned(
+            self.real["make_partitioned_local_train"])
+        engine.partition_plan = self._plan(self.real_plan)
+        for m in self.reducers:
+            m.reduce_leading = self._reduce(self.real_reduce)
         return self
 
     def __exit__(self, *exc):
-        self.rnd.make_local_train = self.real
+        for k, fn in self.real.items():
+            setattr(self.rnd, k, fn)
+        self.engine.partition_plan = self.real_plan
+        for m in self.reducers:
+            m.reduce_leading = self.real_reduce
 
 
 def shard_child(rank, world, store, out, backend, cases):
     """One rank of phase 8 (spawned): joins the group over ``store``, runs
-    ``cases`` [(label, argv)] through the launcher, each with the kernels'
-    counts set to 0 just before and read just after, and writes its
-    losses, accuracy, launches and collective span and bytes
-    (``{out}/{label}_r{rank}.json``) and, for the CNN, its state
+    ``cases`` [(label, argv, FLConfig fields)] through the launcher, each
+    with the kernels' counts set to 0 just before and read just after,
+    and writes its losses, accuracy, launches, collective span and bytes,
+    the launcher's reckoning of the bytes a round and the partitioned
+    plane's count (``{out}/{label}_r{rank}.json``) and, for the CNN, its
+    state with the comm residual gathered from both ranks' blocks
     (``.npz``); a pod run checks instead that every rank holds bitwise
     the same params (a gather of each leaf). Ranks that share a card see
     only it (the first visible one), so the backend rule picks gloo."""
@@ -5489,10 +5718,12 @@ def shard_child(rank, world, store, out, backend, cases):
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint.io import save
+    from repro_torch.core import strategies
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import server_plane as sp
     from repro_torch.launch import train
+    from repro_torch.sharding import ctx
     from repro_torch.utils.device import resolve_device
     from repro_torch.utils.tree import leaves
     dev = resolve_device("cuda")
@@ -5501,11 +5732,11 @@ def shard_child(rank, world, store, out, backend, cases):
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world, **kw)
     try:
-        for label, argv in cases:
+        for label, argv, fl_over in cases:
             for m in (sp, fa):
                 m.reset_counts()
             with KeepRunner(train) as kr:
-                res = train.main(argv)
+                res = launch_train(train, argv, fl_over)
             counts = {k: fn.launches for m in (sp, fa)
                       for k, fn in m.KERNELS.items()}
             rec = {"launches": counts, "device": str(dev)}
@@ -5517,14 +5748,25 @@ def shard_child(rank, world, store, out, backend, cases):
                                bool(torch.equal(g[0], g[1]))
                                for g in (_gather_rows(dist, world, x)
                                          for x in leaves(state["params"]))))
+                strategy, C = strategies.resolve(runner.fl), runner.fl.cohorts
             else:
                 sim, hist = res
-                state, runner = sim.state, sim.runner
+                state, strategy, runner = sim.state, sim.strategy, sim.runner
+                C = runner.fl.clients_per_round
                 rec.update(loss=hist.train_loss, acc=hist.test_acc)
+                res = state["aux"].get("comm")
+                if res:
+                    with ctx.use(runner.mesh):
+                        res = ctx.gather_leading(res)
+                    state = {**state, "aux": {**state["aux"], "comm": res}}
                 save(f"{out}/{label}_r{rank}.npz", state)
             rec.update(collective=runner.timer.summary().get("collective",
                                                              {}),
-                       bytes=runner.collective.bytes_in)
+                       bytes=runner.collective.bytes_in,
+                       reckoned=train.reckoned_bytes(
+                           runner.fl, runner.mesh, state["params"], strategy,
+                           C)[1],
+                       split=runner.limited_split)
             with open(f"{out}/{label}_r{rank}.json", "w") as f:
                 json.dump(rec, f)
             print(f"rank {rank} on {dev} ({backend}) {label}: launches "
@@ -5546,16 +5788,27 @@ def _trees_equal(torch, tree_mod, a, b) -> bool:
         tree_mod.flatten(a), tree_mod.flatten(b), strict=True))
 
 
-def _states_close(torch, tree_mod, a, b, tol) -> float:
-    """Largest |a - b| over every leaf; fails beyond ``tol``."""
-    worst = 0.0
+def _states_close(torch, tree_mod, a, b, tol, gate=True) -> tuple:
+    """(largest |a - b| over every leaf but the comm residual, largest
+    over the residual, residual elements beyond ``tol``); with ``gate``
+    fails where a leaf but the residual differs beyond ``tol``. The
+    error-feedback residual e - Q(e) is not continuous in e: where a
+    last-bit difference in e crosses a rounding boundary of the quantizer
+    Q it moves by a whole quantum, so against a run of other rows it is
+    reported, not held (the blocked runs hold it bitwise)."""
+    worst, res, n = 0.0, 0.0, 0
     for (k, x), (_, y) in zip(tree_mod.flatten(a), tree_mod.flatten(b),
                               strict=True):
         x, y = x.float(), y.float()
-        worst = max(worst, float((x - y).abs().max()))
-        check(bool(torch.allclose(x, y, **tol)),
-              f"{k}: differs beyond {tol} (max |diff| {worst:.3e})")
-    return worst
+        d = float((x - y).abs().max())
+        if k.startswith("aux/comm/"):
+            res = max(res, d)
+            n += int((~torch.isclose(x, y, **tol)).sum())
+            continue
+        worst = max(worst, d)
+        check(not gate or bool(torch.allclose(x, y, **tol)),
+              f"{k}: differs beyond {tol} (max |diff| {d:.3e})")
+    return worst, res, n
 
 
 def sharded_nccl_w1(torch, train, tree_mod, kept, tmp, main_record):
@@ -5621,73 +5874,114 @@ def sharded_runs(torch, train, tree_mod, tmp, kept_loss, main_record):
     """(b) W = 2 ranks sharing the card over gloo (one spawn of two
     processes running every case): the paper CNN at K 50, m 10 (5 cohorts
     a rank), SHARD_ROUNDS rounds of each of SHARD_RUNS under "off" (the
-    rows gathered before the server kernel) and "auto" (the pre-reduced
-    axis, a rank-ordered sum), against this process's one-rank runs:
-    "off" bitwise the blocked one-process run (``BlockedPlane``) and
-    within AUTO_TOL of the plain one, "auto" within AUTO_TOL of the plain
-    one (fedopt at FEDOPT_RUN_TOL), both ranks bitwise the same state.
+    rows, or a comm plane's compressed payload, gathered before the
+    server kernel) and "auto" (the pre-reduced axis, a rank-ordered sum),
+    against this process's one-rank runs: "off" bitwise the blocked
+    one-process run (``BlockedPlane``: the same cohort blocks, the
+    partitioned plane planned per block) and "auto" bitwise it under
+    "force" (the contraction per block, the partials added in block
+    order), both within AUTO_TOL of the plain one (fedopt at
+    FEDOPT_RUN_TOL; the comm residual, and q8's whole state, reported,
+    ``_states_close``), both ranks bitwise the same state, the bytes into
+    rank 0 the launcher's reckoning plus the losses, an "off" comm run's
+    payload consumed by its server kernel every round.
     (c) W = 2 over NCCL, one card a rank, where there are two cards:
-    minitron-8b as in (a), one cohort a card, the ranks bitwise the same
-    params and falling losses (one cohort a call is not bitwise two a
-    call on the card; ``kept_loss``, the meshless losses, is printed
-    beside). Returns the children's launches."""
+    minitron-8b as in (a), masked and partitioned, one cohort a card, the
+    ranks bitwise the same params and falling losses (one cohort a call
+    is not bitwise two a call on the card; ``kept_loss``, the meshless
+    losses, is printed beside). Returns the children's launches."""
     import torch.multiprocessing as mp
     from repro_torch.checkpoint.io import restore_state
     out = os.path.join(tmp, "shard")
     os.makedirs(out, exist_ok=True)
-    cases = [(f"{algo}-{mode}", shard_argv(algo, extra, mode))
-             for algo, extra in SHARD_RUNS for mode in ("off", "auto")]
+    cases = [(f"{label}-{mode}".replace(" ", "_"),
+              shard_argv(algo, extra, mode), over)
+             for label, algo, extra, modes, over in SHARD_RUNS
+             for mode in modes]
     t0 = time.perf_counter()
     mp.start_processes(shard_child, args=(2, os.path.join(out, "store"),
                                           out, "gloo", cases),
                        nprocs=2, start_method="spawn")
     wall = time.perf_counter() - t0
     launches: dict = {}
-    for algo, extra in SHARD_RUNS:
+    for label, algo, extra, modes, over in SHARD_RUNS:
         one, one_hist, _ = run_train(torch, train,
-                                     shard_argv(algo, extra, "off"))
+                                     shard_argv(algo, extra, "off"), over)
+        # the ranks' computation in one process: "auto" is "force" there
         with BlockedPlane(torch, 2):
-            blocked, blocked_hist, _ = run_train(
-                torch, train, shard_argv(algo, extra, "off"))
+            blocked = {mode: run_train(torch, train, shard_argv(
+                algo, extra, {"auto": "force"}.get(mode, mode)), over)[:2]
+                       for mode in modes}
         tol = FEDOPT_RUN_TOL if algo == "fedopt" else AUTO_TOL
-        for mode in ("off", "auto"):
+        plane = next((extra[i + 1] for i, a in enumerate(extra)
+                      if a == "--comm-plane"), None)
+        for mode in modes:
             states, info = [], []
             for rank in (0, 1):
-                tag = os.path.join(out, f"{algo}-{mode}_r{rank}")
+                tag = os.path.join(out, f"{label}-{mode}_r{rank}".replace(
+                    " ", "_"))
                 states.append(restore_state(tag + ".npz", one.state))
                 with open(tag + ".json") as f:
                     info.append(json.load(f))
                 for k, v in info[-1]["launches"].items():
                     launches[k] = launches.get(k, 0) + v
             check(_trees_equal(torch, tree_mod, states[0], states[1]),
-                  f"sharded (b) {algo} {mode}: the ranks' states differ")
+                  f"sharded (b) {label} {mode}: the ranks' states differ")
             check(all(i["device"] == "cuda:0" for i in info),
                   f"sharded (b): ranks on {[i['device'] for i in info]}")
-            worst = _states_close(torch, tree_mod, states[0], one.state,
-                                  tol)
+            nbytes, want = info[0]["bytes"], SHARD_ROUNDS * (
+                info[0]["reckoned"] + 5 * 4)
+            check(nbytes == want, f"sharded (b) {label} {mode}: {nbytes:,} "
+                  f"bytes into rank 0, reckoned {want:,} (the losses' 20 "
+                  "a round included)")
+            # q8's stochastic rounding turns a last-bit difference of a
+            # row into a quantum step of its payload: held bitwise to the
+            # blocked runs only
+            worst, res, flips = _states_close(torch, tree_mod, states[0],
+                                              one.state, tol,
+                                              gate=plane != "q8")
             exact = _trees_equal(torch, tree_mod, states[0], one.state)
-            line = (f"sharded (b) CNN {algo} {mode}, W 2 over gloo on one "
-                    f"card, K 50, m 10, {SHARD_ROUNDS} rounds: max |diff| "
-                    f"{worst:.3e} against one process (bitwise {exact}), ")
-            if mode == "off":
-                same = _trees_equal(torch, tree_mod, states[0],
-                                     blocked.state)
-                check(same, f"sharded (b) {algo} off: not bitwise the "
-                      "blocked one-process run")
-                check(info[0]["loss"] == blocked_hist.train_loss,
-                      f"sharded (b) {algo} off: losses differ from the "
-                      "blocked one-process run")
-                line += "bitwise the blocked one-process run, "
+            ref, ref_hist = blocked[mode]
+            same = _trees_equal(torch, tree_mod, states[0], ref.state)
+            route = "off" if mode == "off" else "force"
+            check(same, f"sharded (b) {label} {mode}: not bitwise the "
+                  f"blocked one-process run ({route})")
+            check(info[0]["loss"] == ref_hist.train_loss,
+                  f"sharded (b) {label} {mode}: losses differ from the "
+                  f"blocked one-process run ({route})")
+            check(info[0]["split"] == ref.runner.limited_split,
+                  f"sharded (b) {label} {mode}: limited split "
+                  f"{info[0]['split']}, blocked run "
+                  f"{ref.runner.limited_split}")
+            line = (f"sharded (b) CNN {label} {mode}, W 2 over gloo on one "
+                    f"card, K {'10^6' if 'virtual' in label else 50}, m 10, "
+                    f"{SHARD_ROUNDS} rounds: bitwise the blocked "
+                    f"one-process run ({route}); against the plain one max "
+                    f"|diff| {worst:.3e} (bitwise {exact}"
+                    + (f"; residual max |diff| {res:.3e}, {flips} elements "
+                       "beyond the tolerance" if plane else "") + "), ")
+            if mode == "off" and plane:
+                kern = (PAYLOAD_KERNEL[plane] if algo == "ama_fes"
+                        else "server_async")
+                n = sum(i["launches"][kern] for i in info)
+                check(n == 2 * SHARD_ROUNDS,
+                      f"sharded (b) {label} off: {kern} launched {n} times "
+                      f"on the two ranks, expected {2 * SHARD_ROUNDS}")
+                line += f"{kern} {n} launches on the two ranks, "
+            if info[0]["split"]:
+                line += f"limited split {info[0]['split']}, "
             acc = info[0]["acc"][-1]
             line += (f"accuracy {acc:.4f} (one process "
                      f"{one_hist.test_acc[-1]:.4f}); collective "
-                     f"{info[0]['collective']}, {info[0]['bytes']:,} bytes "
-                     "into rank 0")
+                     f"{info[0]['collective']}, {nbytes:,} bytes into rank "
+                     f"0 (reckoned {info[0]['reckoned']:,} a round)")
             print(line)
-            main_record.append(dict(run=f"sharded (b) {algo} {mode}",
+            main_record.append(dict(run=f"sharded (b) {label} {mode}",
                                     collective=info[0]["collective"],
-                                    bytes_in=info[0]["bytes"],
-                                    max_diff=worst, bitwise=exact))
+                                    bytes_in=nbytes, max_diff=worst,
+                                    residual_max_diff=res,
+                                    residual_beyond_tol=flips,
+                                    bitwise=exact))
     print(f"sharded (b): the two ranks' spawn took {wall:.1f} s")
     n = torch.cuda.device_count()
     if n < 2:
@@ -5696,25 +5990,32 @@ def sharded_runs(torch, train, tree_mod, tmp, kept_loss, main_record):
         return launches
     argv = [*pod_argv("minitron-8b"), "--algorithm", "ama_fes", "--rounds",
             str(POD_ROUNDS), "--client-reduce", "off"]
+    pods = [("pod", argv, {}),
+            ("pod-partitioned", [*argv, "--client-plane", "partitioned"], {})]
     mp.start_processes(shard_child, args=(2, os.path.join(out, "store_c"),
-                                          out, "nccl", [("pod", argv)]),
+                                          out, "nccl", pods),
                        nprocs=2, start_method="spawn")
-    info = []
-    for rank in (0, 1):
-        with open(os.path.join(out, f"pod_r{rank}.json")) as f:
-            info.append(json.load(f))
-        for k, v in info[-1]["launches"].items():
-            launches[k] = launches.get(k, 0) + v
-    loss = info[0]["loss"]
-    print(f"sharded (c) minitron-8b W 2 over NCCL on {info[0]['device']} "
-          f"and {info[1]['device']}, one cohort a card: losses {loss} "
-          f"(meshless {[float(x) for x in kept_loss]}); collective "
-          f"{info[0]['collective']}, {info[0]['bytes']:,} bytes into rank 0")
-    check(all(i["replicas_equal"] for i in info),
-          "sharded (c): the ranks' params differ")
-    check(info[0]["loss"] == info[1]["loss"] and all(
-        math.isfinite(x) for x in loss) and loss[-1] < loss[0],
-          f"sharded (c): losses {info[0]['loss']} / {info[1]['loss']}")
+    for label, _, _ in pods:
+        info = []
+        for rank in (0, 1):
+            with open(os.path.join(out, f"{label}_r{rank}.json")) as f:
+                info.append(json.load(f))
+            for k, v in info[-1]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        loss = info[0]["loss"]
+        print(f"sharded (c) minitron-8b {label} W 2 over NCCL on "
+              f"{info[0]['device']} and {info[1]['device']}, one cohort a "
+              f"card: losses {loss} (meshless masked "
+              f"{[float(x) for x in kept_loss]}); collective "
+              f"{info[0]['collective']}, {info[0]['bytes']:,} bytes into "
+              f"rank 0 (reckoned {info[0]['reckoned']:,} a round); limited "
+              f"split {info[0]['split']}")
+        check(all(i["replicas_equal"] for i in info),
+              f"sharded (c) {label}: the ranks' params differ")
+        check(info[0]["loss"] == info[1]["loss"] and all(
+            math.isfinite(x) for x in loss) and loss[-1] < loss[0],
+              f"sharded (c) {label}: losses {info[0]['loss']} / "
+              f"{info[1]['loss']}")
     return launches
 
 

@@ -10,10 +10,13 @@ mid-run is never half-written. ``save_state``/``restore_state`` round
 trip the whole round carry (global params, ``t``, and the aux state:
 async-AMA ring buffer, fedopt moments and step, comm residuals) bit for
 bit, which is what makes ``--resume`` continue exactly. Under a mesh
-(``launch.mesh.FLMesh``) the round state is replicated on every rank:
-``save_state`` writes it on rank 0 and every rank waits at a barrier
-for the file, and every rank reads ``--resume``, so a checkpoint taken
-at one world size resumes at any other.
+(``launch.mesh.FLMesh``) the round state is replicated on every rank
+but for the comm plane's error-feedback residual (``aux["comm"]``),
+which each rank holds for its own cohort block: ``save_state`` gathers
+it into the whole (C, N_g) array, rank 0 writes the file a one-process
+run writes and every rank waits at a barrier for it; every rank reads
+``--resume`` and takes its block of the residual. So a checkpoint taken
+at one world size resumes at any other, and in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import uuid
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import ctx
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -110,25 +115,50 @@ def restore_params(path: str, like_params):
     return restore(path, like_params)
 
 
+def _split(mesh) -> bool:
+    return mesh is not None and mesh.client > 1
+
+
 def save_state(path: str, state: dict, mesh=None) -> None:
     """Checkpoint a full round state ``{params, t, aux}``; under ``mesh``
-    rank 0 writes it and every rank returns once it is written."""
+    every rank's block of the comm residual is gathered (a collective:
+    every rank calls this), rank 0 writes and every rank returns once it
+    is written."""
     missing = {"params", "t"} - set(state)
     if missing:
         raise ValueError(f"round state missing keys: {sorted(missing)}")
+    res = state.get("aux", {}).get("comm")
+    if res and _split(mesh):
+        with ctx.use(mesh):
+            res = ctx.gather_leading(res)
+        state = {**state, "aux": {**state["aux"], "comm": res}}
     if mesh is None or mesh.writer:
         save(path, state)
     if mesh is not None:
         mesh.barrier()
 
 
-def restore_state(path: str, like_state: dict) -> dict:
+def restore_state(path: str, like_state: dict, mesh=None) -> dict:
     """Restore a full round state into the structure of ``like_state``
-    (``core.round.init_state`` builds the template)."""
+    (``core.round.init_state`` builds the template, with the same
+    ``mesh``); under a mesh of client width > 1 the rank takes its
+    cohort block of the file's (C, N_g) comm residual."""
     with np.load(_with_npz(path)) as zf:
         keys = set(zf.files)
     if "t" not in keys or not any(k.startswith("params/") for k in keys):
         raise ValueError(
             f"{path} is not a full round-state checkpoint ({{params, t, "
             "aux}}); save one with save_state / --checkpoint")
-    return restore(path, like_state)
+    state = restore(path, like_state)
+    like = like_state.get("aux", {}).get("comm")
+    if like:
+        res = state["aux"]["comm"]
+        if _split(mesh):
+            res = {k: v[mesh.cohorts(v.shape[0])] for k, v in res.items()}
+        for k, v in res.items():
+            if v.shape != like[k].shape:
+                raise ValueError(
+                    f"{path}: comm residual {k} is {tuple(v.shape)} for "
+                    f"this rank, the run holds {tuple(like[k].shape)}")
+        state["aux"] = {**state["aux"], "comm": res}
+    return state

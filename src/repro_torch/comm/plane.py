@@ -19,12 +19,20 @@ generator carried across rounds, and the same bits on the CPU and the
 GPU. It is not the JAX package's threefry stream (``jax.random`` cannot
 be reproduced in torch); ``q8_encode`` takes the uniforms as an
 argument, so tests feed both packages the same draw.
+
+Under a mesh of client width > 1 (``launch.mesh``) a rank compresses
+only its own cohort block, rows [r0, r0 + n) of the (C, N_g) stack:
+its residual is that block, and its q8 uniforms are drawn at the flat
+indices of those rows in the whole stack (``row0``), so its payload is
+bitwise the same rows of the one-process payload. ``gather`` then
+all-gathers the payloads, compressed (``sharding.ctx.gather_payload``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.env.virtual import hash_bits
+from repro_torch.sharding import ctx
 from repro_torch.utils import tree
 
 _REGISTRY: dict = {}
@@ -61,18 +69,22 @@ def _splitmix64(z):
     return z ^ _srl(z, 31)
 
 
-def q8_uniforms(seed: int, t, group: int, shape):
+def q8_uniforms(seed: int, t, group: int, shape, row0: int = 0):
     """(K, N) f32 uniforms in [0, 1) on ``t``'s device: the top 24 bits of
     ``hash_bits(seed, _COMM_SALT, t, group, j)`` (``env/virtual.py``)
     over the flat element index j, times 2^-24. ``t`` is the 0-dim
-    device round index; nothing is read on the host."""
+    device round index; nothing is read on the host. ``row0`` places the
+    K rows at rows [row0, row0 + K) of a larger stack of N columns (j
+    starts at row0 x N): a rank's cohort block draws the same uniforms
+    as those rows of the whole stack's draw."""
     h0 = _i64(int(hash_bits(seed, _COMM_SALT)))
     h = _splitmix64(t.to(torch.int64) ^ h0)
     h = _splitmix64(h ^ group)
     n = 1
     for d in shape:
         n *= d
-    j = torch.arange(n, dtype=torch.int64, device=t.device)
+    j0 = row0 * (n // shape[0]) if n else 0
+    j = torch.arange(j0, j0 + n, dtype=torch.int64, device=t.device)
     bits = _srl(_splitmix64(h ^ j), 40)
     return (bits.to(torch.float32) * 2.0 ** -24).reshape(shape)
 
@@ -123,15 +135,19 @@ def wire_fraction(fl) -> float:
 class CommPlane:
     """Base class: compress stacked client deltas before the reduction.
 
-    Subclasses implement ``_encode(t, group, e) -> (payload, dq)`` on one
-    flat (K, N) f32 error matrix ``e`` (delta + residual); the base class
-    owns grouping, error feedback, reconstruction and byte accounting.
+    Subclasses implement ``_encode(t, group, e, row0) -> (payload, dq)``
+    on one flat (K, N) f32 error matrix ``e`` (delta + residual), rows
+    [row0, row0 + K) of the round's stack; the base class owns grouping,
+    error feedback, reconstruction, the gather and byte accounting.
     Payloads: ``{"kind": "delta", "d": (K, N) int8|bf16, "scale": (K,)
     f32}`` or ``{"kind": "topk", "v": (K, kk) f32, "i": (K, kk) int32}``.
+    ``wire`` names the members a payload sends (``gather``); the others
+    are rebuilt where it is received (``_received``).
     """
 
     name = "base"
     aliases: tuple = ()
+    wire = {"delta": ("d", "scale"), "topk": ("v", "i")}
 
     def __init__(self, fl):
         self.fl = fl
@@ -148,9 +164,12 @@ class CommPlane:
                     dtype=torch.float32, device=leaves[idxs[0]].device)
                 for gi, idxs in enumerate(tree.dtype_groups(leaves).values())}
 
-    def compress(self, t, prev_global, client_params, residual):
+    def compress(self, t, prev_global, client_params, residual,
+                 row0: int = 0):
         """(groups, new_residual): the stacked deltas per dtype group,
-        plus the carried residual, compressed. Pure in (t, tensors)."""
+        plus the carried residual, compressed. Pure in (t, tensors).
+        ``row0``: the first row's slot in the whole (C, ...) stack, where
+        ``client_params`` and ``residual`` are a rank's cohort block."""
         leaves_p = tree.leaves(prev_global)
         leaves_c = tree.leaves(client_params)
         groups, new_res = [], {}
@@ -161,11 +180,21 @@ class CommPlane:
                           for i in idxs])
             rk = f"g{gi}"
             e = d + residual[rk] if rk in residual else d
-            payload, dq = self._encode(t, gi, e)
+            payload, dq = self._encode(t, gi, e, row0)
             if self.error_feedback:
                 new_res[rk] = e - dq
             groups.append((idxs, payload))
         return groups, new_res
+
+    def gather(self, groups):
+        """Every client shard's payloads, (C, ...) in cohort order, from
+        this rank's block: the ``wire`` members travel in their own
+        dtypes. The identity without a process group."""
+        got = ctx.gather_payload(groups, self.wire)
+        return [(idxs, self._received(p)) for idxs, p in got]
+
+    def _received(self, payload):
+        return payload
 
     def reconstruct(self, prev_global, groups):
         """The stacked client tree ``prev + dequant(payload)``: what the
@@ -192,7 +221,7 @@ class CommPlane:
         return sum(self._group_bytes(sum(leaves[i].numel() for i in idxs))
                    for idxs in tree.dtype_groups(leaves).values())
 
-    def _encode(self, t, group, e):
+    def _encode(self, t, group, e, row0):
         raise NotImplementedError
 
     def _group_bytes(self, n: int) -> int:
@@ -252,9 +281,18 @@ class Bf16Plane(CommPlane):
     """Deltas cast to bfloat16 (2x against f32), exact error feedback."""
 
     name = "bf16"
+    #: the unit scales are not sent (``_group_bytes`` counts 2 bytes an
+    #: element); the receiver makes them
+    wire = {"delta": ("d",)}
 
-    def _encode(self, t, group, e):
+    def _encode(self, t, group, e, row0):
         return bf16_encode(e)
+
+    def _received(self, payload):
+        d = payload["d"]
+        return {**payload, "scale": torch.ones(d.shape[0],
+                                               dtype=torch.float32,
+                                               device=d.device)}
 
     def _group_bytes(self, n: int) -> int:
         return 2 * n
@@ -271,8 +309,9 @@ class Q8Plane(CommPlane):
     name = "q8"
     aliases = ("int8",)
 
-    def _encode(self, t, group, e):
-        return q8_encode(e, q8_uniforms(self.fl.seed, t, group, e.shape))
+    def _encode(self, t, group, e, row0):
+        return q8_encode(e, q8_uniforms(self.fl.seed, t, group, e.shape,
+                                        row0))
 
     def _group_bytes(self, n: int) -> int:
         return n + 4        # int8 payload + one f32 scale word
@@ -299,7 +338,7 @@ class TopKPlane(CommPlane):
     def _kk(self, n: int) -> int:
         return max(1, min(n, int(self.frac * n)))
 
-    def _encode(self, t, group, e):
+    def _encode(self, t, group, e, row0):
         return topk_encode(e, self._kk(e.shape[-1]))
 
     def _group_bytes(self, n: int) -> int:

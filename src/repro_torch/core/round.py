@@ -34,7 +34,14 @@ weighted partial, summed across ranks in rank order by
 Without a mesh, or at client width 1, "auto" stays off. The per-cohort
 losses are gathered in cohort order before their mean. Every rank runs
 the same server update on the same inputs and keeps the same state.
-``check_sharded`` refuses the options whose sharded form is not ported.
+With a comm plane a rank compresses its own rows against its own block
+of the error-feedback residual (``init_state(..., mesh=)``), then
+either gathers the compressed payload (``CommPlane.gather``: the bytes
+on the wire are the compressed ones) for the server kernel that
+consumes it, or, pre-reduced, reconstructs its rows and sums f32
+partials as without a plane (the partials travel, not the payloads).
+The partitioned plane takes the rank's own plan, built over its block
+(``exec.engine.ChunkRunner``); ``fes_static`` needs nothing more.
 ``fl.extended_metrics`` adds the telemetry
 series of ``repro_torch.obs.metrics.round_metrics`` to each round's
 metrics. They only read the round's tensors (eager PyTorch has no
@@ -73,23 +80,6 @@ def check_supported(fl: FLConfig) -> None:
                          f"expected one of {CLIENT_REDUCE}")
 
 
-def check_sharded(fl: FLConfig, mesh, virtual: bool = False) -> None:
-    """Refuse the options that have no sharded form yet when ``mesh``
-    splits the client axis (client width > 1)."""
-    if mesh is None or mesh.client == 1:
-        return
-    off = [name for name, on in (
-        (f"the comm plane ({fl.comm_plane!r})", fl.comm_plane != "none"),
-        ("the partitioned client plane", fl.client_plane == "partitioned"),
-        ("the fes_static client plane", fl.fes_static),
-        ("a virtual population", virtual)) if on]
-    if off:
-        raise ValueError(
-            f"{' and '.join(off)} cannot run with the client axis split "
-            f"over {mesh.client} client shards yet; run it on one rank "
-            "(without torchrun) or at client width 1")
-
-
 def as_scan_scheds(sb: dict, device) -> dict:
     """Device tensors of the schedule leaves the round consumes, from a
     stacked ``Environment.batch`` dict (``selected`` stays on the host:
@@ -108,17 +98,21 @@ def as_scan_scheds(sb: dict, device) -> dict:
 
 
 def init_state(model, fl: FLConfig, gen: torch.Generator, device,
-               strategy=None):
+               strategy=None, mesh=None):
     """Round-loop carry: global params, round index (a 0-dim int32 device
     tensor) and the strategy's aux state. With a comm plane the
     error-feedback residual rides the aux under ``"comm"``: one (C, N_g)
-    f32 tensor per dtype group, C = ``fl.clients_per_round``."""
+    f32 tensor per dtype group, C = ``fl.clients_per_round``; under a
+    ``mesh`` of client width > 1, the rank's (C / client, N_g) block."""
     strategy = strategy or strategies.resolve(fl)
     params = model.init(gen, device)
     aux = strategy.init_state(params)
     plane = comm.resolve(fl)
     if plane is not None:
-        res = plane.init_residual(params, fl.clients_per_round)
+        C = fl.clients_per_round
+        rows = (C // mesh.client if mesh is not None and mesh.client > 1
+                else C)
+        res = plane.init_residual(params, rows)
         if res:
             aux = {**aux, "comm": res}
     return {"params": params,
@@ -148,6 +142,13 @@ def make_round_step(model, fl: FLConfig, strategy=None):
                     "client_plane='partitioned' needs the partition-plan "
                     "arrays in sched: stage through ChunkRunner or merge "
                     "data.pipeline.partition_plan(limited) yourself")
+            if sched["part_src_row"].shape != sched["limited"].shape:
+                raise ValueError(
+                    f"the partition plan addresses "
+                    f"{sched['part_src_row'].shape[0]} cohort slots and "
+                    f"this rank trains {sched['limited'].shape[0]}: under "
+                    "a split client axis build it over the rank's block, "
+                    "partition_plan(limited[:, block])")
             return plane(g, b, sched)
     elif fl.client_plane == "masked":
         plane = make_local_train(model, fl, strategy)
@@ -162,34 +163,43 @@ def make_round_step(model, fl: FLConfig, strategy=None):
     def round_step(state, batch, sched):
         t, prev_global = state["t"], state["params"]
         C = sched["limited"].shape[0]
-        client_params, losses = local_train(
-            prev_global, batch, ctx.constrain_leading(sched, C))
-        sharded = ctx.axis_size("client") > 1
+        # the rank's block of the schedule; the partition plan is the
+        # rank's own already and never goes through the slicing by shape
+        plan = {k: sched[k] for k in PARTITION_KEYS if k in sched}
+        mine = {**ctx.constrain_leading(
+            {k: v for k, v in sched.items() if k not in plan}, C), **plan}
+        client_params, losses = local_train(prev_global, batch, mine)
+        # client_params: the rank's block while ``local``
+        local = ctx.axis_size("client") > 1
         reduce = ctx.pre_reduced(fl, ctx.active_mesh())
-        if not reduce:
-            client_params = ctx.gather_leading(client_params)
-        local = reduce and sharded     # client_params: the rank's block
         srv_aux, new_res, out = state["aux"], None, NotImplemented
         groups = None
         if comm_plane is not None:
             # the residual is comm state, not strategy state: popped
-            # here, so the strategy never sees it
+            # here, so the strategy never sees it. The rank compresses
+            # its own rows; only the payload travels.
             srv_aux = {k: v for k, v in state["aux"].items() if k != "comm"}
             groups, new_res = comm_plane.compress(
-                t, prev_global, client_params, state["aux"].get("comm", {}))
+                t, prev_global, client_params, state["aux"].get("comm", {}),
+                row0=ctx.block(C).start)
+        elif not reduce:
+            client_params = ctx.gather_leading(client_params)
+            local = False
         if reduce:
             cp = (comm_plane.reconstruct(prev_global, groups)
                   if comm_plane is not None else client_params)
             out = strategy.reduced_server_update(t, prev_global, cp, sched,
                                                  srv_aux)
-            if out is NotImplemented and local:
+            if out is NotImplemented and local and comm_plane is None:
                 client_params = ctx.gather_leading(client_params)
                 local = False
         if out is NotImplemented and comm_plane is not None:
+            groups = comm_plane.gather(groups)
             out = strategy.compressed_server_update(t, prev_global, groups,
                                                     sched, srv_aux)
             if out is NotImplemented:
                 client_params = comm_plane.reconstruct(prev_global, groups)
+                local = False
         if out is NotImplemented:
             out = strategy.fused_server_update(t, prev_global, client_params,
                                                sched, srv_aux)

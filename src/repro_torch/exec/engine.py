@@ -22,10 +22,14 @@
 Both take a ``mesh`` (``launch.mesh.engine_mesh``), as the JAX
 engine's do: the runner dispatches under it (``sharding.ctx.use``), so
 the round splits the client axis over the ranks; it copies only the
-rank's cohort block of a batch to the device. The simulation engine
-stages only those cohorts (every rank computes the whole schedule from
-the seed), and only rank 0 evaluates, logs and writes checkpoints.
-Without a mesh (or with the degenerate one) nothing changes.
+rank's cohort block of a batch to the device, and under the partitioned
+client plane builds the rank's partition plan over that block. The
+simulation engine stages only those cohorts (every rank computes the
+whole schedule from the seed: a dense one, or the hashed schedule of a
+virtual population, O(C) a round either way), and only rank 0
+evaluates, logs and writes checkpoints (the comm plane's residual
+gathered from every rank first). Without a mesh (or with the degenerate
+one) nothing changes.
 
 The server rule is a ``ServerStrategy`` and the world an
 ``Environment``; the engine owns only data movement, chunking and
@@ -42,8 +46,8 @@ from repro_torch import env as env_mod
 from repro_torch.checkpoint.io import restore_state, save_state
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import strategies
-from repro_torch.core.round import (as_scan_scheds, check_sharded,
-                                   init_state, make_train_loop)
+from repro_torch.core.round import (as_scan_scheds, init_state,
+                                   make_train_loop)
 from repro_torch.data.pipeline import (ChunkPrefetcher, partition_plan,
                                       stage_chunk)
 from repro_torch.exec.evals import Evaluator
@@ -98,12 +102,16 @@ class ChunkRunner:
     ranks: a batch given with all C cohorts is cut to the rank's block
     before it is copied to the device, and ``collective`` counts the
     bytes the round's collectives brought this rank (their seconds are
-    the timer's "collective" phase)."""
+    the timer's "collective" phase). Under the partitioned plane each
+    rank's plan is ``partition_plan`` of its own block of the chunk's
+    ``limited`` (its limited width is its block's least limited count,
+    so a cohort may take another program than in one process), and
+    ``limited_split`` counts every client shard's plan once (every rank
+    holds the whole schedule, so it needs no collective)."""
 
     def __init__(self, model, fl: FLConfig, strategy=None, *,
                  per_round_batch: bool = True, use_scan: bool = True,
                  device=None, timer=None, mesh=None):
-        check_sharded(fl, mesh)
         self.fl = fl
         self.mesh = mesh
         self.collective = ctx.CollectiveStats()
@@ -118,6 +126,14 @@ class ChunkRunner:
         self.limited_split = ({"limited_program": 0, "overflow": 0}
                               if fl.client_plane == "partitioned"
                               and not fl.fes_static else None)
+
+    def _blocks(self, C: int) -> list:
+        """Every client shard's cohort slots, in shard order."""
+        mesh = self.mesh
+        if mesh is None or mesh.client == 1:
+            return [slice(0, C)]
+        n = C // mesh.client
+        return [slice(s * n, (s + 1) * n) for s in range(mesh.client)]
 
     def _dispatch(self, state, batch, scheds, n: int):
         phase = ("compile" if n not in self._seen
@@ -140,13 +156,16 @@ class ChunkRunner:
         if (self.limited_split is not None
                 and "part_src_row" not in sched_batch):
             # the plan is chunk-level, so the chunked loop and the
-            # per-round fallback replay the identical dispatch
-            plan = partition_plan(sched_batch["limited"])
-            sched_batch = {**sched_batch, **plan}
-            n_lim = plan["part_lim_idx"].size
+            # per-round fallback replay the identical dispatch; under a
+            # split client axis each shard's plan addresses its own slots
+            limited = np.asarray(sched_batch["limited"])
+            plans = [partition_plan(limited[:, b])
+                     for b in self._blocks(limited.shape[1])]
+            shard = self.mesh.shard if len(plans) > 1 else 0
+            sched_batch = {**sched_batch, **plans[shard]}
+            n_lim = sum(p["part_lim_idx"].size for p in plans)
             self.limited_split["limited_program"] += n_lim
-            self.limited_split["overflow"] += (
-                int(np.sum(sched_batch["limited"])) - n_lim)
+            self.limited_split["overflow"] += int(np.sum(limited)) - n_lim
         scheds = as_scan_scheds(sched_batch, self.device)
         with ctx.use(self.mesh):
             batch = ctx.constrain_leading(batch, scheds["limited"].shape[1],
@@ -201,7 +220,6 @@ class SimulationEngine:
             fl, data_sizes=(clients.client_sizes if self._streamed else
                             np.array([len(c) for c in clients],
                                      np.float32)))
-        check_sharded(fl, mesh, virtual=self._streamed or self.env.virtual)
         self.strategy = strategies.resolve(fl)
         # one PhaseTimes spans the runner, the data plane, evaluation and
         # checkpoints
@@ -222,7 +240,8 @@ class SimulationEngine:
                 "shared sample store (build clients with "
                 "data.pipeline.build_clients(data, partition))")
         gen = torch.Generator().manual_seed(fl.seed)
-        self.state = init_state(model, fl, gen, self.device, self.strategy)
+        self.state = init_state(model, fl, gen, self.device, self.strategy,
+                                mesh=mesh)
 
     # engine state — the full round carry {params, t, aux} ---------------
     @property
@@ -240,15 +259,17 @@ class SimulationEngine:
     def save(self, path: str) -> None:
         """Checkpoint the whole round state (params, round index, aux:
         ring buffer, fedopt moments, comm residuals); under a mesh rank 0
-        writes the replicated state and every rank waits for it."""
+        writes it, the residual gathered from every rank's block, and
+        every rank waits for it: the file a one-process run writes."""
         with self.timer.phase("checkpoint"):
             save_state(path, self.state, mesh=self.mesh)
 
     def resume(self, path: str) -> None:
         """Restore {params, t, aux} onto this engine's device. Staging,
         schedules and the comm noise are pure in t, so the next chunk
-        continues bitwise where the checkpointed run left off."""
-        self.state = restore_state(path, self.state)
+        continues bitwise where the checkpointed run left off. Under a
+        mesh each rank takes its block of the comm residual."""
+        self.state = restore_state(path, self.state, mesh=self.mesh)
 
     def _steps_per_round(self) -> int:
         n_min = (self.clients.min_size if self._streamed

@@ -52,8 +52,14 @@ rule), NCCL when each rank has a card of its own, gloo when they share
 one or run with ``--device cpu``. Each rank trains and stages its own
 cohort block; the rows are all-gathered before the server kernel, or
 with ``--client-reduce`` pre-reduced ("auto": when the client width is
-above 1). Every rank keeps the same server state; rank 0 prints,
-evaluates and writes ``--checkpoint``, ``--metrics-out`` and
+above 1). With ``--comm-plane`` each rank compresses its own rows and,
+gathered, the compressed payload travels; pre-reduced, each rank
+reconstructs its rows and f32 partial sums travel. Under
+``--client-plane partitioned`` each rank plans its own block, and
+``--population virtual`` stages each rank's block of the hashed
+schedule. Every rank keeps the same server state (the comm residual
+aside: each rank holds its block, gathered for ``--checkpoint``); rank
+0 prints, evaluates and writes ``--checkpoint``, ``--metrics-out`` and
 ``--profile``. The launcher takes no flag for it: W comes from torchrun.
 
 ``--env`` takes any registered environment (bernoulli, gilbert_elliott,
@@ -87,6 +93,9 @@ Examples:
   python -m repro_torch.launch.train --arch rwkv6-3b --pod --reduced --client-plane partitioned --no-scan
   python -m repro_torch.launch.train --arch zamba2-1.2b --pod --reduced --rounds 2 --device cpu
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --clients 50 --clients-per-round 10 --device cpu
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --clients 50 --clients-per-round 10 --comm-plane q8 --client-reduce off
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --clients 50 --clients-per-round 10 --client-plane partitioned --p-limited 0.5
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train --clients 1000000 --clients-per-round 10 --population virtual
 """
 from __future__ import annotations
 
@@ -96,6 +105,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import comm
 from repro_torch import env as env_mod
 from repro_torch.checkpoint.io import restore_state, save_state
 from repro_torch.configs.base import FLConfig, ModelConfig, reduced
@@ -125,18 +135,38 @@ def _quiet(*args, **kwargs) -> None:
     """``print`` on ranks other than 0."""
 
 
+def reckoned_bytes(fl: FLConfig, mesh, params, strategy,
+                   C: int) -> tuple[str, int]:
+    """(route, bytes): the client axis' route under ``mesh`` and the
+    bytes one rank receives through it a round, the per-cohort losses
+    aside (``sharding.ctx.round_bytes``)."""
+    reduced = ctx.pre_reduced(fl, mesh)
+    plane = comm.resolve(fl)
+    queue = strategy.init_state(params).get("queue")
+    R = 1 + queue["gamma"].shape[0] if reduced and queue else 1
+    n = sum(x.numel() for x in tree_leaves(params))
+    payload = (plane.payload_bytes(params) if plane is not None
+               else payload_bytes(params))
+    nbytes = ctx.round_bytes(mesh, C, payload, n, R, reduced)
+    if reduced:
+        route = "pre-reduced (a rank-ordered sum of f32 partials"
+        route += (f"; each rank reconstructs its rows from its "
+                  f"{fl.comm_plane} payload, so the partials travel, not "
+                  "the payloads)" if plane is not None else ")")
+    elif plane is not None:
+        route = (f"{fl.comm_plane} payload gathered compressed ({payload:,} "
+                 "bytes a cohort) before the server kernel")
+    else:
+        route = "gathered before the server kernel"
+    return route, nbytes
+
+
 def _mesh_line(fl: FLConfig, mesh, params, strategy, C: int) -> str:
     """The run's mesh, the client axis' route and its bytes a round
     ("" without a process group)."""
     if mesh.group is None:
         return ""
-    reduced = ctx.pre_reduced(fl, mesh)
-    queue = strategy.init_state(params).get("queue")
-    R = 1 + queue["gamma"].shape[0] if reduced and queue else 1
-    n = sum(x.numel() for x in tree_leaves(params))
-    nbytes = ctx.round_bytes(mesh, C, payload_bytes(params), n, R, reduced)
-    route = ("pre-reduced (a rank-ordered sum of f32 partials)" if reduced
-             else "gathered before the server kernel")
+    route, nbytes = reckoned_bytes(fl, mesh, params, strategy, C)
     return (f"{mesh.describe()}; rank {mesh.rank} trains cohorts "
             f"{mesh.cohorts(C).start}..{mesh.cohorts(C).stop - 1} of {C}; "
             f"client axis {route} (client_reduce {fl.client_reduce}): "
@@ -157,12 +187,17 @@ def _client_plane(fl: FLConfig) -> str:
 
 def _print_limited_split(runner) -> None:
     """The partitioned plane's limited cohort-rounds: on the limited
-    program, and overflowed to the masked one."""
+    program, and overflowed to the masked one; under a split client axis
+    summed over the client shards, each planned over its own block."""
     split = runner.limited_split
     if split is not None:
+        mesh = runner.mesh
+        over = (f" (summed over {mesh.client} client shards, one replica "
+                "each, each shard planning its own block)"
+                if mesh is not None and mesh.client > 1 else "")
         print(f"client plane partitioned: {split['limited_program']} limited "
               f"cohort-rounds on the limited program, {split['overflow']} "
-              "overflowed to the masked program")
+              f"overflowed to the masked program{over}")
 
 
 def _shards(clients) -> str:
@@ -287,9 +322,9 @@ def pod_scale(args, fl: FLConfig, device, cfg: ModelConfig | None = None):
     say = print if mesh.writer else _quiet
     strategy = strategies.resolve(fl)
     state = init_state(model, fl, torch.Generator().manual_seed(fl.seed),
-                       device, strategy)
+                       device, strategy, mesh=mesh)
     if args.resume:
-        state = restore_state(args.resume, state)
+        state = restore_state(args.resume, state, mesh=mesh)
         say(f"resumed {args.resume} at round {int(state['t'])}")
     environment = env_mod.resolve(fl.with_(num_clients=C,
                                            clients_per_round=C))

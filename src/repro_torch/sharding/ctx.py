@@ -15,6 +15,10 @@ only its own cohort block of the stacked client axis:
   * ``gather_leading`` all-gathers the blocks back into the (C, ...)
     stack in cohort order (a copy: the rows keep their bits), before the
     fused server plane;
+  * ``gather_payload`` does the same for a comm plane's compressed
+    payloads (int8 or bf16 rows with their scales, top-k values and
+    positions), so under a comm plane the wire carries the compressed
+    bytes, never the dense rows;
   * ``reduce_leading`` is the pre-reduced client axis: each rank
     contracts its own cohorts into a weighted f32 partial, and the
     partials are summed across client shards in shard order
@@ -22,7 +26,8 @@ only its own cohort block of the stacked client axis:
     slices in shard order, an all-gather of the sums), never by an
     all-reduce or atomics, so the sum is the same bits from run to run.
     It moves 2 (W - 1) / W x R x 4N bytes a round per rank where the
-    gather moves (C - C / W) x N x s.
+    gather moves (C - C / W) x N x s (x the payload's bytes a client
+    under a comm plane).
 
 Every collective books its wall time under the active timer's
 "collective" phase, opened and closed by a device sync. Under gloo the
@@ -79,10 +84,21 @@ def axis_size(name: str) -> int:
     return {"client": mesh.client, "dsub": mesh.dsub}.get(name, 1)
 
 
+def block(C: int) -> slice:
+    """This rank's cohort slots of C: its block under a mesh of client
+    width > 1, all C otherwise."""
+    mesh = active_mesh()
+    if mesh is None or mesh.client == 1:
+        return slice(0, C)
+    return mesh.cohorts(C)
+
+
 def constrain_leading(tree, C: int, dim: int = 0):
     """The rank's cohort block of every leaf whose dim ``dim`` holds all
     C cohorts (numpy arrays or tensors; other leaves, a rank's block
-    among them, pass through). The identity at client width 1."""
+    among them, pass through). The identity at client width 1. It goes
+    by shape alone: a leaf that only happens to be C long (a rank's
+    partition plan, a comm payload) must not be handed to it."""
     mesh = active_mesh()
     if mesh is None or mesh.client == 1:
         return tree
@@ -153,6 +169,23 @@ def gather_leading(tree):
         out = tree_map(one, tree)
         held.append(leaves(out))
     return out
+
+
+def gather_payload(groups, members):
+    """A comm plane's payloads ``[(leaf_idxs, payload)]`` with the
+    members named in ``members`` (``{kind: names}``) all-gathered from
+    every client shard's (C / client, ...) block into (C, ...) in cohort
+    order, one replica a shard, as ``gather_leading`` gathers rows: in
+    their own dtypes (int8, bf16, f32, int32), so the bytes received are
+    the compressed ones. Members not named pass through as the rank's
+    own. The identity without a process group."""
+    mesh = active_mesh()
+    if mesh is None or mesh.group is None:
+        return groups
+    got = gather_leading({f"g{gi}": {k: p[k] for k in members[p["kind"]]}
+                          for gi, (_, p) in enumerate(groups)})
+    return [(idxs, {**p, **got[f"g{gi}"]})
+            for gi, (idxs, p) in enumerate(groups)]
 
 
 def shard_sum(mesh, x):
@@ -242,10 +275,15 @@ def round_bytes(mesh, C: int, payload: int, n: int, R: int,
                 reduced: bool) -> int:
     """Bytes one rank receives a round through the client-axis
     collectives, the per-cohort losses aside. Gathered: (W - 1) x C /
-    client rows of ``payload`` bytes (one cohort's params, n elements).
+    client rows of ``payload`` bytes: one cohort's params (n elements),
+    or under a comm plane one client's compressed upload
+    (``CommPlane.payload_bytes``), which is what ``gather_payload``
+    moves.
     Pre-reduced over a split axis: ``shard_sum``'s all-to-all and
     all-gather of (R, n) f32 in W slices of ceil(n / W), 2 (W - 1) x R x
-    4 ceil(n / W). 0 without a process group."""
+    4 ceil(n / W), with or without a comm plane (each rank reconstructs
+    its own rows from its payload and the f32 partial sums travel, not
+    the payloads). 0 without a process group."""
     if mesh is None or mesh.group is None:
         return 0
     W = mesh.world

@@ -149,7 +149,8 @@ def test_compress_decode_reconstruct_match_jax(name, monkeypatch):
     s = _stacked(rng, p, K)
     kw = dict(comm_plane=name, comm_topk_frac=0.2, seed=2)
     jpl, tpl = jcomm.resolve(JFL(**kw)), tcomm.resolve(TFL(**kw))
-    monkeypatch.setattr(tplane, "q8_uniforms", lambda seed, tt, g, shape:
+    monkeypatch.setattr(tplane, "q8_uniforms",
+                        lambda seed, tt, g, shape, row0=0:
                         torch.from_numpy(_jax_uniform(
                             seed, int(tt), g, shape)[1]))
     jres = {k: jnp.asarray(0.01 * rng.randn(*v.shape), jnp.float32)

@@ -189,7 +189,7 @@ def test_one_compressed_round_matches_jax(world, monkeypatch, algo, plane,
                      "aux": jax.tree.map(jnp.asarray, aux)}, {},
                     {k: jnp.asarray(v) for k, v in SCHED.items()})
 
-    def jax_uniforms(seed, tt, group, shape):
+    def jax_uniforms(seed, tt, group, shape, row0=0):
         key = jax.random.fold_in(jax.random.fold_in(
             jax.random.PRNGKey(seed ^ SALT), jnp.uint32(int(tt))), group)
         return torch.from_numpy(np.array(jax.random.uniform(
